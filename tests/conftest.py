@@ -130,6 +130,12 @@ def _install_hypothesis_shim() -> None:
 _install_hypothesis_shim()
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU and nvcc (the port's CUDA "
+        "kernels); skips where there is none")
+
+
 @pytest.fixture(scope="session")
 def rng():
     import jax
