@@ -9,9 +9,12 @@ Workloads provide `step_fn(state, batch, replica_id, armed) -> (candidate,
 fingerprint, aux)` and call `run_protected_step()` per step and
 `on_detection()` per event.
 
-Ported backends: `PlainExecutor` (no redundancy) and `SequentialExecutor`
+Ported backends: `PlainExecutor` (no redundancy), `SequentialExecutor`
 (time redundancy: both replicas run back to back on the same card, each
-owning a full state image, with the TOE watchdog timing). Every commit
+owning a full state image, with the TOE watchdog timing) and, in
+`abft/executor.py`, the replica-free `AbftExecutor` ("abft"/"hybrid"),
+whose `repair()` commits a checksum-corrected step forward before the
+recovery policy is asked. Every commit
 compare is read back at once (validation lag 1): under `RetryRecovery` the
 reference clamps the lag to 1 as well, because a retry can only rewind the
 current step. The deferred ring, the checkpoint boundaries and the L2/L3
@@ -93,13 +96,36 @@ class ReplicaExecutor:
     validate(dual, step)   -> DetectionEvent | None  (FSC boundary)
     init_dual(single)      -> dual state from one logical state
     peek(dual, key)        -> replica 0's entry `key`
+    repair(event, dual)    -> (dual', record) | None  (forward correction)
     """
 
     name = "base"
     n_replicas = 1
 
+    @property
+    def can_validate(self) -> bool:
+        """Whether the ENGINE drives the periodic FSC boundary by calling
+        `validate()` after commits (replica backends). Executors with their
+        own periodic check (hybrid validates at step ENTRY) return False
+        here and `can_validate_final` True."""
+        return self.n_replicas > 1
+
+    @property
+    def can_validate_final(self) -> bool:
+        """Whether `validate()` is meaningful for the end-of-run final
+        comparison (paper Sec. 3.1)."""
+        return self.can_validate
+
     def init_dual(self, single):
         return {"r0": single}
+
+    def note_external_update(self) -> None:
+        """Callers run this after mutating the resident state outside a
+        protected step, so executors that keep state-derived baselines (the
+        hybrid commit-time fingerprint) drop them."""
+
+    def repair(self, event: DetectionEvent, dual):
+        return None
 
     def peek(self, dual, key: str):
         return dual["r0"][key]
@@ -229,15 +255,33 @@ class SedarEngine:
         note = getattr(self.recovery, "note_success", None)
         if note is not None:
             note()   # the step committed: whatever failed before was transient
-        if self.schedule.validate_due(step + 1):
+        if self.executor.can_validate and \
+                self.schedule.validate_due(step + 1):
             event = self.executor.validate(dual2, step + 1)
         return StepOutcome(dual=dual2, aux=aux, event=event)
+
+    def validate_final(self, dual, step: int) -> Optional[DetectionEvent]:
+        """Final-results comparison (paper Sec. 3.1), tagged
+        boundary='final'."""
+        if not self.executor.can_validate_final:
+            return None
+        event = self.executor.validate(dual, step)
+        if event is not None:
+            event.boundary = "final"
+        return event
 
     def on_detection(self, event: DetectionEvent, dual):
         """Record + notify + recover. Returns the state to continue from;
         raises SedarSafeStop when the policy is (or degrades to) L1."""
         self.detections.append(event)
         self.notify(event)
+        fix = self.executor.repair(event, dual)
+        if fix is not None:
+            # forward correction (abft): commit the repaired candidate, no
+            # rollback and no retry
+            repaired, record = fix
+            self.recoveries.append(dict(record, at=event.step))
+            return repaired
         action: RecoveryAction = self.recovery.on_detection(event)
         self.recoveries.append({"kind": action.kind, "step": action.step,
                                 "rollbacks": action.rollbacks,

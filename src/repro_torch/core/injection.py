@@ -3,6 +3,8 @@ ported from the reference's `core/injection.py`.
 
   * `flip_bit` / `inject_tree`: replica-gated, step-gated exact bit flip in
     a chosen leaf (flatten order, as in the reference).
+  * `make_kernel_fault`: bit flips in a protected kernel's output between
+    compute and verify (the ABFT fault model, target='kernel').
   * `MemoryInjectionFlag`: the once-only flag, so the re-execution after a
     recovery does not re-inject.
 
@@ -84,6 +86,32 @@ def spec_step_hit(spec: InjectionSpec, step: int) -> bool:
     """Step gate: exact hit for transients, `>=` for persistent (stuck-bit)
     faults that re-manifest on every later execution."""
     return step >= spec.step if spec.persistent else step == spec.step
+
+
+def make_kernel_fault(spec: InjectionSpec, *, step: int, armed: bool):
+    """In-kernel corruption (target='kernel'): returns fn(out) -> out' that
+    flips `spec.bit` in `spec.n_elems` elements of a protected kernel's
+    output, between compute and verify. Elements are spread one row AND one
+    column apart (flat stride width+1, wrapping at the size), so
+    n_elems >= 2 violates >= 2 row and >= 2 column residuals. The firing
+    decision is made on the host (armed and the step gate; no replica
+    gate); a fault that does not fire returns `out` itself."""
+    if spec.target != "kernel":
+        raise ValueError(f"make_kernel_fault needs target='kernel', "
+                         f"got {spec.target!r}")
+    fire = bool(armed) and spec_step_hit(spec, int(step))
+
+    def apply(out: torch.Tensor) -> torch.Tensor:
+        if not fire:
+            return out
+        flat = out.reshape(-1)
+        stride = out.shape[-1] + 1
+        for e in range(spec.n_elems):
+            flat = flip_bit(flat, (spec.flat_idx + e * stride) % flat.numel(),
+                            spec.bit)
+        return flat.reshape(out.shape)
+
+    return apply
 
 
 def inject_tree(tree, spec: Optional[InjectionSpec], *, step: int,

@@ -20,6 +20,20 @@
 // row at a time, which shared memory broadcasts. Tiles that the causal or
 // window mask removes for every row of the q tile are skipped; the result
 // is the same. A row that no key reaches gets zeros.
+//
+// K4 (CK = true) is the same body with a checksum lane, and replaces the TPU
+// kernel src/repro/abft/kernels.py::abft_flash_attention (its pl.pallas_call
+// runs _flash_kernel with V and the output widened to hd + 1). It reads
+// v_aug (B, KV, Sk, hd + 1) f32, whose lane hd is the row sum of V (done
+// outside the kernel, abft/ref.py::attention_checksum_encode), and writes
+// out_full (B, H, Sq, hd + 1) f32, so a fault can be injected between the
+// kernel and abft/ref.py::attention_verify. Lane hd is ONE extra per-row
+// accumulator fed from its own shared array Vc; the data lanes keep Vs
+// [BK][hd], since a 65-float row would break the 16-byte float4 reads. The
+// lane takes the same p, corr and 1/l as the data lanes: attention is
+// linear in V, so lane hd equals the sum of the data lanes up to rounding.
+// The scale stays 1/sqrt(hd). Bound: as K2, with operations counted at the
+// non-tensor f32 rate, since K4 runs in f32 only.
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -42,7 +56,7 @@ struct Strides {
   long long b, h, s;
 };
 
-template <typename T, int HD>
+template <typename T, int HD, bool CK>
 __global__ void __launch_bounds__(BQ)
 flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
           const T* __restrict__ v, T* __restrict__ o, Strides qs, Strides ks,
@@ -50,6 +64,7 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
           int window, float scale) {
   __shared__ __align__(16) float Ks[BK][HD];
   __shared__ __align__(16) float Vs[BK][HD];
+  __shared__ float Vc[CK ? BK : 1];  // K4: lane HD of each v_aug row
 
   const int b = blockIdx.z;
   const int h = blockIdx.y;
@@ -69,6 +84,7 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
   }
   float m = -1e30f;
   float l = 0.f;
+  float acc_c = 0.f;  // K4: the checksum lane's accumulator
 
   int k_lo = 0;
   int k_hi = Sk;
@@ -87,6 +103,12 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
       const bool ok = kp < Sk;
       Ks[j][d] = ok ? to_f(kb[(long long)kp * ks.s + d]) : 0.f;
       Vs[j][d] = ok ? to_f(vb[(long long)kp * vs.s + d]) : 0.f;
+    }
+    if constexpr (CK) {
+      for (int j = r; j < BK; j += BQ) {
+        const int kp = k0 + j;
+        Vc[j] = kp < Sk ? to_f(vb[(long long)kp * vs.s + HD]) : 0.f;
+      }
     }
     __syncthreads();
 
@@ -111,6 +133,7 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
     l *= corr;
 #pragma unroll
     for (int d = 0; d < HD; ++d) acc[d] *= corr;
+    if constexpr (CK) acc_c *= corr;
 #pragma unroll
     for (int j = 0; j < BK; ++j) {
       const float p = expf(s[j] - m_new);  // 0 for a masked key
@@ -123,6 +146,7 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
         acc[d + 2] += p * vv.z;
         acc[d + 3] += p * vv.w;
       }
+      if constexpr (CK) acc_c += p * Vc[j];
     }
     m = m_new;
   }
@@ -132,17 +156,18 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
     T* op = o + b * os.b + h * os.h + (long long)qpos * os.s;
 #pragma unroll
     for (int d = 0; d < HD; ++d) op[d] = from_f<T>(acc[d] * inv);
+    if constexpr (CK) op[HD] = from_f<T>(acc_c * inv);
   }
 }
 
-template <typename T, int HD>
+template <typename T, int HD, bool CK = false>
 void launch(const void* q, const void* k, const void* v, void* o,
             const long long* st, int B, int H, int KV, int Sq, int Sk,
             int causal, int window, float scale, cudaStream_t stream) {
   const Strides qs{st[0], st[1], st[2]}, ks{st[3], st[4], st[5]},
       vs{st[6], st[7], st[8]}, os{st[9], st[10], st[11]};
   const dim3 grid((Sq + BQ - 1) / BQ, H, B);
-  flash_fwd<T, HD><<<grid, BQ, 0, stream>>>(
+  flash_fwd<T, HD, CK><<<grid, BQ, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), qs, ks, vs, os, H, KV, Sq,
       Sk, causal, window, scale);
@@ -167,6 +192,25 @@ extern "C" int sedar_flash_fwd(int dtype, int head_dim, const void* q,
     launch<float, 64>(q, k, v, o, strides, B, H, KV, Sq, Sk, causal, window, scale, st);
   else if (dtype == 0 && head_dim == 16)
     launch<float, 16>(q, k, v, o, strides, B, H, KV, Sq, Sk, causal, window, scale, st);
+  else
+    return (int)cudaErrorInvalidValue;
+  return (int)cudaGetLastError();
+}
+
+// K4: head_dim 16 or 64, float32 only; v is v_aug (row length head_dim + 1)
+// and o is out_full (row length head_dim + 1). strides: 12 element strides
+// (b, h, s) of q, k, v_aug, out_full. Returns cudaGetLastError() after launch.
+extern "C" int sedar_abft_flash_fwd(int head_dim, const void* q, const void* k,
+                                    const void* v_aug, void* o,
+                                    const long long* strides, int B, int H,
+                                    int KV, int Sq, int Sk, int causal,
+                                    int window, float scale, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (Sq <= 0 || B <= 0 || H <= 0) return (int)cudaGetLastError();
+  if (head_dim == 64)
+    launch<float, 64, true>(q, k, v_aug, o, strides, B, H, KV, Sq, Sk, causal, window, scale, st);
+  else if (head_dim == 16)
+    launch<float, 16, true>(q, k, v_aug, o, strides, B, H, KV, Sq, Sk, causal, window, scale, st);
   else
     return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();

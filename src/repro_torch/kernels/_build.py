@@ -22,7 +22,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parents[1] / "build" / "repro_torch_kernels"
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-KERNELS = ("fingerprint", "flash_attention")
+KERNELS = ("fingerprint", "flash_attention", "abft_matmul")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 
