@@ -7,7 +7,8 @@ beside it (the reference's `abft/kernels.py`).
     K3 -> `inject` -> `verify_and_correct`, with the encode and the verify
     in plain PyTorch outside the kernel, as the reference does them outside
     its Pallas call. Its plain version `matmul_plain` is `torch.matmul` in
-    f32 with TF32 off.
+    f32 with TF32 off. `matmul_simt_oracle` runs the first (SIMT) K3 body,
+    which gives the same bits; it is test-only.
   * K4 `flash_attention_ck` replaces the Pallas call in
     `abft_flash_attention`: K2's flash-attention body with V and the output
     widened by a checksum lane, the `CK` variant in
@@ -53,12 +54,25 @@ def matmul_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 @functools.lru_cache(maxsize=None)
-def _matmul_launcher():
-    fn = _build.load("abft_matmul").sedar_abft_matmul
+def _matmul_launcher(symbol: str):
+    fn = getattr(_build.load("abft_matmul"), symbol)
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+def _launch_matmul(symbol: str, a: torch.Tensor,
+                   b: torch.Tensor) -> torch.Tensor:
+    M, K = a.shape
+    N = b.shape[1]
+    out = torch.empty((M, N), dtype=torch.float32, device=a.device)
+    stream = torch.cuda.current_stream(a.device).cuda_stream
+    with torch.cuda.device(a.device):
+        rc = _matmul_launcher(symbol)(a.data_ptr(), b.data_ptr(),
+                                      out.data_ptr(), M, N, K, stream)
+    _build.check(rc, symbol)
+    return out
 
 
 def matmul_kernel(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -76,18 +90,22 @@ def matmul_kernel(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         raise TypeError(f"K3 takes float32, got {a.dtype} x {b.dtype}")
     if not (a.is_contiguous() and b.is_contiguous()):
         raise ValueError("K3 needs contiguous operands")
-    M, K = a.shape
-    N = b.shape[1]
-    if max(M, N, K) >= 2 ** 31:
+    if max(*a.shape, b.shape[1]) >= 2 ** 31:
         raise ValueError("matrix too large for K3's 32-bit sizes")
-    out = torch.empty((M, N), dtype=torch.float32, device=a.device)
-    stream = torch.cuda.current_stream(a.device).cuda_stream
-    with torch.cuda.device(a.device):
-        rc = _matmul_launcher()(a.data_ptr(), b.data_ptr(), out.data_ptr(),
-                                M, N, K, stream)
-    _build.check(rc, "abft_matmul")
+    out = _launch_matmul("sedar_abft_matmul", a, b)
     matmul_launch_count.add()
     return out
+
+
+def matmul_simt_oracle(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Test-only: the product by the first (SIMT, 64x64-tile) K3 body, the
+    bitwise oracle that the card tests and `chip_smoke.py` hold
+    `matmul_kernel` to. No path of the port calls it, and it counts no
+    launch. CUDA f32 contiguous operands only."""
+    if not (a.is_cuda and b.is_cuda and a.dtype == b.dtype == torch.float32
+            and a.is_contiguous() and b.is_contiguous()):
+        raise ValueError("the SIMT oracle takes contiguous CUDA f32 operands")
+    return _launch_matmul("sedar_abft_matmul_simt", a, b)
 
 
 def abft_matmul(a: torch.Tensor, b: torch.Tensor, *,

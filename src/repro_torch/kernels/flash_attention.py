@@ -12,6 +12,10 @@ contiguous), so the model's (B, S, H, hd) tensors are passed as transposed
 views without a copy, and it writes its output in (B, Sq, H, hd) memory
 order: `kernels.ops.flash_attention` hands the model a contiguous result.
 
+Each input type has one kernel: bf16 runs on the tensor cores (`wgmma`),
+whose 16-byte copies need q, k and v 16-byte aligned with strides that are
+multiples of 8 elements (the model's tensors are); f32 runs the SIMT body.
+
 `flash_attention_fwd` is the wrapper: a CPU tensor takes the plain version
 (`flash_attention_plain`, the counterpart of the reference's
 `kernels/ref.py::mha_ref`), a CUDA tensor launches the kernel or raises.
@@ -101,6 +105,15 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True,
         raise ValueError("K2 needs a contiguous head dim (stride 1)")
     if max(Sq, Sk) >= 2 ** 31:
         raise ValueError("sequence too long for K2's 32-bit positions")
+    if q.dtype == torch.bfloat16:
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            if t.data_ptr() % 16 or any(
+                    st % 8 for st, n in zip(t.stride()[:3], t.shape[:3])
+                    if n > 1):
+                raise ValueError(
+                    f"K2 (bf16) needs {name} 16-byte aligned with strides "
+                    f"that are multiples of 8 elements, got offset "
+                    f"{t.data_ptr() % 16} bytes, strides {t.stride()}")
     out = torch.empty((B, Sq, H, hd), dtype=q.dtype,
                       device=q.device).transpose(1, 2)
     strides = (ctypes.c_longlong * 12)(

@@ -33,6 +33,9 @@ ATTN_CASES = [
     (1, 4, 2, 20, 33, 16, False, 0),
     (1, 2, 1, 150, 150, 64, True, 7),
     (2, 14, 2, 130, 130, 64, True, 0),
+    (1, 4, 2, 257, 257, 64, True, 0),      # a last KV tile of 1 key
+    (1, 4, 2, 100, 190, 64, False, 0),     # Sq != Sk, non-causal
+    (2, 4, 2, 200, 200, 64, True, 100),    # window across a 64-key tile edge
 ]
 
 
@@ -84,6 +87,21 @@ def test_k2_kernel_vs_plain(card, dtype, B, H, KV, Sq, Sk, hd, causal,
     tol = dict(atol=1e-5, rtol=1e-5) if dtype == torch.float32 else \
         dict(atol=1e-3, rtol=8e-3)
     torch.testing.assert_close(got.float(), want.float(), **tol)
+    if dtype == torch.bfloat16:   # fixed order, no atomics: the same bits
+        again = kfa.flash_attention_fwd(q, k, v, causal=causal, window=window)
+        assert torch.equal(got, again)
+
+
+def test_k2_bf16_unaligned_view_raises_without_launch(card):
+    """The bf16 kernel's 16-byte copies need 16-byte aligned inputs: a view
+    one element off the boundary is refused before any launch."""
+    buf = torch.zeros(2 * 64 * 64 + 1, device=card, dtype=torch.bfloat16)
+    q = buf[1:].view(1, 2, 64, 64)
+    k = torch.zeros(1, 2, 64, 64, device=card, dtype=torch.bfloat16)
+    before = kfa.launch_count.n
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        kfa.flash_attention_fwd(q, k, k)
+    assert kfa.launch_count.n == before
 
 
 def test_protected_generate_through_both_kernels(card):
@@ -127,9 +145,9 @@ def test_protected_generate_through_both_kernels(card):
 
 
 # (M, K, N) of K3's operands: ragged tiles, smaller than one tile, and the
-# encoded qwen2-0.5b MLP up-projection of 4 x 256 prompt tokens
+# encoded qwen2-0.5b MLP up- and down-projections of 4 x 256 prompt tokens
 K3_CASES = [(25, 16, 21), (8, 5, 4), (1, 7, 1), (65, 33, 130), (129, 17, 63),
-            (1025, 896, 4865)]
+            (1025, 896, 4865), (129, 4864, 897), (1025, 4864, 897)]
 
 
 @pytest.mark.parametrize("M,K,N", K3_CASES)
@@ -148,6 +166,9 @@ def test_k3_kernel_vs_plain_and_bitwise_repeatable(card, M, K, N):
     err = float((got - want).abs().max() / want.abs().max().clamp_min(1e-30))
     assert err <= 1e-5, err
     assert torch.equal(got, again)          # no split-K, no atomics
+    # the same ascending-k fmaf chain as the first (SIMT) body: same bits
+    assert torch.equal(got, kab.matmul_simt_oracle(a, b))
+    assert kab.matmul_launch_count.n == before + 2
 
 
 def test_k3_encoded_product_verifies_clean_and_corrects_a_flip(card):
