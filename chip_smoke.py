@@ -3,13 +3,16 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from `src/repro_torch/csrc` (one nvcc per
-source, in parallel) and holds each kernel against its plain PyTorch version
-on the card. Then it drives the port's paths, each with the kernels' launch
+source, in parallel; ptxas's registers and spills are printed per kernel)
+and holds each kernel against its plain PyTorch version on the card (K1
+also on leaves read in place, with its device launches per call counted by
+torch.profiler). Then it drives the port's paths, each with the kernels' launch
 counts set to 0 just before it and read just after:
 
   * the main path — protected dual-replica `SedarServer.generate` of
     qwen2-0.5b at full width with seeded random weights, prefill attention
-    through the flash kernel K2, commit compares through K1: a clean run
+    through the flash kernel K2, commit compares through K1 (the bf16
+    logits read in place): a clean run
     has no detection and emits the unprotected run's tokens, an injected
     bit flip is detected and retried without changing the tokens;
   * the ABFT slice — the checksummed matmul K3 through `abft_matmul`
@@ -17,16 +20,19 @@ counts set to 0 just before it and read just after:
     forward correction and a retry), the checksummed flash attention K4
     through `abft_flash_attention` at the model's prefill shapes, and the
     replica-free `abft`/`hybrid` serving of the same model (clean runs equal
-    the unprotected tokens; a kernel fault is corrected forward);
+    the unprotected tokens; a kernel fault is corrected forward), with K1
+    in place on the hybrid backend's fingerprint tree of a real state and
+    a profile (launches per decode step) of dual, abft and hybrid;
   * a small f32 model on the card against the plain CPU path.
 
 Any failed check exits non-zero. The last two lines are a JSON object of
 kernel numbers and the result line.
 
 Numbers: a kernel's time (`ms` in the kernels line), its plain version's
-and the library call's are device times: the kernels each call launches,
-summed by torch.profiler over many warm calls (deterministic mode's fills
-of fresh outputs left out), per call. Beside them the K1, K2 and K3 lines
+and the library call's are device times: each kernel a call launches, at
+its mean duration over many warm calls as torch.profiler records them,
+times its launches per call (deterministic mode's fills of fresh outputs
+left out). Beside them the K1–K4 lines
 print the time per call between CUDA events, which includes the host's
 time between launches and sets the number for a kernel of a few
 microseconds. The bound is max(bytes / 3.35 TB/s, operations / peak),
@@ -87,10 +93,14 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
 
 
 def device_ms(fn, iters: int, warmup: int = 3) -> float:
-    """Mean device time per call of fn(): the kernels it launches, summed
-    from torch.profiler, without deterministic mode's fills of fresh
-    outputs. Unlike cuda_ms it leaves out the host's time between launches,
-    which sets cuda_ms for a kernel of a few microseconds."""
+    """Mean device time per call of fn(): the kernels it launches, from
+    torch.profiler, without deterministic mode's fills of fresh outputs.
+    Unlike cuda_ms it leaves out the host's time between launches, which
+    sets cuda_ms for a kernel of a few microseconds. Each kernel counts at
+    its mean recorded duration times its launches per call (its records
+    over `iters`, rounded): the profiler's device records of this torch
+    build can miss a launch now and then, which a plain sum would read as
+    less device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     for _ in range(warmup):
@@ -101,11 +111,58 @@ def device_ms(fn, iters: int, warmup: int = 3) -> float:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    busy = sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA
-               and "fill" not in e.key.lower())
-    check(busy > 0, "the profiler saw no device time")
-    return busy / 1e3 / iters
+    per_call = 0.0
+    for e in prof.key_averages():
+        if (e.device_type != DeviceType.CUDA or not e.count
+                or "fill" in e.key.lower()):
+            continue
+        launches = max(1, round(e.count / iters))
+        if e.count != launches * iters:
+            print(f"  (profiler recorded {e.count} of {launches * iters} "
+                  f"launches of {e.key[:60]})", flush=True)
+        per_call += e.self_device_time_total / e.count * launches
+    check(per_call > 0, "the profiler saw no device time")
+    return per_call / 1e3
+
+
+def _demangle(sym: str) -> str:
+    """function<template args> of a kernel in an unnamed namespace."""
+    import re
+    m = re.match(r"_ZN(\d+)", sym)
+    if not m:
+        return sym
+    rest = sym[m.end() + int(m.group(1)):]
+    m = re.match(r"(\d+)", rest)
+    name = rest[m.end():m.end() + int(m.group(1))]
+    rest = rest[m.end() + int(m.group(1)):]
+    if rest.startswith("I"):
+        name += "<" + ",".join(re.findall(r"L[ib](\d+)E",
+                                          rest[:rest.index("EE") + 1])) + ">"
+    return name
+
+
+def ptxas_report(logs) -> dict:
+    """{kernel: (registers, spill bytes, static shared memory bytes)} from
+    the `nvcc -Xptxas -v` logs of a build; a kernel is named by its
+    function and template arguments, e.g. flash_fwd_f32<64,1>."""
+    import re
+    out, fn, spill = {}, None, None
+    for log in logs.values():
+        for line in log.splitlines():
+            m = re.search(r"Compiling entry function '(\w+)'", line)
+            if m:   # _ZN <namespace> <function> [I <template args> E] E ...
+                fn, spill = _demangle(m.group(1)), None
+                continue
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                          line)
+            if m:
+                spill = int(m.group(1)) + int(m.group(2))
+            m = re.search(r"Used (\d+) registers", line)
+            if m and fn is not None:
+                sm = re.search(r"(\d+) bytes smem", line)
+                out[fn] = (int(m.group(1)), spill,
+                           int(sm.group(1)) if sm else 0)
+    return out
 
 
 def bound(bytes_: float, ops: float, flops_per_s: float = BF16_FLOPS_PER_S):
@@ -114,11 +171,74 @@ def bound(bytes_: float, ops: float, flops_per_s: float = BF16_FLOPS_PER_S):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def device_launches(fn, iters: int = 20):
+    """Launches per call of fn() over `iters` warm calls, by torch.profiler:
+    (kernel launch calls the host made, kernels the device ran, the
+    kernels' names). The host's launch calls are the count: the profiler's
+    device records of this torch build can miss a kernel now and then (in
+    one run 12 of 20 one-launch calls showed a kernel, in another 19)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    evs = prof.key_averages()
+    kern = [e for e in evs if e.device_type == DeviceType.CUDA]
+    return (_launch_calls(evs) / iters, sum(e.count for e in kern) / iters,
+            sorted({e.key for e in kern}))
+
+
+def _k1_words(fp) -> np.ndarray:
+    return fp.cpu().numpy().view(np.uint32)
+
+
+def check_k1_tree(kfp, tree, what: str) -> float:
+    """K1 in place (`pytree_fingerprint_fused`) against pack + plain and the
+    plain leaf walk: hash words and absmax bitwise, the sum within 1e-5 of
+    sum |x|, one device launch per call. Returns |ds|."""
+    from repro_torch.core.fingerprint import (pack_tree_u32,
+                                              pytree_fingerprint_fused)
+    from repro_torch.tree import leaves
+    table = kfp.leaf_table(leaves(tree))
+    check(bool(table), f"K1: no in-place table for {what}")
+    before = kfp.launch_count.n
+    got = _k1_words(pytree_fingerprint_fused(tree))
+    check(kfp.launch_count.n == before + 1, f"K1 wrapper calls off ({what})")
+    packed = pack_tree_u32(tree)
+    want = _k1_words(kfp.fingerprint_plain(packed))
+    walk = _k1_words(kfp.fingerprint_leaves_plain(table))
+    for ref, name in ((want, "pack + plain"), (walk, "the plain leaf walk")):
+        check(np.array_equal(got[[0, 1, 3]], ref[[0, 1, 3]]),
+              f"K1 in place differs from {name} on {what}: {got} vs {ref}")
+    ds = abs(float(got[2:3].view(np.float32)[0])
+             - float(want[2:3].view(np.float32)[0]))
+    scale = max(float(packed.view(torch.float32).abs().sum()), 1.0)
+    check(ds <= 1e-5 * scale, f"K1 sum off on {what}: {ds}")
+    calls, ran, names = device_launches(lambda: pytree_fingerprint_fused(tree))
+    check(calls == 1 and ran <= 1 and len(names) == 1,
+          f"K1 in place: {calls} launch calls and {ran} device kernels per "
+          f"call on {what}: {names}")
+    print(f"K1 in place on {what} ({len(table)} table rows, "
+          f"{packed.numel()} words): h1/h2/absmax bitwise equal to pack + "
+          f"plain and to the plain leaf walk, |ds|={ds:.3e}, "
+          f"{calls:g} launch call and {ran:g} device kernel per call "
+          f"({names[0]})", flush=True)
+    return ds
+
+
 def phase_k1(kfp):
-    """K1 against its plain version: hash words and absmax bitwise, the sum
-    close. Returns the kernels-line entry; its max_abs_err is the largest
-    |kernel - plain| over the four result words at every size (the hash
-    words and absmax are checked equal, so it is the sum word's error)."""
+    """K1 against its plain version on packed buffers (hash words and absmax
+    bitwise, the sum close) and one device launch per call; then the main
+    path's call, the bf16 logits read in place. Returns the kernels-line
+    entry for that call; its max_abs_err is the largest |kernel - plain|
+    over the four result words (the hash words and absmax are checked
+    equal, so it is the sum word's error)."""
+    from repro_torch.core.fingerprint import pack_tree_u32
+    from repro_torch.kernels import ops
     dev = torch.device("cuda")
     sizes = [0, 1, 127, 128 * 256 + 1, BATCH * 151_936, 100_000_000]
     max_err = 0.0
@@ -126,11 +246,14 @@ def phase_k1(kfp):
         gen = torch.Generator(device=dev).manual_seed(n)
         x = torch.randn(n, generator=gen, device=dev) * 3
         u = x.view(torch.int32)
-        got = kfp.fingerprint_u32(u).cpu().numpy().view(np.uint32)
-        want = kfp.fingerprint_plain(u).cpu().numpy().view(np.uint32)
+        got = _k1_words(kfp.fingerprint_u32(u))
+        again = _k1_words(kfp.fingerprint_u32(u))
+        want = _k1_words(kfp.fingerprint_plain(u))
         check(np.array_equal(got[:2], want[:2]),
               f"K1 hash words differ from plain at n={n}: {got} vs {want}")
         check(got[3] == want[3], f"K1 absmax differs at n={n}")
+        check(np.array_equal(got, again),
+              f"K1 not bitwise repeatable at n={n}")
         gs, ga = (float(v) for v in got[2:].view(np.float32))
         ws, wa = (float(v) for v in want[2:].view(np.float32))
         dh = int(np.abs(got[:2].astype(np.int64) - want[:2].astype(np.int64))
@@ -139,27 +262,81 @@ def phase_k1(kfp):
         max_err = max(max_err, err)
         scale = max(float(x.abs().sum()), 1.0)
         check(abs(gs - ws) <= 1e-5 * scale, f"K1 sum off at n={n}: {gs} {ws}")
-        print(f"K1 n={n}: h1/h2/absmax bitwise equal to plain, sum "
-              f"|ds|={abs(gs - ws):.3e} (|ds|/sum|x|={abs(gs - ws) / scale:.3e})",
-              flush=True)
+        print(f"K1 n={n}: h1/h2/absmax bitwise equal to plain, two calls "
+              f"bitwise equal, sum |ds|={abs(gs - ws):.3e} "
+              f"(|ds|/sum|x|={abs(gs - ws) / scale:.3e})", flush=True)
     n = BATCH * 151_936
     u = (torch.randn(n, device=dev) * 3).view(torch.int32)
-    call_ms = cuda_ms(lambda: kfp.fingerprint_u32(u), 200)
-    ms = device_ms(lambda: kfp.fingerprint_u32(u), 200)
-    plain_ms = device_ms(lambda: kfp.fingerprint_plain(u), 20)
+    calls, ran, names = device_launches(lambda: kfp.fingerprint_u32(u))
+    check(calls == 1 and ran <= 1 and len(names) == 1,
+          f"K1: {calls} launch calls and {ran} device kernels per call "
+          f"({names})")
+    packed_ms = device_ms(lambda: kfp.fingerprint_u32(u), 200)
+    packed_call_ms = cuda_ms(lambda: kfp.fingerprint_u32(u), 200)
     big = (torch.randn(100_000_000, device=dev)).view(torch.int32)
     big_ms = device_ms(lambda: kfp.fingerprint_u32(big), 20)
-    b_ms, b_by = bound(4 * n + 16, 0)
-    print(f"K1 at n={n} (B={BATCH} logits): device {ms:.4f} ms (per call "
-          f"{call_ms:.4f} ms), plain {plain_ms:.4f} ms, bound {b_ms:.5f} ms "
-          f"({b_by}); at n=1e8: {big_ms:.4f} ms = {4e8 / big_ms / 1e9:.3f} "
-          f"TB/s; max |kernel - plain| over the result words {max_err:.3e}",
+    print(f"K1 at n={n} f32 words (a packed buffer): device "
+          f"{packed_ms:.4f} ms "
+          f"(per call {packed_call_ms:.4f} ms), {calls:g} launch call and "
+          f"{ran:g} device kernel per call; at n=1e8: {big_ms:.4f} ms = "
+          f"{4e8 / big_ms / 1e9:.3f} TB/s",
+          flush=True)
+
+    # the main path's call: the dual backend's bf16 logits, read in place
+    logits = (torch.randn(BATCH, 151_936, device=dev) * 3).bfloat16()
+    tree = {"logits": logits}
+    max_err = max(max_err, check_k1_tree(kfp, tree, "bf16 logits (4, 151936)"))
+    table = kfp.leaf_table([logits])
+    ms = device_ms(lambda: kfp.fingerprint_leaves(table), 200)
+    call_ms = cuda_ms(lambda: kfp.fingerprint_leaves(table), 200)
+    plain_ms = device_ms(lambda: kfp.fingerprint_leaves_plain(table), 20)
+    route_ms = device_ms(lambda: ops.fingerprint_packed(pack_tree_u32(tree)),
+                         200)
+    b_ms, b_by = bound(2 * n + 16, 0)
+    print(f"K1 in place on the bf16 logits: device {ms:.4f} ms (per call "
+          f"{call_ms:.4f} ms), plain {plain_ms:.4f} ms, the packed route "
+          f"(cast + K1) {route_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}); "
+          f"max |kernel - plain| over the result words {max_err:.3e}",
           flush=True)
     return {"name": "fingerprint", "route": "cuda",
             "source": "src/repro_torch/csrc/fingerprint.cu",
             "replaces": "src/repro/kernels/fingerprint.py:51",
             "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+
+
+def phase_k1_tree(kfp, main):
+    """K1 in place on the hybrid backend's fingerprint tree of a real
+    full-width server state (the KV cache rows [0, pos) of both caches and
+    the token, after prefill and 8 decode steps), against pack + plain."""
+    from repro_torch.configs import RunConfig
+    from repro_torch.core.fingerprint import (pack_tree_u32,
+                                              pytree_fingerprint_fused)
+    from repro_torch.core.policy import make_server
+    from repro_torch.kernels import ops
+    dev = torch.device("cuda")
+    cfg, params, prompt = main["cfg"], main["params"], main["prompt"]
+    srv = make_server(RunConfig(model=cfg), backend="hybrid", device=dev)
+    logits, cache = srv.model.prefill(params, {"tokens": prompt},
+                                      PROMPT_LEN + STEPS + 8)
+    tok, pos = torch.argmax(logits, dim=-1), PROMPT_LEN
+    for _ in range(8):
+        logits, cache = srv.model.decode_step(params, cache, tok, pos)
+        tok, pos = torch.argmax(logits, dim=-1), pos + 1
+    tree = srv._fp_tree({"cache": cache, "tok": tok, "pos": pos})
+    check_k1_tree(kfp, tree, f"the hybrid tree at pos {pos}")
+    ms = device_ms(lambda: pytree_fingerprint_fused(tree), 50)
+    route_ms = device_ms(lambda: ops.fingerprint_packed(pack_tree_u32(tree)),
+                         50)
+    route_calls, _, _ = device_launches(
+        lambda: ops.fingerprint_packed(pack_tree_u32(tree)))
+    nbytes = sum(c.numel() * c.element_size()
+                 for c in tree["cache"].values()) + 8 * tok.numel() + 16
+    b_ms, b_by = bound(nbytes, 0)
+    print(f"K1 in place on the hybrid tree: device {ms:.4f} ms, the packed "
+          f"route (cast, copy, cat + K1) {route_ms:.4f} ms in "
+          f"{route_calls:g} launch calls, bound {b_ms:.5f} ms ({b_by})",
+          flush=True)
 
 
 def phase_k2(kfa):
@@ -321,14 +498,23 @@ def phase_main(kfp, kfa, cfg_full):
     check(tuple(logits.shape) == (BATCH, cfg.vocab_size)
           and bool(torch.isfinite(logits).all()),
           f"prefill logits shape {tuple(logits.shape)} or not finite")
+    run = {"cfg": cfg, "params": params, "prompt": prompt, "tokens": toks}
+    phase_k1_tree(kfp, run)
     phase_profile(srv, params, prompt, "a dual")
-    return counts, {"cfg": cfg, "params": params, "prompt": prompt,
-                    "tokens": toks}
+    return counts, run
+
+
+def _launch_calls(evs) -> int:
+    """Kernel launch calls the host made, from profiler events."""
+    from torch.autograd import DeviceType
+    return sum(e.count for e in evs if e.device_type == DeviceType.CPU
+               and e.key.startswith(("cudaLaunchKernel", "cuLaunchKernel")))
 
 
 def device_profile(fn):
     """Run fn() once under torch.profiler (which itself slows the host).
-    Returns (wall ms, device-busy ms, kernel launches, per-kernel events)."""
+    Returns (wall ms, device-busy ms, kernels the device ran, per-kernel
+    events, kernel launch calls the host made)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -341,18 +527,21 @@ def device_profile(fn):
     kern = [e for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in kern) / 1e3
-    return wall_ms, busy_ms, sum(e.count for e in kern), kern
+    return (wall_ms, busy_ms, sum(e.count for e in kern), kern,
+            _launch_calls(prof.key_averages()))
 
 
 def phase_profile(srv, params, prompt, label: str, steps: int = 17):
     """Where a protected generate's time goes: device-busy share of the
     wall and the kernels that take the device time."""
-    wall_ms, busy_ms, launches, kern = device_profile(
+    wall_ms, busy_ms, launches, kern, calls = device_profile(
         lambda: srv.generate(params, {"tokens": prompt}, steps=steps))
     print(f"profile of {label} generate ({steps - 1} decode steps, "
           f"profiler on): wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms"
-          f" ({100 * busy_ms / wall_ms:.1f}%), {launches} kernel launches "
-          f"({launches / (steps - 1):.0f} per decode step incl. prefill)",
+          f" ({100 * busy_ms / wall_ms:.1f}%), {launches} kernels recorded "
+          f"on the device ({launches / (steps - 1):.0f} per decode step incl. "
+          f"prefill), {calls} launch calls by the host "
+          f"({calls / (steps - 1):.0f} per decode step incl. prefill)",
           flush=True)
     for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:6]:
         print(f"  {e.self_device_time_total / 1e3:9.3f} ms "
@@ -434,7 +623,7 @@ def phase_k3(kab):
               f"{t['checksummed'] / t['plain']:.3f}x, duplicated (K3 twice "
               f"+ K1 compare) {t['duplicated']:.4f} ms = "
               f"{t['duplicated'] / t['plain']:.3f}x", flush=True)
-        wall_ms, busy_ms, launches, _ = device_profile(checksummed)
+        wall_ms, busy_ms, launches, _, _ = device_profile(checksummed)
         print(f"one checksummed call, profiled: wall {wall_ms:.3f} ms, "
               f"device busy {busy_ms:.3f} ms, {launches} kernel launches",
               flush=True)
@@ -599,12 +788,13 @@ def phase_engine(kab):
     return launches
 
 
-def phase_k4(kab, kfa):
+def phase_k4(kab, kfa, report):
     """K4 against its plain version (flash_attention_plain on the encoded V)
-    in f32 at qwen2-0.5b prefill shapes and the checksum verdicts; then
-    the API `abft_flash_attention` 24 times on the S=256 inputs, held
-    against its oracle `abft_attention_ref`. No model path calls K4, in the
-    port or in the reference: its counted launches are these API calls."""
+    in f32 at qwen2-0.5b prefill shapes, two launches bitwise equal, and the
+    checksum verdicts; then the API `abft_flash_attention` 24 times on the
+    S=256 inputs, held against its oracle `abft_attention_ref`. No model
+    path calls K4, in the port or in the reference: its counted launches
+    are these API calls. `report` is the build's ptxas report."""
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
@@ -622,6 +812,7 @@ def phase_k4(kab, kfa):
         v = torch.randn(BATCH, KV, S, hd, generator=gen, device=dev)
         v_aug = attention_checksum_encode(v)
         got = kab.flash_attention_ck(q, k, v_aug, causal=True)
+        again = kab.flash_attention_ck(q, k, v_aug, causal=True)
         want = kfa.flash_attention_plain(q, k, v_aug, causal=True)
         diff = (got - want).abs()
         err = float(diff.max())
@@ -633,18 +824,23 @@ def phase_k4(kab, kfa):
                              target="kernel")
         _, frep = attention_verify(
             make_kernel_fault(spec, step=0, armed=True)(got), S)
-        print(f"K4 S={S}: max abs err {err:.3e} vs plain (f32), clean "
-              f"verify detected {bool(rep.detected)}, bit-23 flip of the "
+        same = "equal" if torch.equal(got, again) else "DIFFERENT"
+        print(f"K4 S={S}: max abs err {err:.3e} vs plain (f32), two "
+              f"launches bitwise {same}, clean verify detected "
+              f"{bool(rep.detected)}, bit-23 flip of the "
               f"largest output: detected {bool(frep.detected)}, "
               f"uncorrectable {bool(frep.uncorrectable)}", flush=True)
         check(bool(torch.isfinite(got).all()), f"K4 non-finite at S={S}")
         check(over <= 1e-5, f"K4 off plain beyond atol 1e-5 + rtol 1e-5 at "
               f"S={S} (max abs err {err})")
+        check(torch.equal(got, again), f"K4 not bitwise repeatable at S={S}")
         check(not bool(rep.detected), f"clean K4 output detected at S={S}")
         check(bool(frep.detected) and bool(frep.uncorrectable),
               f"K4 output fault not detected as uncorrectable at S={S}")
         ms = device_ms(lambda: kab.flash_attention_ck(q, k, v_aug,
                                                       causal=True), 30)
+        call_ms = cuda_ms(lambda: kab.flash_attention_ck(q, k, v_aug,
+                                                         causal=True), 30)
         plain_ms = device_ms(lambda: kfa.flash_attention_plain(
             q, k, v_aug, causal=True), 5)
         lib_ms, lib_backend = None, None
@@ -667,12 +863,14 @@ def phase_k4(kab, kfa):
         nbytes = 4.0 * BATCH * S * (H * hd + KV * hd + KV * (hd + 1)
                                     + H * (hd + 1))
         b_ms, b_by = bound(nbytes, flops, F32_FLOPS_PER_S)
-        print(f"K4 S={S}: device {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        print(f"K4 S={S}: device {ms:.4f} ms (per call {call_ms:.4f} ms), "
+              f"plain {plain_ms:.4f} ms, "
               f"sdpa f32 on "
               f"(q, k, v_aug) {lib_ms if lib_ms is None else f'{lib_ms:.4f}'}"
               f" ms (backend that took hd+1 with GQA: {lib_backend}), bound "
               f"{b_ms:.5f} ms ({b_by}, f32 rate), "
-              f"{flops / ms / 1e9:.2f} TFLOP/s achieved", flush=True)
+              f"{flops / ms / 1e9:.2f} TFLOP/s on the function's count",
+              flush=True)
         if S == PROMPT_LEN:
             entry = {"name": "abft_flash_attention", "route": "cuda",
                      "source": "src/repro_torch/csrc/flash_attention.cu",
@@ -680,6 +878,13 @@ def phase_k4(kab, kfa):
                      "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                      "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
             path = (q, k, v)
+    for hd_ in (64, 16):
+        key = f"flash_fwd_f32<{hd_},1>"
+        regs, spill, _ = report.get(key, (None, None, None))
+        # csrc/flash_attention.cu f32_smem_bytes: Q, two K/V stages, P
+        smem = (5 * 64 * (hd_ + 4) + 64 * 68) * 4
+        print(f"K4 {key}: {regs} registers, {spill} bytes spilled (ptxas), "
+              f"{smem} bytes of dynamic shared memory per block", flush=True)
     layers = 24
     kab.flash_ck_launch_count.reset()
     outs = [kab.abft_flash_attention(*path, causal=True)
@@ -769,6 +974,8 @@ def phase_abft_serve(kfp, kfa, main):
           "kernel-fault run changed the tokens")
     phase_profile(make_server(rc, backend="abft", device=dev), params,
                   prompt, "an abft")
+    phase_profile(make_server(rc, backend="hybrid", device=dev), params,
+                  prompt, "a hybrid")
 
     # decode ms/step of the four backends, in turns (ABBA), so that the
     # shared host's drift hits each alike
@@ -840,10 +1047,10 @@ def main() -> None:
 
     t0 = time.time()
     logs = _build.build()
-    for kname, log in logs.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"nvcc {kname}: {line.strip()}")
+    report = ptxas_report(logs)
+    for fn, (regs, spill, smem) in sorted(report.items()):
+        print(f"nvcc: {fn}: {regs} registers, {spill} bytes spilled, "
+              f"{smem} bytes static shared memory")
     print(f"kernels built in {time.time() - t0:.1f} s "
           f"({', '.join(logs) or 'cached'})", flush=True)
 
@@ -852,7 +1059,7 @@ def main() -> None:
     k3 = phase_k3(kab)
     phase_campaign(kab)
     k3["launches"] = phase_engine(kab)
-    k4 = phase_k4(kab, kfa)
+    k4 = phase_k4(kab, kfa, report)
     counts, main_run = phase_main(kfp, kfa, get_config("qwen2-0.5b"))
     phase_abft_serve(kfp, kfa, main_run)
     phase_reference()

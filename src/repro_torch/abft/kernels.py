@@ -10,10 +10,12 @@ beside it (the reference's `abft/kernels.py`).
     f32 with TF32 off. `matmul_simt_oracle` runs the first (SIMT) K3 body,
     which gives the same bits; it is test-only.
   * K4 `flash_attention_ck` replaces the Pallas call in
-    `abft_flash_attention`: K2's flash-attention body with V and the output
-    widened by a checksum lane, the `CK` variant in
-    `csrc/flash_attention.cu`. `abft_flash_attention` runs encode -> K4 ->
-    `inject` -> `attention_verify`. Its plain version is
+    `abft_flash_attention`: K2's f32 flash-attention body (register-blocked
+    FFMA) with V and the output widened by a checksum lane, the `CK`
+    variant in `csrc/flash_attention.cu`. It reads v_aug with 4-byte
+    copies, so any view with a contiguous last dim is taken as it is; q and
+    k must be 16-byte aligned (`check_aligned`). `abft_flash_attention`
+    runs encode -> K4 -> `inject` -> `attention_verify`. Its plain version is
     `flash_attention_plain` on the encoded V (`abft_attention_ref`'s math).
 
 Each wrapper takes its plain version for a CPU tensor, and only then; a
@@ -34,7 +36,8 @@ from repro_torch.abft.ref import (DEFAULT_TAU_FACTOR, AbftReport,
                                   attention_checksum_encode, attention_verify,
                                   checksum_encode, verify_and_correct)
 from repro_torch.kernels import _build
-from repro_torch.kernels.flash_attention import HEAD_DIMS, flash_attention_plain
+from repro_torch.kernels.flash_attention import (HEAD_DIMS, check_aligned,
+                                                flash_attention_plain)
 
 matmul_launch_count = _build.LaunchCount("abft_matmul")
 flash_ck_launch_count = _build.LaunchCount("abft_flash_attention")
@@ -168,6 +171,7 @@ def flash_attention_ck(q, k, v_aug, *, causal: bool = True,
         raise ValueError("K4 needs a contiguous head dim (stride 1)")
     if max(Sq, Sk) >= 2 ** 31:
         raise ValueError("sequence too long for K4's 32-bit positions")
+    check_aligned("K4", q=q, k=k)     # v_aug: 4-byte copies, any view
     out = torch.empty((B, H, Sq, hd + 1), dtype=torch.float32,
                       device=q.device)
     strides = (ctypes.c_longlong * 12)(

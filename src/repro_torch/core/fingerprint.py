@@ -18,9 +18,12 @@ Two granularities, as in the reference:
   * per-leaf -- `pytree_fingerprint` -> (n_leaves, 4), plain PyTorch on the
     tensors' own device; keeps leaf-level localization for
     `mismatch_report`.
-  * fused    -- `pytree_fingerprint_fused` -> (4,): all leaves packed into
-    ONE word buffer and hashed in one pass of kernel K1 (its plain version
-    on the CPU). This is the commit-compare hot path.
+  * fused    -- `pytree_fingerprint_fused` -> (4,): all leaves hashed as
+    ONE word buffer in one launch of kernel K1. On the card, f32, int32,
+    uint32, bf16 and int64 leaves laid out as rows of one contiguous run
+    are read where they lie (no cast, copy or concatenation); other leaves
+    are packed first. On the CPU the leaves are packed and hashed by K1's
+    plain version. This is the commit-compare hot path.
 Leaf order is the reference's (sorted dict keys, `repro_torch.tree`).
 """
 from __future__ import annotations
@@ -32,6 +35,7 @@ import torch
 
 from repro_torch import tree as tree_util
 from repro_torch.core import hostsync
+from repro_torch.kernels import fingerprint as kfp
 from repro_torch.kernels import ops
 from repro_torch.kernels.fingerprint import fingerprint_plain
 
@@ -116,10 +120,16 @@ def packed_fingerprint(u) -> torch.Tensor:
 
 
 def pytree_fingerprint_fused(tree) -> torch.Tensor:
-    """Whole-state fingerprint -> (4,): the leaves packed once into one word
-    buffer and hashed in ONE launch of kernel K1 (CUDA tensors) or its
-    plain version (CPU tensors). Hash words equal the reference's fused
+    """Whole-state fingerprint -> (4,) in ONE launch of kernel K1 (CUDA
+    tensors: the leaves read in place where `kfp.leaf_table` takes them,
+    else packed once into one word buffer) or its plain version on the
+    packed buffer (CPU tensors). Hash words equal the reference's fused
     fingerprint; the fused hash is not comparable with per-leaf hashes."""
+    leaves = _leaf_tensors(tree)
+    if leaves and all(l.is_cuda for l in leaves):
+        table = kfp.leaf_table(leaves)
+        if table:
+            return kfp.fingerprint_leaves(table)
     u = pack_tree_u32(tree)
     if u.numel() == 0:
         return torch.zeros((4,), dtype=torch.int32, device=u.device)

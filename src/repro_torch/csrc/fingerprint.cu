@@ -1,21 +1,44 @@
-// K1: fused state fingerprint (hash + sum + absmax) over a flat u32 buffer.
+// K1: fused state fingerprint (hash + sum + absmax), one launch per call,
+// reading the leaves of a state where they lie.
 //
 // Replaces the TPU kernel src/repro/kernels/fingerprint.py::_fingerprint_kernel
-// (pl.pallas_call in fingerprint_pallas). For word u_i at element index i
-// (a wrapping 32-bit index):
+// (pl.pallas_call in fingerprint_pallas). For word u_i at global index i of
+// the packed order (every leaf's words in turn, a wrapping 32-bit index):
 //     h1 = sum_i ((u_i ^ (i*C1)) * C2)                mod 2^32
 //     h2 = sum_i (t ^ (t >> 15)),  t = (u_i + i) * C3  mod 2^32
 //     s  = sum_i float(u_i)    a = max_i |float(u_i)|  (f32 diagnostics)
 //
-// Bound on the H100: memory. It reads each word once (4n bytes at 3.35 TB/s)
-// and does a handful of integer operations per word, far below the card's
-// compute rate. Design: pass 1 is a grid-stride loop of 16-byte (uint4)
-// loads with per-thread accumulators and one partial per block; pass 2 is a
-// single block that combines the partials in a fixed order. Integer sums are
-// exact in any order; the float sum uses no atomics, so for one buffer
-// length the reduction tree, and with it every output bit, is the same on
-// every run. Words before the first 16-byte boundary and after the last
-// whole vector are mixed by thread 0 of block 0.
+// The input is a table of leaves, one row each: pointer, element kind, rows,
+// contiguous run (elements per row), row stride (elements) and the leaf's
+// first global word index. Kinds: 0 = 32-bit words taken as they are (f32,
+// int32, uint32), 1 = bf16 upcast exactly to f32 (bits << 16), 2 = int64
+// value-cast to int32 (its low 32 bits). So a bf16 logits buffer, or each
+// KV-cache slice c[:, :, :pos] (rows of pos * KV * hd contiguous elements
+// at the cache's row stride), is hashed in place, with no cast, copy or
+// concatenation, and h1/h2/a equal those of the packed buffer bit for bit.
+// The table travels by value in the kernel's parameters
+// (__grid_constant__, at most MAX_LEAVES rows, under the 4 KB parameter
+// limit), so no host-to-device copy precedes the launch.
+//
+// Bound on the H100: memory. It reads each element once (esize * n bytes
+// at 3.35 TB/s) and does a handful of integer operations per word, far
+// below the card's compute rate. Design: the leaves' rows are cut into
+// chunks of 16 bytes (4 words, 8 bf16 or 2 int64), numbered across the
+// whole table; a grid-stride loop gives consecutive threads consecutive
+// chunks (one uint4 load each where the row start is 16-byte aligned,
+// element loads otherwise and for a row's last partial chunk), the loads
+// of BATCH steps in flight together, with per-thread accumulators and one
+// partial per block. The last block to finish combines the partials: each
+// block writes its partial and takes an integer ticket (an atomic add on
+// an unsigned counter, with release and acquire order); the block that
+// draws the last ticket reads every partial from L2, combines them in
+// block-index order, writes the result and puts the ticket back to 0 for
+// the next launch. Integer sums are exact in any
+// order; the float sum uses no float atomics and, for one table layout, a
+// grid that is a function of the word count alone, so every output bit is
+// the same on every run. The ticket and the partials are a workspace that
+// the wrapper keeps per (device, stream), so two calls in flight on two
+// streams never share a ticket.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -25,10 +48,27 @@ constexpr uint32_t C1 = 2654435761u;
 constexpr uint32_t C2 = 2246822519u;
 constexpr uint32_t C3 = 3266489917u;
 constexpr int THREADS = 256;
+constexpr int MAX_LEAVES = 64;   // kernels/fingerprint.py MAX_LEAVES
 
 struct Acc {
   uint32_t h1, h2;
   float s, a;
+};
+
+struct Leaf {                   // 48 bytes
+  const void* ptr;              // first element
+  unsigned long long base;      // global word index of the first element
+  unsigned long long stride;    // elements between row starts
+  unsigned long long chunk_end; // one past its last chunk (table numbering)
+  uint32_t rows, run, cpr;      // rows, elements per row, chunks per row
+  uint32_t kind_vec;            // kind (0: 32-bit word, 1: bf16, 2: int64)
+                                // | 4 if every row start is 16-byte aligned
+};
+
+struct Table {
+  Leaf leaf[MAX_LEAVES];
+  unsigned long long nchunks;
+  int nleaves;
 };
 
 __device__ __forceinline__ void mix(Acc& acc, uint32_t u, uint32_t i) {
@@ -51,7 +91,8 @@ __device__ __forceinline__ Acc warp_reduce(Acc v) {
   return v;
 }
 
-// Fixed-shape tree over the block; the result is valid in thread 0.
+// Fixed-shape tree over the block; the result is valid in thread 0. A
+// second call in the same block must follow a __syncthreads.
 __device__ Acc block_reduce(Acc v) {
   __shared__ Acc warp_acc[THREADS / 32];
   const int lane = threadIdx.x & 31;
@@ -66,71 +107,177 @@ __device__ Acc block_reduce(Acc v) {
   return v;
 }
 
-__global__ void __launch_bounds__(THREADS)
-fp_partial(const uint32_t* __restrict__ u, unsigned long long n,
-           unsigned long long head, unsigned long long nvec,
-           Acc* __restrict__ partials) {
-  Acc acc{0u, 0u, 0.f, 0.f};
-  const uint4* vec = reinterpret_cast<const uint4*>(u + head);
-  const unsigned long long stride = (unsigned long long)gridDim.x * THREADS;
-  for (unsigned long long j = (unsigned long long)blockIdx.x * THREADS + threadIdx.x;
-       j < nvec; j += stride) {
-    const uint4 w = __ldg(vec + j);
-    const uint32_t i = (uint32_t)(head + 4ull * j);
-    mix(acc, w.x, i);
-    mix(acc, w.y, i + 1u);
-    mix(acc, w.z, i + 2u);
-    mix(acc, w.w, i + 3u);
-  }
-  if (blockIdx.x == 0 && threadIdx.x == 0) {
-    for (unsigned long long k = 0; k < head; ++k) mix(acc, u[k], (uint32_t)k);
-    for (unsigned long long k = head + 4ull * nvec; k < n; ++k)
-      mix(acc, u[k], (uint32_t)k);
-  }
-  acc = block_reduce(acc);
-  if (threadIdx.x == 0) partials[blockIdx.x] = acc;
+// one chunk: `cnt` elements of leaf `leaf` from element offset `e`, whose
+// first word has global index `i`
+struct Chunk {
+  unsigned long long e;
+  uint32_t leaf, i, cnt;
+  bool vec;  // one 16-byte load
+};
+
+__device__ __forceinline__ Chunk locate(const Table& t, int& li,
+                                        unsigned long long g) {
+  while (g >= t.leaf[li].chunk_end) ++li;  // g only grows
+  const Leaf& L = t.leaf[li];
+  const uint32_t kind = L.kind_vec & 3u;
+  const uint32_t per = kind == 0 ? 4u : (kind == 1 ? 8u : 2u);
+  const uint32_t local =
+      (uint32_t)(g - (L.chunk_end - (unsigned long long)L.rows * L.cpr));
+  const uint32_t row = L.rows == 1 ? 0u : local / L.cpr;
+  const uint32_t col = (local - row * L.cpr) * per;
+  Chunk c;
+  c.leaf = (uint32_t)li;
+  c.cnt = min(per, L.run - col);
+  c.i = (uint32_t)(L.base + (unsigned long long)row * L.run + col);
+  c.e = (unsigned long long)row * L.stride + col;
+  c.vec = (L.kind_vec & 4u) && c.cnt == per;
+  return c;
 }
 
+__device__ __forceinline__ uint4 load_vec(const Leaf& L, const Chunk& c) {
+  const uint32_t kind = L.kind_vec & 3u;
+  const unsigned long long esize = kind == 0 ? 4 : (kind == 1 ? 2 : 8);
+  return __ldg(reinterpret_cast<const uint4*>(
+      static_cast<const char*>(L.ptr) + c.e * esize));
+}
+
+__device__ __forceinline__ void mix_chunk(Acc& acc, const Leaf& L,
+                                          const Chunk& c, uint4 w) {
+  const uint32_t kind = L.kind_vec & 3u;
+  const uint32_t i = c.i;
+  if (c.vec) {
+    if (kind == 0) {
+      mix(acc, w.x, i);
+      mix(acc, w.y, i + 1u);
+      mix(acc, w.z, i + 2u);
+      mix(acc, w.w, i + 3u);
+    } else if (kind == 1) {  // little-endian: element 2k is the low half
+      mix(acc, w.x << 16, i);
+      mix(acc, w.x & 0xFFFF0000u, i + 1u);
+      mix(acc, w.y << 16, i + 2u);
+      mix(acc, w.y & 0xFFFF0000u, i + 3u);
+      mix(acc, w.z << 16, i + 4u);
+      mix(acc, w.z & 0xFFFF0000u, i + 5u);
+      mix(acc, w.w << 16, i + 6u);
+      mix(acc, w.w & 0xFFFF0000u, i + 7u);
+    } else {                 // int64: the low word of each element
+      mix(acc, w.x, i);
+      mix(acc, w.z, i + 1u);
+    }
+    return;
+  }
+  for (uint32_t k = 0; k < c.cnt; ++k) {
+    const unsigned long long e = c.e + k;
+    uint32_t u;
+    if (kind == 0) u = __ldg(static_cast<const uint32_t*>(L.ptr) + e);
+    else if (kind == 1)
+      u = (uint32_t)__ldg(static_cast<const unsigned short*>(L.ptr) + e) << 16;
+    else u = __ldg(static_cast<const uint32_t*>(L.ptr) + 2 * e);
+    mix(acc, u, i + k);
+  }
+}
+
+constexpr int BATCH = 4;  // grid-stride steps whose loads go out together
+
 __global__ void __launch_bounds__(THREADS)
-fp_combine(const Acc* __restrict__ partials, int nblocks,
-           uint32_t* __restrict__ out) {
+fp_leaves(const __grid_constant__ Table t, Acc* __restrict__ partials,
+          unsigned int* __restrict__ ticket, uint32_t* __restrict__ out) {
   Acc acc{0u, 0u, 0.f, 0.f};
-  for (int b = threadIdx.x; b < nblocks; b += THREADS) {
-    const Acc p = partials[b];
-    acc.h1 += p.h1;
-    acc.h2 += p.h2;
-    acc.s += p.s;
-    acc.a = fmaxf(acc.a, p.a);
+  const unsigned long long stride = (unsigned long long)gridDim.x * THREADS;
+  int li = 0;
+  // this thread's chunks g0, g0 + stride, ... in that order, BATCH at a
+  // time: their 16-byte loads are in flight together
+  for (unsigned long long g0 = (unsigned long long)blockIdx.x * THREADS +
+                               threadIdx.x;
+       g0 < t.nchunks; g0 += BATCH * stride) {
+    Chunk c[BATCH];
+    uint4 w[BATCH];
+#pragma unroll
+    for (int b = 0; b < BATCH; ++b) {
+      const unsigned long long g = g0 + b * stride;
+      c[b].cnt = 0;
+      c[b].vec = false;
+      w[b] = make_uint4(0u, 0u, 0u, 0u);
+      if (g < t.nchunks) {
+        c[b] = locate(t, li, g);
+        if (c[b].vec) w[b] = load_vec(t.leaf[c[b].leaf], c[b]);
+      }
+    }
+#pragma unroll
+    for (int b = 0; b < BATCH; ++b)
+      if (c[b].cnt) mix_chunk(acc, t.leaf[c[b].leaf], c[b], w[b]);
   }
   acc = block_reduce(acc);
+
+  __shared__ bool last;
   if (threadIdx.x == 0) {
-    out[0] = acc.h1;
-    out[1] = acc.h2;
-    out[2] = __float_as_uint(acc.s);
-    out[3] = __float_as_uint(acc.a);
+    partials[blockIdx.x] = acc;
+    // the ticket with release (this block's partial is visible before its
+    // ticket) and acquire (the last block sees every partial) semantics
+    unsigned int prev;
+    asm volatile("atom.acq_rel.gpu.global.add.u32 %0, [%1], 1;\n"
+                 : "=r"(prev) : "l"(ticket) : "memory");
+    last = prev == gridDim.x - 1;
+  }
+  __syncthreads();
+  if (!last) return;
+  Acc tot{0u, 0u, 0.f, 0.f};
+  for (int b = threadIdx.x; b < (int)gridDim.x; b += THREADS) {
+    const Acc* p = partials + b;
+    tot.h1 += __ldcg(&p->h1);
+    tot.h2 += __ldcg(&p->h2);
+    tot.s += __ldcg(&p->s);
+    tot.a = fmaxf(tot.a, __ldcg(&p->a));
+  }
+  tot = block_reduce(tot);
+  if (threadIdx.x == 0) {
+    out[0] = tot.h1;
+    out[1] = tot.h2;
+    out[2] = __float_as_uint(tot.s);
+    out[3] = __float_as_uint(tot.a);
+    *ticket = 0u;                          // ready for the next launch
   }
 }
 
 }  // namespace
 
-// u: n words; partials: nblocks * 4 words of scratch; out: 4 words.
-// Returns cudaGetLastError() after both launches.
-extern "C" int sedar_fingerprint(const void* u, long long n, void* partials,
-                                 int nblocks, void* out, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const uint32_t* words = static_cast<const uint32_t*>(u);
-  Acc* part = static_cast<Acc*>(partials);
-  int combined = 0;
-  if (n > 0) {
-    const unsigned long long mis = (reinterpret_cast<uintptr_t>(words) & 15u) / 4u;
-    unsigned long long head = mis ? 4u - mis : 0u;
-    if (head > (unsigned long long)n) head = (unsigned long long)n;
-    const unsigned long long nvec = ((unsigned long long)n - head) / 4u;
-    fp_partial<<<nblocks, THREADS, 0, st>>>(words, (unsigned long long)n,
-                                            head, nvec, part);
-    combined = nblocks;
+// leaves: nleaves rows of 6 values (pointer, kind, rows, run, row stride in
+// elements, first global word index); rows and run >= 1, rows * run < 2^32
+// words per leaf, nleaves <= MAX_LEAVES. partials: nblocks * 16 bytes and
+// ticket: one unsigned int (0 on entry, 0 again after the launch) of the
+// caller's per-stream workspace; out: 4 words. Returns cudaGetLastError()
+// after the one launch.
+extern "C" int sedar_fingerprint_leaves(const long long* leaves, int nleaves,
+                                        int nblocks, void* partials,
+                                        void* ticket, void* out,
+                                        void* stream) {
+  if (nleaves < 0 || nleaves > MAX_LEAVES) return (int)cudaErrorInvalidValue;
+  Table t{};
+  unsigned long long chunks = 0;
+  for (int j = 0; j < nleaves; ++j) {
+    const long long* r = leaves + 6 * j;
+    const int kind = (int)r[1];
+    if (kind < 0 || kind > 2 || r[2] < 1 || r[3] < 1 ||
+        r[2] * r[3] >= (1ll << 32))
+      return (int)cudaErrorInvalidValue;
+    const unsigned long long esize = kind == 0 ? 4 : (kind == 1 ? 2 : 8);
+    const unsigned long long per = 16 / esize;
+    Leaf& L = t.leaf[j];
+    L.ptr = reinterpret_cast<const void*>(r[0]);
+    L.base = (unsigned long long)r[5];
+    L.stride = (unsigned long long)r[4];
+    L.rows = (uint32_t)r[2];
+    L.run = (uint32_t)r[3];
+    L.cpr = (uint32_t)((L.run + per - 1) / per);
+    const bool vec = r[0] % 16 == 0 && (r[2] == 1 || (r[4] * esize) % 16 == 0);
+    L.kind_vec = (uint32_t)kind | (vec ? 4u : 0u);
+    chunks += (unsigned long long)L.rows * L.cpr;
+    L.chunk_end = chunks;
   }
-  fp_combine<<<1, THREADS, 0, st>>>(part, combined,
-                                    static_cast<uint32_t*>(out));
+  t.nleaves = nleaves;
+  t.nchunks = chunks;
+  fp_leaves<<<nblocks, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      t, static_cast<Acc*>(partials), static_cast<unsigned int*>(ticket),
+      static_cast<uint32_t*>(out));
   return (int)cudaGetLastError();
 }

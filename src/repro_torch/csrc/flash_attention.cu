@@ -10,7 +10,7 @@
 // strides (the wrapper passes a (B, Sq, H, hd) buffer).
 //
 // Each input type has one kernel: bf16 runs flash_fwd_wgmma (tensor cores),
-// f32 runs the SIMT body flash_fwd (true f32, K4's body as well).
+// f32 runs flash_fwd_f32 (true f32 on the FFMA units; K4's body as well).
 //
 // Bound on the H100 at qwen2-0.5b prefill shapes (B 4, H 14, KV 2, hd 64,
 // causal): at S = 256 the bytes (q, k, v read once, o written once:
@@ -37,25 +37,52 @@
 // 1.5x the function's operations. No split-KV, no atomics, a fixed order:
 // two launches give the same bits.
 //
-// f32 design (flash_fwd, SIMT): one block of BQ = 64 threads per (b, h,
-// 64-row q tile), one thread per query row, its q row and its accumulator
-// in registers; the KV loop stages each BK = 32 key tile of K and V in
-// shared memory and every thread reads the same K/V row at a time, which
-// shared memory broadcasts. It runs far from the f32 bound.
+// f32 design (flash_fwd_f32). Hopper's tensor cores take no f32 input and
+// TF32 keeps a 10-bit mantissa, which would trip ABFT's eps32 residual
+// threshold on clean data, so this body runs in true f32 on the FFMA units
+// and is bound by the f32 rate (67 TFLOP/s): the design is K3's register
+// blocking applied to both products. One block of 256 threads (8 warps)
+// per (b, h, 64-row q tile), heaviest causal tiles first, two blocks per SM
+// (at most 128 registers a thread). Thread (ty, tx) = (tid / 16, tid % 16)
+// owns rows ty + 16 i (i < 4). The q tile is staged once; 64-key K and V
+// tiles come through a two-stage cp.async ring (zero-filled past Sq/Sk,
+// one __syncthreads before the tile's products and one between them), so
+// tile t + 1's copy overlaps tile t's products. Q, K and V tiles are
+// [row][hd + 4] (16-byte rows; the pad puts the 16 rows that a half-warp
+// reads at one d on distinct banks).
+//   S = Q K^T: each thread a 4 x 4 block, keys tx + 16 j (j < 4), from
+//   float4 fragments of Q and K: 8 shared loads per 64 FFMA, every score
+//   one fmaf chain in ascending d. The scale 1/sqrt(hd) multiplies the f32
+//   scores. Masks as in the wgmma body: only edge tiles apply the element
+//   mask, tiles that no row reaches are not visited.
+//   Online softmax: a row's max is taken over its 16 threads with xor
+//   shuffles (1, 2, 4, 8: a fixed tree), m and corr in f32, p = expf(s - m);
+//   each thread keeps its own share of l, summed over the 16 at the end by
+//   the same tree.
+//   O += P V: P goes to shared memory ([64][68]); each thread accumulates
+//   4 rows x hd / 16 adjacent data columns (tx * hd / 16 ...), one fmaf
+//   chain per output in ascending key order.
+// No split-KV, no atomics: two launches give the same bits. The output is
+// staged through shared memory and written row by row, consecutive threads
+// on consecutive elements, whatever the output's strides.
 //
-// K4 (CK = true) is the SIMT body with a checksum lane, and replaces the TPU
+// K4 (CK = true) is the f32 body with a checksum lane, and replaces the TPU
 // kernel src/repro/abft/kernels.py::abft_flash_attention (its pl.pallas_call
 // runs _flash_kernel with V and the output widened to hd + 1). It reads
 // v_aug (B, KV, Sk, hd + 1) f32, whose lane hd is the row sum of V (done
 // outside the kernel, abft/ref.py::attention_checksum_encode), and writes
 // out_full (B, H, Sq, hd + 1) f32, so a fault can be injected between the
-// kernel and abft/ref.py::attention_verify. Lane hd is ONE extra per-row
-// accumulator fed from its own shared array Vc; the data lanes keep Vs
-// [BK][hd], since a 65-float row would break the 16-byte float4 reads. The
-// lane takes the same p, corr and 1/l as the data lanes: attention is
-// linear in V, so lane hd equals the sum of the data lanes up to rounding.
-// The scale stays 1/sqrt(hd). Bound: as K2, with operations counted at the
-// non-tensor f32 rate, since K4 runs in f32 only.
+// kernel and abft/ref.py::attention_verify. A v_aug row of hd + 1 floats
+// (260 bytes at hd 64) starts on a 16-byte boundary only every 4th row, so
+// the kernel reads V_aug with 4-byte cp.async.ca copies into the same
+// [row][hd + 4] tiles: any v_aug view with a contiguous last dim is read
+// as it is, padded or not (q and k keep 16-byte copies; the wrapper
+// refuses q or k views that are not 16-byte aligned). Lane hd is one more
+// accumulator per row and thread: each thread adds p * v_aug[key][hd] for
+// its own 4 x 4 scores, and the 16 shares of a row are summed at the end by
+// the xor tree. It takes the same p, corr and 1/l as the data lanes:
+// attention is linear in V, so lane hd equals the sum of the data lanes up
+// to rounding. Bound: as K2, with operations counted at the f32 rate.
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -63,142 +90,9 @@
 
 namespace {
 
-constexpr int BQ = 64;
-constexpr int BK = 32;
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-
 struct Strides {
   long long b, h, s;
 };
-
-template <typename T, int HD, bool CK>
-__global__ void __launch_bounds__(BQ)
-flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
-          const T* __restrict__ v, T* __restrict__ o, Strides qs, Strides ks,
-          Strides vs, Strides os, int H, int KV, int Sq, int Sk, int causal,
-          int window, float scale) {
-  __shared__ __align__(16) float Ks[BK][HD];
-  __shared__ __align__(16) float Vs[BK][HD];
-  __shared__ float Vc[CK ? BK : 1];  // K4: lane HD of each v_aug row
-
-  const int b = blockIdx.z;
-  const int h = blockIdx.y;
-  const int q0 = blockIdx.x * BQ;
-  const int kvh = h / (H / KV);
-  const int r = threadIdx.x;
-  const int qpos = q0 + r;
-  const bool row_ok = qpos < Sq;
-
-  float qr[HD];
-  float acc[HD];
-  const T* qp = q + b * qs.b + h * qs.h + (long long)qpos * qs.s;
-#pragma unroll
-  for (int d = 0; d < HD; ++d) {
-    qr[d] = row_ok ? to_f(qp[d]) * scale : 0.f;
-    acc[d] = 0.f;
-  }
-  float m = -1e30f;
-  float l = 0.f;
-  float acc_c = 0.f;  // K4: the checksum lane's accumulator
-
-  int k_lo = 0;
-  int k_hi = Sk;
-  if (causal) k_hi = min(Sk, q0 + BQ);
-  if (window > 0) k_lo = max(0, q0 - window + 1);
-  k_lo = (k_lo / BK) * BK;
-
-  const T* kb = k + b * ks.b + kvh * ks.h;
-  const T* vb = v + b * vs.b + kvh * vs.h;
-  for (int k0 = k_lo; k0 < k_hi; k0 += BK) {
-    __syncthreads();
-    for (int idx = r; idx < BK * HD; idx += BQ) {
-      const int j = idx / HD;
-      const int d = idx - j * HD;
-      const int kp = k0 + j;
-      const bool ok = kp < Sk;
-      Ks[j][d] = ok ? to_f(kb[(long long)kp * ks.s + d]) : 0.f;
-      Vs[j][d] = ok ? to_f(vb[(long long)kp * vs.s + d]) : 0.f;
-    }
-    if constexpr (CK) {
-      for (int j = r; j < BK; j += BQ) {
-        const int kp = k0 + j;
-        Vc[j] = kp < Sk ? to_f(vb[(long long)kp * vs.s + HD]) : 0.f;
-      }
-    }
-    __syncthreads();
-
-    float s[BK];
-    float tmax = -CUDART_INF_F;
-#pragma unroll
-    for (int j = 0; j < BK; ++j) {
-      const int kp = k0 + j;
-      const bool ok = kp < Sk && (!causal || qpos >= kp) &&
-                      (window <= 0 || qpos - kp < window);
-      float dot = 0.f;
-#pragma unroll
-      for (int d = 0; d < HD; d += 4) {
-        const float4 kk = *reinterpret_cast<const float4*>(&Ks[j][d]);
-        dot += qr[d] * kk.x + qr[d + 1] * kk.y + qr[d + 2] * kk.z + qr[d + 3] * kk.w;
-      }
-      s[j] = ok ? dot : -CUDART_INF_F;
-      tmax = fmaxf(tmax, s[j]);
-    }
-    const float m_new = fmaxf(m, tmax);
-    const float corr = expf(m - m_new);
-    l *= corr;
-#pragma unroll
-    for (int d = 0; d < HD; ++d) acc[d] *= corr;
-    if constexpr (CK) acc_c *= corr;
-#pragma unroll
-    for (int j = 0; j < BK; ++j) {
-      const float p = expf(s[j] - m_new);  // 0 for a masked key
-      l += p;
-#pragma unroll
-      for (int d = 0; d < HD; d += 4) {
-        const float4 vv = *reinterpret_cast<const float4*>(&Vs[j][d]);
-        acc[d] += p * vv.x;
-        acc[d + 1] += p * vv.y;
-        acc[d + 2] += p * vv.z;
-        acc[d + 3] += p * vv.w;
-      }
-      if constexpr (CK) acc_c += p * Vc[j];
-    }
-    m = m_new;
-  }
-
-  if (row_ok) {
-    const float inv = l > 0.f ? 1.f / l : 0.f;
-    T* op = o + b * os.b + h * os.h + (long long)qpos * os.s;
-#pragma unroll
-    for (int d = 0; d < HD; ++d) op[d] = from_f<T>(acc[d] * inv);
-    if constexpr (CK) op[HD] = from_f<T>(acc_c * inv);
-  }
-}
-
-template <typename T, int HD, bool CK = false>
-void launch(const void* q, const void* k, const void* v, void* o,
-            const long long* st, int B, int H, int KV, int Sq, int Sk,
-            int causal, int window, float scale, cudaStream_t stream) {
-  const Strides qs{st[0], st[1], st[2]}, ks{st[3], st[4], st[5]},
-      vs{st[6], st[7], st[8]}, os{st[9], st[10], st[11]};
-  const dim3 grid((Sq + BQ - 1) / BQ, H, B);
-  flash_fwd<T, HD, CK><<<grid, BQ, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), qs, ks, vs, os, H, KV, Sq,
-      Sk, causal, window, scale);
-}
-
-
-// ---------------------------------------------------------------------------
-// bf16: flash_fwd_wgmma (Hopper tensor cores; PTX for cp.async and wgmma)
-// ---------------------------------------------------------------------------
-
-constexpr int WG = 128;    // one warpgroup
-constexpr int TQ = 64;     // q rows per block (wgmma M)
-constexpr int TKV = 64;    // keys per K/V tile (wgmma N of S = Q K^T)
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -211,6 +105,13 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
                "l"(src), "r"(ok ? 16 : 0)
                : "memory");
 }
+// 4-byte async copy; ok = false writes 4 zero bytes and reads nothing
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(ok ? 4 : 0)
+               : "memory");
+}
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
@@ -218,6 +119,257 @@ template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
+
+// ---------------------------------------------------------------------------
+// f32: flash_fwd_f32 (FFMA, register-blocked; K4 with CK = true)
+// ---------------------------------------------------------------------------
+
+constexpr int FT = 256;   // threads per block
+constexpr int FQ = 64;    // q rows per block
+constexpr int FK = 64;    // keys per K/V tile
+constexpr int PP = FK + 4;  // pitch of the P tile (and the output stage)
+
+template <int HD>
+constexpr int f32_smem_bytes() {  // Q, two K/V stages, P
+  return (5 * FK * (HD + 4) + FQ * PP) * 4;
+}
+
+// rows [pos0, pos0 + 64) of a matrix with row stride rs (elements) into a
+// [64][HD + 4] tile: W floats per row, 16-byte copies (W = HD, rows 16-byte
+// aligned) or 4-byte copies (any W); rows at or past `limit` are zeroed
+template <int HD, int W, bool VEC>
+__device__ __forceinline__ void f32_load_tile(float* sdst, const float* g,
+                                              long long rs, int pos0,
+                                              int limit, int tid) {
+  constexpr int P = HD + 4;
+  constexpr int CPR = VEC ? W / 4 : W;  // copies per row
+#pragma unroll 4
+  for (int i = tid; i < FK * CPR; i += FT) {
+    const int r = i / CPR;
+    const int c = i - r * CPR;
+    const int p = pos0 + r;
+    const bool ok = p < limit;
+    const float* src = ok ? g + (long long)p * rs + (VEC ? 4 * c : c) : g;
+    const uint32_t dst = smem_u32(sdst + r * P + (VEC ? 4 * c : c));
+    if constexpr (VEC) cp_async16(dst, src, ok);
+    else cp_async4(dst, src, ok);
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void ld_frag(float (&x)[N], const float* p) {
+  if constexpr (N == 4) {
+    const float4 v = *reinterpret_cast<const float4*>(p);
+    x[0] = v.x; x[1] = v.y; x[2] = v.z; x[3] = v.w;
+  } else {
+#pragma unroll
+    for (int i = 0; i < N; ++i) x[i] = p[i];
+  }
+}
+
+template <int HD, bool CK>
+__global__ void __launch_bounds__(FT, 2)
+flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
+              const float* __restrict__ v, float* __restrict__ o, Strides qs,
+              Strides ks, Strides vs, Strides os, int H, int KV, int Sq,
+              int Sk, int causal, int window, float scale) {
+  constexpr int P = HD + 4;
+  constexpr int TILE = FK * P;      // floats of one Q, K or V tile
+  constexpr int DPT = HD / 16;      // data columns per thread in O
+  constexpr int W = CK ? HD + 1 : HD;
+  extern __shared__ float4 fsm4[];
+  float* const Qs = reinterpret_cast<float*>(fsm4);
+  float* const KV0 = Qs + TILE;     // stage s: K at KV0 + 2 s TILE, V after
+  float* const Ps = Qs + 5 * TILE;
+
+  const int tid = threadIdx.x;
+  const int tx = tid & 15;
+  const int ty = tid >> 4;
+  const int b = blockIdx.z;
+  const int h = blockIdx.y;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * FQ;  // longest tiles first
+  const int kvh = h / (H / KV);
+  const float* kb = k + b * ks.b + kvh * ks.h;
+  const float* vb = v + b * vs.b + kvh * vs.h;
+
+  int k_lo = 0;
+  int k_hi = Sk;
+  if (causal) k_hi = min(Sk, q0 + FQ);
+  if (window > 0) k_lo = max(0, q0 - window + 1);
+  k_lo = (k_lo / FK) * FK;
+  const int ntiles = k_hi > k_lo ? (k_hi - k_lo + FK - 1) / FK : 0;
+
+  f32_load_tile<HD, HD, true>(Qs, q + b * qs.b + h * qs.h, qs.s, q0, Sq, tid);
+  if (ntiles > 0) {
+    f32_load_tile<HD, HD, true>(KV0, kb, ks.s, k_lo, Sk, tid);
+    f32_load_tile<HD, W, !CK>(KV0 + TILE, vb, vs.s, k_lo, Sk, tid);
+  }
+  cp_async_commit();
+
+  float acc[4][DPT];
+  float acc_c[4];       // K4: this thread's share of the checksum lane
+  float m[4], l[4];     // running max (shared by the row), own share of l
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int jj = 0; jj < DPT; ++jj) acc[i][jj] = 0.f;
+    acc_c[i] = 0.f;
+    m[i] = -1e30f;
+    l[i] = 0.f;
+  }
+
+  for (int t = 0; t < ntiles; ++t) {
+    const int k0 = k_lo + t * FK;
+    const float* Ks = KV0 + 2 * TILE * (t & 1);
+    const float* Vs = Ks + TILE;
+    cp_async_wait<0>();   // this tile (and Q) has landed
+    __syncthreads();      // ... for every thread; stage t + 1 and P are free
+    if (t + 1 < ntiles) {
+      float* nk = KV0 + 2 * TILE * ((t + 1) & 1);
+      f32_load_tile<HD, HD, true>(nk, kb, ks.s, k0 + FK, Sk, tid);
+      f32_load_tile<HD, W, !CK>(nk + TILE, vb, vs.s, k0 + FK, Sk, tid);
+    }
+    cp_async_commit();
+
+    // S = Q K^T: rows ty + 16 i, keys tx + 16 j
+    float s[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+#pragma unroll
+    for (int d = 0; d < HD; d += 4) {
+      float qf[4][4], kf[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) ld_frag(qf[i], Qs + (ty + 16 * i) * P + d);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) ld_frag(kf[j], Ks + (tx + 16 * j) * P + d);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[i][j] = fmaf(qf[i][e], kf[j][e], s[i][j]);
+    }
+
+    // scale in f32, mask only where a row can see a masked key
+    const bool edge = k0 + FK > Sk || (causal && k0 + FK - 1 > q0) ||
+                      (window > 0 && q0 + FQ - 1 - k0 >= window);
+    float corr[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int qp = q0 + ty + 16 * i;
+      float mx = -CUDART_INF_F;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        float x = s[i][j] * scale;
+        if (edge) {
+          const int kp = k0 + tx + 16 * j;
+          const bool ok = kp < Sk && (!causal || qp >= kp) &&
+                          (window <= 0 || qp - kp < window);
+          x = ok ? x : -CUDART_INF_F;
+        }
+        s[i][j] = x;
+        mx = fmaxf(mx, x);
+      }
+#pragma unroll
+      for (int off = 1; off < 16; off <<= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      const float m_new = fmaxf(m[i], mx);
+      corr[i] = expf(m[i] - m_new);
+      m[i] = m_new;
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      l[i] *= corr[i];
+#pragma unroll
+      for (int jj = 0; jj < DPT; ++jj) acc[i][jj] *= corr[i];
+      if constexpr (CK) acc_c[i] *= corr[i];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float p = expf(s[i][j] - m[i]);   // 0 for a masked key
+        l[i] += p;
+        if constexpr (CK) acc_c[i] = fmaf(p, Vs[(tx + 16 * j) * P + HD], acc_c[i]);
+        Ps[(ty + 16 * i) * PP + tx + 16 * j] = p;
+      }
+    }
+    __syncthreads();      // P is complete
+
+    // O += P V: rows ty + 16 i, data columns tx * DPT + jj
+#pragma unroll 4
+    for (int c = 0; c < FK; c += 4) {
+      float pf[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) ld_frag(pf[i], Ps + (ty + 16 * i) * PP + c);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float vf[DPT];
+        ld_frag(vf, Vs + (c + e) * P + tx * DPT);
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int jj = 0; jj < DPT; ++jj)
+            acc[i][jj] = fmaf(pf[i][e], vf[jj], acc[i][jj]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  // the 16 shares of each row's l (and lane), by the same xor tree
+  float inv[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int off = 1; off < 16; off <<= 1) {
+      l[i] += __shfl_xor_sync(0xffffffffu, l[i], off);
+      if constexpr (CK) acc_c[i] += __shfl_xor_sync(0xffffffffu, acc_c[i], off);
+    }
+    inv[i] = l[i] > 0.f ? 1.f / l[i] : 0.f;
+  }
+  __syncthreads();        // every thread is done with P and the last V
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    float* row = Ps + (ty + 16 * i) * PP;
+#pragma unroll
+    for (int jj = 0; jj < DPT; ++jj) row[tx * DPT + jj] = acc[i][jj] * inv[i];
+    if (CK && tx == 0) row[HD] = acc_c[i] * inv[i];
+  }
+  __syncthreads();
+  float* ob = o + b * os.b + h * os.h;
+  for (int i = tid; i < FQ * W; i += FT) {
+    const int r = i / W;
+    const int c = i - r * W;
+    if (q0 + r < Sq) ob[(long long)(q0 + r) * os.s + c] = Ps[r * PP + c];
+  }
+}
+
+template <int HD, bool CK>
+int launch_f32(const void* q, const void* k, const void* v, void* o,
+               const long long* st, int B, int H, int KV, int Sq, int Sk,
+               int causal, int window, float scale, cudaStream_t stream) {
+  const Strides qs{st[0], st[1], st[2]}, ks{st[3], st[4], st[5]},
+      vs{st[6], st[7], st[8]}, os{st[9], st[10], st[11]};
+  constexpr int smem = f32_smem_bytes<HD>();
+  const cudaError_t e = cudaFuncSetAttribute(
+      flash_fwd_f32<HD, CK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((Sq + FQ - 1) / FQ, H, B);
+  flash_fwd_f32<HD, CK><<<grid, FT, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), qs, ks, vs, os,
+      H, KV, Sq, Sk, causal, window, scale);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// bf16: flash_fwd_wgmma (Hopper tensor cores; PTX for cp.async and wgmma)
+// ---------------------------------------------------------------------------
+
+constexpr int WG = 128;    // one warpgroup
+constexpr int TQ = 64;     // q rows per block (wgmma M)
+constexpr int TKV = 64;    // keys per K/V tile (wgmma N of S = Q K^T)
+
 // make this thread's completed cp.async writes visible to wgmma's reads
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
@@ -544,10 +696,10 @@ void launch_wgmma(const void* q, const void* k, const void* v, void* o,
 
 }  // namespace
 
-// dtype: 0 = float32 (SIMT body), 1 = bfloat16 (wgmma body; q, k, v 16-byte
-// aligned with strides that are multiples of 8 elements, which the wrapper
-// checks). head_dim: 16 or 64. strides: 12 element strides (b, h, s) of q,
-// k, v, o. Returns cudaGetLastError() after launch.
+// dtype: 0 = float32 (flash_fwd_f32), 1 = bfloat16 (wgmma body). q, k, v
+// 16-byte aligned with strides that are multiples of 16 bytes (8 bf16 or 4
+// f32 elements), which the wrapper checks. head_dim: 16 or 64. strides: 12
+// element strides (b, h, s) of q, k, v, o. Returns the launch's error code.
 extern "C" int sedar_flash_fwd(int dtype, int head_dim, const void* q,
                                const void* k, const void* v, void* o,
                                const long long* strides, int B, int H, int KV,
@@ -560,17 +712,18 @@ extern "C" int sedar_flash_fwd(int dtype, int head_dim, const void* q,
   else if (dtype == 1 && head_dim == 16)
     launch_wgmma<16>(q, k, v, o, strides, B, H, KV, Sq, Sk, causal, window, scale, st);
   else if (dtype == 0 && head_dim == 64)
-    launch<float, 64>(q, k, v, o, strides, B, H, KV, Sq, Sk, causal, window, scale, st);
+    return launch_f32<64, false>(q, k, v, o, strides, B, H, KV, Sq, Sk, causal, window, scale, st);
   else if (dtype == 0 && head_dim == 16)
-    launch<float, 16>(q, k, v, o, strides, B, H, KV, Sq, Sk, causal, window, scale, st);
+    return launch_f32<16, false>(q, k, v, o, strides, B, H, KV, Sq, Sk, causal, window, scale, st);
   else
     return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }
 
-// K4: head_dim 16 or 64, float32 only; v is v_aug (row length head_dim + 1)
-// and o is out_full (row length head_dim + 1). strides: 12 element strides
-// (b, h, s) of q, k, v_aug, out_full. Returns cudaGetLastError() after launch.
+// K4: head_dim 16 or 64, float32 only; v is v_aug (row length head_dim + 1,
+// any 4-byte aligned view) and o is out_full (row length head_dim + 1); q
+// and k as for sedar_flash_fwd. strides: 12 element strides (b, h, s) of q,
+// k, v_aug, out_full. Returns the launch's error code.
 extern "C" int sedar_abft_flash_fwd(int head_dim, const void* q, const void* k,
                                     const void* v_aug, void* o,
                                     const long long* strides, int B, int H,
@@ -579,10 +732,8 @@ extern "C" int sedar_abft_flash_fwd(int head_dim, const void* q, const void* k,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (Sq <= 0 || B <= 0 || H <= 0) return (int)cudaGetLastError();
   if (head_dim == 64)
-    launch<float, 64, true>(q, k, v_aug, o, strides, B, H, KV, Sq, Sk, causal, window, scale, st);
-  else if (head_dim == 16)
-    launch<float, 16, true>(q, k, v_aug, o, strides, B, H, KV, Sq, Sk, causal, window, scale, st);
-  else
-    return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+    return launch_f32<64, true>(q, k, v_aug, o, strides, B, H, KV, Sq, Sk, causal, window, scale, st);
+  if (head_dim == 16)
+    return launch_f32<16, true>(q, k, v_aug, o, strides, B, H, KV, Sq, Sk, causal, window, scale, st);
+  return (int)cudaErrorInvalidValue;
 }

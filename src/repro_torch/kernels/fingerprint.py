@@ -3,7 +3,7 @@
 Replaces `src/repro/kernels/fingerprint.py::fingerprint_pallas` (the
 `_fingerprint_kernel` Pallas kernel); the CUDA source is
 `src/repro_torch/csrc/fingerprint.cu`, whose header states the bound and the
-design. Over a flat buffer of u32 words u_i at element index i:
+design. Over the u32 words u_i of a state at global index i:
 
     h1 = sum_i ((u_i XOR (i*C1)) * C2)        mod 2^32
     h2 = sum_i (t XOR (t >> 15)), t=(u_i+i)*C3 mod 2^32
@@ -16,13 +16,24 @@ widens the words to int64, keeps every intermediate in [0, 2^32), and masks
 after each operation; a 32x32-bit product is formed from 16-bit halves of
 the constant so that it never leaves the int64 range.
 
-`fingerprint_u32` is the wrapper: a CPU tensor takes the plain version, a
-CUDA tensor launches the kernel (or raises). There is no fallback.
+The kernel reads a table of leaves (`leaf_table`): each leaf's elements,
+in row-major order, are `rows` runs of `run` contiguous elements spaced
+`stride` elements apart, and its first word has global index `base` (the
+words of the leaves before it). f32, int32 and uint32 leaves are read as
+words, bf16 upcast exactly and int64 value-cast to int32, as
+`core.fingerprint._to_u32` packs them, so the hash words and absmax equal
+those of the packed buffer bit for bit without building it.
+
+Two wrappers, each with no fallback: a CPU tensor takes the plain version, a
+CUDA tensor launches the kernel (one launch per call) or raises.
+`fingerprint_u32` hashes one packed word buffer; `fingerprint_leaves`
+hashes a table of leaves in place.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -34,9 +45,26 @@ C3 = 3266489917
 MASK32 = 0xFFFFFFFF
 THREADS = 256            # csrc/fingerprint.cu THREADS
 MAX_BLOCKS = 1024
+MAX_LEAVES = 64          # csrc/fingerprint.cu MAX_LEAVES
 _PLAIN_CHUNK = 1 << 24   # words per int64 working chunk of the plain version
+# element kind of each dtype the kernel reads in place (csrc/fingerprint.cu)
+KINDS = {torch.float32: 0, torch.int32: 0, torch.uint32: 0,
+         torch.bfloat16: 1, torch.int64: 2}
 
 launch_count = _build.LaunchCount("fingerprint")
+
+
+class Leaf(NamedTuple):
+    """One row of the kernel's table: `tensor`'s elements in row-major order
+    are `rows` runs of `run` contiguous elements, `stride` elements apart;
+    its first word has global index `base`."""
+
+    tensor: torch.Tensor
+    kind: int
+    rows: int
+    run: int
+    stride: int
+    base: int
 
 
 def _mulmod32(a: torch.Tensor, c: int) -> torch.Tensor:
@@ -51,44 +79,182 @@ def _to_carrier(v: torch.Tensor) -> torch.Tensor:
     return torch.where(v >= 2 ** 31, v - 2 ** 32, v).to(torch.int32)
 
 
-def fingerprint_plain(u: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch K1 over a 1-D int32 word buffer -> (4,) int32 carrier.
-    Runs on the tensor's device."""
-    n = u.numel()
+def _plain_parts(u: torch.Tensor, start: int):
+    """(h1, h2, s, a) of the 1-D int32 words `u` at global indices
+    start, start + 1, ...: h1/h2 int64 in [0, 2^32), s/a f32 (0-d)."""
     dev = u.device
     h1 = torch.zeros((), dtype=torch.int64, device=dev)
     h2 = torch.zeros((), dtype=torch.int64, device=dev)
     s = torch.zeros((), dtype=torch.float32, device=dev)
     a = torch.zeros((), dtype=torch.float32, device=dev)
-    for start in range(0, n, _PLAIN_CHUNK):
-        end = min(start + _PLAIN_CHUNK, n)
-        w = u[start:end]
+    for lo in range(0, u.numel(), _PLAIN_CHUNK):
+        w = u[lo:lo + _PLAIN_CHUNK]
         uc = w.to(torch.int64) & MASK32
-        idx = torch.arange(start, end, dtype=torch.int64, device=dev) & MASK32
+        idx = torch.arange(start + lo, start + lo + w.numel(),
+                           dtype=torch.int64, device=dev) & MASK32
         h1 = (h1 + _mulmod32(uc ^ _mulmod32(idx, C1), C2).sum()) & MASK32
         t = _mulmod32((uc + idx) & MASK32, C3)
         h2 = (h2 + (t ^ (t >> 15)).sum()) & MASK32
         x = w.view(torch.float32)
         s = s + x.sum()
         a = torch.maximum(a, x.abs().max())
-    hashes = _to_carrier(torch.stack([h1, h2]))
-    stats = torch.stack([s, a]).view(torch.int32)
-    return torch.cat([hashes, stats])
+    return h1, h2, s, a
+
+
+def _carrier(h1, h2, s, a) -> torch.Tensor:
+    return torch.cat([_to_carrier(torch.stack([h1, h2])),
+                      torch.stack([s, a]).view(torch.int32)])
+
+
+def fingerprint_plain(u: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch K1 over a 1-D int32 word buffer -> (4,) int32 carrier.
+    Runs on the tensor's device."""
+    return _carrier(*_plain_parts(u, 0))
+
+
+def _layout(t: torch.Tensor) -> Optional[Tuple[int, int, int]]:
+    """(rows, run, stride) if t's elements in row-major order are `rows`
+    runs of `run` contiguous elements, `stride` elements apart; else None.
+    Size-1 dims are ignored; the innermost dims whose strides make one
+    contiguous run form `run`, the rest must merge into one strided dim."""
+    dims = [(n, s) for n, s in zip(t.shape, t.stride()) if n != 1]
+    run = 1
+    while dims and dims[-1][1] == run:
+        run *= dims.pop()[0]
+    if not dims:
+        return 1, run, run
+    rows, stride = dims.pop()
+    while dims:
+        n, s = dims.pop()
+        if s != rows * stride:
+            return None
+        rows *= n
+    return rows, run, stride
+
+
+def leaf_table(leaves: Sequence[torch.Tensor]) -> Optional[List[Leaf]]:
+    """The kernel's table for `leaves` in order, empty leaves left out, or
+    None if a leaf's dtype is not one the kernel reads in place (`KINDS`),
+    its layout is not rows x one contiguous run, a leaf holds 2^32 words or
+    more, or there are more than MAX_LEAVES non-empty leaves."""
+    table, base = [], 0
+    for t in leaves:
+        kind = KINDS.get(t.dtype)
+        if kind is None:
+            return None
+        if t.numel() == 0:
+            continue
+        lay = _layout(t)
+        if lay is None or t.numel() >= 2 ** 32:
+            return None
+        table.append(Leaf(t, kind, *lay, base))
+        base += t.numel()
+    return table if len(table) <= MAX_LEAVES else None
+
+
+def _leaf_words(leaf: Leaf) -> torch.Tensor:
+    """The leaf's words in order, read through the table's own layout (an
+    as_strided view), converted as `core.fingerprint._to_u32` converts."""
+    t = leaf.tensor
+    v = t.as_strided((leaf.rows, leaf.run), (leaf.stride, 1),
+                     t.storage_offset())
+    if leaf.kind == 1:
+        v = v.to(torch.float32)          # exact: the bf16 bits << 16
+    elif leaf.kind == 2:
+        v = v.to(torch.int32)            # the value's low 32 bits
+    return v.reshape(-1).view(torch.int32)
+
+
+def fingerprint_leaves_plain(table: Sequence[Leaf]) -> torch.Tensor:
+    """Plain PyTorch K1 over a leaf table -> (4,) int32 carrier. The hash
+    words and absmax equal `fingerprint_plain` of the packed leaves; the
+    sum is taken leaf by leaf."""
+    dev = table[0].tensor.device if table else torch.device("cpu")
+    h1 = torch.zeros((), dtype=torch.int64, device=dev)
+    h2 = torch.zeros((), dtype=torch.int64, device=dev)
+    s = torch.zeros((), dtype=torch.float32, device=dev)
+    a = torch.zeros((), dtype=torch.float32, device=dev)
+    for leaf in table:
+        p1, p2, ps, pa = _plain_parts(_leaf_words(leaf), leaf.base)
+        h1, h2 = (h1 + p1) & MASK32, (h2 + p2) & MASK32
+        s, a = s + ps, torch.maximum(a, pa)
+    return _carrier(h1, h2, s, a)
 
 
 @functools.lru_cache(maxsize=None)
 def _launcher():
-    fn = _build.load("fingerprint").sedar_fingerprint
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
-                   ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+    fn = _build.load("fingerprint").sedar_fingerprint_leaves
+    fn.argtypes = [ctypes.POINTER(ctypes.c_longlong), ctypes.c_int,
+                   ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
 def _blocks_for(n: int) -> int:
-    """Pass-1 grid: a function of n alone, so the float reduction tree (and
-    with it the diagnostic `s`) is the same on every run."""
+    """The grid: a function of the word count alone, so the float reduction
+    tree (and with it the diagnostic `s`) is the same on every run."""
     return max(1, min(MAX_BLOCKS, -(-n // (THREADS * 16))))
+
+
+# (device index, stream) -> (partials, ticket): allocated once, so a call
+# allocates nothing but its output; one per stream, so two calls in flight
+# on two streams never share a ticket
+_workspaces: Dict[Tuple[int, int], Tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def _workspace(dev: torch.device, stream: int):
+    key = (dev.index, stream)
+    ws = _workspaces.get(key)
+    if ws is None:
+        ws = _workspaces[key] = (
+            torch.empty((MAX_BLOCKS, 4), dtype=torch.int32, device=dev),
+            torch.zeros((1,), dtype=torch.int32, device=dev))
+    return ws
+
+
+def _empty_result(dev: torch.device) -> torch.Tensor:
+    """The (4,) output, without deterministic mode's fill of fresh memory
+    (a launch of its own): the kernel writes all four words."""
+    det = torch.utils.deterministic
+    fill = det.fill_uninitialized_memory
+    det.fill_uninitialized_memory = False
+    try:
+        return torch.empty((4,), dtype=torch.int32, device=dev)
+    finally:
+        det.fill_uninitialized_memory = fill
+
+
+def _launch(table: Sequence[Leaf], dev: torch.device) -> torch.Tensor:
+    rows = [v for leaf in table for v in (
+        leaf.tensor.data_ptr(), leaf.kind, leaf.rows, leaf.run, leaf.stride,
+        leaf.base)]
+    n = sum(leaf.rows * leaf.run for leaf in table)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        partials, ticket = _workspace(dev, stream)
+        out = _empty_result(dev)
+        rc = _launcher()((ctypes.c_longlong * max(1, len(rows)))(*rows),
+                         len(table), _blocks_for(n), partials.data_ptr(),
+                         ticket.data_ptr(), out.data_ptr(), stream)
+    _build.check(rc, "fingerprint")
+    launch_count.add()
+    return out
+
+
+def fingerprint_leaves(table: Sequence[Leaf]) -> torch.Tensor:
+    """K1 wrapper over a leaf table (`leaf_table`) -> (4,) int32 carrier:
+    the leaves hashed where they lie, in one launch."""
+    devs = {leaf.tensor.device for leaf in table}
+    if len(devs) > 1:
+        raise ValueError(
+            f"leaves on several devices: {sorted(map(str, devs))}")
+    dev = devs.pop() if devs else torch.device("cpu")
+    if dev.type == "cpu":
+        return fingerprint_leaves_plain(table)
+    if dev.type != "cuda":
+        raise RuntimeError(f"no K1 kernel for device {dev}")
+    return _launch(table, dev)
 
 
 def fingerprint_u32(u: torch.Tensor) -> torch.Tensor:
@@ -105,15 +271,7 @@ def fingerprint_u32(u: torch.Tensor) -> torch.Tensor:
         return fingerprint_plain(u)
     if u.device.type != "cuda":
         raise RuntimeError(f"no K1 kernel for device {u.device}")
-    fn = _launcher()
     n = u.numel()
-    nblocks = _blocks_for(n)
-    partials = torch.empty((nblocks, 4), dtype=torch.int32, device=u.device)
-    out = torch.empty((4,), dtype=torch.int32, device=u.device)
-    stream = torch.cuda.current_stream(u.device).cuda_stream
-    with torch.cuda.device(u.device):
-        rc = fn(u.data_ptr(), n, partials.data_ptr(), nblocks,
-                out.data_ptr(), stream)
-    _build.check(rc, "fingerprint")
-    launch_count.add()
-    return out
+    if n >= 2 ** 32:
+        raise ValueError(f"{n} words: K1 takes fewer than 2^32")
+    return _launch([Leaf(u, 0, 1, n, n, 0)] if n else [], u.device)

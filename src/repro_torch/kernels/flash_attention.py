@@ -13,8 +13,10 @@ views without a copy, and it writes its output in (B, Sq, H, hd) memory
 order: `kernels.ops.flash_attention` hands the model a contiguous result.
 
 Each input type has one kernel: bf16 runs on the tensor cores (`wgmma`),
-whose 16-byte copies need q, k and v 16-byte aligned with strides that are
-multiples of 8 elements (the model's tensors are); f32 runs the SIMT body.
+f32 in true f32 on the FFMA units (the body K4 shares). Both copy q, k and
+v into shared memory 16 bytes at a time, so they need them 16-byte aligned
+with strides that are multiples of 16 bytes (8 bf16 or 4 f32 elements; the
+model's tensors are).
 
 `flash_attention_fwd` is the wrapper: a CPU tensor takes the plain version
 (`flash_attention_plain`, the counterpart of the reference's
@@ -87,6 +89,22 @@ def _check(q, k, v) -> None:
         raise ValueError("q, k, v on different devices")
 
 
+def check_aligned(what: str, **tensors) -> None:
+    """Raise ValueError unless each tensor starts on a 16-byte boundary and
+    its strides over dims of size > 1 (other than the last, which must be
+    contiguous) are multiples of 16 bytes: the kernels' cp.async copies
+    move 16 bytes at a time."""
+    for name, t in tensors.items():
+        unit = 16 // t.element_size()
+        if t.data_ptr() % 16 or any(
+                st % unit for st, n in zip(t.stride()[:-1], t.shape[:-1])
+                if n > 1):
+            raise ValueError(
+                f"{what} needs {name} 16-byte aligned with strides that are "
+                f"multiples of {unit} elements, got offset "
+                f"{t.data_ptr() % 16} bytes, strides {t.stride()}")
+
+
 def flash_attention_fwd(q, k, v, *, causal: bool = True,
                         window: int = 0) -> torch.Tensor:
     """K2 wrapper. q: (B,H,Sq,hd); k/v: (B,KV,Sk,hd) -> (B,H,Sq,hd)."""
@@ -105,15 +123,7 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True,
         raise ValueError("K2 needs a contiguous head dim (stride 1)")
     if max(Sq, Sk) >= 2 ** 31:
         raise ValueError("sequence too long for K2's 32-bit positions")
-    if q.dtype == torch.bfloat16:
-        for name, t in (("q", q), ("k", k), ("v", v)):
-            if t.data_ptr() % 16 or any(
-                    st % 8 for st, n in zip(t.stride()[:3], t.shape[:3])
-                    if n > 1):
-                raise ValueError(
-                    f"K2 (bf16) needs {name} 16-byte aligned with strides "
-                    f"that are multiples of 8 elements, got offset "
-                    f"{t.data_ptr() % 16} bytes, strides {t.stride()}")
+    check_aligned(f"K2 ({q.dtype})", q=q, k=k, v=v)
     out = torch.empty((B, Sq, H, hd), dtype=q.dtype,
                       device=q.device).transpose(1, 2)
     strides = (ctypes.c_longlong * 12)(

@@ -1,5 +1,6 @@
 """Card-only tests of the port: each CUDA kernel against its plain PyTorch
-version, the protected serving path through K1/K2, and the ABFT slice
+version (K1 on packed buffers and on leaves read in place, one launch per
+call), the protected serving path through K1/K2, and the ABFT slice
 (K3, K4, a replica-free generate). Every test
 here is marked `cuda` and skips without a card. The file imports nothing of
 JAX, so it also runs on a machine without it:
@@ -13,9 +14,11 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch import tree as tree_util
 from repro_torch.abft import kernels as kab
-from repro_torch.abft.ref import attention_checksum_encode
+from repro_torch.abft.ref import attention_checksum_encode, attention_verify
 from repro_torch.configs import RunConfig, get_config, reduce_for_smoke
+from repro_torch.core import fingerprint as tfp
 from repro_torch.core import hostsync
 from repro_torch.core.injection import InjectionSpec, make_kernel_fault
 from repro_torch.core.policy import make_server
@@ -48,9 +51,14 @@ def card():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("n", [0, 1, 127, 128 * 256 + 1, 607_744, 3_000_001])
+@pytest.mark.parametrize("n", [0, 1, 127, 128 * 256 + 1, 607_744, 3_000_001,
+                               100_000_000])
 def test_k1_kernel_bitwise_vs_plain(card, n):
-    r = np.random.RandomState(n)
+    """h1, h2 and absmax are exact in any order, so equal to the plain
+    version's words they are also equal to any earlier K1 body's (the
+    two-pass kernel before the one-launch design was held to the same
+    plain words at these sizes); the sum is a float reduction."""
+    r = np.random.RandomState(n % 2 ** 31)
     x = torch.from_numpy((r.standard_normal(n) * 3).astype(np.float32)).to(card)
     u = x.view(torch.int32)
     before = kfp.launch_count.n
@@ -63,10 +71,119 @@ def test_k1_kernel_bitwise_vs_plain(card, n):
     assert g[3] == w[3]                                  # absmax: exact
     gs, ws = g[2:3].view(np.float32)[0], w[2:3].view(np.float32)[0]
     assert abs(float(gs) - float(ws)) <= 1e-5 * max(float(x.abs().sum()), 1.0)
-    if n > 8:   # a start off the 16-byte boundary takes the scalar head path
+    assert torch.equal(got, kfp.fingerprint_u32(u))      # every bit, s too
+    if n > 8:   # a start off the 16-byte boundary: element loads
         np.testing.assert_array_equal(
             kfp.fingerprint_u32(u[1:]).cpu().numpy().view(np.uint32)[:2],
             kfp.fingerprint_plain(u[1:]).cpu().numpy().view(np.uint32)[:2])
+
+
+def _launches(fn, iters: int = 10):
+    """Kernel launch calls the host made per call of fn(), and the names of
+    the kernels the device ran, by torch.profiler over `iters` calls. The
+    host's launch calls are the count: the profiler's device records of
+    this torch build can miss a kernel now and then (19 of 20 seen)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    evs = prof.key_averages()
+    calls = sum(e.count for e in evs if e.device_type == DeviceType.CPU
+                and e.key.startswith(("cudaLaunchKernel", "cuLaunchKernel")))
+    return calls / iters, {e.key for e in evs
+                           if e.device_type == DeviceType.CUDA}
+
+
+def test_k1_is_one_launch_and_resets_its_ticket(card):
+    """One launch per call (no second pass, no fill of the output), and
+    back-to-back calls, which reuse the stream's ticket, all agree."""
+    u = (torch.randn(607_744, device=card) * 3).view(torch.int32)
+    kfp.fingerprint_u32(u)                                # workspace exists
+    calls, names = _launches(lambda: kfp.fingerprint_u32(u))
+    assert calls == 1 and len(names) == 1 and "fp_leaves" in names.pop()
+    outs = [kfp.fingerprint_u32(u) for _ in range(5)]     # no sync between
+    for o in outs[1:]:
+        assert torch.equal(o, outs[0])
+    want = kfp.fingerprint_plain(u)
+    assert torch.equal(outs[0][[0, 1, 3]], want[[0, 1, 3]])
+
+
+def test_k1_calls_on_two_streams(card):
+    """Two streams, each with its own ticket and partials, calls in flight
+    together: each result equals the plain version's words."""
+    xs = [(torch.randn(3_000_001, device=card) * (i + 1)).view(torch.int32)
+          for i in range(2)]
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(card) for _ in xs]
+    outs = [[], []]
+    for _ in range(4):
+        for i, (st, x) in enumerate(zip(streams, xs)):
+            with torch.cuda.stream(st):
+                outs[i].append(kfp.fingerprint_u32(x))
+    torch.cuda.synchronize()
+    for x, res in zip(xs, outs):
+        want = kfp.fingerprint_plain(x)
+        for o in res:
+            assert torch.equal(o[[0, 1, 3]], want[[0, 1, 3]])
+
+
+def _cache_tree(card, dtype, pos, max_len=300, L=3, B=2, KV=2, hd=64,
+                seed=0):
+    """The hybrid backend's fingerprint tree: KV-cache slices c[:, :, :pos]
+    of (L, B, max_len, KV, hd) caches and an int64 token."""
+    g = torch.Generator(device=card).manual_seed(seed)
+    cache = {name: torch.randn(L, B, max_len, KV, hd, generator=g,
+                               device=card).to(dtype) for name in "kv"}
+    tok = torch.randint(-2 ** 40, 2 ** 40, (B,), generator=g, device=card)
+    return {"cache": {n: c[:, :, :pos] for n, c in cache.items()}, "tok": tok}
+
+
+def _odd_tree(card):
+    """Leaves of every kind the kernel reads in place, with lengths that are
+    not multiples of 4, an empty leaf and an unaligned view."""
+    g = torch.Generator(device=card).manual_seed(1)
+    f = torch.randn(1001, generator=g, device=card)
+    return {"a": f[3:],                                     # 12 bytes off
+            "b": torch.randn(7, 5, generator=g, device=card).bfloat16(),
+            # words below 0x7F800000 are finite as f32, so absmax is
+            # defined (the kernel's fmaxf skips NaN, torch.max keeps it)
+            "c": torch.randint(0, 0x7F800000, (13,), generator=g,
+                               device=card, dtype=torch.int32),
+            "d": torch.randint(0, 2 ** 20, (3, 3), generator=g, device=card)
+            * 2 ** 32 + torch.randint(0, 0x7F800000, (3, 3), generator=g,
+                                      device=card),
+            "e": torch.zeros(0, device=card),
+            "f": torch.randn(9, 33, generator=g, device=card)[:, 1:30],
+            "g": torch.randn(5, generator=g, device=card).bfloat16()[1:]}
+
+
+@pytest.mark.parametrize("tree", ["cache_bf16_1", "cache_bf16_63",
+                                  "cache_bf16_264", "cache_f32_63",
+                                  "cache_bf16_300", "odd"])
+def test_k1_leaves_bitwise_vs_pack_and_plain(card, tree):
+    if tree == "odd":
+        t = _odd_tree(card)
+    else:
+        _, dt, pos = tree.split("_")
+        t = _cache_tree(card, {"bf16": torch.bfloat16,
+                               "f32": torch.float32}[dt], int(pos))
+    table = kfp.leaf_table(tree_util.leaves(t))
+    assert table is not None
+    before = kfp.launch_count.n
+    got = tfp.pytree_fingerprint_fused(t)
+    assert kfp.launch_count.n == before + 1
+    want = kfp.fingerprint_plain(tfp.pack_tree_u32(t))
+    assert torch.equal(got[[0, 1, 3]], want[[0, 1, 3]])
+    assert torch.equal(got[[0, 1, 3]], kfp.fingerprint_leaves_plain(table)
+                       [[0, 1, 3]])
+    assert torch.equal(got, tfp.pytree_fingerprint_fused(t))
+    # in place: the one K1 launch and nothing else (no cast, copy or cat)
+    calls, names = _launches(lambda: tfp.pytree_fingerprint_fused(t))
+    assert calls == 1 and len(names) == 1 and "fp_leaves" in names.pop()
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -199,7 +316,12 @@ K4_CASES = [
 ]
 
 
-@pytest.mark.parametrize("B,H,KV,Sq,Sk,hd,causal", K4_CASES)
+# qwen2-0.5b prefill shapes: B 4, H 14, KV 2, hd 64, causal
+K4_MODEL_CASES = [(4, 14, 2, 256, 256, 64, True),
+                  (4, 14, 2, 2048, 2048, 64, True)]
+
+
+@pytest.mark.parametrize("B,H,KV,Sq,Sk,hd,causal", K4_CASES + K4_MODEL_CASES)
 def test_k4_kernel_vs_plain(card, B, H, KV, Sq, Sk, hd, causal):
     r = np.random.RandomState(Sq + hd)
     q, k, v = (torch.from_numpy(r.standard_normal(s).astype(np.float32)
@@ -208,14 +330,65 @@ def test_k4_kernel_vs_plain(card, B, H, KV, Sq, Sk, hd, causal):
     v_aug = attention_checksum_encode(v)
     before = kab.flash_ck_launch_count.n
     got = kab.flash_attention_ck(q, k, v_aug, causal=causal)
+    again = kab.flash_attention_ck(q, k, v_aug, causal=causal)
     want = kfa.flash_attention_plain(q, k, v_aug, causal=causal)
     torch.cuda.synchronize()
-    assert kab.flash_ck_launch_count.n == before + 1
+    assert kab.flash_ck_launch_count.n == before + 2
     assert got.shape == (B, H, Sq, hd + 1)
     torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+    assert torch.equal(got, again)        # no split-KV, no atomics
+    _, rep = attention_verify(got, Sk)
+    assert not bool(rep.detected)
+    flat = int(got[..., :hd].abs().argmax())     # the largest data lane
+    spec = InjectionSpec(leaf_idx=0,
+                         flat_idx=flat // hd * (hd + 1) + flat % hd,
+                         bit=23, step=0, target="kernel")
+    fault = make_kernel_fault(spec, step=0, armed=True)
+    _, frep = attention_verify(fault(got), Sk)
+    assert bool(frep.detected) and bool(frep.uncorrectable)
     out, rep = kab.abft_flash_attention(q, k, v, causal=causal)
     assert not bool(rep.detected)
     torch.testing.assert_close(out, want[..., :hd], atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "padded", "offset"])
+@pytest.mark.parametrize("window", [0, 100])
+def test_k4_takes_any_v_aug_view(card, layout, window):
+    """v_aug rows of hd + 1 floats are read with 4-byte copies: the plain
+    (…, hd + 1) tensor, a view of a buffer padded to hd + 4 and a view that
+    starts 4 bytes past a 16-byte boundary give the same bits."""
+    B, H, KV, S, hd = 2, 4, 2, 200, 64
+    r = np.random.RandomState(7)
+    q, k, v = (torch.from_numpy(r.standard_normal(s).astype(np.float32)
+                                ).to(card)
+               for s in ((B, H, S, hd), (B, KV, S, hd), (B, KV, S, hd)))
+    v_aug = attention_checksum_encode(v)
+    if layout == "padded":
+        buf = torch.zeros(B, KV, S, hd + 4, device=card)
+        buf[..., :hd + 1] = v_aug
+        view = buf[..., :hd + 1]
+    elif layout == "offset":
+        buf = torch.zeros(v_aug.numel() + 1, device=card)
+        view = buf[1:].view(v_aug.shape)
+        view.copy_(v_aug)
+        assert view.data_ptr() % 16 == 4
+    else:
+        view = v_aug
+    got = kab.flash_attention_ck(q, k, view, causal=True, window=window)
+    want = kfa.flash_attention_plain(q, k, v_aug, causal=True, window=window)
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+    assert torch.equal(got, kab.flash_attention_ck(q, k, v_aug, causal=True,
+                                                   window=window))
+
+
+def test_k4_refuses_an_unaligned_q_without_launch(card):
+    buf = torch.zeros(2 * 64 * 64 + 1, device=card)
+    q = buf[1:].view(1, 2, 64, 64)
+    k = torch.zeros(1, 2, 64, 64, device=card)
+    before = kab.flash_ck_launch_count.n
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        kab.flash_attention_ck(q, k, attention_checksum_encode(k))
+    assert kab.flash_ck_launch_count.n == before
 
 
 def test_reduced_abft_generate_on_the_card_equals_the_cpu_path(card):
