@@ -23,6 +23,10 @@ counts set to 0 just before it and read just after:
     the unprotected tokens; a kernel fault is corrected forward), with K1
     in place on the hybrid backend's fingerprint tree of a real state and
     a profile (launches per decode step) of dual, abft and hybrid;
+  * continuous-batching `SedarServer.serve` of the same model (8 requests
+    in 4 slots, under sync-debug "error"): unprotected, dual at lag 1 and
+    lag 8, slot and admission fault campaigns, K1 and K2 held against
+    their plain versions at the shapes this path gives them;
   * a small f32 model on the card against the plain CPU path.
 
 Any failed check exits non-zero. The last two lines are a JSON object of
@@ -339,43 +343,53 @@ def phase_k1_tree(kfp, main):
           flush=True)
 
 
-def phase_k2(kfa):
-    """K2 against its plain version in bf16 at qwen2-0.5b prefill shapes:
-    elementwise within atol 1e-3 + rtol 8e-3 (one bf16 rounding step is at
-    most 2^-7 of the value), each row within 1e-2 of its largest output, and
-    two launches bitwise equal."""
-    import torch.nn.functional as F
+def check_k2(kfa, B: int, S: int, seed: int, what: str):
+    """K2 against its plain version in bf16 on seeded (B, S) inputs at
+    qwen2-0.5b's heads, in the model's layout: elementwise within atol 1e-3
+    + rtol 8e-3 (one bf16 rounding step is at most 2^-7 of the value), each
+    row within 1e-2 of its largest output, and two launches bitwise equal.
+    Returns (q, k, v, max abs err, max error per row's largest value)."""
     dev = torch.device("cuda")
+    H, KV, hd = 14, 2, 64
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    # model layout (B, S, heads, hd), viewed as (B, heads, S, hd) as the
+    # model's prefill passes it
+    q = torch.randn(B, S, H, hd, generator=gen, device=dev,
+                    dtype=torch.bfloat16).transpose(1, 2)
+    k = torch.randn(B, S, KV, hd, generator=gen, device=dev,
+                    dtype=torch.bfloat16).transpose(1, 2)
+    v = torch.randn(B, S, KV, hd, generator=gen, device=dev,
+                    dtype=torch.bfloat16).transpose(1, 2)
+    got = kfa.flash_attention_fwd(q, k, v, causal=True)
+    again = kfa.flash_attention_fwd(q, k, v, causal=True)
+    want = kfa.flash_attention_plain(q, k, v, causal=True)
+    diff = (got.float() - want.float()).abs()
+    err = float(diff.max())
+    over = float((diff - (1e-3 + 8e-3 * want.float().abs())).max())
+    # each row's error against that row's largest output: a late row
+    # averages many keys and is small, so an absolute bound alone would
+    # let a dropped or misweighted KV tile there pass; one bf16 rounding
+    # step of a row's largest value is at most 2^-7 of it
+    row_err = float((diff.amax(-1) / want.float().abs().amax(-1)
+                     .clamp_min(1e-6)).max())
+    check(bool(torch.isfinite(got).all()), f"K2 non-finite at {what}")
+    check(over <= 0, f"K2 off plain beyond atol 1e-3 + rtol 8e-3 at "
+          f"{what} (max abs err {err})")
+    check(row_err <= 1e-2,
+          f"K2 max error per row's largest value {row_err} > 1e-2 at {what}")
+    check(torch.equal(got, again), f"K2 not bitwise repeatable at {what}")
+    return q, k, v, err, row_err
+
+
+def phase_k2(kfa):
+    """K2 against its plain version (`check_k2`) at qwen2-0.5b prefill
+    shapes, timed beside its plain version and SDPA."""
+    import torch.nn.functional as F
     H, KV, hd = 14, 2, 64
     entry = None
     for S in (PROMPT_LEN, 2048):
-        gen = torch.Generator(device=dev).manual_seed(S)
-        # model layout (B, S, heads, hd), viewed as (B, heads, S, hd) as the
-        # model's prefill passes it
-        q = torch.randn(BATCH, S, H, hd, generator=gen, device=dev,
-                        dtype=torch.bfloat16).transpose(1, 2)
-        k = torch.randn(BATCH, S, KV, hd, generator=gen, device=dev,
-                        dtype=torch.bfloat16).transpose(1, 2)
-        v = torch.randn(BATCH, S, KV, hd, generator=gen, device=dev,
-                        dtype=torch.bfloat16).transpose(1, 2)
-        got = kfa.flash_attention_fwd(q, k, v, causal=True)
-        again = kfa.flash_attention_fwd(q, k, v, causal=True)
-        want = kfa.flash_attention_plain(q, k, v, causal=True)
-        diff = (got.float() - want.float()).abs()
-        err = float(diff.max())
-        over = float((diff - (1e-3 + 8e-3 * want.float().abs())).max())
-        # each row's error against that row's largest output: a late row
-        # averages many keys and is small, so an absolute bound alone would
-        # let a dropped or misweighted KV tile there pass; one bf16 rounding
-        # step of a row's largest value is at most 2^-7 of it
-        row_err = float((diff.amax(-1) / want.float().abs().amax(-1)
-                         .clamp_min(1e-6)).max())
-        check(bool(torch.isfinite(got).all()), f"K2 non-finite at S={S}")
-        check(over <= 0, f"K2 off plain beyond atol 1e-3 + rtol 8e-3 at "
-              f"S={S} (max abs err {err})")
-        check(row_err <= 1e-2,
-              f"K2 max error per row's largest value {row_err} > 1e-2 at S={S}")
-        check(torch.equal(got, again), f"K2 not bitwise repeatable at S={S}")
+        q, k, v, err, row_err = check_k2(kfa, BATCH, S, S, f"S={S}")
+
         def kernel():
             kfa.flash_attention_fwd(q, k, v, causal=True)
 
@@ -514,21 +528,22 @@ def _launch_calls(evs) -> int:
 def device_profile(fn):
     """Run fn() once under torch.profiler (which itself slows the host).
     Returns (wall ms, device-busy ms, kernels the device ran, per-kernel
-    events, kernel launch calls the host made)."""
+    events, kernel launch calls the host made). CUDA activity alone still
+    records the host's launch calls, and post-processes in about a third
+    of the time that adding the host's op events takes."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.time() - t0) * 1e3
-    kern = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA]
+    avg = prof.key_averages()
+    kern = [e for e in avg if e.device_type == DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in kern) / 1e3
     return (wall_ms, busy_ms, sum(e.count for e in kern), kern,
-            _launch_calls(prof.key_averages()))
+            _launch_calls(avg))
 
 
 def phase_profile(srv, params, prompt, label: str, steps: int = 17):
@@ -991,6 +1006,311 @@ def phase_abft_serve(kfp, kfa, main):
               for b, v in times.items()), flush=True)
 
 
+SERVE_SLOTS = 4
+SERVE_LAG = 8
+SERVE_FAULT_TICK = 5
+SERVE_MAX_LEN = 256 + 32 + 8
+SERVE_TURN_STEPS = 24
+SERVE_PROFILE_STEPS = 8
+BF16_EXP_BIT = 14   # the top exponent bit of a bf16, bit 30 of an f32
+
+
+def serve_requests():
+    """The serve phase's traffic: 8 requests arriving at 0.5 per decode
+    tick, prompts of 96, 200 or 256 tokens, budgets of 16 or 32 tokens."""
+    from repro_torch.runtime.scheduler import synthetic_requests
+    return synthetic_requests(8, arrival_rate=0.5,
+                              prompt_lengths=(96, 200, 256),
+                              max_new_choices=(16, 32), vocab=151936, seed=0)
+
+
+def _top2_margin(srv, params, req, idx: int) -> float:
+    """Top-2 logit margin at token `idx` of `req`'s stream, replaying its
+    prompt and its first `idx` tokens at B=1 (printed when streams differ)."""
+    dev = torch.device("cuda")
+    toks = torch.tensor(np.concatenate([req.prompt, req.tokens[:idx]])
+                        [None], device=dev)
+    logits, _ = srv.model.prefill(params, {"tokens": toks}, SERVE_MAX_LEN)
+    top = torch.topk(logits[0].float(), 2).values
+    return float(top[0] - top[1])
+
+
+def phase_serve(kfp, kfa, main):
+    """Continuous-batching `serve()` of the main path's model at full width
+    (slot scheduler, packed protected admission through K1 lanes and K2,
+    per-slot K1 fingerprints), every serving call under sync-debug
+    "error": unprotected, dual at lag 1 and at lag 8 (drain on), then a
+    transient slot fault at lag 1 and lag 8, a stuck slot bit and an
+    admission fault. Returns the kernels' launches in the dual lag-1 run."""
+    import contextlib
+
+    from repro_torch.configs import RunConfig
+    from repro_torch.core import hostsync
+    from repro_torch.core.injection import InjectionSpec
+    from repro_torch.core.policy import make_server
+    from repro_torch.device import upload
+    from repro_torch.runtime.scheduler import ttft_percentiles_ms
+
+    dev = torch.device("cuda")
+    cfg, params = main["cfg"], main["params"]
+    rc = RunConfig(model=cfg)
+    name = torch.cuda.get_device_name(0)
+    t_phase = time.time()
+
+    def since() -> str:
+        return f"[serve phase +{time.time() - t_phase:.1f} s]"
+
+    @contextlib.contextmanager
+    def strict():
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            yield
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+    def serve(srv, lag, counted=False, **kw):
+        kfp.launch_count.reset()
+        kfa.launch_count.reset()
+        with strict(), hostsync.count_transfers(cross_thread=True) as st:
+            out, rep = srv.serve(params, serve_requests(), slots=SERVE_SLOTS,
+                                 validate_lag=lag, max_len=SERVE_MAX_LEN,
+                                 **kw)
+        torch.cuda.synchronize()
+        counts = {"fingerprint": kfp.launch_count.n,
+                  "flash_attention": kfa.launch_count.n}
+        return out, rep, st.by_label, counts
+
+    def streams(out):
+        return {r.rid: list(r.tokens) for r in out}
+
+    plain = make_server(rc, backend="none", device=dev)
+    dual = make_server(rc, dual=True, device=dev)
+    out0, rep0, reads0, counts0 = serve(plain, 1)
+    clean = streams(out0)
+    check(sorted(rep0.completed) == list(range(8)) and not rep0.detections,
+          f"unprotected serve: completed {rep0.completed}")
+    check(all(len(t) == r.max_new_tokens and all(0 <= x < cfg.vocab_size
+                                                 for x in t)
+              for r, t in zip(out0, clean.values())),
+          "unprotected serve: stream lengths or token ids off")
+    runs = {}
+    for lag in (1, SERVE_LAG):
+        out, rep, reads, counts = serve(dual, lag)
+        runs[lag] = (out, rep, reads, counts)
+        check(streams(out) == clean,
+              f"dual lag {lag} streams differ from the unprotected run")
+        check(not rep.detections and sorted(rep.completed) == list(range(8)),
+              f"clean dual lag {lag}: {[str(e) for e in rep.detections]}")
+        check(counts["flash_attention"] == 2 * cfg.num_layers
+              * rep.prefill_packs, f"lag {lag}: K2 launched "
+              f"{counts['flash_attention']} for {rep.prefill_packs} packs")
+        lanes = counts["fingerprint"] - 2 * SERVE_SLOTS * rep.steps
+        check(2 * rep.prefill_packs <= lanes
+              <= 2 * 4 * rep.prefill_packs,
+              f"lag {lag}: K1 launched {counts['fingerprint']} for "
+              f"{rep.steps} steps and {rep.prefill_packs} packs")
+        print(f"serve dual lag {lag} on {name}: {rep.steps} steps, "
+              f"{rep.prefill_packs} packs, {rep.tokens_emitted} tokens, "
+              f"{rep.tokens_per_s:.1f} tokens/s, goodput "
+              f"{rep.goodput_tokens_per_step:.3f} tokens/step, "
+              f"{rep.wall_s / rep.steps * 1e3:.2f} ms/step (wall / steps, "
+              f"admission included), TTFT p50/p99 "
+              + "/".join(f"{v:.2f}" for v in ttft_percentiles_ms(out))
+              + f" ms; launches {counts} (K1: {2 * SERVE_SLOTS} per decode "
+              f"step, {lanes} lanes in {rep.prefill_packs} packs; K2: "
+              f"{2 * cfg.num_layers} per pack); host reads {reads} {since()}",
+              flush=True)
+    rep1, reads1 = runs[1][1], runs[1][2]
+    check(reads1 == {"prefill_emit": 2 * rep1.prefill_packs,
+                     "commit_compare": rep1.steps,
+                     "token_emit": 2 * rep1.steps},
+          f"lag 1 host reads {reads1}")
+    rep8, reads8 = runs[SERVE_LAG][1], runs[SERVE_LAG][2]
+    check(set(reads8) == {"prefill_emit", "token_emit"}
+          and reads8["prefill_emit"] == 2 * rep8.prefill_packs
+          and reads8["token_emit"] % 3 == 0
+          and reads8["token_emit"] <= 3 * (rep8.steps // SERVE_LAG + 2),
+          f"lag {SERVE_LAG} host reads {reads8}")
+    print(f"serve unprotected on {name}: {rep0.steps} steps, "
+          f"{rep0.tokens_per_s:.1f} tokens/s, goodput "
+          f"{rep0.goodput_tokens_per_step:.3f} tokens/step, "
+          f"{rep0.wall_s / rep0.steps * 1e3:.2f} ms/step, TTFT p50/p99 "
+          + "/".join(f"{v:.2f}" for v in ttft_percentiles_ms(out0))
+          + f" ms; launches {counts0}", flush=True)
+    ring = dual._batch_engines[(SERVE_SLOTS, SERVE_MAX_LEN, SERVE_LAG)][1]
+    slice_bytes = sum(2 * cfg.num_layers * SERVE_MAX_LEN * cfg.num_kv_heads
+                      * cfg.head_dim for _ in "kv") + 16
+    print(f"SlotRing after the lag-{SERVE_LAG} run: {ring.nbytes()} device "
+          f"bytes in {sum(len(ring.versions(s)) for s in range(SERVE_SLOTS))}"
+          f" snapshots; at most {SERVE_SLOTS * 4 * slice_bytes} "
+          f"({SERVE_SLOTS} slots x 4 versions x {slice_bytes})", flush=True)
+
+    # K1 at the serve path's shapes against its plain version: one slot's
+    # bf16 logits row, and one admission lane (a pack row's strided cache
+    # views and its logits row)
+    from repro_torch.core.fingerprint import (fingerprint_in_place,
+                                              lane_fingerprints,
+                                              pack_tree_u32,
+                                              slot_fingerprints)
+    V = cfg.vocab_size
+    gen = torch.Generator(device=dev).manual_seed(15)
+    logits = (torch.randn(SERVE_SLOTS, V, generator=gen, device=dev)
+              * 3).bfloat16()
+    active = torch.ones(SERVE_SLOTS, dtype=torch.bool, device=dev)
+    got = slot_fingerprints(logits, active)
+    want = slot_fingerprints(logits.cpu(), active.cpu())
+    check(torch.equal(got[:, :2].cpu(), want[:, :2]),
+          "K1 slot fingerprints differ from the plain version")
+    shape = (cfg.num_layers, 2, SERVE_MAX_LEN, cfg.num_kv_heads, cfg.head_dim)
+    cache = {n: torch.randn(shape, generator=gen, device=dev).bfloat16()
+             for n in "kv"}
+    rows = {n: c.transpose(0, 1).unsqueeze(2) for n, c in cache.items()}
+    lanes = lane_fingerprints(logits[:2], rows)
+    for i in range(2):
+        packed = pack_tree_u32({"cache": {n: r[i] for n, r in rows.items()},
+                                "logits": logits[i]})
+        check(torch.equal(lanes[i, :2],
+                          kfp.fingerprint_plain(packed)[:2]),
+              f"K1 lane {i} differs from pack + plain")
+    lane_leaves = [rows["k"][1], rows["v"][1], logits[1]]
+    row_ms = device_ms(lambda: fingerprint_in_place([logits[1]]), 200)
+    lane_ms = device_ms(lambda: fingerprint_in_place(lane_leaves), 200)
+    row_bound, _ = bound(2 * V + 16, 0)
+    lane_bound, _ = bound(2 * 2 * cfg.num_layers * SERVE_MAX_LEN
+                          * cfg.num_kv_heads * cfg.head_dim + 2 * V + 16, 0)
+    print(f"K1 on serve's shapes: slot rows and lanes bitwise equal (h1, h2)"
+          f" to the plain version; one slot row (bf16, {V}) device "
+          f"{row_ms:.4f} ms, bound {row_bound:.5f} ms (bytes); one lane "
+          f"(a pack row's k and v views at a stride + its logits row) "
+          f"device {lane_ms:.4f} ms, bound {lane_bound:.5f} ms (bytes) "
+          f"{since()}", flush=True)
+
+    # K2 at the pack shapes admission gives it: K = 1, 2 or 4 prompts in
+    # the buckets this traffic uses (96 -> 128; 200, 256 -> 256)
+    for K in (1, 2, 4):
+        for S in (128, 256):
+            _, _, _, err, row_err = check_k2(kfa, K, S, 100 * K + S,
+                                             f"pack K={K} S={S}")
+            print(f"K2 pack K={K} S={S}: max abs err {err:.3e}, per row's "
+                  f"largest value {row_err:.3e} vs plain (bf16), two "
+                  f"launches bitwise equal", flush=True)
+
+    # each request's stream against generate() at B=1 on its prompt
+    prompts = [upload(r.prompt[None].astype(np.int64), dev) for r in out0]
+    with strict():
+        for r, prompt in zip(out0, prompts):
+            toks, _ = plain.generate(params, {"tokens": prompt},
+                                     steps=r.max_new_tokens,
+                                     max_len=SERVE_MAX_LEN)
+            got = [int(x) for x in toks[0]]
+            if got != clean[r.rid]:
+                i = next(k for k, (a, b) in enumerate(zip(got,
+                                                          clean[r.rid]))
+                         if a != b)
+                torch.cuda.set_sync_debug_mode(0)
+                print(f"request {r.rid}: first difference at token {i}, "
+                      f"top-2 margin there "
+                      f"{_top2_margin(plain, params, r, i):.4g}", flush=True)
+                fail(f"serve stream of request {r.rid} differs from B=1 "
+                     f"generate()")
+    print("each request's served stream equals B=1 generate() on its "
+          f"prompt {since()}", flush=True)
+
+    # fault campaigns: the clean streams for every completed request
+    slot_fault = dict(leaf_idx=1, flat_idx=7, bit=BF16_EXP_BIT,
+                      step=SERVE_FAULT_TICK, replica=1, target="slot")
+
+    def campaign(spec, lag, **kw):
+        srv = make_server(rc, dual=True, device=dev,
+                          inj_spec=InjectionSpec(**spec), **kw)
+        notified = []
+        out, rep, reads, _ = serve(
+            srv, lag, notify_reject=lambda r, e: notified.append(
+                (r.rid, e.detail.get("slots"))))
+        for r in out:
+            if r.status == "done":
+                check(list(r.tokens) == clean[r.rid],
+                      f"{spec['target']} fault lag {lag}: request {r.rid} "
+                      f"stream differs from the clean run")
+        events = [(e.step, e.boundary, e.detail.get("slots"),
+                   e.detail.get("partial"), e.detail.get("slot_first_bad"))
+                  for e in rep.detections]
+        print(f"serve fault {spec['target']}"
+              f"{' persistent' if spec.get('persistent') else ''} lag {lag}:"
+              f" events {events[:3]}{' ...' if len(events) > 3 else ''} "
+              f"({len(events)}), retries {rep.retries}, rollbacks "
+              f"{rep.rollbacks}, truncated {rep.truncated_tokens}, rejected "
+              f"{rep.rejected}, prefill retries {rep.prefill_retries}, "
+              f"completed {len(rep.completed)}; host reads {reads} {since()}",
+              flush=True)
+        return out, rep, events, notified
+
+    out, rep, events, _ = campaign(slot_fault, 1)
+    check(events == [(SERVE_FAULT_TICK, "commit", [1], True, None)]
+          and rep.retries >= 1 and rep.rollbacks == 0
+          and len(rep.completed) == 8,
+          "slot fault at lag 1: not one partial commit and retry")
+    out, rep, events, _ = campaign(slot_fault, SERVE_LAG)
+    check(len(events) == 1 and events[0][:3] == (SERVE_FAULT_TICK,
+                                                 "deferred", [1])
+          and events[0][4] == {1: SERVE_FAULT_TICK} and rep.rollbacks == 1
+          and sum(1 for r in out if r.truncated_tokens > 0) == 1
+          and len(rep.completed) == 8,
+          f"slot fault at lag {SERVE_LAG}: not one slot rollback")
+    out, rep, events, notified = campaign(dict(slot_fault, persistent=True),
+                                          1, max_retries=3)
+    check(rep.rejected and not rep.stopped
+          and [rid for rid, _ in notified] == rep.rejected
+          and all(slots == [1] for _, slots in notified)
+          and len(rep.completed) + len(rep.rejected) == 8,
+          "stuck slot bit: a request outside slot 1 was rejected, or the "
+          "server stopped")
+    out, rep, events, _ = campaign(
+        dict(leaf_idx=0, flat_idx=7, bit=BF16_EXP_BIT, step=0, replica=1,
+             target="prefill"), 1)
+    check(events == [(0, "prefill", [0], None, None)]
+          and rep.prefill_retries == 1 and len(rep.completed) == 8,
+          "admission fault: pack row 0 not retried and admitted")
+
+    # serve ms/step of none, dual lag 1 and dual lag 8 over the first
+    # SERVE_TURN_STEPS ticks, in turns (ABBA)
+    order = [("none", plain, 1), ("lag 1", dual, 1),
+             (f"lag {SERVE_LAG}", dual, SERVE_LAG)]
+    times = {}
+    for label, srv, lag in order + order[::-1]:
+        _, rep, _, _ = serve(srv, lag, max_steps=SERVE_TURN_STEPS)
+        times.setdefault(label, []).append(rep.wall_s / rep.steps * 1e3)
+    print(f"serve ms/step (wall / steps, first {SERVE_TURN_STEPS} ticks) on "
+          f"{name}, same call, in turns none, lag 1, lag {SERVE_LAG}, then "
+          "back: " + "; ".join(f"{k} {' / '.join(f'{t:.2f}' for t in v)}"
+                               for k, v in times.items()) + f" {since()}",
+          flush=True)
+
+    # where a dual lag-1 serve's time goes (profiler on)
+    box = {}
+
+    def profiled():
+        box["rep"] = dual.serve(params, serve_requests(), slots=SERVE_SLOTS,
+                                validate_lag=1, max_len=SERVE_MAX_LEN,
+                                max_steps=SERVE_PROFILE_STEPS)[1]
+
+    wall_ms, busy_ms, launches, kern, calls = device_profile(profiled)
+    steps = box["rep"].steps
+    print(f"profile of a dual lag-1 serve (its first {steps} decode steps, "
+          f"{box['rep'].prefill_packs} packs, profiler on): wall "
+          f"{wall_ms:.1f} ms, device busy {busy_ms:.1f} ms "
+          f"({100 * busy_ms / wall_ms:.1f}%), {launches} kernels recorded "
+          f"on the device ({launches / steps:.0f} per decode step incl. "
+          f"admission), {calls} launch calls by the host "
+          f"({calls / steps:.0f} per decode step incl. admission) {since()}",
+          flush=True)
+    for e in sorted(kern, key=lambda e: -e.count)[:8]:
+        print(f"  x{e.count:<7d} {e.self_device_time_total / 1e3:9.3f} ms "
+              f"{e.key[:90]}", flush=True)
+    print(f"serve phase took {time.time() - t_phase:.1f} s", flush=True)
+    return runs[1][3]
+
+
 def phase_reference():
     """Small f32 model: the card's path (kernels) against the plain CPU path
     (which the CPU tests hold to the JAX package)."""
@@ -1062,12 +1382,15 @@ def main() -> None:
     k4 = phase_k4(kab, kfa, report)
     counts, main_run = phase_main(kfp, kfa, get_config("qwen2-0.5b"))
     phase_abft_serve(kfp, kfa, main_run)
+    serve_counts = phase_serve(kfp, kfa, main_run)
     phase_reference()
     k1["launches"] = counts["fingerprint"]
     k2["launches"] = counts["flash_attention"]
     kernels = [k1, k2, k3, k4]
     for k in kernels:
         check(k["launches"] > 0, f"kernel {k['name']} never launched")
+    for k, n in serve_counts.items():
+        check(n > 0, f"kernel {k} never launched by serve()")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,8 +1,8 @@
-"""The SEDAR engine, lag-1 part (the reference's `core/engine.py`):
+"""The SEDAR engine (the reference's `core/engine.py`):
 
     SedarEngine = ReplicaExecutor        (how redundant copies execute)
                 × BoundarySchedule       (when boundaries fire)
-                × recovery policy        (L0 retry / L1 stop)
+                × recovery policy        (L0 retry / per-slot restore / L1)
                 × injection              (fault campaigns)
 
 Workloads provide `step_fn(state, batch, replica_id, armed) -> (candidate,
@@ -11,21 +11,33 @@ fingerprint, aux)` and call `run_protected_step()` per step and
 
 Ported backends: `PlainExecutor` (no redundancy), `SequentialExecutor`
 (time redundancy: both replicas run back to back on the same card, each
-owning a full state image, with the TOE watchdog timing) and, in
+owning a full state image, with the TOE watchdog timing), its slot-granular
+`SlottedSequentialExecutor` (continuous-batching serving: per-slot
+fingerprints, localized mismatches, partial commit) and, in
 `abft/executor.py`, the replica-free `AbftExecutor` ("abft"/"hybrid"),
 whose `repair()` commits a checksum-corrected step forward before the
-recovery policy is asked. Every commit
-compare is read back at once (validation lag 1): under `RetryRecovery` the
-reference clamps the lag to 1 as well, because a retry can only rewind the
-current step. The deferred ring, the checkpoint boundaries and the L2/L3
-recoveries come with later slices.
+recovery policy is asked.
+
+Deferred validation: with `BoundarySchedule.validate_lag=D > 1`, executors
+that `supports_deferred` commit optimistically and hand back the ON-DEVICE
+match predicate; the engine parks it in a small ring and reads the ring
+back once every D commits (and at validate boundaries and the end of a
+run), so a fault-free step reads nothing from the device. A failed flush
+localizes the first bad step (and, for per-slot predicates, the slots);
+recovery then routes through the policy's `restore` (the per-slot Tier-0
+rollback of `SlotRecovery`). The lag degrades to 1 for executors without
+deferred support and under `RetryRecovery`, whose retry can only rewind
+the current step — so `generate()` keeps its commit-per-step gate. The
+checkpoint boundaries and the L2/L3 recoveries come with the training
+slice.
 """
 from __future__ import annotations
 
 import time
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch import tree as tree_util
@@ -34,35 +46,51 @@ from repro_torch.core.detection import (DetectionEvent, SedarSafeStop,
                                         Watchdog)
 from repro_torch.core.fingerprint import (fingerprints_equal, mismatch_report,
                                           pytree_fingerprint)
-from repro_torch.core.recovery import RecoveryAction
+from repro_torch.core.recovery import RecoveryAction, RetryRecovery
 
 
 @dataclass(frozen=True)
 class BoundarySchedule:
     """When each SEDAR boundary fires (cadences in steps; 0 = never).
 
-    commit_interval   -- TDC boundary: replica fingerprint compare before the
-                         commit (paper: validate-before-send).
-    validate_interval -- FSC boundary: full-state fingerprint compare.
-    toe_timeout_s     -- replica flow-separation lapse (TOE boundary).
+    commit_interval     -- TDC boundary: replica fingerprint compare before
+                           the commit (paper: validate-before-send).
+    validate_interval   -- FSC boundary: full-state fingerprint compare.
+    checkpoint_interval -- L2/L3 checkpoint cadence (no ported recovery
+                           stores checkpoints yet; it forces deferred
+                           flushes, as in the reference).
+    toe_timeout_s       -- replica flow-separation lapse (TOE boundary).
+    validate_lag        -- deferred validation window D: commit predicates
+                           stay on the device and are read back every D
+                           commits. 1 = a read per compare.
     """
 
     commit_interval: int = 1
     validate_interval: int = 0
+    checkpoint_interval: int = 0
     toe_timeout_s: float = 120.0
+    validate_lag: int = 1
 
     @classmethod
     def from_config(cls, sedar) -> "BoundarySchedule":
         return cls(commit_interval=max(int(sedar.validate_interval), 1),
                    validate_interval=int(sedar.param_validate_interval),
-                   toe_timeout_s=float(sedar.toe_timeout_s))
+                   checkpoint_interval=int(sedar.checkpoint_interval),
+                   toe_timeout_s=float(sedar.toe_timeout_s),
+                   validate_lag=max(int(sedar.validate_lag), 1))
+
+    @staticmethod
+    def _due(step: int, interval: int) -> bool:
+        return interval > 0 and step > 0 and step % interval == 0
 
     def commit_due(self, step: int) -> bool:
         return self.commit_interval > 0 and step % self.commit_interval == 0
 
     def validate_due(self, step: int) -> bool:
-        return (self.validate_interval > 0 and step > 0
-                and step % self.validate_interval == 0)
+        return self._due(step, self.validate_interval)
+
+    def checkpoint_due(self, step: int) -> bool:
+        return self._due(step, self.checkpoint_interval)
 
 
 @dataclass
@@ -92,15 +120,21 @@ class ReplicaExecutor:
     """Protocol for redundant-execution backends.
 
     execute(dual, batch, step, armed, compare) -> (dual', aux, event | None);
-        dual' is the pre-step state when event is not None.
+        dual' is the pre-step state when event is not None (the slotted
+        executor: the matching slots committed, the faulty ones pre-step).
+    execute_deferred(dual, batch, step, armed, compare) -> (dual', aux,
+        pred): an OPTIMISTIC commit; `pred` is the on-device predicate
+        "this step's replicas matched" (only when `supports_deferred`).
     validate(dual, step)   -> DetectionEvent | None  (FSC boundary)
     init_dual(single)      -> dual state from one logical state
     peek(dual, key)        -> replica 0's entry `key`
+    map_state(fn, dual)    -> fn applied to every replica's state
     repair(event, dual)    -> (dual', record) | None  (forward correction)
     """
 
     name = "base"
     n_replicas = 1
+    supports_deferred = False
 
     @property
     def can_validate(self) -> bool:
@@ -130,6 +164,17 @@ class ReplicaExecutor:
     def peek(self, dual, key: str):
         return dual["r0"][key]
 
+    def map_state(self, fn, dual):
+        """Apply `fn` to EVERY replica's state (the caller's surgery: slot
+        admission, eviction, rollback merges). It must treat the replicas
+        alike, or it would manufacture a detection."""
+        return {r: fn(st) for r, st in dual.items()}
+
+    def execute_deferred(self, dual, batch, step: int, armed,
+                         compare: bool = True):
+        raise NotImplementedError(
+            f"backend {self.name!r} does not support deferred validation")
+
     def validate(self, dual, step: int) -> Optional[DetectionEvent]:
         return None
 
@@ -155,6 +200,7 @@ class SequentialExecutor(ReplicaExecutor):
 
     name = "sequential"
     n_replicas = 2
+    supports_deferred = True
 
     def __init__(self, step_fn: Callable, state_fp_fn: Callable,
                  watchdog: Optional[Watchdog] = None,
@@ -170,14 +216,11 @@ class SequentialExecutor(ReplicaExecutor):
     def init_dual(self, single):
         return {"r0": single, "r1": _clone_state(single)}
 
-    def _launch(self, dual, batch, step: int, armed):
+    def _launch(self, dual, batch, step: int, armed, timed: bool,
+                delays: dict):
         """Both replicas, back to back. The per-replica wall time (the TOE
-        lapse) needs a device sync after each replica, paid only when the
-        boundary can fire: a scenario delay is pending or the watchdog was
-        armed. Returns (outs, toe_event | None)."""
-        delays = self.delay_source() or {}
-        timed = bool(delays) or (self.watchdog is not None
-                                 and self.watchdog.armed)
+        lapse) needs a device read after each replica, paid only when
+        `timed`. Returns (outs, per-replica seconds)."""
         outs, exec_t = {}, {}
         for rid in range(self.n_replicas):
             delay = delays.pop((step, rid), None)   # one-shot, as the paper
@@ -190,6 +233,17 @@ class SequentialExecutor(ReplicaExecutor):
             exec_t[rid] = time.monotonic() - t_r
             if self.watchdog is not None:
                 self.watchdog.beat(rid, step)
+        return outs, exec_t
+
+    def _launch_with_toe(self, dual, batch, step: int, armed):
+        """Timed dual launch + TOE boundary, shared by the plain and slotted
+        sequential executors. The timing is paid only when the boundary can
+        fire: a scenario delay is pending or the watchdog was armed.
+        Returns (outs, toe_event | None)."""
+        delays = self.delay_source() or {}
+        timed = bool(delays) or (self.watchdog is not None
+                                 and self.watchdog.armed)
+        outs, exec_t = self._launch(dual, batch, step, armed, timed, delays)
         if timed and abs(exec_t[1] - exec_t[0]) > self.toe_timeout_s:
             return outs, DetectionEvent(
                 step=step, boundary="toe", effect="TOE",
@@ -198,7 +252,7 @@ class SequentialExecutor(ReplicaExecutor):
         return outs, None
 
     def execute(self, dual, batch, step: int, armed, compare: bool):
-        outs, toe = self._launch(dual, batch, step, armed)
+        outs, toe = self._launch_with_toe(dual, batch, step, armed)
         if toe is not None:
             return dual, outs[0][2], toe
         (c0, fp0, aux0), (c1, fp1, _aux1) = outs[0], outs[1]
@@ -209,6 +263,21 @@ class SequentialExecutor(ReplicaExecutor):
                 detail={"mismatch": _localize(c0, c1)})
         return {"r0": c0, "r1": c1}, aux0, None
 
+    def _launch_untimed(self, dual, batch, step: int, armed):
+        """The deferred path's launch: no TOE timing, which would bring
+        back the per-replica read this path exists to avoid."""
+        outs, _ = self._launch(dual, batch, step, armed, False,
+                               self.delay_source() or {})
+        return outs[0], outs[1]
+
+    def execute_deferred(self, dual, batch, step: int, armed,
+                         compare: bool = True):
+        """Optimistic commit: both candidates adopted, the match predicate
+        stays on the device for the engine's deferred ring."""
+        (c0, fp0, aux0), (c1, fp1, _aux1) = self._launch_untimed(
+            dual, batch, step, armed)
+        return {"r0": c0, "r1": c1}, aux0, fingerprints_equal(fp0, fp1)
+
     def validate(self, dual, step: int) -> Optional[DetectionEvent]:
         if hostsync.read_bool(
                 fingerprints_equal(self.state_fp_fn(dual["r0"]),
@@ -216,6 +285,81 @@ class SequentialExecutor(ReplicaExecutor):
                 label="state_validate"):
             return None
         return DetectionEvent(step=step, boundary="validate", effect="FSC")
+
+
+# ---------------------------------------------------------------------------
+# Slot-granular executor (continuous-batching serving)
+# ---------------------------------------------------------------------------
+
+def _slot_eq(fp0, fp1) -> torch.Tensor:
+    """Per-slot replica equality from per-slot fingerprints (N, 4): exact
+    match on the hash words, one device bool per sequence slot."""
+    return torch.all(fp0[..., :2] == fp1[..., :2], dim=-1)
+
+
+def _slot_mismatch_event(eq, step: int) -> DetectionEvent:
+    """Fault-path localization: ONE extra read resolves the per-slot
+    equality vector into the event's slot list."""
+    eq_h = np.asarray(hostsync.read_scalar(eq, label="slot_compare"), bool)
+    bad = [int(i) for i in np.nonzero(~eq_h)[0]]
+    return DetectionEvent(step=step, boundary="commit", effect="TDC",
+                          detail={"slots": bad, "partial": True})
+
+
+def slot_select(mask, new, old, n_slots: int, axis: int = 0):
+    """Per-slot merge of two states: `where(mask)` along the slot axis for
+    tensors that carry it (shape[axis] == n_slots); other leaves (the host
+    decode tick) and leaves both states share adopt `new`. The KV cache,
+    written in place by the step, is one tensor in both states, so the
+    merge leaves it as it is: only `tok`, `pos` and `active` select."""
+    def sel(a, b):
+        if (a is b or not isinstance(a, torch.Tensor) or a.dim() <= axis
+                or a.shape[axis] != n_slots):
+            return a
+        m = mask.reshape((1,) * axis + (n_slots,) + (1,) * (a.dim() - axis - 1))
+        return torch.where(m, a, b)
+    return tree_util.tree_map(sel, new, old)
+
+
+class SlottedSequentialExecutor(SequentialExecutor):
+    """Time redundancy over a PACKED sequence batch: the step_fn's
+    fingerprint has a leading slot axis (N, 4), so a commit mismatch is
+    localized to sequence slots and the matching slots' candidates are
+    PARTIALLY COMMITTED. Faulty slots keep their pre-step `tok` and `pos`,
+    so the next protected step re-decodes them while the others stream on.
+
+    The KV cache is written in place, so a faulty slot's pre-step image
+    already holds the failed step's row `pos`. That is safe for the reason
+    it is in `generate()`: the re-decode writes row `pos` again before it
+    attends to it, and every later row is masked."""
+
+    name = "slotted"
+
+    def __init__(self, *args, n_slots: int = 1, **kw):
+        super().__init__(*args, **kw)
+        self.n_slots = int(n_slots)
+
+    def execute(self, dual, batch, step: int, armed, compare: bool):
+        outs, toe = self._launch_with_toe(dual, batch, step, armed)
+        if toe is not None:
+            return dual, outs[0][2], toe
+        (c0, fp0, aux0), (c1, fp1, _aux1) = outs[0], outs[1]
+        if not compare:
+            return {"r0": c0, "r1": c1}, aux0, None
+        eq = _slot_eq(fp0, fp1)
+        if hostsync.read_bool(torch.all(eq), label="commit_compare"):
+            return {"r0": c0, "r1": c1}, aux0, None
+        merged = {"r0": slot_select(eq, c0, dual["r0"], self.n_slots),
+                  "r1": slot_select(eq, c1, dual["r1"], self.n_slots)}
+        return merged, aux0, _slot_mismatch_event(eq, step)
+
+    def execute_deferred(self, dual, batch, step: int, armed,
+                         compare: bool = True):
+        """Optimistic per-slot commit: the (N,) match-predicate vector joins
+        the engine's ring, so a failed flush localizes step and slots."""
+        (c0, fp0, aux0), (c1, fp1, _aux1) = self._launch_untimed(
+            dual, batch, step, armed)
+        return {"r0": c0, "r1": c1}, aux0, _slot_eq(fp0, fp1)
 
 
 class SedarEngine:
@@ -234,35 +378,167 @@ class SedarEngine:
         self.notify = notify or (lambda e: print(str(e), flush=True))
         self.detections: List[DetectionEvent] = []
         self.recoveries: List[Dict[str, Any]] = []
+        # the deferred window degrades to 1 when the executor cannot hand
+        # back an on-device predicate, or when recovery is L0 re-execution
+        # (a retry can only rewind the CURRENT step)
+        lag = max(int(schedule.validate_lag), 1)
+        if not executor.supports_deferred or isinstance(recovery,
+                                                        RetryRecovery):
+            lag = 1
+        self.validate_lag = lag
+        self._ring: List[Tuple[int, Any]] = []   # device-resident predicates
+        self.validated_frontier = 0              # first step NOT validated
+        # a serving loop attaches a `TokenRing`: every deferred step parks
+        # its emission tensors and flush_deferred reads the drained window
+        # in the SAME batch as the combined commit predicate
+        self.emission_ring = None
+
+    @property
+    def pending_validation(self) -> bool:
+        """True while deferred predicates are parked in the ring."""
+        return bool(self._ring)
 
     def reset(self) -> None:
         self.detections.clear()
         self.recoveries.clear()
+        self._ring.clear()
+        self.validated_frontier = 0
+        self.emission_ring = None     # callers re-attach per run
 
     def run_protected_step(self, dual, batch, step: int) -> StepOutcome:
         """Execute one redundant step at `step`: inject (if armed) ->
-        execute replicas -> TDC commit gate -> FSC validation boundary.
-        Returns the state to continue from plus the detection event, if
-        any (feed it to `on_detection`)."""
+        execute replicas -> TDC commit gate (immediate or deferred) -> FSC
+        validation boundary. Returns the state to continue from plus the
+        detection event, if any (feed it to `on_detection`)."""
         armed = (self.inj_flag is not None
                  and self.inj_flag.arm_spec(self.inj_spec) is not None)
         compare = self.schedule.commit_due(step)
+        if self.validate_lag > 1:
+            return self._run_deferred(dual, batch, step, armed, compare)
+
         dual2, aux, event = self.executor.execute(dual, batch, step, armed,
                                                   compare)
         self._mark_injected(step)
         if event is not None:
             return StepOutcome(dual=dual2, aux=aux, event=event)
-        note = getattr(self.recovery, "note_success", None)
-        if note is not None:
-            note()   # the step committed: whatever failed before was transient
+        self._note_success()   # whatever failed before was transient
+        if compare:
+            self.validated_frontier = step + 1
         if self.executor.can_validate and \
                 self.schedule.validate_due(step + 1):
             event = self.executor.validate(dual2, step + 1)
         return StepOutcome(dual=dual2, aux=aux, event=event)
 
+    def _note_success(self) -> None:
+        note = getattr(self.recovery, "note_success", None)
+        if note is not None:
+            note()
+
+    def _run_deferred(self, dual, batch, step: int, armed,
+                      compare: bool) -> StepOutcome:
+        """The commit is optimistic, the match predicate joins the ring, and
+        the host reads the ring back every `validate_lag` commits or at a
+        validate/checkpoint boundary: a fault-free step between flushes
+        reads nothing from the device."""
+        dual2, aux, pred = self.executor.execute_deferred(dual, batch, step,
+                                                          armed, compare)
+        self._mark_injected(step)
+        if compare:
+            self._ring.append((step, pred))
+        if self.emission_ring is not None:
+            # park BEFORE the flush check, so the window's last tick is in
+            # the ring when its own predicate flushes
+            self.emission_ring.park(step, aux)
+        new_step = step + 1
+        if (len(self._ring) >= self.validate_lag
+                or self.schedule.validate_due(new_step)
+                or self.schedule.checkpoint_due(new_step)):
+            event = self.flush_deferred()
+            if event is not None:
+                return StepOutcome(dual=dual2, aux=aux, event=event)
+            self._note_success()
+        event = None
+        if self.executor.can_validate and \
+                self.schedule.validate_due(new_step):
+            event = self.executor.validate(dual2, new_step)
+        return StepOutcome(dual=dual2, aux=aux, event=event)
+
+    def flush_deferred(self, final: bool = False,
+                       eager: bool = False) -> Optional[DetectionEvent]:
+        """Read the deferred window back: ONE counted read of the combined
+        ring predicate; only a failed flush pays a second read
+        (`deferred_ring`) to localize the first mismatched step and slots.
+        A clean flush advances the validated frontier.
+
+        With an `emission_ring` attached, the drained token window rides in
+        the SAME `batched_get` as the combined predicate (label
+        `token_emit`); a failed flush retracts the faulty slots' rows from
+        their first bad step on BEFORE delivery. `final=True` forces the
+        drain below the ring's cadence (end of run). `eager=True` reads the
+        parked rows below the cadence too (while none is retracted) but
+        delivers them only if the flush is clean: what a later drain would
+        deliver, sooner; after a failed flush they stay parked, as below
+        the cadence."""
+        emis = self.emission_ring
+        drain = due = None
+        if emis is not None:
+            due = emis.due(final)
+            drain = emis.provide(final=final, eager=eager)
+        if not self._ring:
+            if drain is not None:
+                # nothing pending: every parked row was proven clean by an
+                # earlier flush — pure delivery
+                emis.deliver(hostsync.batched_get(drain, label="token_emit"))
+            return None
+        steps_, preds = zip(*self._ring)
+        combined = torch.all(torch.stack(list(preds)))
+        drain_vals = None
+        if drain is not None:
+            vals = hostsync.batched_get([combined] + drain,
+                                        label="token_emit")
+            ok = bool(np.all(vals[0]))
+            drain_vals = vals[1:]
+        else:
+            ok = hostsync.read_bool(combined, label="deferred_flush")
+        if ok:
+            self.validated_frontier = steps_[-1] + 1
+            self._ring.clear()
+            if drain_vals is not None:
+                emis.deliver(drain_vals)
+            return None
+        vals = hostsync.batched_get(list(preds), label="deferred_ring")
+        bad = [s for s, v in zip(steps_, vals) if not bool(np.all(v))]
+        detected_at = steps_[-1] + 1
+        self._ring.clear()
+        detail: Dict[str, Any] = {"detected_at": detected_at,
+                                  "lag": detected_at - bad[0],
+                                  "faulty_steps": bad[:8]}
+        # per-slot predicates also say WHICH slots diverged and at which
+        # step each first went bad
+        slot_first: Optional[Dict[int, int]] = None
+        if any(np.ndim(v) for v in vals):
+            slot_first = {}
+            for s, v in zip(steps_, vals):
+                v = np.asarray(v)
+                if v.ndim and not v.all():
+                    for i in np.nonzero(~v)[0]:
+                        slot_first.setdefault(int(i), s)
+            detail["slots"] = sorted(slot_first)
+            detail["slot_first_bad"] = slot_first
+        if emis is not None:
+            emis.truncate(slot_first, global_bad=bad[0])
+            if drain_vals is not None and due:
+                emis.deliver(drain_vals)
+        return DetectionEvent(step=bad[0], boundary="deferred", effect="TDC",
+                              detail=detail)
+
     def validate_final(self, dual, step: int) -> Optional[DetectionEvent]:
         """Final-results comparison (paper Sec. 3.1), tagged
-        boundary='final'."""
+        boundary='final'. Flushes the deferred window first: unvalidated
+        optimistic commits must not reach the final comparison unexamined."""
+        event = self.flush_deferred()
+        if event is not None:
+            return event
         if not self.executor.can_validate_final:
             return None
         event = self.executor.validate(dual, step)
@@ -273,6 +549,9 @@ class SedarEngine:
     def on_detection(self, event: DetectionEvent, dual):
         """Record + notify + recover. Returns the state to continue from;
         raises SedarSafeStop when the policy is (or degrades to) L1."""
+        # predicates parked for steps at or after the detection are stale:
+        # the recovery target predates them and the steps re-run
+        self._ring.clear()
         self.detections.append(event)
         self.notify(event)
         fix = self.executor.repair(event, dual)
@@ -283,16 +562,21 @@ class SedarEngine:
             self.recoveries.append(dict(record, at=event.step))
             return repaired
         action: RecoveryAction = self.recovery.on_detection(event)
-        self.recoveries.append({"kind": action.kind, "step": action.step,
-                                "rollbacks": action.rollbacks,
-                                "at": event.step})
+        record = {"kind": action.kind, "step": action.step,
+                  "rollbacks": action.rollbacks, "at": event.step}
+        self.recoveries.append(record)
         if action.kind == "stop":
             raise SedarSafeStop(event)
         if action.kind == "retry":
             return dual      # transient fault: re-execute the same step
-        raise NotImplementedError(
-            f"recovery action {action.kind!r} needs the checkpoint levels, "
-            f"which are not ported yet")
+        if action.step is not None:
+            self.validated_frontier = min(self.validated_frontier,
+                                          action.step)
+        restored = self.recovery.restore(action, dual)
+        info = getattr(self.recovery, "last_restore_info", None)
+        if info:
+            record.update(info)
+        return restored
 
     def _mark_injected(self, step: int) -> None:
         # persistent (stuck-bit) specs are never marked: recovery

@@ -18,6 +18,9 @@ Two granularities, as in the reference:
   * per-leaf -- `pytree_fingerprint` -> (n_leaves, 4), plain PyTorch on the
     tensors' own device; keeps leaf-level localization for
     `mismatch_report`.
+  * per-row  -- `slot_fingerprints` (N, V) -> (N, 4) and `lane_fingerprints`
+    (a pack's per-prompt lanes): one K1 call per row or lane, reading the
+    leaves in place; on CUDA tensors K1 or an error, never a fallback.
   * fused    -- `pytree_fingerprint_fused` -> (4,): all leaves hashed as
     ONE word buffer in one launch of kernel K1. On the card, f32, int32,
     uint32, bf16 and int64 leaves laid out as rows of one contiguous run
@@ -160,3 +163,38 @@ def mismatch_report(tree, fp_a, fp_b) -> List[Dict[str, Any]]:
                 "sum_b": float(b[i, 2:3].view(np.float32)[0]),
             })
     return out
+
+
+def fingerprint_in_place(leaves) -> torch.Tensor:
+    """One K1 call over `leaves` read where they lie -> (4,); the plain
+    leaf walk for CPU tensors. Raises when K1 cannot read them in place."""
+    table = kfp.leaf_table(leaves)
+    if table is None:
+        raise ValueError(
+            "K1 cannot read these leaves in place: "
+            + ", ".join(f"{tuple(t.shape)} {t.dtype} strides {t.stride()}"
+                        for t in leaves))
+    return kfp.fingerprint_leaves(table)
+
+
+def slot_fingerprints(logits: torch.Tensor,
+                      active: torch.Tensor) -> torch.Tensor:
+    """Per-slot fingerprints of an (N, V) logits block -> (N, 4): row i is
+    hashed on its own (the reference's `vmap(tensor_fingerprint)`), one K1
+    call per row in place; rows of inactive slots are zeroed on the device,
+    so they never mismatch."""
+    fps = torch.stack([fingerprint_in_place([logits[i]])
+                       for i in range(logits.shape[0])])
+    return torch.where(active[:, None], fps, torch.zeros_like(fps))
+
+
+def lane_fingerprints(logits: torch.Tensor, rows) -> torch.Tensor:
+    """Per-prompt lanes of a packed prefill -> (K, 4): lane i is the fused
+    fingerprint of {cache: {name: rows[name][i]}, logits: logits[i]} (the
+    reference's `_packed_fn` lanes), one K1 call per lane over the pack
+    row's strided views."""
+    return torch.stack([
+        fingerprint_in_place(tree_util.leaves(
+            {"cache": {name: r[i] for name, r in rows.items()},
+             "logits": logits[i]}))
+        for i in range(logits.shape[0])])

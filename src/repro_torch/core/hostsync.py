@@ -12,9 +12,12 @@ The counted reads also lift PyTorch's sync debug mode for their own copy,
 so a run under `torch.cuda.set_sync_debug_mode("warn"|"error")` flags
 exactly the reads that did NOT go through this module.
 
-Counting is thread-local: a region counts the reads of the thread that
-opened it (the reference's cross-thread mode comes with the detokenize
-consumer thread of the next slice).
+Counting is thread-local by default: a region counts the reads of the
+thread that opened it. `count_transfers(cross_thread=True)` registers the
+region on a process-wide, lock-protected list that every thread's reads
+walk, so it also counts reads issued by other threads while it is open.
+The detokenize consumer of continuous serving (`runtime/emission.py`) reads
+nothing from the device: it walks host arrays the serving thread fetched.
 """
 from __future__ import annotations
 
@@ -48,21 +51,37 @@ class _ActiveStats(threading.local):
 
 _active = _ActiveStats()
 
+# Cross-thread regions. The unguarded truthiness test in `_note` is a benign
+# race: registration happens before the region's reads on the registering
+# thread, and the lock serializes every mutation of the list and the stats.
+_shared_lock = threading.Lock()
+_shared: List[TransferStats] = []
+
 
 @contextlib.contextmanager
-def count_transfers() -> Iterator[TransferStats]:
-    """Count every device->host read this thread issues inside the block."""
+def count_transfers(cross_thread: bool = False) -> Iterator[TransferStats]:
+    """Count every device->host read this thread issues inside the block;
+    with `cross_thread=True`, also the reads of every other thread while
+    the block is open."""
     st = TransferStats()
-    _active.stack.append(st)
+    stack, lock = ((_shared, _shared_lock) if cross_thread
+                   else (_active.stack, contextlib.nullcontext()))
+    with lock:
+        stack.append(st)
     try:
         yield st
     finally:
-        _active.stack.remove(st)
+        with lock:
+            stack.remove(st)
 
 
 def _note(label: str, items: int = 1) -> None:
     for st in _active.stack:
         st.note(label, items)
+    if _shared:
+        with _shared_lock:
+            for st in _shared:
+                st.note(label, items)
 
 
 @contextlib.contextmanager

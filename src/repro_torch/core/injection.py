@@ -5,6 +5,9 @@ ported from the reference's `core/injection.py`.
     a chosen leaf (flatten order, as in the reference).
   * `make_kernel_fault`: bit flips in a protected kernel's output between
     compute and verify (the ABFT fault model, target='kernel').
+  * `inject_row`: a flip in one row of an (N, V) logits block — one
+    sequence slot of continuous serving's decode (target='slot') or one
+    row of a packed admission prefill (target='prefill').
   * `MemoryInjectionFlag`: the once-only flag, so the re-execution after a
     recovery does not re-inject.
 
@@ -78,7 +81,8 @@ def flip_bit(x: torch.Tensor, flat_idx: int, bit: int) -> torch.Tensor:
         raise TypeError(f"injection unsupported for {dt}")
     out = x.clone()
     words = out.view(carrier).reshape(-1)
-    words[flat_idx] ^= _signed(1 << bit, nbits)
+    # an in-place op with a scalar operand: no host->device copy
+    words[flat_idx:flat_idx + 1].bitwise_xor_(_signed(1 << bit, nbits))
     return out
 
 
@@ -112,6 +116,25 @@ def make_kernel_fault(spec: InjectionSpec, *, step: int, armed: bool):
         return flat.reshape(out.shape)
 
     return apply
+
+
+def inject_row(block: torch.Tensor, spec: Optional[InjectionSpec], *,
+               target: str, tick: int, replica_id: int,
+               armed: bool) -> torch.Tensor:
+    """Row-localized SDC for the 'slot' and 'prefill' targets: flip
+    `spec.bit` of element `spec.flat_idx % V` of row `spec.leaf_idx` of the
+    (N, V) block when a spec of `target` fires at (tick, replica_id, armed);
+    otherwise (or when the block has no such row: a pack too small to hold
+    it) return `block` itself. The decision is made on the host from the
+    host-int tick."""
+    if spec is None or spec.target != target:
+        return block
+    n, v = block.shape
+    fire = (bool(armed) and spec_step_hit(spec, int(tick))
+            and int(replica_id) == spec.replica and spec.leaf_idx < n)
+    if not fire:
+        return block
+    return flip_bit(block, spec.leaf_idx * v + spec.flat_idx % v, spec.bit)
 
 
 def inject_tree(tree, spec: Optional[InjectionSpec], *, step: int,

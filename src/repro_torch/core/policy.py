@@ -12,7 +12,8 @@ def make_engine(sedar_cfg, *, step_fn: Callable, recovery: Any,
                 schedule: Any = None, watchdog: Any = None,
                 inj_spec: Any = None, inj_flag: Any = None,
                 notify: Optional[Callable] = None,
-                delay_source: Optional[Callable[[], dict]] = None):
+                delay_source: Optional[Callable[[], dict]] = None,
+                slots: Optional[int] = None):
     """Assemble a `SedarEngine` for one workload.
 
     backend: "none" | "sequential" | "abft" | "hybrid" (defaults to
@@ -21,10 +22,14 @@ def make_engine(sedar_cfg, *, step_fn: Callable, recovery: Any,
     `abft.ref.AbftReport` from checksummed kernels), and hybrid also checks
     the commit-time state fingerprint (`state_fp_fn`; the reference's
     `fast_state_fp_fn`) at the FSC cadence. `recovery` is required: the
-    config-derived checkpoint recoveries (L2/L3) are not ported yet."""
+    config-derived checkpoint recoveries (L2/L3) are not ported yet.
+    `slots=N` selects the slot-granular sequential executor (continuous
+    serving): step_fn then returns a per-slot fingerprint (N, 4), and a
+    commit mismatch is localized to slots and partially committed."""
     from repro_torch.core.detection import Watchdog
     from repro_torch.core.engine import (BoundarySchedule, PlainExecutor,
-                                         SedarEngine, SequentialExecutor)
+                                         SedarEngine, SequentialExecutor,
+                                         SlottedSequentialExecutor)
 
     backend = backend or sedar_cfg.replication
     schedule = schedule or BoundarySchedule.from_config(sedar_cfg)
@@ -33,10 +38,13 @@ def make_engine(sedar_cfg, *, step_fn: Callable, recovery: Any,
     elif backend == "sequential":
         if state_fp_fn is None:
             raise ValueError("backend 'sequential' needs state_fp_fn")
-        executor = SequentialExecutor(
-            step_fn, state_fp_fn,
-            watchdog=watchdog or Watchdog(schedule.toe_timeout_s),
-            toe_timeout_s=schedule.toe_timeout_s, delay_source=delay_source)
+        kw = dict(watchdog=watchdog or Watchdog(schedule.toe_timeout_s),
+                  toe_timeout_s=schedule.toe_timeout_s,
+                  delay_source=delay_source)
+        executor = (SlottedSequentialExecutor(step_fn, state_fp_fn,
+                                              n_slots=slots, **kw)
+                    if slots else SequentialExecutor(step_fn, state_fp_fn,
+                                                     **kw))
     elif backend in ("abft", "hybrid"):
         if state_fp_fn is None:
             raise ValueError(f"backend {backend!r} needs state_fp_fn")

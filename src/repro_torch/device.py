@@ -13,6 +13,7 @@ from __future__ import annotations
 import os
 from typing import Optional, Union
 
+import numpy as np
 import torch
 
 
@@ -38,3 +39,14 @@ def make_deterministic(device: torch.device) -> None:
     torch.use_deterministic_algorithms(True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+
+
+def upload(x: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host array as a new tensor on `device`. On the card the array is
+    staged in pinned memory and copied asynchronously: a copy from pageable
+    memory waits for the stream (and fails under
+    `torch.cuda.set_sync_debug_mode("error")`)."""
+    t = torch.from_numpy(np.array(x, copy=True))
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t

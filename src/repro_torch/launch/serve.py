@@ -1,21 +1,98 @@
-"""Serving launcher, synchronous whole-batch decode (the reference's
-`launch/serve.py::_sync`, same flags):
+"""Serving launcher (the reference's `launch/serve.py`): synchronous
+whole-batch decode or a continuous-batching traffic replay.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b \
         --batch 4 --steps 16 [--dual | --backend abft] [--device cpu]
+
+    # continuous batching: an open-loop synthetic trace through the slot
+    # scheduler, with per-request detection and recovery
+    PYTHONPATH=src python -m repro_torch.launch.serve --continuous --dual \
+        --requests 16 --slots 4 --arrival-rate 0.5 \
+        --prompt-mix 4:0.5,8:0.3,16:0.2 --max-new 4,12 \
+        --validate-lag 8 --fault-slot 1 --fault-step 5 [--device cpu]
 
 As in the reference, `--smoke` is a store_true flag that defaults to True,
 so the launcher always runs the reduced configuration; the full-width run is
 driven through the API (`chip_smoke.py`). It runs on the card unless
 `--device cpu` is given. `--backend` picks the protection
-(none/sequential/abft/hybrid; `--dual` alone means sequential), which the
-reference offers only on its continuous replay. The continuous-batching
-replay (`--continuous`) comes with a later slice.
+(none/sequential/abft/hybrid; `--dual` alone means sequential; the
+continuous replay takes none/sequential). The reference's heartbeat,
+metrics, trace, warmup and autotune flags come with the telemetry slice.
 """
 from __future__ import annotations
 
 import argparse
 import os
+
+
+def _parse_prompt_mix(spec: str):
+    """'4:0.5,8:0.5' -> (lengths, weights)."""
+    lengths, weights = [], []
+    for part in spec.split(","):
+        length, _, w = part.partition(":")
+        lengths.append(int(length))
+        weights.append(float(w) if w else 1.0)
+    return tuple(lengths), tuple(weights)
+
+
+def _continuous(args, cfg) -> None:
+    from repro_torch.configs import RunConfig, TrainConfig
+    from repro_torch.core.injection import InjectionSpec
+    from repro_torch.core.policy import make_server
+    from repro_torch.runtime.scheduler import (stream_stats_ms,
+                                               synthetic_requests)
+
+    backend = args.backend or ("sequential" if args.dual else "none")
+    spec = None
+    if args.fault_slot is not None:
+        # replica 0 for the unprotected baseline (it has no replica 1: the
+        # stream visibly corrupts with nothing detecting it)
+        spec = InjectionSpec(
+            leaf_idx=args.fault_slot, flat_idx=7, bit=30,
+            step=args.fault_step, replica=0 if backend == "none" else 1,
+            target="slot", persistent=args.fault_persistent)
+    buckets = (tuple(int(b) for b in args.prefill_buckets.split(","))
+               if args.prefill_buckets else None)
+    srv = make_server(RunConfig(model=cfg, train=TrainConfig()),
+                      backend=backend, inj_spec=spec,
+                      max_retries=args.max_retries, prefill_buckets=buckets,
+                      max_pack=args.max_pack, device=args.device)
+    params = srv.model.init(seed=0)
+    lengths, weights = _parse_prompt_mix(args.prompt_mix)
+    reqs = synthetic_requests(
+        args.requests, arrival_rate=args.arrival_rate,
+        prompt_lengths=lengths, length_weights=weights,
+        max_new_choices=tuple(int(x) for x in args.max_new.split(",")),
+        vocab=min(cfg.vocab_size, 200), seed=args.seed)
+    out, rep = srv.serve(
+        params, reqs, slots=args.slots, validate_lag=args.validate_lag,
+        queue_depth=args.queue_depth, drain_cadence=args.drain_cadence,
+        notify_reject=lambda r, e: print(
+            f"[SEDAR] request {r.rid} REJECTED after {e.boundary} fault "
+            f"(per-request safe stop)", flush=True))
+    ms = stream_stats_ms(out)
+    print(f"{args.arch}: {rep.tokens_emitted} tokens delivered over "
+          f"{rep.steps} protected steps ({rep.tokens_per_s:.1f} tok/s "
+          f"{_where(srv)}, goodput {rep.goodput_tokens_per_step:.2f} "
+          f"tok/step), backend={srv.backend}, "
+          f"p50/p99 inter-token {ms['itl_p50_ms']:.2f}/"
+          f"{ms['itl_p99_ms']:.2f} ms, "
+          f"p50/p99 TTFT {ms['ttft_p50_ms']:.2f}/{ms['ttft_p99_ms']:.2f} ms, "
+          f"p50/p99 TTLT {ms['ttlt_p50_ms']:.2f}/{ms['ttlt_p99_ms']:.2f} ms")
+    print(f"  completed={len(rep.completed)} rejected={rep.rejected} "
+          f"detections={len(rep.detections)} retries={rep.retries} "
+          f"rollbacks={rep.rollbacks} "
+          f"truncated+redecoded={rep.truncated_tokens} tokens, "
+          f"prefill packs={rep.prefill_packs} "
+          f"prefill retries={rep.prefill_retries}")
+    for e in rep.detections:
+        print(f"  {e} slots={e.detail.get('slots')}")
+
+
+def _where(srv) -> str:
+    import torch
+    return (f"on {torch.cuda.get_device_name(0)}"
+            if srv.device.type == "cuda" else "on the CPU")
 
 
 def main() -> None:
@@ -34,6 +111,41 @@ def main() -> None:
                          "--dual, else none)")
     ap.add_argument("--smoke", action="store_true", default=True)
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    # -- continuous-batching traffic replay ----------------------------------
+    ap.add_argument("--continuous", action="store_true",
+                    help="slot-scheduled continuous batching with "
+                         "per-request recovery")
+    ap.add_argument("--requests", type=int, default=12)
+    ap.add_argument("--slots", type=int, default=4)
+    ap.add_argument("--arrival-rate", type=float, default=1.0,
+                    help="open-loop arrivals per decode tick")
+    ap.add_argument("--prompt-mix", default="4:0.5,8:0.5",
+                    help="len:weight[,len:weight...] prompt-length mix")
+    ap.add_argument("--max-new", default="4,12",
+                    help="comma list of per-request token budgets")
+    ap.add_argument("--queue-depth", type=int, default=0,
+                    help="admission-queue bound (0 = unbounded); a full "
+                         "queue sheds load (backpressure rejection)")
+    ap.add_argument("--validate-lag", type=int, default=None,
+                    help="deferred-validation window D")
+    ap.add_argument("--drain-cadence", type=int, default=None,
+                    help="parked decode ticks per token drain: default = "
+                         "the validate lag; 1 = per-tick emission")
+    ap.add_argument("--max-retries", type=int, default=8,
+                    help="consecutive per-slot failures before the request "
+                         "is rejected (per-request L1)")
+    ap.add_argument("--prefill-buckets", default="",
+                    help="comma list of prompt-length buckets for packed "
+                         "admission prefill (empty = geometric default)")
+    ap.add_argument("--max-pack", type=int, default=4,
+                    help="max prompts packed into one prefill launch")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--fault-slot", type=int, default=None,
+                    help="inject a slot-localized SDC into this slot")
+    ap.add_argument("--fault-step", type=int, default=5)
+    ap.add_argument("--fault-persistent", action="store_true",
+                    help="stuck bit: re-inject every step (drives the "
+                         "per-request rejection path)")
     args = ap.parse_args()
 
     # deterministic cuBLAS needs this before the first cuBLAS call
@@ -47,6 +159,9 @@ def main() -> None:
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = reduce_for_smoke(cfg)
+    if args.continuous:
+        _continuous(args, cfg)
+        return
     srv = make_server(RunConfig(model=cfg, train=TrainConfig()),
                       dual=args.dual, backend=args.backend,
                       device=args.device)
@@ -55,10 +170,8 @@ def main() -> None:
         0, min(cfg.vocab_size, 200), (args.batch, args.prompt_len))}
     toks, rep = srv.generate(params, prompts, steps=args.steps)
     tps = rep.tokens_emitted / max(rep.wall_s, 1e-9)
-    where = (f"on {__import__('torch').cuda.get_device_name(0)}"
-             if srv.device.type == "cuda" else "on the CPU")
     print(f"{args.arch}: {rep.tokens_emitted} tokens, {tps:.1f} tok/s "
-          f"({where}), backend={srv.backend}, "
+          f"({_where(srv)}), backend={srv.backend}, "
           f"detections={len(rep.detections)}")
 
 

@@ -13,7 +13,7 @@ Conventions, as in the reference:
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -172,23 +172,48 @@ def causal_attention(q, k, v):
     return _gqa_out(w, v, q.dtype)
 
 
-def decode_attention(q, k_cache, v_cache, pos: int):
+class RowPositions(NamedTuple):
+    """Per-row decode positions as the masks a decode step uses, built once
+    per step by `row_positions`: `hit` (B, T, 1, 1) marks each row's cache
+    slot pos[b], `visible` (B, 1, 1, 1, T) the slots <= pos[b]."""
+
+    hit: torch.Tensor
+    visible: torch.Tensor
+
+
+def row_positions(pos: torch.Tensor, T: int) -> RowPositions:
+    t = torch.arange(T, device=pos.device)
+    return RowPositions(hit=(t[None] == pos[:, None])[:, :, None, None],
+                        visible=(t[None] <= pos[:, None])[:, None, None,
+                                                          None, :])
+
+
+def decode_attention(q, k_cache, v_cache, pos):
     """Single-token decode. q: (B,1,H,hd); caches: (B,T,KV,hd); pos: the
-    current 0-based position (slots > pos are masked)."""
+    current 0-based position, a host int shared by every row or the
+    `RowPositions` of per-row positions (slots > pos are masked)."""
     T = k_cache.shape[1]
     scale = 1.0 / math.sqrt(q.shape[-1])
     logits = _gqa_scores(q, k_cache, scale)               # (B,KV,G,1,T)
-    valid = torch.arange(T, device=q.device) <= pos
+    valid = (pos.visible if isinstance(pos, RowPositions)
+             else torch.arange(T, device=q.device) <= pos)
     logits = torch.where(valid, logits, torch.full_like(logits, -1e30))
     w = torch.softmax(logits, dim=-1)
     return _gqa_out(w, v_cache, q.dtype)
 
 
-def cache_update(k_cache, v_cache, k_new, v_new, pos: int):
+def cache_update(k_cache, v_cache, k_new, v_new, pos):
     """Write one token's k/v into slot ``pos`` IN PLACE and return the
-    caches. In place is safe under re-execution: decode writes slot `pos`
-    before it attends to it and masks every later slot, so a retried step
-    overwrites exactly what the failed attempt wrote."""
+    caches; `pos` is a host int (every row) or `RowPositions` (row b at
+    pos[b]: one masked select per cache, written back into it; no index
+    tensors, so no bounds checks or sort, and no host read). In place is
+    safe under re-execution: decode writes slot `pos` before it attends to
+    it and masks every later slot, so a retried step overwrites exactly
+    what the failed attempt wrote."""
+    if isinstance(pos, RowPositions):
+        torch.where(pos.hit, k_new.to(k_cache.dtype), k_cache, out=k_cache)
+        torch.where(pos.hit, v_new.to(v_cache.dtype), v_cache, out=v_cache)
+        return k_cache, v_cache
     k_cache[:, pos] = k_new[:, 0].to(k_cache.dtype)
     v_cache[:, pos] = v_new[:, 0].to(v_cache.dtype)
     return k_cache, v_cache

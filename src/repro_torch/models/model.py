@@ -4,6 +4,8 @@
     model.init(seed)                          -> params on model.device
     model.prefill(params, batch, max_len)     -> (logits, cache)
     model.decode_step(params, cache, tokens, pos) -> (logits, cache)
+                                    (pos: a host int or a (B,) tensor)
+    model.init_cache(batch, max_len)          -> an all-zero cache
 """
 from __future__ import annotations
 
@@ -29,8 +31,12 @@ class Model:
         return tfm.lm_prefill(self.cfg, params, batch["tokens"], max_len,
                               lengths=batch.get("lengths"))
 
-    def decode_step(self, params, cache, tokens, pos: int):
+    def decode_step(self, params, cache, tokens, pos):
         return tfm.lm_decode_step(self.cfg, params, cache, tokens, pos)
+
+    def init_cache(self, batch: int, max_len: int):
+        """An all-zero decode cache (L, batch, max_len, KV, hd) per leaf."""
+        return tfm.init_cache(self.cfg, batch, max_len, device=self.device)
 
 
 def build_model(cfg: ModelConfig, device) -> Model:

@@ -93,13 +93,19 @@ def init_cache(cfg, batch: int, max_len: int,
             "v": torch.zeros(shape, dtype=cache_dtype, device=device)}
 
 
-def lm_decode_step(cfg, params, cache, tokens, pos: int):
+def lm_decode_step(cfg, params, cache, tokens, pos):
     """One serve step. tokens: (B,); pos: 0-based absolute position of this
-    token (a host int). Updates `cache` in place (see layers.cache_update)
-    and returns (logits (B,V), cache)."""
+    token, a host int shared by every row or a (B,) device tensor of
+    per-row positions (continuous serving's slots; no host read). Updates
+    `cache` in place (see layers.cache_update) and returns (logits (B,V),
+    cache)."""
     x = nn.embed_tokens(cfg, params["embed"], tokens[:, None])
-    sin, cos = nn.rope_tables(torch.arange(pos, pos + 1, device=x.device),
-                              cfg.head_dim, cfg.rope_theta)
+    if isinstance(pos, torch.Tensor):
+        sin, cos = nn.rope_tables(pos[:, None], cfg.head_dim, cfg.rope_theta)
+        pos = nn.row_positions(pos, cache["k"].shape[2])
+    else:
+        sin, cos = nn.rope_tables(torch.arange(pos, pos + 1, device=x.device),
+                                  cfg.head_dim, cfg.rope_theta)
     for i in range(cfg.num_layers):
         lp = layer_params(params, i)
         h = nn.rms_norm(x, lp["ln1"], cfg.norm_eps)

@@ -1,9 +1,17 @@
-"""Bucketed prefill (the part of the reference's `runtime/prefill.py` that
-`generate()` runs): prompts are right-padded to a small geometric ladder of
-length buckets. PyTorch runs eagerly, so there is no compile cache; the
-bucket still fixes the prefill shapes a server sees, which is what a later
-CUDA-graph capture will key on. The packed, protected admission prefill
-belongs to continuous serving (next slice).
+"""Bucketed, packed, protected prefill (the reference's
+`runtime/prefill.py`): prompts are right-padded to a small geometric ladder
+of length buckets. PyTorch runs eagerly, so there is no compile cache (the
+reference's `CompileStats`, `count_compiles` and `warmup` are left out);
+the bucket and pack size still fix the prefill shapes a server sees, which
+is what a CUDA-graph capture per (bucket, K) would key on.
+
+Continuous serving admits up to `max_pack` prompts of one bucket in ONE
+(K, bucket) prefill (`protected_pack`). Each row carries a LANE: the fused
+K1 fingerprint over {its cache rows, its logits row}. The dual backend runs
+the pack twice and compares lanes, so a fault is localized to its row; the
+verdict is a per-row int (`VERDICT_*`): 0 = faulty (retry this row alone),
+1 = clean. The server's whole admission read is one
+`batched_get([tok, verdict])`.
 
 Right-padding is a dense-family property: causal attention keeps pad
 columns out of every real position, the last hidden state is gathered at
@@ -12,12 +20,19 @@ cache slot `pos` before attending it.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.fingerprint import lane_fingerprints
+from repro_torch.core.injection import InjectionSpec, inject_row
+from repro_torch.device import upload
+
 DEFAULT_BUCKETS = (8, 16, 32, 64, 128, 256)
+VERDICT_BAD = 0
+VERDICT_CLEAN = 1
 
 
 def make_buckets(max_prompt: int, min_bucket: int = 8) -> Tuple[int, ...]:
@@ -37,13 +52,74 @@ def bucket_for(length: int, buckets: Sequence[int]) -> Optional[int]:
     return None
 
 
+def pack_sizes(max_pack: int) -> Tuple[int, ...]:
+    """The pack sizes a launch takes: powers of two up to `max_pack`."""
+    out, k = [], 1
+    while k <= max(int(max_pack), 1):
+        out.append(k)
+        k *= 2
+    return tuple(out)
+
+
+def pack_for(n: int, max_pack: int) -> int:
+    """Smallest pack size >= n (n must not exceed max_pack)."""
+    for k in pack_sizes(max_pack):
+        if n <= k:
+            return k
+    raise ValueError(f"pack of {n} exceeds max_pack={max_pack}")
+
+
+def group_packs(items: Sequence[Any], lengths: Sequence[int],
+                buckets: Sequence[int], max_pack: int
+                ) -> Tuple[List[Tuple[int, List[Any]]], List[Any]]:
+    """Group `items` by length bucket and chunk each group to at most
+    `max_pack`. Returns (packs, overflow): packs is [(bucket, [items...])]
+    in first-come order within a bucket; overflow holds items longer than
+    the largest bucket (exact-shape path)."""
+    by_bucket: Dict[int, List[Any]] = {}
+    overflow: List[Any] = []
+    for it, ln in zip(items, lengths):
+        b = bucket_for(int(ln), buckets)
+        if b is None:
+            overflow.append(it)
+        else:
+            by_bucket.setdefault(b, []).append(it)
+    packs: List[Tuple[int, List[Any]]] = []
+    cap = max(int(max_pack), 1)
+    for b in sorted(by_bucket):
+        grp = by_bucket[b]
+        for i in range(0, len(grp), cap):
+            packs.append((b, grp[i:i + cap]))
+    return packs, overflow
+
+
 class BucketedPrefill:
-    """Pads a prompt batch to its bucket and runs the model's prefill."""
+    """Bucketed prefill for `generate()` and the packed, protected admission
+    prefill of continuous serving.
 
-    buckets = DEFAULT_BUCKETS
+    `protected_pack` returns device tensors:
+      tok     (K, 1) int64  — each row's first (argmax) token
+      rows    {k, v}        — cache rows in INSERT layout (K, L, 1, T, KV,
+                              hd): a view of the model-layout cache, so row
+                              i is a slot slice (L, 1, T, KV, hd)
+      lengths (K,)          — each row's prompt length (its first decode
+                              position)
+      verdict (K,)          — `VERDICT_*` per row
 
-    def __init__(self, model):
+    Faults: `InjectionSpec(target='prefill')` flips one bit of pack row
+    `leaf_idx`'s logits on the chosen replica (the admission counterpart of
+    the decode 'slot' target)."""
+
+    def __init__(self, model, backend: str = "none",
+                 inj_spec: Optional[InjectionSpec] = None, inj_flag=None,
+                 buckets: Optional[Sequence[int]] = None, max_pack: int = 4):
         self.model = model
+        self.backend = backend
+        self.inj_spec = inj_spec
+        self.inj_flag = inj_flag
+        self.buckets = tuple(sorted(buckets)) if buckets else DEFAULT_BUCKETS
+        self.max_pack = max(int(max_pack), 1)
+        self.dual = backend == "sequential"
 
     @property
     def supported(self) -> bool:
@@ -67,3 +143,60 @@ class BucketedPrefill:
         lengths = torch.full((B,), S, dtype=torch.int64, device=tokens.device)
         return self.model.prefill(params, {"tokens": toks, "lengths": lengths},
                                   max_len)
+
+    def _armed(self) -> bool:
+        # the engine's arming rule: the once-only flag is the paper's
+        # injected.txt — re-executions after a detection do not re-inject
+        return (self.inj_flag is not None
+                and self.inj_flag.arm_spec(self.inj_spec) is not None)
+
+    def _packed(self, params, toks, lengths, max_len: int, replica_id: int,
+                armed: bool, tick: int) -> Dict[str, Any]:
+        """One replica's packed prefill: first tokens, insert-layout rows
+        and (dual backend) the per-row lanes."""
+        logits, cache = self.model.prefill(
+            params, {"tokens": toks, "lengths": lengths}, max_len)
+        logits = inject_row(logits, self.inj_spec, target="prefill",
+                            tick=tick, replica_id=replica_id, armed=armed)
+        # model-layout leaves are (L, K, T, KV, hd): pack row out front and
+        # the B=1 axis restored, as views
+        rows = {name: c.transpose(0, 1).unsqueeze(2)
+                for name, c in cache.items()}
+        return {"tok": torch.argmax(logits, dim=-1)[:, None], "rows": rows,
+                "lanes": lane_fingerprints(logits, rows) if self.dual
+                else None}
+
+    def protected_pack(self, params, prompts: Sequence[np.ndarray],
+                       max_len: int, tick: int) -> Dict[str, Any]:
+        """One protected packed prefill over <= max_pack prompts of a shared
+        bucket. The pack is padded to the next pack size with dummy rows
+        (length 1, token 0) that the caller ignores. The dual backend runs
+        the same pack twice (replica 0 and 1) and compares the lanes per
+        row; DMR cannot say WHICH replica corrupted a row, so the verdict
+        only says "do not admit"."""
+        n = len(prompts)
+        bucket = bucket_for(max(len(p) for p in prompts),
+                            self.usable_buckets(max_len))
+        if bucket is None:
+            raise ValueError("prompt overflows the bucket ladder")
+        k = pack_for(n, self.max_pack)
+        toks = np.zeros((k, bucket), np.int64)
+        lens = np.ones((k,), np.int64)
+        for i, p in enumerate(prompts):
+            toks[i, :len(p)] = p
+            lens[i] = len(p)
+        dev = self.model.device
+        toks_d, lens_d = upload(toks, dev), upload(lens, dev)
+        armed = self._armed()
+        r0 = self._packed(params, toks_d, lens_d, max_len, 0, armed, tick)
+        if self.dual:
+            r1 = self._packed(params, toks_d, lens_d, max_len, 1, armed,
+                              tick)
+            agree = torch.all(r0["lanes"][:, :2] == r1["lanes"][:, :2],
+                              dim=1)
+            verdict = torch.where(agree, VERDICT_CLEAN, VERDICT_BAD)
+        else:
+            verdict = torch.full((k,), VERDICT_CLEAN, dtype=torch.int64,
+                                 device=dev)
+        return {"tok": r0["tok"], "rows": r0["rows"], "lengths": lens_d,
+                "verdict": verdict, "n": n, "pack_size": k}

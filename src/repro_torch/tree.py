@@ -44,15 +44,19 @@ def leaves(tree) -> List[Any]:
     return [leaf for _, leaf in flatten_with_path(tree)]
 
 
-def tree_map(fn: Callable[[Any], Any], tree):
-    """Apply `fn` to every leaf, keeping the container structure."""
+def tree_map(fn: Callable[..., Any], tree, *rest):
+    """Apply `fn` to every leaf, keeping the container structure. With
+    further trees of the same structure, `fn` gets the matching leaf of
+    each as its further arguments."""
     if tree is None:
         return None
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
+        return {k: tree_map(fn, v, *[r[k] for r in rest])
+                for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(tree_map(fn, c) for c in tree)
-    return fn(tree)
+        return type(tree)(tree_map(fn, c, *[r[i] for r in rest])
+                          for i, c in enumerate(tree))
+    return fn(tree, *rest)
 
 
 def replace_leaf(tree, leaf_idx: int, new_leaf):

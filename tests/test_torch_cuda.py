@@ -421,3 +421,79 @@ def test_reduced_abft_generate_on_the_card_equals_the_cpu_path(card):
         assert st.by_label["abft_verdict"] == steps - 1
         assert st.by_label["token_emit"] == steps
 
+
+
+def test_slot_fingerprints_make_one_k1_launch_call_per_row(card):
+    """Continuous serving's per-slot fingerprints: one K1 wrapper call and
+    one host launch call per row, the bf16 rows read in place, hash words
+    equal to the plain version's; inactive rows zeroed."""
+    from repro_torch.core.fingerprint import (fingerprint_in_place,
+                                              slot_fingerprints)
+    logits = (torch.randn(4, 151_936, device=card) * 3).bfloat16()
+    active = torch.tensor([True, False, True, True], device=card)
+    before = kfp.launch_count.n
+    got = slot_fingerprints(logits, active)
+    assert kfp.launch_count.n == before + 4
+    calls, names = _launches(lambda: fingerprint_in_place([logits[2]]))
+    assert calls == 1 and len(names) <= 1
+    want = slot_fingerprints(logits.cpu(), active.cpu())
+    np.testing.assert_array_equal(got[:, :2].cpu().numpy(),
+                                  want[:, :2].numpy())
+    assert not got[1].any()
+
+
+def test_lanes_go_through_k1_on_strided_row_views(card):
+    """A pack's lanes: one K1 call per row over the row's strided cache
+    views and its logits row, bitwise equal (hash words) to packing the row
+    and hashing with the plain version."""
+    from repro_torch.core.fingerprint import (lane_fingerprints,
+                                              pack_tree_u32)
+    L, K, T, KV, hd, V = 3, 4, 40, 2, 64, 1000
+    cache = {n: torch.randn(L, K, T, KV, hd, device=card).bfloat16()
+             for n in "kv"}
+    rows = {n: c.transpose(0, 1).unsqueeze(2) for n, c in cache.items()}
+    logits = torch.randn(K, V, device=card)
+    before = kfp.launch_count.n
+    got = lane_fingerprints(logits, rows)
+    assert kfp.launch_count.n == before + K
+    for i in range(K):
+        packed = pack_tree_u32({"cache": {n: r[i].contiguous()
+                                          for n, r in rows.items()},
+                                "logits": logits[i]})
+        want = kfp.fingerprint_plain(packed)
+        assert torch.equal(got[i, :2], want[:2])
+
+
+def test_small_serve_on_the_card_equals_the_cpu_port(card):
+    """Continuous serving of the reduced f32 model on the card (packed
+    admission through K1 lanes and K2, slot fingerprints through K1) emits
+    the CPU port's streams at lag 1 and lag 4, under sync-debug "error"."""
+    from repro_torch.runtime.scheduler import synthetic_requests
+    from repro_torch.runtime.serve import SedarServer
+    from repro_torch.tree import tree_map
+    cfg = dataclasses.replace(reduce_for_smoke(get_config("qwen2-0.5b")),
+                              attention_impl="pallas")
+    rc = RunConfig(model=cfg)
+
+    def reqs():
+        return synthetic_requests(5, arrival_rate=2.0, prompt_lengths=(4, 8),
+                                  max_new_choices=(4, 8), seed=1)
+
+    cpu = SedarServer(rc, dual=True, device="cpu")
+    params = cpu.model.init(seed=0)
+    want = {r.rid: list(r.tokens) for r in cpu.serve(params, reqs(),
+                                                     slots=3)[0]}
+    gparams = tree_map(lambda t: t.to(card), params)
+    srv = SedarServer(rc, dual=True, device=card)
+    for lag in (1, 4):
+        before = (kfp.launch_count.n, kfa.launch_count.n)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out, rep = srv.serve(gparams, reqs(), slots=3, validate_lag=lag)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        assert {r.rid: list(r.tokens) for r in out} == want
+        assert not rep.detections
+        assert kfp.launch_count.n - before[0] >= 2 * 3 * rep.steps
+        assert kfa.launch_count.n - before[1] == \
+            2 * cfg.num_layers * rep.prefill_packs
