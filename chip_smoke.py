@@ -14,7 +14,8 @@ counts set to 0 just before it and read just after:
     through the flash kernel K2, commit compares through K1 (the bf16
     logits read in place): a clean run
     has no detection and emits the unprotected run's tokens, an injected
-    bit flip is detected and retried without changing the tokens;
+    bit flip is detected and retried without changing the tokens; the same
+    under the single-launch `fused` backend (both replicas as 2B rows);
   * the ABFT slice — the checksummed matmul K3 through `abft_matmul`
     (the 12-scenario campaign, and `SedarEngine` + `AbftExecutor` with a
     forward correction and a retry), the checksummed flash attention K4
@@ -24,9 +25,12 @@ counts set to 0 just before it and read just after:
     in place on the hybrid backend's fingerprint tree of a real state and
     a profile (launches per decode step) of dual, abft and hybrid;
   * continuous-batching `SedarServer.serve` of the same model (8 requests
-    in 4 slots, under sync-debug "error"): unprotected, dual at lag 1 and
-    lag 8, slot and admission fault campaigns, K1 and K2 held against
-    their plain versions at the shapes this path gives them;
+    in 4 slots, under sync-debug "error"): unprotected, dual and fused at
+    lag 1 and lag 8, abft and hybrid, slot, kernel-domain and admission
+    fault campaigns, K1 (also its row-limit leaves, hybrid's resident
+    baseline) and K2 (also at the fused pack's 2K rows) held against their
+    plain versions at the shapes this path gives them, and the backends'
+    ms/step in turns;
   * a small f32 model on the card against the plain CPU path.
 
 Any failed check exits non-zero. The last two lines are a JSON object of
@@ -508,6 +512,8 @@ def phase_main(kfp, kfa, cfg_full):
     check(not frep.stopped, "fault run stopped")
     check(np.array_equal(ftoks, toks), "fault run changed the tokens")
 
+    phase_fused_generate(kfp, kfa, cfg, params, prompt, toks, spec)
+
     logits, _ = srv.model.prefill(params, {"tokens": prompt}, PROMPT_LEN + 8)
     check(tuple(logits.shape) == (BATCH, cfg.vocab_size)
           and bool(torch.isfinite(logits).all()),
@@ -516,6 +522,82 @@ def phase_main(kfp, kfa, cfg_full):
     phase_k1_tree(kfp, run)
     phase_profile(srv, params, prompt, "a dual")
     return counts, run
+
+
+def phase_fused_generate(kfp, kfa, cfg, params, prompt, dual_toks, spec):
+    """The fused backend through `generate()`: both replicas' B rows in one
+    decode. A clean run under sync-debug "error" (tokens equal dual's; K1
+    twice per decode step and K2 once per layer, counted; exact host
+    reads),
+    then the dual fault run's `final_ln` fault: detected, retried, clean
+    tokens."""
+    from repro_torch.configs import RunConfig
+    from repro_torch.core import hostsync
+    from repro_torch.core.policy import make_server
+    dev = torch.device("cuda")
+    srv = make_server(RunConfig(model=cfg), backend="fused", device=dev)
+    srv.generate(params, {"tokens": prompt}, steps=2)        # warm-up
+    torch.cuda.synchronize()
+    kfp.launch_count.reset()
+    kfa.launch_count.reset()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with hostsync.count_transfers() as st:
+            toks, rep = srv.generate(params, {"tokens": prompt}, steps=STEPS)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    counts = {"fingerprint": kfp.launch_count.n,
+              "flash_attention": kfa.launch_count.n}
+    print(f"fused generate: launches {counts}; host reads {st.by_label}; "
+          f"decode {decode_ms(rep):.2f} ms/step (both replicas in one "
+          f"launch + compare), {rep.tokens_emitted / rep.wall_s:.1f} "
+          f"tokens/s", flush=True)
+    check(np.array_equal(toks, dual_toks), "fused tokens differ from dual's")
+    check(not rep.detections and not rep.stopped,
+          f"clean fused run detected {[str(e) for e in rep.detections]}")
+    check(counts == {"fingerprint": 2 * (STEPS - 1),
+                     "flash_attention": cfg.num_layers},
+          f"fused launches {counts}")
+    check(st.by_label == {"commit_compare": STEPS - 1, "token_emit": STEPS},
+          f"fused host reads {st.by_label}")
+
+    # why the fused decode runs its attention per replica half: one decode
+    # of the stacked 2B rows against a replica decoded alone, with the
+    # attention over all 2B rows (row_blocks=1) and per half (2), at the
+    # cache length of the generate above (cuBLAS picks the batched
+    # products' algorithm by their shape: batch count and cache length)
+    logits, cache = srv.model.prefill(params, {"tokens": prompt},
+                                      PROMPT_LEN + STEPS + 8)
+    tok = torch.argmax(logits, dim=-1)
+    alone, _ = srv.model.decode_step(
+        params, {n: c.clone() for n, c in cache.items()}, tok, PROMPT_LEN)
+    same = {}
+    for blocks in (1, 2):
+        stacked = {n: torch.cat([c, c.clone()], dim=1)
+                   for n, c in cache.items()}
+        out, _ = srv.model.decode_step(params, stacked, torch.cat([tok, tok]),
+                                       PROMPT_LEN, row_blocks=blocks)
+        same[blocks] = (torch.equal(out[:BATCH], alone),
+                        float((out[:BATCH].float() - alone.float()).abs()
+                              .max()))
+    print(f"stacked decode of 2B={2 * BATCH} rows against one replica's "
+          f"B={BATCH}: attention over all rows bitwise equal {same[1][0]} "
+          f"(max |diff| {same[1][1]:.3e}); attention per half bitwise equal "
+          f"{same[2][0]}", flush=True)
+    check(same[2][0], "fused decode (attention per half) differs from a "
+          "replica decoded alone")
+
+    fsrv = make_server(RunConfig(model=cfg), backend="fused", device=dev,
+                       inj_spec=spec)
+    ftoks, frep = fsrv.generate(params, {"tokens": prompt}, steps=STEPS)
+    events = [(e.step, e.boundary, e.effect) for e in frep.detections]
+    print(f"fused fault run (final_ln[3] bit 30, replica 1): detections "
+          f"{events}, retries {frep.retries}, stopped {frep.stopped}",
+          flush=True)
+    check(events == [(spec.step, "commit", "TDC")] and frep.retries == 1
+          and not frep.stopped, "fused: fault not detected and retried once")
+    check(np.array_equal(ftoks, dual_toks), "fused fault run changed tokens")
+    phase_profile(srv, params, prompt, "a fused")
 
 
 def _launch_calls(evs) -> int:
@@ -992,16 +1074,16 @@ def phase_abft_serve(kfp, kfa, main):
     phase_profile(make_server(rc, backend="hybrid", device=dev), params,
                   prompt, "a hybrid")
 
-    # decode ms/step of the four backends, in turns (ABBA), so that the
+    # decode ms/step of the five backends, in turns (ABBA), so that the
     # shared host's drift hits each alike
     servers = {b: make_server(rc, backend=b, device=dev)
-               for b in ("none", "sequential", "abft", "hybrid")}
+               for b in ("none", "sequential", "fused", "abft", "hybrid")}
     times = {}
     for b in list(servers) + list(servers)[::-1]:
         _, rep = servers[b].generate(params, {"tokens": prompt}, steps=STEPS)
         times.setdefault(b, []).append(decode_ms(rep))
     print("decode ms/step, same call, in turns none, sequential (dual), "
-          "abft, hybrid, then back: " + "; ".join(
+          "fused, abft, hybrid, then back: " + "; ".join(
               f"{b} {' / '.join(f'{t:.2f}' for t in v)}"
               for b, v in times.items()), flush=True)
 
@@ -1041,7 +1123,12 @@ def phase_serve(kfp, kfa, main):
     per-slot K1 fingerprints), every serving call under sync-debug
     "error": unprotected, dual at lag 1 and at lag 8 (drain on), then a
     transient slot fault at lag 1 and lag 8, a stuck slot bit and an
-    admission fault. Returns the kernels' launches in the dual lag-1 run."""
+    admission fault; the same under `fused` (streams equal sequential lag
+    1's); abft and hybrid clean, with a kernel-domain slot fault and an
+    admission kernel fault corrected forward; K1's row-limit leaves and K2
+    at the fused pack shapes against their plain versions; every backend
+    in turns; dual and fused lag-1 profiles. Returns the kernels' launches
+    in the dual lag-1 run."""
     import contextlib
 
     from repro_torch.configs import RunConfig
@@ -1220,8 +1307,8 @@ def phase_serve(kfp, kfa, main):
     slot_fault = dict(leaf_idx=1, flat_idx=7, bit=BF16_EXP_BIT,
                       step=SERVE_FAULT_TICK, replica=1, target="slot")
 
-    def campaign(spec, lag, **kw):
-        srv = make_server(rc, dual=True, device=dev,
+    def campaign(spec, lag, backend="sequential", cfg_run=rc, **kw):
+        srv = make_server(cfg_run, backend=backend, device=dev,
                           inj_spec=InjectionSpec(**spec), **kw)
         notified = []
         out, rep, reads, _ = serve(
@@ -1235,7 +1322,7 @@ def phase_serve(kfp, kfa, main):
         events = [(e.step, e.boundary, e.detail.get("slots"),
                    e.detail.get("partial"), e.detail.get("slot_first_bad"))
                   for e in rep.detections]
-        print(f"serve fault {spec['target']}"
+        print(f"serve {backend} fault {spec['target']}"
               f"{' persistent' if spec.get('persistent') else ''} lag {lag}:"
               f" events {events[:3]}{' ...' if len(events) > 3 else ''} "
               f"({len(events)}), retries {rep.retries}, rollbacks "
@@ -1265,6 +1352,7 @@ def phase_serve(kfp, kfa, main):
           and len(rep.completed) + len(rep.rejected) == 8,
           "stuck slot bit: a request outside slot 1 was rejected, or the "
           "server stopped")
+    stuck_rejected = list(rep.rejected)
     out, rep, events, _ = campaign(
         dict(leaf_idx=0, flat_idx=7, bit=BF16_EXP_BIT, step=0, replica=1,
              target="prefill"), 1)
@@ -1272,41 +1360,201 @@ def phase_serve(kfp, kfa, main):
           and rep.prefill_retries == 1 and len(rep.completed) == 8,
           "admission fault: pack row 0 not retried and admitted")
 
-    # serve ms/step of none, dual lag 1 and dual lag 8 over the first
-    # SERVE_TURN_STEPS ticks, in turns (ABBA)
+    # -- fused: both replicas as the 2N rows of one state, one decode and
+    # 2N K1 row calls per tick, one prefill of 2K rows per pack
+    fused = make_server(rc, backend="fused", device=dev)
+    for lag in (1, SERVE_LAG):
+        out, rep, reads, counts = serve(fused, lag)
+        check(streams(out) == streams(runs[1][0]),
+              f"fused lag {lag} streams differ from sequential lag 1")
+        check(not rep.detections and sorted(rep.completed) == list(range(8)),
+              f"clean fused lag {lag}: {[str(e) for e in rep.detections]}")
+        check(counts["flash_attention"] == cfg.num_layers * rep.prefill_packs,
+              f"fused lag {lag}: K2 launched {counts['flash_attention']} for "
+              f"{rep.prefill_packs} packs")
+        lanes = counts["fingerprint"] - 2 * SERVE_SLOTS * rep.steps
+        check(2 * rep.prefill_packs <= lanes <= 2 * 4 * rep.prefill_packs,
+              f"fused lag {lag}: K1 launched {counts['fingerprint']} for "
+              f"{rep.steps} steps and {rep.prefill_packs} packs")
+        if lag == 1:
+            check(reads == {"prefill_emit": 2 * rep.prefill_packs,
+                            "commit_compare": rep.steps,
+                            "token_emit": 2 * rep.steps},
+                  f"fused lag 1 host reads {reads}")
+        else:
+            check(set(reads) == {"prefill_emit", "token_emit"},
+                  f"fused lag {lag} host reads {reads}")
+        print(f"serve fused lag {lag} on {name}: {rep.steps} steps, "
+              f"{rep.prefill_packs} packs, {rep.tokens_per_s:.1f} tokens/s, "
+              f"{rep.wall_s / rep.steps * 1e3:.2f} ms/step (wall / steps, "
+              f"admission included); streams equal sequential lag 1; "
+              f"launches {counts} (K1: {2 * SERVE_SLOTS} per decode step, "
+              f"{lanes} lanes; K2: {cfg.num_layers} per pack of 2K rows); "
+              f"host reads {reads} {since()}", flush=True)
+    out, rep, events, _ = campaign(slot_fault, 1, "fused")
+    check(events == [(SERVE_FAULT_TICK, "commit", [1], True, None)]
+          and rep.retries >= 1 and rep.rollbacks == 0
+          and len(rep.completed) == 8,
+          "fused slot fault at lag 1: not one partial commit and retry")
+    out, rep, events, _ = campaign(slot_fault, SERVE_LAG, "fused")
+    check(len(events) == 1 and events[0][:3] == (SERVE_FAULT_TICK,
+                                                 "deferred", [1])
+          and events[0][4] == {1: SERVE_FAULT_TICK} and rep.rollbacks == 1
+          and len(rep.completed) == 8,
+          f"fused slot fault at lag {SERVE_LAG}: not one slot rollback")
+    for lag in (1, SERVE_LAG):
+        out, rep, events, notified = campaign(
+            dict(slot_fault, persistent=True), lag, "fused", max_retries=3)
+        check(rep.rejected and not rep.stopped
+              and [rid for rid, _ in notified] == rep.rejected
+              and all(slots == [1] for _, slots in notified)
+              and len(rep.completed) + len(rep.rejected) == 8
+              and (lag != 1 or rep.rejected == stuck_rejected),
+              f"fused stuck slot bit at lag {lag}: rejections {rep.rejected} "
+              f"(sequential lag 1: {stuck_rejected}), or the server stopped")
+
+    # -- abft / hybrid: one packed state, the (N, V) logits through the
+    # checksum guard every tick; hybrid's per-slot resident baseline
+    from repro_torch.configs import SedarConfig
+    interval = 8
+    rc_h = RunConfig(model=cfg, sedar=SedarConfig(
+        param_validate_interval=interval))
+    free = {b: make_server(rc_h, backend=b, device=dev)
+            for b in ("abft", "hybrid")}
+    for backend, srv in free.items():
+        out, rep, reads, counts = serve(srv, 1)
+        checks = reads.get("state_validate", 0)
+        check(streams(out) == clean,
+              f"{backend} serve streams differ from the unprotected run")
+        check(not rep.detections and sorted(rep.completed) == list(range(8)),
+              f"clean {backend} serve: {[str(e) for e in rep.detections]}")
+        want = {"prefill_emit": 2 * rep.prefill_packs,
+                "abft_verdict": rep.steps, "token_emit": 2 * rep.steps}
+        if backend == "hybrid":
+            check(checks > 0, "hybrid serve ran no entry check")
+            want["state_validate"] = checks
+        check(reads == want, f"{backend} serve host reads {reads}")
+        check(counts == {"fingerprint": (0 if backend == "abft"
+                                         else rep.steps + checks),
+                         "flash_attention": cfg.num_layers
+                         * rep.prefill_packs},
+              f"{backend} serve launches {counts}")
+        print(f"serve {backend} on {name}: {rep.steps} steps, "
+              f"{rep.prefill_packs} packs, {rep.tokens_per_s:.1f} tokens/s, "
+              f"{rep.wall_s / rep.steps * 1e3:.2f} ms/step; streams equal "
+              f"the unprotected run; launches {counts} (K1: one resident "
+              f"fingerprint per commit and per entry check for hybrid); "
+              f"host reads {reads} {since()}", flush=True)
+    V = cfg.vocab_size
+    kernel_fault = dict(leaf_idx=0, flat_idx=1 * (V + 1) + 7, bit=30,
+                        step=SERVE_FAULT_TICK, replica=0, target="kernel")
+    for backend in ("abft", "hybrid"):
+        out, rep, _, _ = campaign(kernel_fault, 1, backend, rc_h)
+        check([(e.step, e.boundary, e.effect,
+                bool(e.detail.get("abft_corrected")))
+               for e in rep.detections]
+              == [(SERVE_FAULT_TICK, "commit", "TDC", True)]
+              and rep.retries == 0 and rep.rollbacks == 0
+              and len(rep.completed) == 8,
+              f"{backend}: the slot's kernel fault not corrected forward")
+    out, rep, _, _ = campaign(
+        dict(leaf_idx=0, flat_idx=5, bit=30, step=0, replica=0,
+             target="prefill_kernel"), 1, "abft", rc_h)
+    check([(e.step, e.boundary, e.effect) for e in rep.detections]
+          == [(0, "prefill", "abft_corrected")]
+          and rep.prefill_retries == 0 and len(rep.completed) == 8,
+          "abft: the admission's kernel fault not corrected at admission")
+
+    # K1's row-limit leaves (hybrid's resident baseline) on the serve cache
+    # at mixed positions, against the plain version, bitwise (h1, h2)
+    from repro_torch.core.fingerprint import slot_rows_fingerprint
+    gen = torch.Generator(device=dev).manual_seed(16)
+    shape = (cfg.num_layers, SERVE_SLOTS, SERVE_MAX_LEN, cfg.num_kv_heads,
+             cfg.head_dim)
+    cache = {n: torch.randn(shape, generator=gen, device=dev).bfloat16()
+             for n in "kv"}
+    pos = torch.tensor([0, 97, 260, SERVE_MAX_LEN], device=dev)
+    tok = torch.arange(SERVE_SLOTS, device=dev)[:, None]
+    before = kfp.launch_count.n
+    got = slot_rows_fingerprint(cache, pos, tok)
+    check(kfp.launch_count.n == before + 1, "K1 row limits: not one launch")
+    cpu_cache = {n: c.cpu() for n, c in cache.items()}
+    want = slot_rows_fingerprint(cpu_cache, pos.cpu(), tok.cpu())
+    check(torch.equal(got[:2].cpu(), want[:2])
+          and got[3].item() == want[3].item(),
+          f"K1 row-limit leaves differ from the plain version: {got} vs "
+          f"{want}")
+    lim_ms = device_ms(lambda: slot_rows_fingerprint(cache, pos, tok), 200)
+    lim_calls, _, _ = device_launches(
+        lambda: slot_rows_fingerprint(cache, pos, tok))
+    live = int(pos.clamp(max=SERVE_MAX_LEN).sum())
+    lim_bound, lim_by = bound(2 * 2 * cfg.num_layers * live
+                              * cfg.num_kv_heads * cfg.head_dim
+                              + 8 * SERVE_SLOTS + 16, 0)
+    print(f"K1 row-limit leaves on the serve cache (4 slots, pos "
+          f"{pos.tolist()}, bf16): h1/h2/absmax bitwise equal to the plain "
+          f"version, {lim_calls:g} launch call per call, device "
+          f"{lim_ms:.4f} ms, bound {lim_bound:.5f} ms ({lim_by}: the live "
+          f"rows read once) {since()}", flush=True)
+    # K2 at the fused pack shapes: one prefill of both replicas' copies
+    # (2K = 8 rows for a pack of 4)
+    for S in (128, 256):
+        _, _, _, err, row_err = check_k2(kfa, 8, S, 800 + S,
+                                         f"fused pack 2K=8 S={S}")
+        print(f"K2 fused pack 2K=8 S={S}: max abs err {err:.3e}, per row's "
+              f"largest value {row_err:.3e} vs plain (bf16), two launches "
+              f"bitwise equal", flush=True)
+
+    # serve ms/step of every backend over the first SERVE_TURN_STEPS
+    # ticks, in turns (ABBA)
     order = [("none", plain, 1), ("lag 1", dual, 1),
-             (f"lag {SERVE_LAG}", dual, SERVE_LAG)]
-    times = {}
+             (f"lag {SERVE_LAG}", dual, SERVE_LAG),
+             ("fused lag 1", fused, 1),
+             (f"fused lag {SERVE_LAG}", fused, SERVE_LAG),
+             ("abft", free["abft"], 1), ("hybrid", free["hybrid"], 1)]
+    times, tps, reads_by = {}, {}, {}
     for label, srv, lag in order + order[::-1]:
-        _, rep, _, _ = serve(srv, lag, max_steps=SERVE_TURN_STEPS)
+        _, rep, reads, _ = serve(srv, lag, max_steps=SERVE_TURN_STEPS)
         times.setdefault(label, []).append(rep.wall_s / rep.steps * 1e3)
+        tps.setdefault(label, []).append(rep.tokens_per_s)
+        reads_by[label] = {k: round(v / rep.steps, 2)
+                           for k, v in reads.items()}
     print(f"serve ms/step (wall / steps, first {SERVE_TURN_STEPS} ticks) on "
-          f"{name}, same call, in turns none, lag 1, lag {SERVE_LAG}, then "
-          "back: " + "; ".join(f"{k} {' / '.join(f'{t:.2f}' for t in v)}"
-                               for k, v in times.items()) + f" {since()}",
+          f"{name}, same call, in turns none, lag 1, lag {SERVE_LAG}, fused "
+          f"lag 1, fused lag {SERVE_LAG}, abft, hybrid, then back: "
+          + "; ".join(f"{k} {' / '.join(f'{t:.2f}' for t in v)}"
+                      for k, v in times.items()) + f" {since()}",
           flush=True)
+    print("serve tokens/s in the same turns (tokens of requests completed "
+          "within the window): " + "; ".join(
+              f"{k} {' / '.join(f'{t:.1f}' for t in v)}"
+              for k, v in tps.items()), flush=True)
+    print("serve host reads per tick by label (second turn): " + "; ".join(
+        f"{k} {v}" for k, v in reads_by.items()), flush=True)
 
-    # where a dual lag-1 serve's time goes (profiler on)
-    box = {}
+    # where a dual and a fused lag-1 serve's time goes (profiler on)
+    for label, srv in (("dual", dual), ("fused", fused)):
+        box = {}
 
-    def profiled():
-        box["rep"] = dual.serve(params, serve_requests(), slots=SERVE_SLOTS,
-                                validate_lag=1, max_len=SERVE_MAX_LEN,
-                                max_steps=SERVE_PROFILE_STEPS)[1]
+        def profiled():
+            box["rep"] = srv.serve(params, serve_requests(),
+                                   slots=SERVE_SLOTS, validate_lag=1,
+                                   max_len=SERVE_MAX_LEN,
+                                   max_steps=SERVE_PROFILE_STEPS)[1]
 
-    wall_ms, busy_ms, launches, kern, calls = device_profile(profiled)
-    steps = box["rep"].steps
-    print(f"profile of a dual lag-1 serve (its first {steps} decode steps, "
-          f"{box['rep'].prefill_packs} packs, profiler on): wall "
-          f"{wall_ms:.1f} ms, device busy {busy_ms:.1f} ms "
-          f"({100 * busy_ms / wall_ms:.1f}%), {launches} kernels recorded "
-          f"on the device ({launches / steps:.0f} per decode step incl. "
-          f"admission), {calls} launch calls by the host "
-          f"({calls / steps:.0f} per decode step incl. admission) {since()}",
-          flush=True)
-    for e in sorted(kern, key=lambda e: -e.count)[:8]:
-        print(f"  x{e.count:<7d} {e.self_device_time_total / 1e3:9.3f} ms "
-              f"{e.key[:90]}", flush=True)
+        wall_ms, busy_ms, launches, kern, calls = device_profile(profiled)
+        steps = box["rep"].steps
+        print(f"profile of a {label} lag-1 serve (its first {steps} decode "
+              f"steps, {box['rep'].prefill_packs} packs, profiler on): wall "
+              f"{wall_ms:.1f} ms, device busy {busy_ms:.1f} ms "
+              f"({100 * busy_ms / wall_ms:.1f}%), {launches} kernels "
+              f"recorded on the device ({launches / steps:.0f} per decode "
+              f"step incl. admission), {calls} launch calls by the host "
+              f"({calls / steps:.0f} per decode step incl. admission) "
+              f"{since()}", flush=True)
+        for e in sorted(kern, key=lambda e: -e.count)[:8]:
+            print(f"  x{e.count:<7d} {e.self_device_time_total / 1e3:9.3f} "
+                  f"ms {e.key[:90]}", flush=True)
     print(f"serve phase took {time.time() - t_phase:.1f} s", flush=True)
     return runs[1][3]
 

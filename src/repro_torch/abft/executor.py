@@ -18,6 +18,9 @@ make_engine`) and emits the same DetectionEvent stream as the reference:
     (on the device; kernel K1), and at the FSC cadence the NEXT execute
     first re-fingerprints the state it is about to consume and compares.
 
+`pack_checksum_guard` gives packed admission (`runtime/prefill.py`) a
+per-prompt verdict from the same guard.
+
 Host reads: one counted read per step of the packed verdict (label
 `abft_verdict`: detected, uncorrectable and the summary fields together,
 where the reference reads the report twice), plus, for hybrid, one
@@ -30,6 +33,7 @@ aux[, report])`; the 3-tuple form of the replica backends still works
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
@@ -53,25 +57,68 @@ def _read_verdict(report) -> Tuple[bool, bool, Dict[str, Any]]:
                                     "max_residual": float(v[4])}
 
 
-def logits_checksum_guard(logits, spec, step: int, armed: bool):
-    """ABFT output guard over one logits block: full-checksum encode (row and
-    column sums of the CLEAN block), the kernel-domain corruption window
-    (`InjectionSpec(target='kernel')` faults land between compute and
-    verify), then residual verification with single-element forward
-    correction. Returns (verified logits in logits.dtype, AbftReport); a
-    corrected block flows straight into argmax, so the corrected commit
-    emits its token with no re-execution."""
-    from repro_torch.abft.ref import verify_and_correct
-    lg = logits.float()
+def _checksum_block(lg: torch.Tensor) -> torch.Tensor:
+    """Full-checksum encoding (B+1, V+1) of an f32 block: row and column
+    sums of the CLEAN block."""
     row = lg.sum(dim=1, keepdim=True)                        # (B, 1)
     col = lg.sum(dim=0, keepdim=True)                        # (1, V)
     tot = row.sum(dim=0, keepdim=True)                       # (1, 1)
-    c_full = torch.cat([torch.cat([lg, row], dim=1),
-                        torch.cat([col, tot], dim=1)], dim=0)  # (B+1, V+1)
+    return torch.cat([torch.cat([lg, row], dim=1),
+                      torch.cat([col, tot], dim=1)], dim=0)
+
+
+def logits_checksum_guard(logits, spec, step: int, armed: bool):
+    """ABFT output guard over one logits block: full-checksum encode, the
+    kernel-domain corruption window (`InjectionSpec(target='kernel')`
+    faults land between compute and verify), then residual verification
+    with single-element forward correction. Returns (verified logits in
+    logits.dtype, AbftReport); a corrected block flows straight into
+    argmax, so the corrected commit emits its token with no re-execution."""
+    from repro_torch.abft.ref import verify_and_correct
+    lg = logits.float()
+    c_full = _checksum_block(lg)
     if spec is not None and spec.target == "kernel":
         c_full = make_kernel_fault(spec, step=step, armed=armed)(c_full)
     out, report = verify_and_correct(c_full, inner_dim=lg.shape[1])
     return out.to(logits.dtype), report
+
+
+def pack_checksum_guard(logits, spec, tick: int, armed: bool):
+    """Per-PROMPT verdict on a packed prefill's (K, V) logits block: the
+    guard above with the admission's own corruption window
+    (`target='prefill_kernel'`), then a verdict per row, on the device: a
+    clean or corrected block admits every row (VERDICT_CLEAN /
+    VERDICT_CORRECTED); an uncorrectable fault is localized to the rows
+    whose residuals are violated (recomputed here: the report carries only
+    counts), and when no row residual is violated (e.g. the checksum row
+    itself under a multi-element hit) the whole pack is bad.
+
+    Returns (verified logits, verdict (K,) int64, AbftReport) with the
+    `runtime/prefill.py` VERDICT_* encoding."""
+    from repro_torch.abft.ref import residual_threshold, verify_and_correct
+    from repro_torch.runtime.prefill import (VERDICT_BAD, VERDICT_CLEAN,
+                                             VERDICT_CORRECTED)
+    lg = logits.float()
+    K, V = lg.shape
+    c_full = _checksum_block(lg)
+    if spec is not None and spec.target == "prefill_kernel":
+        kspec = dataclasses.replace(spec, target="kernel")
+        c_full = make_kernel_fault(kspec, step=tick, armed=armed)(c_full)
+    out, report = verify_and_correct(c_full, inner_dim=V)
+    c = c_full[:K, :V]
+    row_res = c.sum(dim=1) - c_full[:K, V]
+    row_tau = residual_threshold(c.abs().sum(dim=1), V + max(K, V))
+    row_bad = row_res.abs() > row_tau
+    bad = torch.full((K,), VERDICT_BAD, dtype=torch.int64,
+                     device=lg.device)
+    clean = torch.full_like(bad, VERDICT_CLEAN)
+    localized = torch.where(torch.any(row_bad),
+                            torch.where(row_bad, bad, clean), bad)
+    verdict = torch.where(
+        report.uncorrectable, localized,
+        torch.where(report.corrected,
+                    torch.full_like(bad, VERDICT_CORRECTED), clean))
+    return out.to(logits.dtype), verdict, report
 
 
 class AbftExecutor(ReplicaExecutor):

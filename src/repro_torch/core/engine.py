@@ -13,7 +13,9 @@ Ported backends: `PlainExecutor` (no redundancy), `SequentialExecutor`
 (time redundancy: both replicas run back to back on the same card, each
 owning a full state image, with the TOE watchdog timing), its slot-granular
 `SlottedSequentialExecutor` (continuous-batching serving: per-slot
-fingerprints, localized mismatches, partial commit) and, in
+fingerprints, localized mismatches, partial commit), the single-launch
+`FusedSequentialExecutor` and `SlottedFusedExecutor` (both replicas stacked
+as 2N rows of ONE state and stepped by one decode) and, in
 `abft/executor.py`, the replica-free `AbftExecutor` ("abft"/"hybrid"),
 whose `repair()` commits a checksum-corrected step forward before the
 recovery policy is asked.
@@ -297,13 +299,16 @@ def _slot_eq(fp0, fp1) -> torch.Tensor:
     return torch.all(fp0[..., :2] == fp1[..., :2], dim=-1)
 
 
-def _slot_mismatch_event(eq, step: int) -> DetectionEvent:
+def _slot_mismatch_event(eq, step: int,
+                         extra: Optional[Dict[str, Any]] = None
+                         ) -> DetectionEvent:
     """Fault-path localization: ONE extra read resolves the per-slot
     equality vector into the event's slot list."""
     eq_h = np.asarray(hostsync.read_scalar(eq, label="slot_compare"), bool)
     bad = [int(i) for i in np.nonzero(~eq_h)[0]]
     return DetectionEvent(step=step, boundary="commit", effect="TDC",
-                          detail={"slots": bad, "partial": True})
+                          detail={"slots": bad, "partial": True,
+                                  **(extra or {})})
 
 
 def slot_select(mask, new, old, n_slots: int, axis: int = 0):
@@ -360,6 +365,157 @@ class SlottedSequentialExecutor(SequentialExecutor):
         (c0, fp0, aux0), (c1, fp1, _aux1) = self._launch_untimed(
             dual, batch, step, armed)
         return {"r0": c0, "r1": c1}, aux0, _slot_eq(fp0, fp1)
+
+
+# ---------------------------------------------------------------------------
+# Fused executors: both replicas as the rows of one state, one launch
+# ---------------------------------------------------------------------------
+
+def _row_axis(key: str) -> int:
+    """The row (batch) axis of a decode-state entry: the KV cache keeps the
+    model's layout (L, B, T, KV, hd), every other tensor has its rows
+    first."""
+    return 1 if key == "cache" else 0
+
+
+def _map_rows(fn, state, *others):
+    """fn(leaf, row_axis, *matching leaves of `others`) over every leaf of a
+    decode state (tensors and host ints alike)."""
+    return {k: tree_util.tree_map(
+        lambda x, *o, ax=_row_axis(k): fn(x, ax, *o), v,
+        *[o[k] for o in others]) for k, v in state.items()}
+
+
+def stack_replicas(single, n: int = 2):
+    """One state holding `n` replica images as row blocks: every tensor
+    gets n copies of its rows along its row axis; host ints are shared."""
+    def stack(x, ax):
+        if not isinstance(x, torch.Tensor):
+            return x
+        return torch.cat([x] + [x.clone() for _ in range(n - 1)], dim=ax)
+    return _map_rows(stack, single)
+
+
+def replica_rows(stacked, r: int, n: int = 2):
+    """Views of replica `r`'s rows of a stacked state."""
+    def view(x, ax):
+        if not isinstance(x, torch.Tensor):
+            return x
+        rows = x.shape[ax] // n
+        return x.narrow(ax, r * rows, rows)
+    return _map_rows(view, stacked)
+
+
+class FusedSequentialExecutor(ReplicaExecutor):
+    """Time redundancy in ONE launch: both replicas' states are stacked as
+    row blocks of one state (rows [0, B) replica 0, [B, 2B) replica 1; the
+    KV cache (L, 2B, T, KV, hd)) and one step runs them together. PyTorch
+    cannot vmap the ctypes kernels, so the reference's vmap over a replica
+    axis becomes a batch twice as tall: one decode's launches instead of
+    two. Fused step_fn contract: `(stacked, batch, armed) -> (candidate,
+    fps (2, ...), aux)`, the fingerprints with a leading replica axis;
+    `state_fp_fn` fingerprints one replica's rows.
+
+    The commit gate keeps the pre-step state on a mismatch (the cache, one
+    tensor written in place, stays as it is: the retry rewrites row `pos`
+    before it reads it). Per-replica TOE timing does not exist: the
+    replicas share one launch. The whole-state variant keeps a host-int
+    position, so it has no device-side gate and no deferred mode."""
+
+    name = "fused"
+    n_replicas = 2
+
+    def __init__(self, step_fn: Callable, state_fp_fn: Callable):
+        self.step_fn = step_fn
+        self.state_fp_fn = state_fp_fn
+
+    def init_dual(self, single):
+        return {"s": stack_replicas(single, self.n_replicas)}
+
+    def peek(self, dual, key: str):
+        return replica_rows({key: dual["s"][key]}, 0, self.n_replicas)[key]
+
+    def execute(self, dual, batch, step: int, armed, compare: bool):
+        cand, fps, aux = self.step_fn(dual["s"], batch, armed)
+        if compare and not hostsync.read_bool(
+                fingerprints_equal(fps[0], fps[1]), label="commit_compare"):
+            # gated: the pre-step state carries on (the fused hot path
+            # trades the leaf-level localization away, as in the reference)
+            return dual, aux, DetectionEvent(step=step, boundary="commit",
+                                             effect="TDC",
+                                             detail={"fused": True})
+        return {"s": cand}, aux, None
+
+    def validate(self, dual, step: int) -> Optional[DetectionEvent]:
+        fps = [self.state_fp_fn(replica_rows(dual["s"], r, self.n_replicas))
+               for r in range(self.n_replicas)]
+        if hostsync.read_bool(fingerprints_equal(fps[0], fps[1]),
+                              label="state_validate"):
+            return None
+        return DetectionEvent(step=step, boundary="validate", effect="FSC")
+
+    def map_state(self, fn, dual):
+        """fn applied to each replica's rows (views), restacked. A tensor fn
+        hands back as the very view it was given (the cache, written in
+        place through it) keeps the stacked tensor; a new tensor is
+        concatenated in; host ints come from replica 0."""
+        n = self.n_replicas
+        halves = [replica_rows(dual["s"], r, n) for r in range(n)]
+        outs = [fn(h) for h in halves]
+
+        def restack(x, ax, *rest):
+            news, views = rest[:n], rest[n:]
+            if not isinstance(x, torch.Tensor):
+                return news[0]
+            if all(o is v for o, v in zip(news, views)):
+                return x
+            return torch.cat(list(news), dim=ax)
+
+        return {"s": _map_rows(restack, dual["s"], *outs, *halves)}
+
+
+class SlottedFusedExecutor(FusedSequentialExecutor):
+    """Single-launch time redundancy over a packed sequence batch: the
+    stacked state holds 2N slot rows, the step's per-row fingerprints
+    (2, N, 4) compare rows i and N + i on the device, and the commit gate
+    is PER SLOT — a device-side select of `tok`, `pos` and `active` rows
+    (`slot_select` over the stacked rows), so a faulty slot keeps its
+    pre-step image in both halves while the others advance. At lag 1 the
+    gate runs only after a mismatch was read; in deferred mode it runs every
+    step with no read, and the (N,) predicate joins the engine's ring."""
+
+    name = "slotted_fused"
+    supports_deferred = True
+
+    def __init__(self, step_fn: Callable, state_fp_fn: Callable,
+                 n_slots: int = 1):
+        super().__init__(step_fn, state_fp_fn)
+        self.n_slots = int(n_slots)
+
+    def _gate(self, commit, cand, pre):
+        mask = torch.cat([commit] * self.n_replicas)
+        return slot_select(mask, cand, pre, self.n_replicas * self.n_slots)
+
+    def execute(self, dual, batch, step: int, armed, compare: bool):
+        cand, fps, aux = self.step_fn(dual["s"], batch, armed)
+        if not compare:
+            return {"s": cand}, aux, None
+        eq = _slot_eq(fps[0], fps[1])
+        if hostsync.read_bool(torch.all(eq), label="commit_compare"):
+            return {"s": cand}, aux, None
+        return ({"s": self._gate(eq, cand, dual["s"])}, aux,
+                _slot_mismatch_event(eq, step, {"fused": True}))
+
+    def execute_deferred(self, dual, batch, step: int, armed,
+                         compare: bool = True):
+        """The same launch; the per-slot gate is applied on the device (a
+        mismatched slot stays frozen until the flush localizes it) and the
+        (N,) predicate joins the engine's ring."""
+        cand, fps, aux = self.step_fn(dual["s"], batch, armed)
+        eq = _slot_eq(fps[0], fps[1])
+        if not compare:
+            return {"s": cand}, aux, eq
+        return {"s": self._gate(eq, cand, dual["s"])}, aux, eq
 
 
 class SedarEngine:

@@ -21,6 +21,9 @@ Two granularities, as in the reference:
   * per-row  -- `slot_fingerprints` (N, V) -> (N, 4) and `lane_fingerprints`
     (a pack's per-prompt lanes): one K1 call per row or lane, reading the
     leaves in place; on CUDA tensors K1 or an error, never a fallback.
+  * resident -- `slot_rows_fingerprint` -> (4,): one K1 call over every
+    slot's cache rows [0, pos[i]) and the tokens, the positions read by
+    the kernel from the device (K1's row-limit leaves).
   * fused    -- `pytree_fingerprint_fused` -> (4,): all leaves hashed as
     ONE word buffer in one launch of kernel K1. On the card, f32, int32,
     uint32, bf16 and int64 leaves laid out as rows of one contiguous run
@@ -198,3 +201,26 @@ def lane_fingerprints(logits: torch.Tensor, rows) -> torch.Tensor:
             {"cache": {name: r[i] for name, r in rows.items()},
              "logits": logits[i]}))
         for i in range(logits.shape[0])])
+
+
+def slot_rows_fingerprint(cache: Dict[str, torch.Tensor], pos: torch.Tensor,
+                          tok: torch.Tensor) -> torch.Tensor:
+    """One K1 call -> (4,) over what continuous serving's decode state holds
+    at rest: each slot i's rows [0, pos[i]) of every cache leaf (L, N, T,
+    KV, hd) and the tokens. `pos` stays on the device: the kernel reads
+    each slot's limit there, and the rows at or past it (the failed step's
+    own in-place write, an idle slot's frozen row) count as zero words at
+    their fixed offsets. Leaf order: sorted cache names, slot by slot, then
+    the tokens."""
+    leaves, limits = [], []
+    for name in sorted(cache):
+        c = cache[name]
+        for i in range(c.shape[1]):
+            leaves.append(c[:, i])
+            limits.append((pos[i], 1))
+    leaves.append(tok)
+    limits.append(None)
+    table = kfp.leaf_table(leaves, limits)
+    if table is None:
+        raise ValueError("K1 cannot read the slot cache rows in place")
+    return kfp.fingerprint_leaves(table)

@@ -4,10 +4,15 @@ ported from the reference's `core/injection.py`.
   * `flip_bit` / `inject_tree`: replica-gated, step-gated exact bit flip in
     a chosen leaf (flatten order, as in the reference).
   * `make_kernel_fault`: bit flips in a protected kernel's output between
-    compute and verify (the ABFT fault model, target='kernel').
+    compute and verify (the ABFT fault model, target='kernel'; the packed
+    admission prefill's checksum window is the distinct target
+    'prefill_kernel', so a campaign aimed at one stage never fires, and is
+    never disarmed, in the other).
   * `inject_row`: a flip in one row of an (N, V) logits block — one
     sequence slot of continuous serving's decode (target='slot') or one
-    row of a packed admission prefill (target='prefill').
+    row of a packed admission prefill (target='prefill');
+    `inject_row_halves` does it on a block that stacks both replicas'
+    rows (the fused backend).
   * `MemoryInjectionFlag`: the once-only flag, so the re-execution after a
     recovery does not re-inject.
 
@@ -135,6 +140,20 @@ def inject_row(block: torch.Tensor, spec: Optional[InjectionSpec], *,
     if not fire:
         return block
     return flip_bit(block, spec.leaf_idx * v + spec.flat_idx % v, spec.bit)
+
+
+def inject_row_halves(block: torch.Tensor, spec: Optional[InjectionSpec], *,
+                      target: str, tick: int, armed: bool) -> torch.Tensor:
+    """`inject_row` on a (2N, V) block whose rows [0, N) are replica 0's and
+    [N, 2N) replica 1's: each half gets its own replica's decision. Returns
+    `block` itself when neither fires."""
+    n = block.shape[0] // 2
+    halves = (block[:n], block[n:])
+    out = [inject_row(h, spec, target=target, tick=tick, replica_id=r,
+                      armed=armed) for r, h in enumerate(halves)]
+    if all(o is h for o, h in zip(out, halves)):
+        return block
+    return torch.cat(out)
 
 
 def inject_tree(tree, spec: Optional[InjectionSpec], *, step: int,

@@ -1,6 +1,6 @@
 """Engine and server factories (the reference's `core/policy.py`,
-`make_engine` for the `none`/`sequential`/`abft`/`hybrid` backends and
-`make_server`)."""
+`make_engine` for the `none`/`sequential`/`fused`/`abft`/`hybrid` backends
+and `make_server`). The mesh backends `pod` and `vote` are not ported."""
 from __future__ import annotations
 
 from typing import Any, Callable, Optional
@@ -16,19 +16,27 @@ def make_engine(sedar_cfg, *, step_fn: Callable, recovery: Any,
                 slots: Optional[int] = None):
     """Assemble a `SedarEngine` for one workload.
 
-    backend: "none" | "sequential" | "abft" | "hybrid" (defaults to
-    sedar_cfg.replication); all but "none" also need `state_fp_fn`.
+    backend: "none" | "sequential" | "fused" | "abft" | "hybrid" (defaults
+    to sedar_cfg.replication); all but "none" also need `state_fp_fn`.
+    "fused" steps both replicas in one launch over a state that stacks
+    them as row blocks: step_fn then follows the fused contract
+    `(stacked, batch, armed) -> (candidate, fps (2, ...), aux)`
+    (`core/engine.py::FusedSequentialExecutor`).
     abft/hybrid run replica-free: step_fn may return a 4th element (an
     `abft.ref.AbftReport` from checksummed kernels), and hybrid also checks
     the commit-time state fingerprint (`state_fp_fn`; the reference's
     `fast_state_fp_fn`) at the FSC cadence. `recovery` is required: the
     config-derived checkpoint recoveries (L2/L3) are not ported yet.
-    `slots=N` selects the slot-granular sequential executor (continuous
-    serving): step_fn then returns a per-slot fingerprint (N, 4), and a
-    commit mismatch is localized to slots and partially committed."""
+    `slots=N` selects the slot-granular sequential or fused executor
+    (continuous serving): step_fn then returns per-slot fingerprints
+    ((N, 4), or (2, N, 4) fused), and a commit mismatch is localized to
+    slots and partially committed. abft/hybrid ignore `slots`."""
     from repro_torch.core.detection import Watchdog
-    from repro_torch.core.engine import (BoundarySchedule, PlainExecutor,
-                                         SedarEngine, SequentialExecutor,
+    from repro_torch.core.engine import (BoundarySchedule,
+                                         FusedSequentialExecutor,
+                                         PlainExecutor, SedarEngine,
+                                         SequentialExecutor,
+                                         SlottedFusedExecutor,
                                          SlottedSequentialExecutor)
 
     backend = backend or sedar_cfg.replication
@@ -45,6 +53,12 @@ def make_engine(sedar_cfg, *, step_fn: Callable, recovery: Any,
                                               n_slots=slots, **kw)
                     if slots else SequentialExecutor(step_fn, state_fp_fn,
                                                      **kw))
+    elif backend == "fused":
+        if state_fp_fn is None:
+            raise ValueError("backend 'fused' needs state_fp_fn")
+        executor = (SlottedFusedExecutor(step_fn, state_fp_fn, n_slots=slots)
+                    if slots else FusedSequentialExecutor(step_fn,
+                                                          state_fp_fn))
     elif backend in ("abft", "hybrid"):
         if state_fp_fn is None:
             raise ValueError(f"backend {backend!r} needs state_fp_fn")

@@ -16,9 +16,16 @@
 // KV-cache slice c[:, :, :pos] (rows of pos * KV * hd contiguous elements
 // at the cache's row stride), is hashed in place, with no cast, copy or
 // concatenation, and h1/h2/a equal those of the packed buffer bit for bit.
-// The table travels by value in the kernel's parameters
-// (__grid_constant__, at most MAX_LEAVES rows, under the 4 KB parameter
-// limit), so no host-to-device copy precedes the launch.
+// A leaf may also name a row limit: a device int32/int64 element `limit`
+// and a row width `per_row` (elements); the words of each run at or past
+// limit * per_row are then hashed as zero words at their fixed global
+// index (and never loaded), so the result equals that of the packed
+// buffer with those words zeroed. One slot's cache rows [0, pos[i]) are
+// hashed this way without a host read of pos and without device prefix
+// sums: every word keeps its offset. The table travels by value in the
+// kernel's parameters (__grid_constant__, at most MAX_LEAVES rows and
+// MAX_LIMITS row limits, under the 4 KB parameter limit), so no
+// host-to-device copy precedes the launch.
 //
 // Bound on the H100: memory. It reads each element once (esize * n bytes
 // at 3.35 TB/s) and does a handful of integer operations per word, far
@@ -49,6 +56,7 @@ constexpr uint32_t C2 = 2246822519u;
 constexpr uint32_t C3 = 3266489917u;
 constexpr int THREADS = 256;
 constexpr int MAX_LEAVES = 64;   // kernels/fingerprint.py MAX_LEAVES
+constexpr int MAX_LIMITS = 16;   // kernels/fingerprint.py MAX_LIMITS
 
 struct Acc {
   uint32_t h1, h2;
@@ -63,10 +71,18 @@ struct Leaf {                   // 48 bytes
   uint32_t rows, run, cpr;      // rows, elements per row, chunks per row
   uint32_t kind_vec;            // kind (0: 32-bit word, 1: bf16, 2: int64)
                                 // | 4 if every row start is 16-byte aligned
+                                // | (row limit index + 1) << 8, 0 if none
+};
+
+struct Limit {                  // 16 bytes
+  const void* ptr;              // the limit element on the device
+  uint32_t per_row;             // elements per limited row
+  uint32_t is64;                // 1: int64 element, 0: int32
 };
 
 struct Table {
   Leaf leaf[MAX_LEAVES];
+  Limit lim[MAX_LIMITS];
   unsigned long long nchunks;
   int nleaves;
 };
@@ -112,8 +128,26 @@ __device__ Acc block_reduce(Acc v) {
 struct Chunk {
   unsigned long long e;
   uint32_t leaf, i, cnt;
-  bool vec;  // one 16-byte load
+  uint32_t live;  // elements below the row limit (cnt without a limit)
+  bool vec;       // one 16-byte load
 };
+
+// elements of a chunk at column `col` of its run that lie below the leaf's
+// row limit: the rest are hashed as zero words
+__device__ __forceinline__ uint32_t live_count(const Table& t, const Leaf& L,
+                                               uint32_t col, uint32_t cnt) {
+  const uint32_t li = (L.kind_vec >> 8) & 0xFFu;
+  if (!li) return cnt;
+  const Limit& m = t.lim[li - 1];
+  const long long v =
+      m.is64 ? __ldg(static_cast<const long long*>(m.ptr))
+             : (long long)__ldg(static_cast<const int*>(m.ptr));
+  if (v <= 0) return 0u;
+  const unsigned long long end = (unsigned long long)v * m.per_row;
+  if (end <= col) return 0u;
+  const unsigned long long d = end - col;
+  return d >= cnt ? cnt : (uint32_t)d;
+}
 
 __device__ __forceinline__ Chunk locate(const Table& t, int& li,
                                         unsigned long long g) {
@@ -130,7 +164,8 @@ __device__ __forceinline__ Chunk locate(const Table& t, int& li,
   c.cnt = min(per, L.run - col);
   c.i = (uint32_t)(L.base + (unsigned long long)row * L.run + col);
   c.e = (unsigned long long)row * L.stride + col;
-  c.vec = (L.kind_vec & 4u) && c.cnt == per;
+  c.live = live_count(t, L, col, c.cnt);
+  c.vec = (L.kind_vec & 4u) && c.cnt == per && c.live == per;
   return c;
 }
 
@@ -169,7 +204,8 @@ __device__ __forceinline__ void mix_chunk(Acc& acc, const Leaf& L,
   for (uint32_t k = 0; k < c.cnt; ++k) {
     const unsigned long long e = c.e + k;
     uint32_t u;
-    if (kind == 0) u = __ldg(static_cast<const uint32_t*>(L.ptr) + e);
+    if (k >= c.live) u = 0u;  // at or past the row limit
+    else if (kind == 0) u = __ldg(static_cast<const uint32_t*>(L.ptr) + e);
     else if (kind == 1)
       u = (uint32_t)__ldg(static_cast<const unsigned short*>(L.ptr) + e) << 16;
     else u = __ldg(static_cast<const uint32_t*>(L.ptr) + 2 * e);
@@ -196,6 +232,7 @@ fp_leaves(const __grid_constant__ Table t, Acc* __restrict__ partials,
     for (int b = 0; b < BATCH; ++b) {
       const unsigned long long g = g0 + b * stride;
       c[b].cnt = 0;
+      c[b].live = 0;
       c[b].vec = false;
       w[b] = make_uint4(0u, 0u, 0u, 0u);
       if (g < t.nchunks) {
@@ -241,24 +278,38 @@ fp_leaves(const __grid_constant__ Table t, Acc* __restrict__ partials,
 
 }  // namespace
 
-// leaves: nleaves rows of 6 values (pointer, kind, rows, run, row stride in
-// elements, first global word index); rows and run >= 1, rows * run < 2^32
-// words per leaf, nleaves <= MAX_LEAVES. partials: nblocks * 16 bytes and
-// ticket: one unsigned int (0 on entry, 0 again after the launch) of the
-// caller's per-stream workspace; out: 4 words. Returns cudaGetLastError()
+// leaves: nleaves rows of 7 values (pointer, kind, rows, run, row stride in
+// elements, first global word index, row limit index + 1 or 0); rows and
+// run >= 1, rows * run < 2^32 words per leaf, nleaves <= MAX_LEAVES.
+// limits: nlimits rows of 3 values (pointer to the int32/int64 limit
+// element, 1 if int64 else 0, elements per row), nlimits <= MAX_LIMITS.
+// partials: nblocks * 16 bytes and ticket: one unsigned int (0 on entry,
+// 0 again after the launch) of the caller's per-stream workspace; out: 4
+// words. Returns cudaGetLastError()
 // after the one launch.
 extern "C" int sedar_fingerprint_leaves(const long long* leaves, int nleaves,
+                                        const long long* limits, int nlimits,
                                         int nblocks, void* partials,
                                         void* ticket, void* out,
                                         void* stream) {
-  if (nleaves < 0 || nleaves > MAX_LEAVES) return (int)cudaErrorInvalidValue;
+  if (nleaves < 0 || nleaves > MAX_LEAVES || nlimits < 0 ||
+      nlimits > MAX_LIMITS)
+    return (int)cudaErrorInvalidValue;
   Table t{};
+  for (int j = 0; j < nlimits; ++j) {
+    const long long* r = limits + 3 * j;
+    if (r[0] == 0 || r[2] < 1 || r[2] >= (1ll << 32))
+      return (int)cudaErrorInvalidValue;
+    t.lim[j].ptr = reinterpret_cast<const void*>(r[0]);
+    t.lim[j].is64 = r[1] ? 1u : 0u;
+    t.lim[j].per_row = (uint32_t)r[2];
+  }
   unsigned long long chunks = 0;
   for (int j = 0; j < nleaves; ++j) {
-    const long long* r = leaves + 6 * j;
+    const long long* r = leaves + 7 * j;
     const int kind = (int)r[1];
     if (kind < 0 || kind > 2 || r[2] < 1 || r[3] < 1 ||
-        r[2] * r[3] >= (1ll << 32))
+        r[2] * r[3] >= (1ll << 32) || r[6] < 0 || r[6] > nlimits)
       return (int)cudaErrorInvalidValue;
     const unsigned long long esize = kind == 0 ? 4 : (kind == 1 ? 2 : 8);
     const unsigned long long per = 16 / esize;
@@ -270,7 +321,7 @@ extern "C" int sedar_fingerprint_leaves(const long long* leaves, int nleaves,
     L.run = (uint32_t)r[3];
     L.cpr = (uint32_t)((L.run + per - 1) / per);
     const bool vec = r[0] % 16 == 0 && (r[2] == 1 || (r[4] * esize) % 16 == 0);
-    L.kind_vec = (uint32_t)kind | (vec ? 4u : 0u);
+    L.kind_vec = (uint32_t)kind | (vec ? 4u : 0u) | ((uint32_t)r[6] << 8);
     chunks += (unsigned long long)L.rows * L.cpr;
     L.chunk_end = chunks;
   }

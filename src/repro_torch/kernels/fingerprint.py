@@ -22,7 +22,11 @@ in row-major order, are `rows` runs of `run` contiguous elements spaced
 words of the leaves before it). f32, int32 and uint32 leaves are read as
 words, bf16 upcast exactly and int64 value-cast to int32, as
 `core.fingerprint._to_u32` packs them, so the hash words and absmax equal
-those of the packed buffer bit for bit without building it.
+those of the packed buffer bit for bit without building it. A leaf may
+carry a row limit (`leaf_table(..., limits=)`): a device int element, read
+by the kernel, below which rows are hashed as they are and from which on
+every word of each run is hashed as zero at its fixed index, as if the
+packed buffer held zeros there.
 
 Two wrappers, each with no fallback: a CPU tensor takes the plain version, a
 CUDA tensor launches the kernel (one launch per call) or raises.
@@ -46,6 +50,7 @@ MASK32 = 0xFFFFFFFF
 THREADS = 256            # csrc/fingerprint.cu THREADS
 MAX_BLOCKS = 1024
 MAX_LEAVES = 64          # csrc/fingerprint.cu MAX_LEAVES
+MAX_LIMITS = 16          # csrc/fingerprint.cu MAX_LIMITS
 _PLAIN_CHUNK = 1 << 24   # words per int64 working chunk of the plain version
 # element kind of each dtype the kernel reads in place (csrc/fingerprint.cu)
 KINDS = {torch.float32: 0, torch.int32: 0, torch.uint32: 0,
@@ -57,7 +62,9 @@ launch_count = _build.LaunchCount("fingerprint")
 class Leaf(NamedTuple):
     """One row of the kernel's table: `tensor`'s elements in row-major order
     are `rows` runs of `run` contiguous elements, `stride` elements apart;
-    its first word has global index `base`."""
+    its first word has global index `base`. With a row `limit` (a 0-d
+    int32/int64 tensor on the leaf's device), the elements of each run at
+    or past `limit * per_row` count as zero words."""
 
     tensor: torch.Tensor
     kind: int
@@ -65,6 +72,8 @@ class Leaf(NamedTuple):
     run: int
     stride: int
     base: int
+    limit: Optional[torch.Tensor] = None
+    per_row: int = 0
 
 
 def _mulmod32(a: torch.Tensor, c: int) -> torch.Tensor:
@@ -132,24 +141,65 @@ def _layout(t: torch.Tensor) -> Optional[Tuple[int, int, int]]:
     return rows, run, stride
 
 
-def leaf_table(leaves: Sequence[torch.Tensor]) -> Optional[List[Leaf]]:
+def _limited_layout(t: torch.Tensor, axis: int
+                    ) -> Optional[Tuple[int, int, int]]:
+    """(rows, run, stride) with one run per index of the dims before `axis`
+    (each run covers t's dims axis..), or None if t cannot be read so."""
+    lay = _layout(t)
+    period = 1
+    for n in t.shape[axis:]:
+        period *= n
+    if lay is None or period == 0 or lay[1] % period:
+        return None
+    rows, run, stride = lay
+    if run == period:
+        return lay
+    if rows != 1:
+        return None
+    return run // period, period, period
+
+
+def leaf_table(leaves: Sequence[torch.Tensor],
+               limits: Optional[Sequence] = None) -> Optional[List[Leaf]]:
     """The kernel's table for `leaves` in order, empty leaves left out, or
     None if a leaf's dtype is not one the kernel reads in place (`KINDS`),
     its layout is not rows x one contiguous run, a leaf holds 2^32 words or
-    more, or there are more than MAX_LEAVES non-empty leaves."""
-    table, base = [], 0
-    for t in leaves:
+    more, or there are more than MAX_LEAVES non-empty leaves or MAX_LIMITS
+    distinct row limits.
+
+    `limits`, beside `leaves`, holds None or `(limit, axis)` per leaf:
+    `limit` a 0-d int32/int64 tensor on the leaf's device and `axis` the
+    leaf's row axis. Within each index of the dims before `axis`, the rows
+    at or past `limit` (their elements) are hashed as zero words; e.g. one
+    slot's cache (L, T, KV, hd) with limit pos[i] and axis 1 keeps rows
+    [0, pos[i)) of every layer."""
+    table, base, keys = [], 0, set()
+    for j, t in enumerate(leaves):
         kind = KINDS.get(t.dtype)
         if kind is None:
             return None
         if t.numel() == 0:
             continue
-        lay = _layout(t)
+        lim = limits[j] if limits is not None else None
+        if lim is None:
+            lay, extra = _layout(t), ()
+        else:
+            limit, axis = lim
+            if limit.dim() != 0 or limit.dtype not in (torch.int32,
+                                                       torch.int64):
+                return None
+            per_row = 1
+            for n in t.shape[axis + 1:]:
+                per_row *= n
+            lay, extra = _limited_layout(t, axis), (limit, per_row)
+            keys.add((limit.data_ptr(), limit.dtype, per_row))
         if lay is None or t.numel() >= 2 ** 32:
             return None
-        table.append(Leaf(t, kind, *lay, base))
+        table.append(Leaf(t, kind, *lay, base, *extra))
         base += t.numel()
-    return table if len(table) <= MAX_LEAVES else None
+    if len(table) > MAX_LEAVES or len(keys) > MAX_LIMITS:
+        return None
+    return table
 
 
 def _leaf_words(leaf: Leaf) -> torch.Tensor:
@@ -165,17 +215,28 @@ def _leaf_words(leaf: Leaf) -> torch.Tensor:
     return v.reshape(-1).view(torch.int32)
 
 
+def _live_words(leaf: Leaf) -> torch.Tensor:
+    """The leaf's words with those at or past its row limit zeroed, the
+    limit compared on its own device (no host read)."""
+    words = _leaf_words(leaf)
+    if leaf.limit is None:
+        return words
+    col = torch.arange(leaf.run, device=words.device)
+    keep = col < leaf.limit.to(torch.int64) * leaf.per_row
+    return torch.where(keep, words.view(leaf.rows, leaf.run), 0).reshape(-1)
+
+
 def fingerprint_leaves_plain(table: Sequence[Leaf]) -> torch.Tensor:
     """Plain PyTorch K1 over a leaf table -> (4,) int32 carrier. The hash
-    words and absmax equal `fingerprint_plain` of the packed leaves; the
-    sum is taken leaf by leaf."""
+    words and absmax equal `fingerprint_plain` of the packed leaves (with
+    the words past a row limit zeroed); the sum is taken leaf by leaf."""
     dev = table[0].tensor.device if table else torch.device("cpu")
     h1 = torch.zeros((), dtype=torch.int64, device=dev)
     h2 = torch.zeros((), dtype=torch.int64, device=dev)
     s = torch.zeros((), dtype=torch.float32, device=dev)
     a = torch.zeros((), dtype=torch.float32, device=dev)
     for leaf in table:
-        p1, p2, ps, pa = _plain_parts(_leaf_words(leaf), leaf.base)
+        p1, p2, ps, pa = _plain_parts(_live_words(leaf), leaf.base)
         h1, h2 = (h1 + p1) & MASK32, (h2 + p2) & MASK32
         s, a = s + ps, torch.maximum(a, pa)
     return _carrier(h1, h2, s, a)
@@ -185,6 +246,7 @@ def fingerprint_leaves_plain(table: Sequence[Leaf]) -> torch.Tensor:
 def _launcher():
     fn = _build.load("fingerprint").sedar_fingerprint_leaves
     fn.argtypes = [ctypes.POINTER(ctypes.c_longlong), ctypes.c_int,
+                   ctypes.POINTER(ctypes.c_longlong), ctypes.c_int,
                    ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
                    ctypes.c_void_p, ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -225,18 +287,39 @@ def _empty_result(dev: torch.device) -> torch.Tensor:
         det.fill_uninitialized_memory = fill
 
 
+def _limit_rows(table: Sequence[Leaf]):
+    """(the kernel's limit rows, each leaf's limit index + 1 or 0): one row
+    per distinct (element, dtype, row width)."""
+    index: Dict[Tuple[int, torch.dtype, int], int] = {}
+    rows, refs = [], []
+    for leaf in table:
+        if leaf.limit is None:
+            refs.append(0)
+            continue
+        key = (leaf.limit.data_ptr(), leaf.limit.dtype, leaf.per_row)
+        if key not in index:
+            index[key] = len(index) + 1
+            rows += [key[0], int(key[1] == torch.int64), key[2]]
+        refs.append(index[key])
+    return rows, refs
+
+
 def _launch(table: Sequence[Leaf], dev: torch.device) -> torch.Tensor:
-    rows = [v for leaf in table for v in (
+    limits, refs = _limit_rows(table)
+    rows = [v for leaf, ref in zip(table, refs) for v in (
         leaf.tensor.data_ptr(), leaf.kind, leaf.rows, leaf.run, leaf.stride,
-        leaf.base)]
+        leaf.base, ref)]
     n = sum(leaf.rows * leaf.run for leaf in table)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         partials, ticket = _workspace(dev, stream)
         out = _empty_result(dev)
         rc = _launcher()((ctypes.c_longlong * max(1, len(rows)))(*rows),
-                         len(table), _blocks_for(n), partials.data_ptr(),
-                         ticket.data_ptr(), out.data_ptr(), stream)
+                         len(table),
+                         (ctypes.c_longlong * max(1, len(limits)))(*limits),
+                         len(limits) // 3, _blocks_for(n),
+                         partials.data_ptr(), ticket.data_ptr(),
+                         out.data_ptr(), stream)
     _build.check(rc, "fingerprint")
     launch_count.add()
     return out
@@ -245,7 +328,8 @@ def _launch(table: Sequence[Leaf], dev: torch.device) -> torch.Tensor:
 def fingerprint_leaves(table: Sequence[Leaf]) -> torch.Tensor:
     """K1 wrapper over a leaf table (`leaf_table`) -> (4,) int32 carrier:
     the leaves hashed where they lie, in one launch."""
-    devs = {leaf.tensor.device for leaf in table}
+    devs = {t.device for leaf in table
+            for t in (leaf.tensor, leaf.limit) if t is not None}
     if len(devs) > 1:
         raise ValueError(
             f"leaves on several devices: {sorted(map(str, devs))}")

@@ -2,11 +2,12 @@
 whole-batch decode or a continuous-batching traffic replay.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b \
-        --batch 4 --steps 16 [--dual | --backend abft] [--device cpu]
+        --batch 4 --steps 16 [--dual | --backend fused|abft] [--device cpu]
 
     # continuous batching: an open-loop synthetic trace through the slot
     # scheduler, with per-request detection and recovery
-    PYTHONPATH=src python -m repro_torch.launch.serve --continuous --dual \
+    PYTHONPATH=src python -m repro_torch.launch.serve --continuous \
+        [--backend sequential|fused|abft|hybrid|none] \
         --requests 16 --slots 4 --arrival-rate 0.5 \
         --prompt-mix 4:0.5,8:0.3,16:0.2 --max-new 4,12 \
         --validate-lag 8 --fault-slot 1 --fault-step 5 [--device cpu]
@@ -14,9 +15,14 @@ whole-batch decode or a continuous-batching traffic replay.
 As in the reference, `--smoke` is a store_true flag that defaults to True,
 so the launcher always runs the reduced configuration; the full-width run is
 driven through the API (`chip_smoke.py`). It runs on the card unless
-`--device cpu` is given. `--backend` picks the protection
-(none/sequential/abft/hybrid; `--dual` alone means sequential; the
-continuous replay takes none/sequential). The reference's heartbeat,
+`--device cpu` is given. `--backend` picks the protection (none,
+sequential, fused, abft, hybrid). The synchronous run defaults to none,
+and `--dual` alone means sequential there; the continuous replay defaults
+to sequential, as the reference's does, and ignores `--dual`. Its
+`--fault-slot` flips a bit of that slot's logits row on replica 1 (replica
+0 under none), or, under abft/hybrid, of that slot's row of the
+checksummed block (a kernel-domain fault: a flip before the encode would
+be invisible to the guard by construction). The reference's heartbeat,
 metrics, trace, warmup and autotune flags come with the telemetry slice.
 """
 from __future__ import annotations
@@ -42,9 +48,16 @@ def _continuous(args, cfg) -> None:
     from repro_torch.runtime.scheduler import (stream_stats_ms,
                                                synthetic_requests)
 
-    backend = args.backend or ("sequential" if args.dual else "none")
+    backend = args.backend or "sequential"
     spec = None
-    if args.fault_slot is not None:
+    if args.fault_slot is not None and backend in ("abft", "hybrid"):
+        # one instance runs (replica 0); the fault lands between compute
+        # and verify, in the chosen slot's row of the checksummed block
+        spec = InjectionSpec(
+            leaf_idx=0, flat_idx=args.fault_slot * (cfg.vocab_size + 1) + 7,
+            bit=30, step=args.fault_step, replica=0, target="kernel",
+            persistent=args.fault_persistent)
+    elif args.fault_slot is not None:
         # replica 0 for the unprotected baseline (it has no replica 1: the
         # stream visibly corrupts with nothing detecting it)
         spec = InjectionSpec(
@@ -104,11 +117,14 @@ def main() -> None:
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--steps", type=int, default=16)
     ap.add_argument("--dual", action="store_true",
-                    help="SEDAR dual-execution detection on decode")
+                    help="SEDAR dual-execution detection on decode (the "
+                         "synchronous run)")
     ap.add_argument("--backend", default=None,
-                    choices=["none", "sequential", "abft", "hybrid"],
-                    help="protection backend (default: sequential with "
-                         "--dual, else none)")
+                    choices=["none", "sequential", "fused", "abft",
+                             "hybrid"],
+                    help="protection backend (default: sequential for "
+                         "--continuous; otherwise sequential with --dual, "
+                         "else none)")
     ap.add_argument("--smoke", action="store_true", default=True)
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     # -- continuous-batching traffic replay ----------------------------------
@@ -141,7 +157,8 @@ def main() -> None:
                     help="max prompts packed into one prefill launch")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--fault-slot", type=int, default=None,
-                    help="inject a slot-localized SDC into this slot")
+                    help="inject a slot-localized SDC into this slot (a "
+                         "kernel-domain fault under abft/hybrid)")
     ap.add_argument("--fault-step", type=int, default=5)
     ap.add_argument("--fault-persistent", action="store_true",
                     help="stuck bit: re-inject every step (drives the "

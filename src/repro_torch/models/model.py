@@ -3,7 +3,8 @@
 
     model.init(seed)                          -> params on model.device
     model.prefill(params, batch, max_len)     -> (logits, cache)
-    model.decode_step(params, cache, tokens, pos) -> (logits, cache)
+    model.decode_step(params, cache, tokens, pos[, row_blocks])
+                                    -> (logits, cache)
                                     (pos: a host int or a (B,) tensor)
     model.init_cache(batch, max_len)          -> an all-zero cache
 """
@@ -31,8 +32,9 @@ class Model:
         return tfm.lm_prefill(self.cfg, params, batch["tokens"], max_len,
                               lengths=batch.get("lengths"))
 
-    def decode_step(self, params, cache, tokens, pos):
-        return tfm.lm_decode_step(self.cfg, params, cache, tokens, pos)
+    def decode_step(self, params, cache, tokens, pos, row_blocks: int = 1):
+        return tfm.lm_decode_step(self.cfg, params, cache, tokens, pos,
+                                  row_blocks)
 
     def init_cache(self, batch: int, max_len: int):
         """An all-zero decode cache (L, batch, max_len, KV, hd) per leaf."""

@@ -93,12 +93,31 @@ def init_cache(cfg, batch: int, max_len: int,
             "v": torch.zeros(shape, dtype=cache_dtype, device=device)}
 
 
-def lm_decode_step(cfg, params, cache, tokens, pos):
+def _decode_attention(q, kc, vc, pos, row_blocks: int):
+    """Decode attention over `row_blocks` equal blocks of rows, one call
+    each: a block of B rows then runs the very batched products a B-row
+    decode runs (cuBLAS picks its algorithm by the batch count, so the
+    stacked replicas of the fused backend would otherwise get other
+    bits than a replica decoded alone)."""
+    if row_blocks == 1:
+        return nn.decode_attention(q, kc, vc, pos)
+    n = q.shape[0] // row_blocks
+    outs = []
+    for r in range(row_blocks):
+        rows = slice(r * n, (r + 1) * n)
+        p = (nn.RowPositions(hit=pos.hit[rows], visible=pos.visible[rows])
+             if isinstance(pos, nn.RowPositions) else pos)
+        outs.append(nn.decode_attention(q[rows], kc[rows], vc[rows], p))
+    return torch.cat(outs)
+
+
+def lm_decode_step(cfg, params, cache, tokens, pos, row_blocks: int = 1):
     """One serve step. tokens: (B,); pos: 0-based absolute position of this
     token, a host int shared by every row or a (B,) device tensor of
     per-row positions (continuous serving's slots; no host read). Updates
     `cache` in place (see layers.cache_update) and returns (logits (B,V),
-    cache)."""
+    cache). `row_blocks` > 1 computes the attention block by block
+    (`_decode_attention`)."""
     x = nn.embed_tokens(cfg, params["embed"], tokens[:, None])
     if isinstance(pos, torch.Tensor):
         sin, cos = nn.rope_tables(pos[:, None], cfg.head_dim, cfg.rope_theta)
@@ -113,7 +132,7 @@ def lm_decode_step(cfg, params, cache, tokens, pos):
         q = nn.apply_rope(q, sin, cos)
         k = nn.apply_rope(k, sin, cos)
         kc, vc = nn.cache_update(cache["k"][i], cache["v"][i], k, v, pos)
-        o = nn.decode_attention(q, kc, vc, pos)
+        o = _decode_attention(q, kc, vc, pos, row_blocks)
         x = x + nn.out_project(cfg, lp["attn"], o)
         x = _mlp_sub(cfg, lp, x)
     x = nn.rms_norm(x, params["final_ln"], cfg.norm_eps)

@@ -7,10 +7,16 @@ is what a CUDA-graph capture per (bucket, K) would key on.
 
 Continuous serving admits up to `max_pack` prompts of one bucket in ONE
 (K, bucket) prefill (`protected_pack`). Each row carries a LANE: the fused
-K1 fingerprint over {its cache rows, its logits row}. The dual backend runs
-the pack twice and compares lanes, so a fault is localized to its row; the
-verdict is a per-row int (`VERDICT_*`): 0 = faulty (retry this row alone),
-1 = clean. The server's whole admission read is one
+K1 fingerprint over {its cache rows, its logits row}. The sequential
+backend runs the pack twice and compares lanes, so a fault is localized to
+its row; the fused backend runs ONE prefill of the 2K rows (both replicas'
+copies of the pack) and compares the lanes of rows i and K + i. The
+replica-free backends (abft/hybrid) checksum-guard the (K, V) logits block
+(`abft/executor.py::pack_checksum_guard`) before the lanes and the argmax,
+and localize an uncorrectable fault to the rows whose residuals it
+violates. The verdict is a per-row int (`VERDICT_*`): 0 = faulty (retry
+this row alone), 1 = clean, 2 = clean after a forward correction (admit,
+and record the detection). The server's whole admission read is one
 `batched_get([tok, verdict])`.
 
 Right-padding is a dense-family property: causal attention keeps pad
@@ -26,13 +32,16 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.abft.executor import pack_checksum_guard
 from repro_torch.core.fingerprint import lane_fingerprints
-from repro_torch.core.injection import InjectionSpec, inject_row
+from repro_torch.core.injection import (InjectionSpec, inject_row,
+                                        inject_row_halves)
 from repro_torch.device import upload
 
 DEFAULT_BUCKETS = (8, 16, 32, 64, 128, 256)
 VERDICT_BAD = 0
 VERDICT_CLEAN = 1
+VERDICT_CORRECTED = 2
 
 
 def make_buckets(max_prompt: int, min_bucket: int = 8) -> Tuple[int, ...]:
@@ -108,7 +117,8 @@ class BucketedPrefill:
 
     Faults: `InjectionSpec(target='prefill')` flips one bit of pack row
     `leaf_idx`'s logits on the chosen replica (the admission counterpart of
-    the decode 'slot' target)."""
+    the decode 'slot' target); `target='prefill_kernel'` lands in the
+    checksum window of the abft/hybrid guard."""
 
     def __init__(self, model, backend: str = "none",
                  inj_spec: Optional[InjectionSpec] = None, inj_flag=None,
@@ -119,7 +129,9 @@ class BucketedPrefill:
         self.inj_flag = inj_flag
         self.buckets = tuple(sorted(buckets)) if buckets else DEFAULT_BUCKETS
         self.max_pack = max(int(max_pack), 1)
-        self.dual = backend == "sequential"
+        self.dual = backend in ("sequential", "fused")
+        self.fused = backend == "fused"
+        self.guarded = backend in ("abft", "hybrid")
 
     @property
     def supported(self) -> bool:
@@ -150,30 +162,46 @@ class BucketedPrefill:
         return (self.inj_flag is not None
                 and self.inj_flag.arm_spec(self.inj_spec) is not None)
 
-    def _packed(self, params, toks, lengths, max_len: int, replica_id: int,
-                armed: bool, tick: int) -> Dict[str, Any]:
-        """One replica's packed prefill: first tokens, insert-layout rows
-        and (dual backend) the per-row lanes."""
+    def _packed(self, params, toks, lengths, max_len: int,
+                replica_id: Optional[int], armed: bool,
+                tick: int) -> Dict[str, Any]:
+        """One packed prefill: first tokens, insert-layout rows, per-row
+        lanes (replica backends) and the guard's verdict (abft/hybrid).
+        `replica_id=None` runs both replicas' copies of the pack as one
+        prefill of 2K rows (the fused backend)."""
+        spec = self.inj_spec
+        if replica_id is None:
+            toks, lengths = torch.cat([toks, toks]), torch.cat([lengths,
+                                                                lengths])
         logits, cache = self.model.prefill(
             params, {"tokens": toks, "lengths": lengths}, max_len)
-        logits = inject_row(logits, self.inj_spec, target="prefill",
-                            tick=tick, replica_id=replica_id, armed=armed)
+        if replica_id is None:
+            logits = inject_row_halves(logits, spec, target="prefill",
+                                       tick=tick, armed=armed)
+        else:
+            logits = inject_row(logits, spec, target="prefill", tick=tick,
+                                replica_id=replica_id, armed=armed)
+        verdict = None
+        if self.guarded:
+            logits, verdict, _report = pack_checksum_guard(logits, spec,
+                                                           tick, armed)
         # model-layout leaves are (L, K, T, KV, hd): pack row out front and
         # the B=1 axis restored, as views
         rows = {name: c.transpose(0, 1).unsqueeze(2)
                 for name, c in cache.items()}
         return {"tok": torch.argmax(logits, dim=-1)[:, None], "rows": rows,
                 "lanes": lane_fingerprints(logits, rows) if self.dual
-                else None}
+                else None, "verdict": verdict}
 
     def protected_pack(self, params, prompts: Sequence[np.ndarray],
                        max_len: int, tick: int) -> Dict[str, Any]:
         """One protected packed prefill over <= max_pack prompts of a shared
         bucket. The pack is padded to the next pack size with dummy rows
-        (length 1, token 0) that the caller ignores. The dual backend runs
-        the same pack twice (replica 0 and 1) and compares the lanes per
-        row; DMR cannot say WHICH replica corrupted a row, so the verdict
-        only says "do not admit"."""
+        (length 1, token 0) that the caller ignores. The sequential backend
+        runs the same pack twice (replica 0 and 1), the fused backend once
+        over both replicas' copies, and the lanes are compared per row; DMR
+        cannot say WHICH replica corrupted a row, so the verdict only says
+        "do not admit". abft/hybrid take the checksum guard's verdict."""
         n = len(prompts)
         bucket = bucket_for(max(len(p) for p in prompts),
                             self.usable_buckets(max_len))
@@ -188,15 +216,30 @@ class BucketedPrefill:
         dev = self.model.device
         toks_d, lens_d = upload(toks, dev), upload(lens, dev)
         armed = self._armed()
-        r0 = self._packed(params, toks_d, lens_d, max_len, 0, armed, tick)
-        if self.dual:
-            r1 = self._packed(params, toks_d, lens_d, max_len, 1, armed,
-                              tick)
-            agree = torch.all(r0["lanes"][:, :2] == r1["lanes"][:, :2],
-                              dim=1)
-            verdict = torch.where(agree, VERDICT_CLEAN, VERDICT_BAD)
+        if self.fused:
+            both = self._packed(params, toks_d, lens_d, max_len, None, armed,
+                                tick)
+            r0 = {"tok": both["tok"][:k],
+                  "rows": {name: r[:k] for name, r in both["rows"].items()}}
+            verdict = _lane_verdict(both["lanes"][:k], both["lanes"][k:])
         else:
-            verdict = torch.full((k,), VERDICT_CLEAN, dtype=torch.int64,
-                                 device=dev)
+            r0 = self._packed(params, toks_d, lens_d, max_len, 0, armed,
+                              tick)
+            if self.dual:
+                r1 = self._packed(params, toks_d, lens_d, max_len, 1, armed,
+                                  tick)
+                verdict = _lane_verdict(r0["lanes"], r1["lanes"])
+            elif self.guarded:
+                verdict = r0["verdict"]
+            else:
+                verdict = torch.full((k,), VERDICT_CLEAN, dtype=torch.int64,
+                                     device=dev)
         return {"tok": r0["tok"], "rows": r0["rows"], "lengths": lens_d,
                 "verdict": verdict, "n": n, "pack_size": k}
+
+
+def _lane_verdict(lanes0: torch.Tensor, lanes1: torch.Tensor) -> torch.Tensor:
+    """Per-prompt replica compare: rows whose hash lanes (cols 0..1)
+    disagree are faulty."""
+    agree = torch.all(lanes0[:, :2] == lanes1[:, :2], dim=1)
+    return torch.where(agree, VERDICT_CLEAN, VERDICT_BAD)

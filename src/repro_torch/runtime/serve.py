@@ -25,13 +25,25 @@ fingerprints the resident {cache rows [0, pos), tok} with K1 at every
 commit and compares at step entry every `param_validate_interval` steps
 (`state_validate`).
 
-Continuous batching, `serve()` (backends "none" and "sequential"): a
-`SlotScheduler` packs independent requests into N sequence slots, each with
-its own KV-cache rows, token and position; one protected decode step runs
-over the packed batch at per-row positions, with a PER-SLOT fingerprint
-(one K1 call per slot row per replica), so detections are localized to
-slots and the paper's recovery levels re-scope from "the run" to "the
-request":
+Single-launch replication (`backend="fused"`): both replicas' states are
+stacked as row blocks of one state (2B rows; the cache (L, 2B, T, KV,
+hd)) and ONE decode steps them; rows i and B + i are compared on the
+device. The decode's attention runs per replica half (cuBLAS picks its
+batched-product algorithm by the batch count, and a stacked batch would
+get other bits than a replica decoded alone); every other operation runs
+once over the 2B rows. A parameter fault is decided on the host for one
+replica: on the step it fires, the corrupted launch runs first, then the
+shared-weight launch, whose bits every clean row keeps, and the corrupted
+replica's cache rows are put back as the corrupted launch left them
+(`_fused_forward`).
+
+Continuous batching, `serve()` (every backend above): a `SlotScheduler`
+packs independent requests into N sequence slots, each with its own
+KV-cache rows, token and position; one protected decode step runs over the
+packed batch at per-row positions, with a PER-SLOT fingerprint (one K1
+call per slot row per replica: N per replica for sequential, 2N in one
+fused launch), so detections are localized to slots and the paper's
+recovery levels re-scope from "the run" to "the request":
 
   * transient slot mismatch at lag 1 -> partial commit + per-slot retry;
   * deferred-window fault (`validate_lag` D > 1) -> rollback of ONLY the
@@ -45,15 +57,25 @@ flush window together with the combined commit predicate (`token_emit`),
 and a detokenize consumer thread appends them to the request streams.
 Admission runs a packed, protected prefill (`BucketedPrefill.
 protected_pack`: up to `max_pack` prompts of one bucket, both replicas,
-per-row lanes through K1, prefill attention through K2) with ONE
-`prefill_emit` read per pack.
+per-row lanes through K1, prefill attention through K2; under abft/hybrid
+the checksum guard's per-prompt verdict, a forward-corrected pack admitted
+with an `abft_corrected` prefill event) with ONE `prefill_emit` read per
+pack.
+
+Replica-free `serve()` (abft/hybrid): ONE packed state, the (N, V) logits
+block through the checksum guard every tick (lag 1: the engine's deferred
+window needs a replica predicate). Hybrid's resident baseline covers each
+slot's cache rows [0, pos[i]) and the tokens, one K1 launch whose row
+limits it reads from the device (`core/fingerprint.py::
+slot_rows_fingerprint`): no host read of `pos`, and the rows a failed
+step or an idle slot writes in place never count.
 
 The port's decode state is `{cache, tok (N, 1), pos (N,), active (N,),
 t}`. Only the cache is written in place; `tok`, `pos` and `active` are
 replaced by new tensors at every step and state surgery (the emission ring
 parks them), and `t`, the decode tick that gates injection, is a host int.
-The backends "abft"/"hybrid" in `serve()`, the `fused` backend, live
-autotuning and the telemetry calls come with the next slice.
+The mesh backends ("pod", "vote"), live autotuning and the telemetry calls
+are not ported.
 """
 from __future__ import annotations
 
@@ -71,22 +93,24 @@ from repro_torch.core import hostsync
 from repro_torch.core.detection import DetectionEvent, SedarSafeStop
 from repro_torch.core.engine import BoundarySchedule, SedarEngine
 from repro_torch.core.fingerprint import (pytree_fingerprint_fused,
-                                          slot_fingerprints)
+                                          slot_fingerprints,
+                                          slot_rows_fingerprint)
 from repro_torch.core.injection import (InjectionSpec, MemoryInjectionFlag,
-                                        inject_row, inject_tree)
+                                        inject_row, inject_row_halves,
+                                        inject_tree)
 from repro_torch.core.policy import make_engine
 from repro_torch.core.recovery import RetryRecovery, SlotRecovery
 from repro_torch.device import make_deterministic, resolve_device, upload
 from repro_torch.models import build_model
 from repro_torch.runtime.emission import DetokenizeConsumer, TokenRing
-from repro_torch.runtime.prefill import (VERDICT_BAD, BucketedPrefill,
-                                         group_packs)
+from repro_torch.runtime.prefill import (VERDICT_BAD, VERDICT_CORRECTED,
+                                         BucketedPrefill, group_packs)
 from repro_torch.runtime.scheduler import (DRAINING, RUNNING, RequestQueue,
                                            SlotScheduler)
 
-_UNPORTED_TARGETS = ("prefill_kernel",)
-BACKENDS = ("none", "sequential", "abft", "hybrid")
-SERVE_BACKENDS = ("none", "sequential")
+BACKENDS = ("none", "sequential", "fused", "abft", "hybrid")
+# targets a decode step's parameter injection leaves to another stage
+_NOT_PARAMS = ("kernel", "prefill", "prefill_kernel")
 
 
 @dataclass
@@ -140,10 +164,13 @@ def _put_flag(x: torch.Tensor, slot: int, value: bool) -> torch.Tensor:
     y = x.clone()
     y[slot].fill_(bool(value))
     return y
+
+
 class SedarServer:
-    """Prefill once, then decode step by step (dual-executed, replica-free
-    ABFT-guarded, or unprotected). Runs on the card unless `device="cpu"`;
-    raises when no card is found."""
+    """Prefill once, then decode step by step (dual-executed, in two
+    launches or one fused launch; replica-free ABFT-guarded; or
+    unprotected). Runs on the card unless `device="cpu"`; raises when no
+    card is found."""
 
     def __init__(self, run_cfg: RunConfig, dual: bool = False,
                  inj_spec: Optional[InjectionSpec] = None,
@@ -154,9 +181,6 @@ class SedarServer:
         if backend not in BACKENDS:
             raise NotImplementedError(f"backend {backend!r} is not ported "
                                       f"yet (ported: {BACKENDS})")
-        if inj_spec is not None and inj_spec.target in _UNPORTED_TARGETS:
-            raise NotImplementedError(
-                f"injection target {inj_spec.target!r} is not ported yet")
         self.device = resolve_device(device)
         make_deterministic(self.device)
         self.cfg = run_cfg
@@ -174,10 +198,12 @@ class SedarServer:
         # recovery is re-execution). Hybrid's FSC cadence is its entry check.
         fsc_interval = (int(run_cfg.sedar.param_validate_interval)
                         if backend == "hybrid" else 0)
+        self._fsc_interval = fsc_interval
         self.engine: SedarEngine = make_engine(
             run_cfg.sedar,
             backend=backend,
-            step_fn=self._decode_fn,
+            step_fn=(self._fused_decode_fn if backend == "fused"
+                     else self._decode_fn),
             state_fp_fn=lambda s: pytree_fingerprint_fused(self._fp_tree(s)),
             schedule=BoundarySchedule(
                 commit_interval=1, validate_interval=fsc_interval,
@@ -211,7 +237,7 @@ class SedarServer:
         backends, (candidate, None, logits, AbftReport) for abft/hybrid
         (their executor reads no step fingerprint)."""
         spec = self.inj_spec
-        if spec is not None and spec.target not in ("kernel", "prefill"):
+        if spec is not None and spec.target not in _NOT_PARAMS:
             params = inject_tree(params, spec, step=state["pos"],
                                  replica_id=replica_id, armed=armed)
         logits, cache = self.model.decode_step(params, state["cache"],
@@ -225,6 +251,54 @@ class SedarServer:
         if report is not None:
             return cand, None, logits, report
         return cand, pytree_fingerprint_fused({"logits": logits}), logits
+
+    def _fused_forward(self, params, cache, tok, pos, *, step: int,
+                       armed: bool, skip: Tuple[str, ...]):
+        """One decode of a stacked state's 2B rows -> (logits (2B, V), cache).
+        A parameter fault (a spec whose target is not in `skip`) fires for
+        ONE replica, decided on the host as `inject_tree` decides it. On
+        that step the corrupted launch runs first and the shared-weight
+        launch second, so every clean row keeps the bits of the launch
+        without the fault; the corrupted replica takes its logits rows
+        from the first launch and gets back the cache rows it wrote (both
+        launches write row `pos` of every row in place)."""
+        spec = self.inj_spec
+        bad = params
+        if (spec is not None and spec.target not in skip
+                and spec.replica in (0, 1)):
+            bad = inject_tree(params, spec, step=step,
+                              replica_id=spec.replica, armed=armed)
+
+        def decode(p):
+            # attention per replica half: the products a replica's own
+            # decode runs (their bits depend on the batch count)
+            return self.model.decode_step(p, cache, tok, pos, row_blocks=2)
+
+        if bad is params:
+            return decode(params)
+        n, r = tok.shape[0] // 2, spec.replica
+        logits_bad, _ = decode(bad)
+        kept = {name: c.narrow(1, r * n, n).clone()
+                for name, c in cache.items()}
+        logits, cache = decode(params)
+        for name, c in cache.items():
+            c.narrow(1, r * n, n).copy_(kept[name])
+        halves = [logits[:n], logits[n:]]
+        halves[r] = logits_bad[r * n:(r + 1) * n]
+        return torch.cat(halves), cache
+
+    def _fused_decode_fn(self, stacked, params, armed: bool):
+        """Fused engine step_fn for `generate()`: both replicas' B rows in
+        one decode, one K1 call per replica's (B, V) logits block."""
+        pos = stacked["pos"]
+        logits, cache = self._fused_forward(
+            params, stacked["cache"], stacked["tok"], pos, step=pos,
+            armed=armed, skip=_NOT_PARAMS)
+        b = logits.shape[0] // 2
+        fps = torch.stack([pytree_fingerprint_fused({"logits": logits[:b]}),
+                           pytree_fingerprint_fused({"logits": logits[b:]})])
+        tok = torch.argmax(logits, dim=-1)    # first maximum on ties
+        return {"cache": cache, "tok": tok, "pos": pos + 1}, fps, logits[:b]
 
     def generate(self, params, prompt_batch: Dict[str, Any], steps: int,
                  max_len: Optional[int] = None
@@ -288,19 +362,22 @@ class SedarServer:
     def _make_packed_decode(self):
         """Packed step_fn over N sequence slots, each with its own cache
         rows, token and position (decoded at per-row positions: the
-        reference's vmap of the B=1 decode). Returns per-slot fingerprints
-        (N, 4) — one K1 call per row, rows of inactive slots zeroed — so the
-        slotted executor localizes mismatches; the unprotected backend
-        computes none. Inactive slots keep their positions; the cache rows
-        they write are garbage that an admission overwrites whole."""
+        reference's vmap of the B=1 decode). The sequential backend returns
+        per-slot fingerprints (N, 4) — one K1 call per row, rows of inactive
+        slots zeroed — so the slotted executor localizes mismatches;
+        abft/hybrid pass the (N, V) logits block through the checksum guard
+        and return its report; the unprotected backend computes neither.
+        Inactive slots keep their positions; the cache rows they write are
+        garbage that an admission overwrites whole."""
         spec = self.inj_spec
         model = self.model
-        protected = self.backend != "none"
+        replicated = self.backend == "sequential"
+        guarded = self.backend in ("abft", "hybrid")
 
         def step(state, params, replica_id: int, armed: bool):
             t = state["t"]
-            if spec is not None and spec.target not in (
-                    "kernel", "slot", "prefill", "prefill_kernel"):
+            if spec is not None and spec.target not in _NOT_PARAMS + (
+                    "slot",):
                 params = inject_tree(params, spec, step=t,
                                      replica_id=replica_id, armed=armed)
             logits, cache = model.decode_step(params, state["cache"],
@@ -310,14 +387,45 @@ class SedarServer:
             # (spec.leaf_idx is the slot) on the chosen replica
             logits = inject_row(logits, spec, target="slot", tick=t,
                                 replica_id=replica_id, armed=armed)
+            report = None
+            if guarded:
+                logits, report = logits_checksum_guard(logits, spec, t,
+                                                       armed)
             act = state["active"]
-            fp = slot_fingerprints(logits, act) if protected else None
+            fp = slot_fingerprints(logits, act) if replicated else None
             tok = torch.argmax(logits, dim=-1)[:, None]
             cand = {"cache": cache, "tok": tok,
                     "pos": torch.where(act, state["pos"] + 1, state["pos"]),
                     "active": act, "t": t + 1}
             # aux = the emission pair the engine's TokenRing parks per tick
+            if report is not None:
+                return cand, fp, (tok, cand["pos"]), report
             return cand, fp, (tok, cand["pos"])
+
+        return step
+
+    def _make_fused_packed_decode(self):
+        """Fused packed step_fn over the stacked 2N slot rows: one decode,
+        the slot fault on its replica's half, one K1 call per row (2N), the
+        fingerprints as (2, N, 4); aux is replica 0's emission pair."""
+        spec = self.inj_spec
+
+        def step(stacked, params, armed: bool):
+            t = stacked["t"]
+            logits, cache = self._fused_forward(
+                params, stacked["cache"], stacked["tok"][:, 0],
+                stacked["pos"], step=t, armed=armed,
+                skip=_NOT_PARAMS + ("slot",))
+            logits = inject_row_halves(logits, spec, target="slot", tick=t,
+                                       armed=armed)
+            act = stacked["active"]
+            n = act.shape[0] // 2
+            fp = slot_fingerprints(logits, act)
+            tok = torch.argmax(logits, dim=-1)[:, None]
+            pos = torch.where(act, stacked["pos"] + 1, stacked["pos"])
+            cand = {"cache": cache, "tok": tok, "pos": pos, "active": act,
+                    "t": t + 1}
+            return cand, fp.reshape(2, n, fp.shape[-1]), (tok[:n], pos[:n])
 
         return step
 
@@ -327,21 +435,30 @@ class SedarServer:
         if key not in self._batch_engines:
             ring = SlotRing(slots_per_key=4)
             recovery = SlotRecovery(ring, max_retries=self.max_retries)
+            if self.backend in ("abft", "hybrid"):
+                def state_fp(s):
+                    return slot_rows_fingerprint(s["cache"], s["pos"],
+                                                 s["tok"])
+            else:
+                def state_fp(s):
+                    return pytree_fingerprint_fused({"tok": s["tok"]})
             eng = make_engine(
                 self.cfg.sedar,
                 backend=self.backend,
-                step_fn=self._make_packed_decode(),
-                state_fp_fn=lambda s: pytree_fingerprint_fused(
-                    self._fp_tree(s)),
+                step_fn=(self._make_fused_packed_decode()
+                         if self.backend == "fused"
+                         else self._make_packed_decode()),
+                state_fp_fn=state_fp,
                 schedule=BoundarySchedule(
-                    commit_interval=1, validate_interval=0,
+                    commit_interval=1, validate_interval=self._fsc_interval,
                     checkpoint_interval=0,
                     toe_timeout_s=self.cfg.sedar.toe_timeout_s,
                     validate_lag=lag),
                 recovery=recovery,
                 inj_spec=self.inj_spec, inj_flag=self.inj_flag,
                 notify=lambda e: None,
-                slots=slots if self.backend == "sequential" else None)
+                slots=(slots if self.backend in ("sequential", "fused")
+                       else None))
             self._batch_engines[key] = (eng, ring, recovery)
         return self._batch_engines[key]
 
@@ -434,13 +551,14 @@ class SedarServer:
     def _admit_pack(self, eng, dual, params, pairs, t: int, ring,
                     ring_on: bool, max_len: int, rep: BatchServeReport,
                     sched, notify, events: List[DetectionEvent]):
-        """Protected packed admission: ONE prefill per replica computes the
-        caches, first tokens and per-prompt lanes of the whole pack, ONE
-        `batched_get` reads {tokens, verdicts}, the admitted rows are
-        written into their slots and their SlotRing snapshots cut. A faulty
-        row is retried ALONE (the clean rows are admitted at once); a
-        persistent fault exhausts the retry budget into a per-request
-        rejection."""
+        """Protected packed admission: ONE prefill per replica (one for both
+        under fused) computes the caches, first tokens and per-prompt
+        verdicts of the whole pack, ONE `batched_get` reads {tokens,
+        verdicts}, the admitted rows are written into their slots and their
+        SlotRing snapshots cut. A faulty row is retried ALONE (the clean
+        rows are admitted at once); a forward-corrected pack (abft/hybrid)
+        is admitted with an `abft_corrected` prefill event; a persistent
+        fault exhausts the retry budget into a per-request rejection."""
         spec = self.inj_spec
         for slot, _req in pairs:
             ring.evict(slot)       # never resurrect a previous tenant
@@ -458,6 +576,8 @@ class SedarServer:
                 [res["tok"], res["verdict"]], label="prefill_emit")
             good = [i for i in need if int(verdicts[i]) != VERDICT_BAD]
             bad = [i for i in need if int(verdicts[i]) == VERDICT_BAD]
+            corrected = [i for i in good
+                         if int(verdicts[i]) == VERDICT_CORRECTED]
             if good:
                 dual = self._insert_rows(eng, dual, res,
                                          [(i, pairs[i][0]) for i in good])
@@ -475,9 +595,18 @@ class SedarServer:
                     # the row's lanes agreed before this read
                     req.tokens.append(int(toks[i, 0]))
                     req.token_times.append(now_wall)
-            if bad and spec is not None and not spec.persistent:
-                self.inj_flag.mark()   # the transient fault manifested: it
-                # must not re-fire on the retry or in a later stage
+            if corrected:
+                # prefill events never pass through eng.on_detection (the
+                # pack retries inline), so the correction is journaled here
+                events.append(DetectionEvent(
+                    step=t, boundary="prefill", effect="abft_corrected",
+                    detail={"slots": [pairs[i][0] for i in corrected],
+                            "rids": [pairs[i][1].rid for i in corrected]}))
+            if (bad or corrected) and spec is not None \
+                    and not spec.persistent:
+                self.inj_flag.mark()   # the transient fault manifested
+                # (detected or corrected): it must not re-fire on the retry
+                # or in a later stage
             if not bad:
                 break
             ev = DetectionEvent(
@@ -583,7 +712,8 @@ class SedarServer:
         are reset first, so a template list can be replayed) plus a
         `BatchServeReport`.
 
-        `validate_lag` > 1 arms the deferred window (sequential backend):
+        `validate_lag` > 1 arms the deferred window (sequential and fused
+        backends; abft/hybrid run at lag 1):
         the fault-free decode tick reads nothing from the device, detection
         lags by <= D steps, and a detected fault rolls back only the
         affected slots from the Tier-0 ring; tokens leave through the
@@ -595,10 +725,6 @@ class SedarServer:
         the consumer's queue. `queue_depth` bounds the admission queue (a
         full queue rejects at once); `packed_prefill=False` admits each
         request with its own exact-shape prefill."""
-        if self.backend not in SERVE_BACKENDS:
-            raise NotImplementedError(
-                f"serve() with backend {self.backend!r} comes with the next "
-                f"slice of the port (ported: {SERVE_BACKENDS})")
         rep = BatchServeReport()
         t0 = time.time()
         for r in requests:

@@ -162,8 +162,12 @@ def test_launcher_backend_abft_runs_on_the_cpu(monkeypatch, capsys):
 
 
 def test_unported_backends_and_targets_raise():
-    with pytest.raises(NotImplementedError, match="backend 'fused'"):
-        _tserver("fused")
-    with pytest.raises(NotImplementedError, match="prefill_kernel"):
-        _tserver("abft", dict(leaf_idx=0, flat_idx=0, bit=1, step=0,
-                              target="prefill_kernel"))
+    """The mesh backends are not ported; `fused` and the `prefill_kernel`
+    target are."""
+    for backend in ("pod", "vote"):
+        with pytest.raises(NotImplementedError, match=f"backend '{backend}'"):
+            _tserver(backend)
+    assert _tserver("fused").engine.executor.name == "fused"
+    srv = _tserver("abft", dict(leaf_idx=0, flat_idx=0, bit=1, step=0,
+                                target="prefill_kernel"))
+    assert srv.prefiller.guarded

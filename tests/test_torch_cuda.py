@@ -497,3 +497,88 @@ def test_small_serve_on_the_card_equals_the_cpu_port(card):
         assert kfp.launch_count.n - before[0] >= 2 * 3 * rep.steps
         assert kfa.launch_count.n - before[1] == \
             2 * cfg.num_layers * rep.prefill_packs
+
+
+@pytest.mark.parametrize("n_slots,dtype", [(4, torch.bfloat16),
+                                           (1, torch.bfloat16),
+                                           (3, torch.float32)])
+def test_k1_row_limit_leaves_bitwise_vs_plain(card, n_slots, dtype):
+    """Hybrid serve's resident baseline: one K1 launch over every slot's
+    cache rows [0, pos[i]) (limits read on the device, int64 and int32)
+    and the tokens, bitwise equal (h1, h2, absmax) to the plain version and
+    to a masked copy; pos values at 0, mid-run, the run's end and past it."""
+    from repro_torch.core.fingerprint import (pack_tree_u32,
+                                              slot_rows_fingerprint)
+    L, T, KV, hd = 3, 41, 2, 64
+    gen = torch.Generator(device=card).manual_seed(n_slots)
+    cache = {n: torch.randn(L, n_slots, T, KV, hd, generator=gen,
+                            device=card).to(dtype) for n in "kv"}
+    pos = torch.tensor([0, 17, T, T + 5][:n_slots], device=card)
+    tok = torch.arange(n_slots, device=card)[:, None]
+    for p in (pos, pos.to(torch.int32)):
+        before = kfp.launch_count.n
+        got = slot_rows_fingerprint(cache, p, tok)
+        assert kfp.launch_count.n == before + 1
+        want = slot_rows_fingerprint({n: c.cpu() for n, c in cache.items()},
+                                     p.cpu(), tok.cpu())
+        g = got.cpu().numpy().view(np.uint32)
+        w = want.numpy().view(np.uint32)
+        np.testing.assert_array_equal(g[[0, 1, 3]], w[[0, 1, 3]])
+        masked = []
+        for name in sorted(cache):
+            for i in range(n_slots):
+                x = cache[name][:, i].float().cpu().clone()
+                x[:, min(int(p[i]), T):] = 0
+                masked.append(x)
+        m = kfp.fingerprint_plain(pack_tree_u32(masked + [tok.cpu()]))
+        np.testing.assert_array_equal(g[:2], m.numpy().view(np.uint32)[:2])
+        assert torch.equal(got, slot_rows_fingerprint(cache, p, tok))
+    calls, names = _launches(lambda: slot_rows_fingerprint(cache, pos, tok))
+    assert calls == 1 and len(names) <= 1
+
+
+def test_fused_step_rows_agree_bitwise_on_the_card(card):
+    """A clean fused decode of the reduced model on the card: rows i and
+    N + i of the stacked (2N, V) logits are bit-identical (the detection
+    needs it) and equal to a replica decoded alone (the attention runs per
+    half), and a fused serve under sync-debug "error" emits the sequential
+    lag-1 streams at lag 1 and 4."""
+    from repro_torch.runtime.scheduler import synthetic_requests
+    from repro_torch.runtime.serve import SedarServer
+    from repro_torch.tree import tree_map
+    cfg = dataclasses.replace(reduce_for_smoke(get_config("qwen2-0.5b")),
+                              attention_impl="pallas")
+    rc = RunConfig(model=cfg)
+    cpu = SedarServer(rc, dual=True, device="cpu")
+    gparams = tree_map(lambda t: t.to(card), cpu.model.init(seed=0))
+    srv = SedarServer(rc, backend="fused", device=card)
+    n, max_len = 3, 24
+    prompt = torch.randint(0, 200, (n, 8), device=card)
+    logits, cache = srv.model.prefill(gparams, {"tokens": prompt}, max_len)
+    stacked = srv.engine.executor.init_dual(
+        {"cache": cache, "tok": torch.argmax(logits, dim=-1), "pos": 8})["s"]
+    alone, _ = srv.model.decode_step(
+        gparams, {k: c.clone() for k, c in cache.items()},
+        torch.argmax(logits, dim=-1), 8)
+    out, _ = srv._fused_forward(gparams, stacked["cache"], stacked["tok"], 8,
+                                step=8, armed=False, skip=())
+    assert torch.equal(out[:n], out[n:])
+    assert torch.equal(out[:n], alone)   # a replica decoded alone
+
+    def reqs():
+        return synthetic_requests(5, arrival_rate=2.0, prompt_lengths=(4, 8),
+                                  max_new_choices=(4, 8), seed=1)
+
+    seq = SedarServer(rc, dual=True, device=card)
+    want = {r.rid: list(r.tokens)
+            for r in seq.serve(gparams, reqs(), slots=n, validate_lag=1)[0]}
+    for lag in (1, 4):
+        before = kfp.launch_count.n
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got, rep = srv.serve(gparams, reqs(), slots=n, validate_lag=lag)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        assert {r.rid: list(r.tokens) for r in got} == want
+        assert not rep.detections
+        assert kfp.launch_count.n - before >= 2 * n * rep.steps

@@ -93,6 +93,42 @@ def test_fsc_validate_boundary_matches_reference(max_retries):
     assert got[0] == [(2, "validate", "FSC"), (4, "validate", "FSC")]
 
 
+def _tstep_fused(st, batch, armed):
+    """_tstep on both replicas stacked as rows [0, 3) and [3, 6)."""
+    n = st["n"]
+    b = st["b"].clone()
+    if n == 1:
+        b[3:] += 1.0                   # replica 1's rows
+    cand = {"a": st["a"] + 1.0, "b": b, "n": n + 1}
+    fps = torch.stack([tfp.pytree_fingerprint_fused({"a": cand["a"][r]})
+                       for r in (slice(0, 3), slice(3, 6))])
+    return cand, fps, None
+
+
+@pytest.mark.parametrize("max_retries", [8, 1])
+def test_fused_fsc_validate_boundary_matches_reference(max_retries):
+    """The fused executor's FSC boundary: each replica's rows fingerprinted
+    and compared, the same events and recoveries as the reference's fused
+    engine (a vmap over the replica axis)."""
+    jeng = jmake_engine(
+        JSedarConfig(), backend="fused", step_fn=_jstep,
+        state_fp_fn=jfp.pytree_fingerprint_fused,
+        schedule=JSchedule(commit_interval=1, validate_interval=2),
+        recovery=JRetry(max_retries=max_retries), notify=lambda e: None)
+    teng = make_engine(
+        SedarConfig(), backend="fused", step_fn=_tstep_fused,
+        state_fp_fn=tfp.pytree_fingerprint_fused,
+        schedule=BoundarySchedule(commit_interval=1, validate_interval=2),
+        recovery=RetryRecovery(max_retries=max_retries),
+        notify=lambda e: None)
+    want = _drive(jeng, {"a": jnp.zeros(3), "b": jnp.zeros(3),
+                         "n": jnp.int32(0)}, JSafeStop)
+    got = _drive(teng, {"a": torch.zeros(3), "b": torch.zeros(3), "n": 0},
+                 SedarSafeStop)
+    assert got == want
+    assert got[0][0] == (2, "validate", "FSC")
+
+
 def test_toe_delay_detects_and_retries_like_reference():
     # one-shot delay of replica 1 at step 2, beyond the 0.15 s lapse
     delays = ({(2, 1): 0.3}, {(2, 1): 0.3})
@@ -112,9 +148,11 @@ def test_plain_backend_never_compares():
 
 
 def test_unported_backend_raises():
-    with pytest.raises(NotImplementedError):
-        make_engine(SedarConfig(), backend="fused", step_fn=_tstep,
-                    recovery=RetryRecovery())
+    for backend in ("pod", "vote"):
+        with pytest.raises(NotImplementedError):
+            make_engine(SedarConfig(), backend=backend, step_fn=_tstep,
+                        state_fp_fn=tfp.pytree_fingerprint_fused,
+                        recovery=RetryRecovery())
 
 
 def test_recovery_policies():

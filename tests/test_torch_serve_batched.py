@@ -313,9 +313,17 @@ def test_rejection_resets_slot_budget_for_next_tenant():
 
 @pytest.mark.parametrize("backend", ["abft", "hybrid"])
 def test_serve_backends_of_the_next_slice_raise(shared, backend):
+    """abft/hybrid `serve()` are ported: they serve the clean traffic with
+    the dual run's streams. Only the mesh backends stay unported."""
     srv = SedarServer(_rc(), backend=backend, device="cpu")
-    with pytest.raises(NotImplementedError, match="next slice"):
-        srv.serve(shared["tparams"], _requests(synthetic_requests))
+    reqs, rep = srv.serve(shared["tparams"], _requests(synthetic_requests),
+                          slots=SLOTS)
+    assert not rep.detections and not rep.stopped
+    for r in reqs:
+        assert list(r.tokens) == shared["clean"][r.rid], r.rid
+    for unported in ("pod", "vote"):
+        with pytest.raises(NotImplementedError, match="not ported"):
+            SedarServer(_rc(), backend=unported, device="cpu")
 
 
 def test_continuous_launcher_runs_on_the_cpu_and_needs_a_card_otherwise(
