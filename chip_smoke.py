@@ -31,6 +31,12 @@ counts set to 0 just before it and read just after:
     baseline) and K2 (also at the fused pack's 2K rows) held against their
     plain versions at the shapes this path gives them, and the backends'
     ms/step in turns;
+  * protected training (phase train): qwen2-0.5b at full width and depth
+    under L3 with the sequential backend — a clean run, a grads fault
+    restored from the validated checkpoint and bitwise equal to the clean
+    run, none and sequential ms/step, a profiled protected step, seconds
+    and bytes per checkpoint, K1 on the full grads and params+m+v trees
+    against its plain version — and L1/L2 on paper-testapp;
   * a small f32 model on the card against the plain CPU path.
 
 Any failed check exits non-zero. The last two lines are a JSON object of
@@ -73,6 +79,8 @@ ENGINE_N = 896
 ENGINE_STEPS = 8
 ENGINE_FAULT_STEP = 4
 FAULT_BIT = 26    # exponent bit 3: x256 for 2 <= |v| < 256
+TRAIN_SEQ = 256
+TRAIN_STEPS = 6
 
 
 def fail(msg: str) -> None:
@@ -204,10 +212,10 @@ def _k1_words(fp) -> np.ndarray:
     return fp.cpu().numpy().view(np.uint32)
 
 
-def check_k1_tree(kfp, tree, what: str) -> float:
+def k1_tree_values(kfp, tree, what: str):
     """K1 in place (`pytree_fingerprint_fused`) against pack + plain and the
     plain leaf walk: hash words and absmax bitwise, the sum within 1e-5 of
-    sum |x|, one device launch per call. Returns |ds|."""
+    sum |x|, one wrapper launch per call. Returns (|ds|, table rows, words)."""
     from repro_torch.core.fingerprint import (pack_tree_u32,
                                               pytree_fingerprint_fused)
     from repro_torch.tree import leaves
@@ -226,12 +234,20 @@ def check_k1_tree(kfp, tree, what: str) -> float:
              - float(want[2:3].view(np.float32)[0]))
     scale = max(float(packed.view(torch.float32).abs().sum()), 1.0)
     check(ds <= 1e-5 * scale, f"K1 sum off on {what}: {ds}")
+    return ds, len(table), packed.numel()
+
+
+def check_k1_tree(kfp, tree, what: str) -> float:
+    """`k1_tree_values`, and one device launch per call by torch.profiler
+    (one host launch call, its kernel's record seen). Returns |ds|."""
+    from repro_torch.core.fingerprint import pytree_fingerprint_fused
+    ds, rows, words = k1_tree_values(kfp, tree, what)
     calls, ran, names = device_launches(lambda: pytree_fingerprint_fused(tree))
     check(calls == 1 and ran <= 1 and len(names) == 1,
           f"K1 in place: {calls} launch calls and {ran} device kernels per "
           f"call on {what}: {names}")
-    print(f"K1 in place on {what} ({len(table)} table rows, "
-          f"{packed.numel()} words): h1/h2/absmax bitwise equal to pack + "
+    print(f"K1 in place on {what} ({rows} table rows, "
+          f"{words} words): h1/h2/absmax bitwise equal to pack + "
           f"plain and to the plain leaf walk, |ds|={ds:.3e}, "
           f"{calls:g} launch call and {ran:g} device kernel per call "
           f"({names[0]})", flush=True)
@@ -1559,6 +1575,286 @@ def phase_serve(kfp, kfa, main):
     return runs[1][3]
 
 
+def _timed(obj, name: str, out: list) -> None:
+    """Wrap obj.name so each call's wall seconds append to `out`."""
+    fn = getattr(obj, name)
+
+    def timed(*a, **k):
+        t = time.time()
+        try:
+            return fn(*a, **k)
+        finally:
+            out.append(time.time() - t)
+
+    setattr(obj, name, timed)
+
+
+def phase_train_app():
+    """L1 and L2 on the paper's own test app (paper-testapp, 4 layers, d
+    256, f32), with the reference's scenarios
+    (tests/test_detection_recovery.py): a grads fault at step 4 stops L1
+    there; a params fault at step 4 in an embedding row no token uses is
+    invisible to the grads compare, so the L2 checkpoint cut at 6 is dirty
+    and Alg. 1 rolls back twice, to 6 then 3, and ends bitwise equal to
+    its clean run. (An L2 version holds the full dual state: 11.86 GB at
+    qwen2-0.5b's width, and the chain is never pruned.)"""
+    from repro_torch.configs import (RunConfig, SedarConfig, TrainConfig,
+                                     get_config)
+    from repro_torch.core.injection import InjectionSpec
+    from repro_torch.core.policy import make_trainer
+    from repro_torch.data import SyntheticLM
+    import shutil
+    import tempfile
+
+    cfg = get_config("paper-testapp")
+    root = tempfile.mkdtemp(prefix="sedar_app_")
+
+    def run(name, level, spec=None, data=None, **kw):
+        sedar = dict(level=level, replication="sequential",
+                     validate_interval=1, param_validate_interval=4,
+                     checkpoint_interval=4, toe_timeout_s=60.0)
+        sedar.update(kw)
+        rc = RunConfig(model=cfg, train=TrainConfig(
+            global_batch=4, seq_len=16, steps=10, warmup_steps=2, lr=1e-3),
+            sedar=SedarConfig(**sedar))
+        tr = make_trainer(rc, os.path.join(root, name), inj_spec=spec,
+                          data=data, notify=lambda e: None, device="cuda")
+        return tr.run(10, dual=tr.engine.executor.init_dual(state))[1]
+
+    try:
+        state = make_trainer(
+            RunConfig(model=cfg, sedar=SedarConfig(level=1)),
+            os.path.join(root, "init"), device="cuda").init_state(seed=0)
+        l1 = run("l1", 1, InjectionSpec(leaf_idx=3, flat_idx=5, bit=20,
+                                        step=4, replica=1, target="grads"))
+        ev1 = [(e.step, e.boundary, e.effect) for e in l1.detections]
+        print(f"paper-testapp L1: events {ev1}, stopped {l1.stopped} at "
+              f"step {l1.steps_completed}", flush=True)
+        check(l1.stopped and ev1 == [(4, "commit", "TDC")]
+              and l1.steps_completed == 4, "paper-testapp L1 did not stop "
+              "at step 4")
+        data = SyntheticLM(200, 4, 16, seed=0)
+        clean = run("clean", 1, data=data)
+        check(not clean.detections, "paper-testapp clean run detected")
+        l2 = run("l2", 2, InjectionSpec(
+            leaf_idx=1, flat_idx=250 * cfg.d_model + 3, bit=22, step=4,
+            replica=1, target="params"), data=data, checkpoint_interval=3,
+            param_validate_interval=8)
+        ev2 = [(e.step, e.boundary, e.effect) for e in l2.detections]
+        rec2 = [(r["kind"], r["step"], r["rollbacks"])
+                for r in l2.recoveries]
+        same = np.array_equal(l2.final_state_fp[:, :2],
+                              clean.final_state_fp[:, :2])
+        print(f"paper-testapp L2 dirty checkpoint: events {ev2}, recoveries "
+              f"{rec2}, checkpoints {l2.checkpoints}, final fingerprints "
+              f"bitwise equal to the clean run: {same}", flush=True)
+        check(ev2 == [(8, "validate", "FSC"), (8, "validate", "FSC")]
+              and rec2 == [("restore", 6, 1), ("restore", 3, 2)]
+              and same and l2.steps_completed == 10,
+              "paper-testapp L2 did not roll back twice to a clean end")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def phase_train(kfp):
+    """Slice 4: protected training of qwen2-0.5b at full width and depth
+    (f32 masters, bf16 compute, seeded weights, adamw), global batch 4 x
+    256 tokens from SyntheticLM(seed 0), 6 steps, L3 with the sequential
+    backend (commit compare every step, FSC compare and validated
+    checkpoint every 2). A clean run, a grads fault at step 3 that must
+    restore from step 2 and end bitwise equal to the clean run, runs under
+    none and under sequential without checkpoints for ms/step, the host
+    launch calls of one protected step, and K1 on the full grads and
+    params+opt trees against its plain version. Returns K1's launches in
+    the clean run."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    from repro_torch.configs import (RunConfig, SedarConfig, TrainConfig,
+                                     get_config)
+    from repro_torch.core import hostsync
+    from repro_torch.core.fingerprint import pytree_fingerprint_fused
+    from repro_torch.core.injection import InjectionSpec
+    from repro_torch.core.policy import make_trainer
+    from repro_torch.data import SyntheticLM
+    from repro_torch.tree import leaves
+
+    t_phase = time.time()
+
+    def since() -> str:
+        return f"[train phase +{time.time() - t_phase:.1f} s]"
+
+    dev = torch.device("cuda")
+    cfg = get_config("qwen2-0.5b")
+    data = SyntheticLM(cfg.vocab_size, BATCH, TRAIN_SEQ, seed=0)
+    l3 = SedarConfig(level=3, replication="sequential", validate_interval=1,
+                     param_validate_interval=2, checkpoint_interval=2)
+    root = tempfile.mkdtemp(prefix="sedar_train_")
+
+    def trainer(name, sedar, spec=None):
+        rc = RunConfig(model=cfg, train=TrainConfig(
+            global_batch=BATCH, seq_len=TRAIN_SEQ, steps=TRAIN_STEPS,
+            warmup_steps=2), sedar=sedar)
+        return make_trainer(rc, os.path.join(root, name), inj_spec=spec,
+                            data=data, notify=lambda e: None, device=dev)
+
+    def ms_step(rep) -> float:
+        return rep.wall_s * 1e3 / max(rep.steps_completed, 1)
+
+    try:
+        tr = trainer("clean", l3)
+        t0 = time.time()
+        state = tr.init_state(seed=0)
+        torch.cuda.synchronize()
+        n_params = sum(p.numel() for p in leaves(state["params"]))
+        n_words = n_params * 3
+        print(f"train phase: {cfg.name} {cfg.num_layers}L d={cfg.d_model} "
+              f"V={cfg.vocab_size}, {n_params} f32 params ({n_words} words "
+              f"of params + adamw m, v; seeded init {time.time() - t0:.2f} "
+              f"s), bf16 compute, batch {BATCH} x {TRAIN_SEQ} tokens, "
+              f"{TRAIN_STEPS} steps, L3 sequential (FSC and checkpoint "
+              f"every 2), workdir {root}", flush=True)
+        none = trainer("none", SedarConfig(level=1, replication="none"))
+        seq = trainer("seq", dataclasses.replace(l3, level=1,
+                                                 checkpoint_interval=0))
+        none.run(1, dual=none.engine.executor.init_dual(state))   # warm-up
+        turns = {"none": [], "sequential": []}
+        for name, t in (("none", none), ("sequential", seq)):
+            _, r = t.run(TRAIN_STEPS, dual=t.engine.executor.init_dual(state))
+            check(not r.detections and r.steps_completed == TRAIN_STEPS,
+                  f"{name} training run: {r.summary()}")
+            turns[name].append(ms_step(r))
+
+        ck_s: list = []
+        _timed(tr.recovery, "maybe_checkpoint", ck_s)
+        kfp.launch_count.reset()
+        torch.cuda.reset_peak_memory_stats()
+        with hostsync.count_transfers() as st:
+            dual, rep = tr.run(TRAIN_STEPS,
+                               dual=tr.engine.executor.init_dual(state))
+        k1_launches = kfp.launch_count.n
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        store = tr.recovery.store
+        names = sorted(os.listdir(store.dir))
+        man = store.manifest(TRAIN_STEPS)
+        print(f"{since()} L3 clean run: {rep.summary()}; losses "
+              f"{rep.losses}; checkpoints {rep.checkpoints}, on disk "
+              f"{names}; K1 launches {k1_launches} "
+              f"({k1_launches / TRAIN_STEPS:.1f} per step); host reads "
+              f"{st.by_label}; peak memory {peak:.2f} GiB", flush=True)
+        check(not rep.detections and not rep.stopped,
+              f"clean training run detected {[str(e) for e in rep.detections]}")
+        check(rep.checkpoints == [2, 4, 6], f"checkpoints {rep.checkpoints}")
+        check(names == [f"ckpt_{TRAIN_STEPS:08d}"],
+              f"L3 must leave exactly one checkpoint and no .tmp: {names}")
+        check(man.valid is True and man.kind == "app" and man.n_leaves ==
+              3 * len(leaves(state["params"])) + 1, f"manifest {man}")
+        check(len(rep.losses) == TRAIN_STEPS
+              and all(np.isfinite(rep.losses)), f"losses {rep.losses}")
+        # every fingerprint of the run goes through K1: 2 per step on the
+        # grads, 2 per FSC, per checkpoint one per state leaf (manifest) and
+        # one per stored leaf (digests, + the step counter), and one per
+        # state leaf for the final fingerprint
+        n_fp = 3 * len(leaves(state["params"]))
+        want_k1 = (2 * TRAIN_STEPS
+                   + 2 * (TRAIN_STEPS // l3.param_validate_interval)
+                   + (TRAIN_STEPS // l3.checkpoint_interval) * (2 * n_fp + 1)
+                   + n_fp)
+        check(k1_launches == want_k1,
+              f"K1 launched {k1_launches} times, not {want_k1}: a "
+              f"fingerprint of the training path left the kernel")
+        ck_gb = man.bytes_on_disk / 1e9
+        print(f"L3 checkpoint: {man.bytes_on_disk} bytes on disk "
+              f"({ck_gb:.3f} GB), seconds per checkpoint (save + fsync + "
+              f"delete of the previous) {[round(x, 3) for x in ck_s]}",
+              flush=True)
+
+        spec = InjectionSpec(target="grads", leaf_idx=0, flat_idx=5, bit=20,
+                             step=3, replica=1)
+        ftr = trainer("fault", l3, spec)
+        fck_s: list = []
+        _timed(ftr.recovery, "restore", fck_s)
+        _, frep = ftr.run(TRAIN_STEPS,
+                          dual=ftr.engine.executor.init_dual(state))
+        events = [(e.step, e.boundary, e.effect) for e in frep.detections]
+        recs = [(r["kind"], r["step"], r["rollbacks"])
+                for r in frep.recoveries]
+        same_fp = np.array_equal(frep.final_state_fp[:, :2],
+                                 rep.final_state_fp[:, :2])
+        print(f"{since()} L3 fault run (grads leaf 0 element 5 bit 20, "
+              f"replica 1, step 3): events {events}, recoveries "
+              f"{frep.recoveries}, restore {[round(x, 3) for x in fck_s]} s;"
+              f" final per-leaf fingerprints bitwise equal to the clean "
+              f"run: {same_fp}, losses equal: {frep.losses == rep.losses}",
+              flush=True)
+        check(events == [(3, "commit", "TDC")], f"fault events {events}")
+        check(recs == [("restore", 2, 1)], f"fault recoveries {recs}")
+        check(same_fp and frep.losses == rep.losses
+              and frep.steps_completed == TRAIN_STEPS,
+              "the recovered run does not end bitwise equal to the clean run")
+
+        for name, t in (("sequential", seq), ("none", none)):
+            _, r = t.run(TRAIN_STEPS, dual=t.engine.executor.init_dual(state))
+            turns[name].append(ms_step(r))
+        print(f"training ms/step (wall / steps, {BATCH} x {TRAIN_SEQ} "
+              f"tokens; two turns each): none {turns['none']}, sequential "
+              f"{turns['sequential']}, sequential + L3 (3 checkpoints) "
+              f"{ms_step(rep):.2f} and with the fault's restore "
+              f"{ms_step(frep):.2f}", flush=True)
+
+        batch = seq.batch(2)
+        for name, t in (("sequential", seq), ("none", none)):
+            d = t.engine.executor.init_dual(state)
+            t.engine.run_protected_step(d, (2, batch), 2)      # warm
+            wall_ms, busy_ms, ran, kern, calls = device_profile(
+                lambda: t.engine.run_protected_step(d, (2, batch), 2))
+            print(f"one {name} training step (no boundary, profiler on): "
+                  f"wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms "
+                  f"({100 * busy_ms / wall_ms:.1f}%), {calls} host launch "
+                  f"calls, {ran} device kernels", flush=True)
+            for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:5]:
+                print(f"  {e.self_device_time_total / 1e3:9.3f} ms "
+                      f"{100 * e.self_device_time_total / 1e3 / busy_ms:5.1f}%"
+                      f" x{e.count:<6d} {e.key[:90]}", flush=True)
+            del d
+
+        _, grads = tr.loss_and_grads(state["params"], tr.batch(0))
+        opt_tree = {"params": tr.engine.executor.primary(dual)["params"],
+                    "opt": tr.engine.executor.primary(dual)["opt"]}
+        # times by CUDA events per call (a launch of 0.7-2 ms dwarfs the
+        # host's gap); one launch per call by the host's launch calls: the
+        # profiler's device records of this torch build can miss every K1
+        # record in a window (seen after the serve phase)
+        for what, tree in (("the full-width grads", grads),
+                           ("params + adamw m, v after 6 steps", opt_tree)):
+            ds, rows, n = k1_tree_values(kfp, tree, what)
+            calls, ran, _ = device_launches(
+                lambda: pytree_fingerprint_fused(tree))
+            check(calls == 1 and ran <= 1,
+                  f"K1 on {what}: {calls} launch calls and {ran} device "
+                  f"kernels per call")
+            table = kfp.leaf_table(leaves(tree))
+            ms = cuda_ms(lambda: pytree_fingerprint_fused(tree), 20)
+            plain_ms = cuda_ms(lambda: kfp.fingerprint_leaves_plain(table),
+                               2, warmup=1)
+            b_ms, b_by = bound(4 * n + 16, 0)
+            print(f"K1 in place on {what}: {rows} leaves, {n} words, "
+                  f"h1/h2/absmax bitwise equal to pack + plain and to the "
+                  f"plain leaf walk, |ds|={ds:.3e}, {calls:g} launch call "
+                  f"and {ran:g} device kernel records per call; per call "
+                  f"{ms:.4f} ms ({4 * n / ms / 1e9:.3f} TB/s), plain "
+                  f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})",
+                  flush=True)
+        del dual, grads, opt_tree
+        phase_train_app()
+        print(f"train phase took {time.time() - t_phase:.1f} s", flush=True)
+        return k1_launches
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+
 def phase_reference():
     """Small f32 model: the card's path (kernels) against the plain CPU path
     (which the CPU tests hold to the JAX package)."""
@@ -1631,8 +1927,14 @@ def main() -> None:
     counts, main_run = phase_main(kfp, kfa, get_config("qwen2-0.5b"))
     phase_abft_serve(kfp, kfa, main_run)
     serve_counts = phase_serve(kfp, kfa, main_run)
+    del main_run
+    kfp.launch_count.reset()
+    train_k1 = phase_train(kfp)
+    check(train_k1 > 0, "K1 never launched by the trainer")
     phase_reference()
-    k1["launches"] = counts["fingerprint"]
+    # the main path's K1 launches and the training path's, each counted
+    # from 0 just before its run
+    k1["launches"] = counts["fingerprint"] + train_k1
     k2["launches"] = counts["flash_attention"]
     kernels = [k1, k2, k3, k4]
     for k in kernels:

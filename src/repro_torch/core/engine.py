@@ -2,12 +2,16 @@
 
     SedarEngine = ReplicaExecutor        (how redundant copies execute)
                 × BoundarySchedule       (when boundaries fire)
-                × recovery policy        (L0 retry / per-slot restore / L1)
+                × recovery policy        (L0 retry / per-slot restore / L1
+                                          stop / L2 chain / L3 validated)
                 × injection              (fault campaigns)
 
 Workloads provide `step_fn(state, batch, replica_id, armed) -> (candidate,
 fingerprint, aux)` and call `run_protected_step()` per step and
-`on_detection()` per event.
+`on_detection()` per event. A protected step runs the replicas, gates the
+commit (TDC), validates the full state at the FSC cadence and then cuts
+the L2/L3 checkpoint due at the new step, right after the validation
+(paper Sec. 3.2: the smallest window of vulnerability).
 
 Ported backends: `PlainExecutor` (no redundancy), `SequentialExecutor`
 (time redundancy: both replicas run back to back on the same card, each
@@ -26,12 +30,12 @@ match predicate; the engine parks it in a small ring and reads the ring
 back once every D commits (and at validate boundaries and the end of a
 run), so a fault-free step reads nothing from the device. A failed flush
 localizes the first bad step (and, for per-slot predicates, the slots);
-recovery then routes through the policy's `restore` (the per-slot Tier-0
-rollback of `SlotRecovery`). The lag degrades to 1 for executors without
-deferred support and under `RetryRecovery`, whose retry can only rewind
-the current step — so `generate()` keeps its commit-per-step gate. The
-checkpoint boundaries and the L2/L3 recoveries come with the training
-slice.
+recovery then routes through the policy's `restore` (an L2/L3 rollback,
+or the per-slot Tier-0 rollback of `SlotRecovery`). A checkpoint boundary
+forces the flush first, so every stored version predates every
+unvalidated step. The lag degrades to 1 for executors without deferred
+support and under `RetryRecovery`, whose retry can only rewind the current
+step — so `generate()` keeps its commit-per-step gate.
 """
 from __future__ import annotations
 
@@ -46,9 +50,11 @@ from repro_torch import tree as tree_util
 from repro_torch.core import hostsync
 from repro_torch.core.detection import (DetectionEvent, SedarSafeStop,
                                         Watchdog)
-from repro_torch.core.fingerprint import (fingerprints_equal, mismatch_report,
-                                          pytree_fingerprint)
-from repro_torch.core.recovery import RecoveryAction, RetryRecovery
+from repro_torch.core.fingerprint import (fingerprints_equal,
+                                          leaf_fingerprints, mismatch_report)
+from repro_torch.core.recovery import (MultiCheckpointRecovery,
+                                       RecoveryAction, RetryRecovery,
+                                       ValidatedCheckpointRecovery)
 
 
 @dataclass(frozen=True)
@@ -58,9 +64,8 @@ class BoundarySchedule:
     commit_interval     -- TDC boundary: replica fingerprint compare before
                            the commit (paper: validate-before-send).
     validate_interval   -- FSC boundary: full-state fingerprint compare.
-    checkpoint_interval -- L2/L3 checkpoint cadence (no ported recovery
-                           stores checkpoints yet; it forces deferred
-                           flushes, as in the reference).
+    checkpoint_interval -- L2/L3 checkpoint cadence (it also forces the
+                           deferred flush).
     toe_timeout_s       -- replica flow-separation lapse (TOE boundary).
     validate_lag        -- deferred validation window D: commit predicates
                            stay on the device and are read back every D
@@ -105,11 +110,18 @@ class StepOutcome:
     aux: Any = None
     event: Optional[DetectionEvent] = None
 
+    @property
+    def committed(self) -> bool:
+        """Whether the step's candidate was adopted (a commit or TOE event
+        keeps the pre-step state)."""
+        return self.event is None or self.event.boundary not in ("commit",
+                                                                 "toe")
+
 
 def _localize(c0, c1) -> List[Dict[str, Any]]:
     """Leaf-level localization of a commit mismatch: per-leaf fingerprints
-    of the two candidates (off the hot path)."""
-    fa, fb = pytree_fingerprint(c0), pytree_fingerprint(c1)
+    of the two candidates (K1 per leaf on the card; off the hot path)."""
+    fa, fb = leaf_fingerprints(c0), leaf_fingerprints(c1)
     return mismatch_report(c0, fa, fb)[:4]
 
 
@@ -128,7 +140,13 @@ class ReplicaExecutor:
         pred): an OPTIMISTIC commit; `pred` is the on-device predicate
         "this step's replicas matched" (only when `supports_deferred`).
     validate(dual, step)   -> DetectionEvent | None  (FSC boundary)
+    validated_fp(dual)     -> (per-leaf fp of r0 [np], replicas_equal)
     init_dual(single)      -> dual state from one logical state
+    adopt_single(single)   -> dual state from a restored L3 checkpoint
+    primary(dual)          -> replica 0's logical state (what an L3
+                              checkpoint stores)
+    state_fp(dual)         -> per-leaf fingerprint of r0 (reports, L2
+                              manifests)
     peek(dual, key)        -> replica 0's entry `key`
     map_state(fn, dual)    -> fn applied to every replica's state
     repair(event, dual)    -> (dual', record) | None  (forward correction)
@@ -154,6 +172,19 @@ class ReplicaExecutor:
 
     def init_dual(self, single):
         return {"r0": single}
+
+    def adopt_single(self, single):
+        return {"r0": single}
+
+    def primary(self, dual):
+        return dual["r0"]
+
+    def state_fp(self, dual):
+        raise NotImplementedError
+
+    def validated_fp(self, dual):
+        return (hostsync.read_scalar(self.state_fp(dual),
+                                     label="validated_fp"), True)
 
     def note_external_update(self) -> None:
         """Callers run this after mutating the resident state outside a
@@ -186,37 +217,49 @@ class PlainExecutor(ReplicaExecutor):
 
     name = "none"
 
-    def __init__(self, step_fn: Callable):
+    def __init__(self, step_fn: Callable,
+                 state_fp_fn: Optional[Callable] = None):
         self.step_fn = step_fn
+        self.state_fp_fn = state_fp_fn
 
     def execute(self, dual, batch, step: int, armed, compare: bool):
         cand, _fp, aux = self.step_fn(dual["r0"], batch, 0, armed)
         return {"r0": cand}, aux, None
+
+    def state_fp(self, dual):
+        return self.state_fp_fn(dual["r0"])
 
 
 class SequentialExecutor(ReplicaExecutor):
     """Time redundancy: replicas run back to back on the same card, each
     owning a FULL state image (the paper's per-thread memory image). The
     commit compare is ONE counted device read (`commit_compare`).
-    `state_fp_fn` fingerprints a replica's state at the FSC boundary."""
+    `state_fp_fn` fingerprints a replica's state leaf by leaf (reports,
+    manifests); `fast_state_fp_fn` (default: the same) is the FSC
+    boundary's replica compare."""
 
     name = "sequential"
     n_replicas = 2
     supports_deferred = True
 
     def __init__(self, step_fn: Callable, state_fp_fn: Callable,
+                 fast_state_fp_fn: Optional[Callable] = None,
                  watchdog: Optional[Watchdog] = None,
                  toe_timeout_s: float = 120.0,
                  delay_source: Optional[Callable[[], dict]] = None):
         self.step_fn = step_fn
         self.state_fp_fn = state_fp_fn
+        self.fast_state_fp_fn = fast_state_fp_fn or state_fp_fn
         self.watchdog = watchdog
         self.toe_timeout_s = toe_timeout_s
         # scenario hook: {(step, replica): seconds} of one-shot delays
         self.delay_source = delay_source or (lambda: {})
+        self._eq = (None, None)   # (an r0 state, its FSC verdict)
 
     def init_dual(self, single):
         return {"r0": single, "r1": _clone_state(single)}
+
+    adopt_single = init_dual   # a validated single state seeds both replicas
 
     def _launch(self, dual, batch, step: int, armed, timed: bool,
                 delays: dict):
@@ -235,6 +278,7 @@ class SequentialExecutor(ReplicaExecutor):
             exec_t[rid] = time.monotonic() - t_r
             if self.watchdog is not None:
                 self.watchdog.beat(rid, step)
+        self._eq = (None, None)
         return outs, exec_t
 
     def _launch_with_toe(self, dual, batch, step: int, armed):
@@ -280,13 +324,33 @@ class SequentialExecutor(ReplicaExecutor):
             dual, batch, step, armed)
         return {"r0": c0, "r1": c1}, aux0, fingerprints_equal(fp0, fp1)
 
+    def _resident_eq(self, dual) -> bool:
+        """Full-state replica comparison, memoized on the committed r0
+        state itself (compared by identity, and held, so a freed state's
+        recycled id can never return its verdict): validate() and
+        validated_fp() land on the same state within one step and must not
+        reduce it twice. Every launch drops the memo."""
+        if self._eq[0] is dual["r0"]:
+            return self._eq[1]
+        equal = hostsync.read_bool(
+            fingerprints_equal(self.fast_state_fp_fn(dual["r0"]),
+                               self.fast_state_fp_fn(dual["r1"])),
+            label="state_validate")
+        self._eq = (dual["r0"], equal)
+        return equal
+
     def validate(self, dual, step: int) -> Optional[DetectionEvent]:
-        if hostsync.read_bool(
-                fingerprints_equal(self.state_fp_fn(dual["r0"]),
-                                   self.state_fp_fn(dual["r1"])),
-                label="state_validate"):
+        if self._resident_eq(dual):
             return None
         return DetectionEvent(step=step, boundary="validate", effect="FSC")
+
+    def validated_fp(self, dual):
+        return (hostsync.read_scalar(self.state_fp_fn(dual["r0"]),
+                                     label="validated_fp"),
+                self._resident_eq(dual))
+
+    def state_fp(self, dual):
+        return self.state_fp_fn(dual["r0"])
 
 
 # ---------------------------------------------------------------------------
@@ -520,20 +584,25 @@ class SlottedFusedExecutor(FusedSequentialExecutor):
 
 class SedarEngine:
     """Composes executor × schedule × recovery × injection behind
-    `run_protected_step()` + `on_detection()`. Owns the run's `detections`
-    and `recoveries` records; call `reset()` at the start of each run."""
+    `run_protected_step()` + `on_detection()`. Owns the run's `detections`,
+    `recoveries` and `checkpoints` records; call `reset()` at the start of
+    each run. `init_fn()` builds a fresh dual state (the restart from
+    scratch of Alg. 1)."""
 
     def __init__(self, executor: ReplicaExecutor, schedule: BoundarySchedule,
                  recovery, *, inj_spec=None, inj_flag=None,
+                 init_fn: Optional[Callable[[], Any]] = None,
                  notify: Optional[Callable[[DetectionEvent], None]] = None):
         self.executor = executor
         self.schedule = schedule
         self.recovery = recovery
         self.inj_spec = inj_spec
         self.inj_flag = inj_flag
+        self.init_fn = init_fn
         self.notify = notify or (lambda e: print(str(e), flush=True))
         self.detections: List[DetectionEvent] = []
         self.recoveries: List[Dict[str, Any]] = []
+        self.checkpoints: List[int] = []
         # the deferred window degrades to 1 when the executor cannot hand
         # back an on-device predicate, or when recovery is L0 re-execution
         # (a retry can only rewind the CURRENT step)
@@ -557,15 +626,22 @@ class SedarEngine:
     def reset(self) -> None:
         self.detections.clear()
         self.recoveries.clear()
+        self.checkpoints.clear()
         self._ring.clear()
         self.validated_frontier = 0
         self.emission_ring = None     # callers re-attach per run
 
+    def init_dual(self):
+        if self.init_fn is None:
+            raise RuntimeError("engine has no init_fn")
+        return self.init_fn()
+
     def run_protected_step(self, dual, batch, step: int) -> StepOutcome:
         """Execute one redundant step at `step`: inject (if armed) ->
         execute replicas -> TDC commit gate (immediate or deferred) -> FSC
-        validation boundary. Returns the state to continue from plus the
-        detection event, if any (feed it to `on_detection`)."""
+        validation boundary -> checkpoint boundary. Returns the state to
+        continue from plus the detection event, if any (feed it to
+        `on_detection`)."""
         armed = (self.inj_flag is not None
                  and self.inj_flag.arm_spec(self.inj_spec) is not None)
         compare = self.schedule.commit_due(step)
@@ -580,10 +656,18 @@ class SedarEngine:
         self._note_success()   # whatever failed before was transient
         if compare:
             self.validated_frontier = step + 1
+        return self._boundaries(dual2, aux, step + 1)
+
+    def _boundaries(self, dual, aux, new_step: int) -> StepOutcome:
+        """After a commit: the FSC validation due at `new_step`, then the
+        checkpoint right after it."""
         if self.executor.can_validate and \
-                self.schedule.validate_due(step + 1):
-            event = self.executor.validate(dual2, step + 1)
-        return StepOutcome(dual=dual2, aux=aux, event=event)
+                self.schedule.validate_due(new_step):
+            event = self.executor.validate(dual, new_step)
+            if event is not None:
+                return StepOutcome(dual=dual, aux=aux, event=event)
+        return StepOutcome(dual=dual, aux=aux,
+                           event=self._maybe_checkpoint(dual, new_step))
 
     def _note_success(self) -> None:
         note = getattr(self.recovery, "note_success", None)
@@ -606,18 +690,18 @@ class SedarEngine:
             # the ring when its own predicate flushes
             self.emission_ring.park(step, aux)
         new_step = step + 1
+        # a checkpoint due at new_step forces the flush too: every stored
+        # version predates every unvalidated step
+        sync_due = getattr(self.recovery, "sync_due", None)
         if (len(self._ring) >= self.validate_lag
                 or self.schedule.validate_due(new_step)
-                or self.schedule.checkpoint_due(new_step)):
+                or self.schedule.checkpoint_due(new_step)
+                or (sync_due is not None and sync_due(new_step))):
             event = self.flush_deferred()
             if event is not None:
                 return StepOutcome(dual=dual2, aux=aux, event=event)
             self._note_success()
-        event = None
-        if self.executor.can_validate and \
-                self.schedule.validate_due(new_step):
-            event = self.executor.validate(dual2, new_step)
-        return StepOutcome(dual=dual2, aux=aux, event=event)
+        return self._boundaries(dual2, aux, new_step)
 
     def flush_deferred(self, final: bool = False,
                        eager: bool = False) -> Optional[DetectionEvent]:
@@ -725,14 +809,28 @@ class SedarEngine:
             raise SedarSafeStop(event)
         if action.kind == "retry":
             return dual      # transient fault: re-execute the same step
+        if action.kind == "restart_scratch":
+            self.validated_frontier = 0
+            return self.init_dual()
         if action.step is not None:
             self.validated_frontier = min(self.validated_frontier,
                                           action.step)
+        if isinstance(self.recovery, ValidatedCheckpointRecovery):
+            # L3 stores ONE validated state: seed every replica from it
+            single = self.recovery.restore(action,
+                                           self.executor.primary(dual))
+            self._merge_restore_info(record)
+            return self.executor.adopt_single(single)
         restored = self.recovery.restore(action, dual)
+        self._merge_restore_info(record)
+        return restored
+
+    def _merge_restore_info(self, record: Dict[str, Any]) -> None:
+        """Fold where the restore came from (tier, version) into the
+        recovery record just appended."""
         info = getattr(self.recovery, "last_restore_info", None)
         if info:
             record.update(info)
-        return restored
 
     def _mark_injected(self, step: int) -> None:
         # persistent (stuck-bit) specs are never marked: recovery
@@ -742,3 +840,31 @@ class SedarEngine:
                 and not self.inj_flag.already_injected()
                 and step == self.inj_spec.step):
             self.inj_flag.mark()
+
+    def _maybe_checkpoint(self, dual, step: int) -> Optional[DetectionEvent]:
+        """The L2/L3 checkpoint due at `step`, cut after the commit and the
+        FSC validation. L2 saves the full dual state with replica 0's
+        per-leaf fingerprint (read only on a boundary); L3 saves replica 0
+        if the replicas' state fingerprints are equal, else returns the
+        `ckpt_validate` event."""
+        r = self.recovery
+        if isinstance(r, MultiCheckpointRecovery):
+            if step == 0 or not r.due(step):
+                return None
+            fp = hostsync.read_scalar(self.executor.state_fp(dual),
+                                      label="checkpoint_fp") \
+                if r.fp_needed(step) else None
+            if r.maybe_checkpoint(step, dual, fp,
+                                  validated_floor=self.validated_frontier):
+                self.checkpoints.append(step)
+            return None
+        if isinstance(r, ValidatedCheckpointRecovery):
+            if step == 0 or step % r.interval != 0:
+                return None
+            fp0, fp_equal = self.executor.validated_fp(dual)
+            ev = r.maybe_checkpoint(step, {"r0": self.executor.primary(dual)},
+                                    fp0, fp_equal=fp_equal)
+            if ev is None:
+                self.checkpoints.append(step)
+            return ev
+        return None   # SafeStop / RetryRecovery / SlotRecovery store none

@@ -17,7 +17,9 @@ Words and fingerprints travel as int32 tensors holding u32 bits (see
 Two granularities, as in the reference:
   * per-leaf -- `pytree_fingerprint` -> (n_leaves, 4), plain PyTorch on the
     tensors' own device; keeps leaf-level localization for
-    `mismatch_report`.
+    `mismatch_report`. `leaf_fingerprints` is the same through K1 (one
+    launch per leaf) for CUDA leaves: the trainer's per-leaf state
+    fingerprint.
   * per-row  -- `slot_fingerprints` (N, V) -> (N, 4) and `lane_fingerprints`
     (a pack's per-prompt lanes): one K1 call per row or lane, reading the
     leaves in place; on CUDA tensors K1 or an error, never a fallback.
@@ -102,6 +104,30 @@ def pytree_fingerprint(tree) -> torch.Tensor:
     """-> (n_leaves, 4) int32 carrier, leaf order = flatten order."""
     fps = [tensor_fingerprint(l) for l in _leaf_tensors(tree)]
     return torch.stack(fps) if fps else torch.zeros((0, 4), dtype=torch.int32)
+
+
+def leaf_fingerprints(tree) -> torch.Tensor:
+    """`pytree_fingerprint` with each CUDA leaf hashed by K1, one launch per
+    leaf read in place (or over its packed words where K1 cannot read it in
+    place): the hash words equal the plain per-leaf ones; the stats are
+    zeroed for non-float leaves as `tensor_fingerprint` does. CPU leaves
+    take the plain version."""
+    leaves = _leaf_tensors(tree)
+    if not leaves or not all(l.is_cuda for l in leaves):
+        return pytree_fingerprint(tree)
+    fps = []
+    for leaf in leaves:
+        if leaf.numel() == 0:
+            fps.append(torch.zeros(4, dtype=torch.int32, device=leaf.device))
+            continue
+        table = kfp.leaf_table([leaf])
+        fp = (kfp.fingerprint_leaves(table) if table is not None
+              else kfp.fingerprint_u32(_to_u32(leaf)))
+        if not leaf.is_floating_point():
+            fp = torch.cat([fp[:2], torch.zeros(2, dtype=torch.int32,
+                                                device=fp.device)])
+        fps.append(fp)
+    return torch.stack(fps)
 
 
 def pack_tree_u32(tree) -> torch.Tensor:

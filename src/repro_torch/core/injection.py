@@ -13,8 +13,14 @@ ported from the reference's `core/injection.py`.
     row of a packed admission prefill (target='prefill');
     `inject_row_halves` does it on a block that stacks both replicas'
     rows (the fused backend).
-  * `MemoryInjectionFlag`: the once-only flag, so the re-execution after a
-    recovery does not re-inject.
+  * `InjectionFlag` (the paper's injected.txt, a file in the trainer's
+    workdir, outside every checkpoint, so neither a rollback nor a restart
+    re-injects) and `MemoryInjectionFlag` (the same once-only flag in
+    memory, for serving): the re-execution after a recovery does not
+    re-inject.
+
+The trainer fires `inject_tree` on the gradients (target 'grads'), the
+updated params ('params') or the updated optimizer state ('opt_state').
 
 The firing decision is made on the host from the engine's step, the replica
 id and the armed flag; no device value is read. A spec that does not fire
@@ -24,6 +30,8 @@ bit-identical to a run without a spec — the counterpart of the reference's
 """
 from __future__ import annotations
 
+import json
+import os
 from dataclasses import dataclass
 from typing import Optional
 
@@ -170,6 +178,37 @@ def inject_tree(tree, spec: Optional[InjectionSpec], *, step: int,
     target = tree_util.leaves(tree)[spec.leaf_idx]
     return tree_util.replace_leaf(tree, spec.leaf_idx,
                                   flip_bit(target, spec.flat_idx, spec.bit))
+
+
+class InjectionFlag:
+    """The paper's ``injected.txt``: an external once-only flag file, so
+    recovery re-executions do not re-inject (it lives OUTSIDE the
+    checkpoint and survives rollbacks, paper Sec. 4.2). Same file format as
+    the reference's."""
+
+    def __init__(self, path: str):
+        self.path = path
+        if not os.path.exists(path):
+            self._write(0)
+
+    def _write(self, v: int) -> None:
+        os.makedirs(os.path.dirname(self.path) or ".", exist_ok=True)
+        with open(self.path, "w") as f:
+            json.dump({"injected": v}, f)
+
+    def already_injected(self) -> bool:
+        with open(self.path) as f:
+            return json.load(f)["injected"] > 0
+
+    def mark(self) -> None:
+        self._write(1)
+
+    def arm_spec(self, spec: Optional[InjectionSpec]) -> Optional[InjectionSpec]:
+        """spec if not yet injected, else None (the paper's "function
+        returns without making a new injection")."""
+        if spec is None or self.already_injected():
+            return None
+        return spec
 
 
 class MemoryInjectionFlag:

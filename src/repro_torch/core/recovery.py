@@ -1,15 +1,64 @@
-"""SEDAR recovery strategies, the part the serving slices run (the
-reference's `core/recovery.py`): L1 `SafeStop`, the L0 re-execution policy
-`RetryRecovery` and the per-request `SlotRecovery` of continuous serving.
-The checkpoint levels L2/L3 and their stores come with the training slice.
+"""SEDAR recovery strategies (the reference's `core/recovery.py`, paper
+Secs. 3.1-3.3, Algorithms 1 and 2):
+
+  L1  SafeStop                    detection + notification + safe stop
+  L2  MultiCheckpointRecovery     chain of system-level checkpoints, rolled
+                                  back until the fault stops re-manifesting
+                                  (Alg. 1)
+  L3  ValidatedCheckpointRecovery one replica-validated application-level
+                                  checkpoint, at most one rollback (Alg. 2)
+
+plus the L0 re-execution policy `RetryRecovery` and the per-request
+`SlotRecovery` of continuous serving.
+
+System-level (L2) checkpoints hold the FULL dual state (both replicas), so
+a checkpoint cut after a silent corruption still holds the replicas'
+divergence and the fault re-manifests after a restore (the paper's "dirty
+checkpoint"). Application-level (L3) checkpoints hold ONE replica's state,
+committed only after the replicas' state fingerprints were proven equal.
+The rollback counter lives OUTSIDE the checkpoints (`rollbacks.json`, the
+paper's failures.txt), so it survives restores.
+
+Only the flat disk store is ported: a `ckpt_tiers` other than "disk"
+raises (ROADMAP Queue 1, the tier hierarchy).
 """
 from __future__ import annotations
 
+import json
+import os
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, Optional
 
+from repro_torch.checkpoint.delta import DeltaCheckpointStore
+from repro_torch.checkpoint.store import CheckpointStore
 from repro_torch.core import hostsync
 from repro_torch.core.detection import DetectionEvent
+
+
+class ExternalCounter:
+    """paper Sec. 4.2: failures.txt, kept outside the checkpoint storage."""
+
+    def __init__(self, path: str):
+        self.path = path
+        if not os.path.exists(path):
+            self._write(0)
+
+    def _write(self, v: int) -> None:
+        os.makedirs(os.path.dirname(self.path) or ".", exist_ok=True)
+        with open(self.path, "w") as f:
+            json.dump({"count": v}, f)
+
+    def value(self) -> int:
+        with open(self.path) as f:
+            return json.load(f)["count"]
+
+    def increment(self) -> int:
+        v = self.value() + 1
+        self._write(v)
+        return v
+
+    def reset(self) -> None:
+        self._write(0)
 
 
 @dataclass
@@ -32,6 +81,133 @@ class SafeStop:
     def on_detection(self, event: DetectionEvent) -> RecoveryAction:
         self.notify(event)
         return RecoveryAction(kind="stop", event=event)
+
+
+class MultiCheckpointRecovery:
+    """Recovery from a chain of system-level checkpoints (paper Alg. 1):
+
+        extern_counter++                      # on each detection
+        ckpt_no = ckpt_count - extern_counter # 1-based from the end
+        restore(ckpt_no)                      # or restart from scratch
+
+    The chain is never pruned (any checkpoint may be dirty) unless the
+    bounded mode `max_checkpoints` is asked for."""
+
+    level = 2
+
+    def __init__(self, store: CheckpointStore, counter_path: str,
+                 checkpoint_interval: int, max_checkpoints: int = 0,
+                 async_: bool = True):
+        self.store = store
+        self.counter = ExternalCounter(counter_path)
+        self.interval = checkpoint_interval
+        self.max_checkpoints = max_checkpoints
+        self.async_ = async_
+        # where the last restore came from; the engine merges it into its
+        # recovery record
+        self.last_restore_info: Optional[dict] = None
+
+    def due(self, step: int) -> bool:
+        return self.interval > 0 and step % self.interval == 0
+
+    # the flat store's every version is durable and manifest-writing
+    fp_needed = due
+    sync_due = due
+
+    def maybe_checkpoint(self, step: int, dual_state, fingerprints=None,
+                         validated_floor: Optional[int] = None) -> bool:
+        """Cut a system-level checkpoint right after a validated commit
+        (paper: "the best moments to take them are when the communications
+        have just been validated"). `validated_floor`, the engine's first
+        unvalidated step, is the bounded chain's retention floor."""
+        if step == 0 or not self.due(step):
+            return False
+        self.store.save(step, dual_state, kind="system", valid=None,
+                        fingerprint=fingerprints, async_=self.async_)
+        if self.max_checkpoints:
+            self.store.gc_keep_last(self.max_checkpoints,
+                                    keep_floor=validated_floor)
+        return True
+
+    def on_detection(self, event: DetectionEvent) -> RecoveryAction:
+        """Alg. 1 against its 1-based pseudo-code: extern_counter (>= 1,
+        incremented first) gives ckpt_no = ckpt_count - extern_counter + 1,
+        i.e. the 0-based steps[ckpt_count - counter]; ckpt_no < 1 relaunches
+        from the beginning. The first detection restores the NEWEST
+        checkpoint (possibly dirty), each re-detection one further back.
+        `store.steps()` waits for pending async writes, so ckpt_count is
+        exact right after a checkpoint boundary."""
+        rollbacks = self.counter.increment()
+        steps = self.store.steps()
+        idx = len(steps) - rollbacks
+        if idx < 0:
+            # the fault predates every checkpoint (paper Fig. 2a)
+            return RecoveryAction(kind="restart_scratch", rollbacks=rollbacks,
+                                  event=event)
+        return RecoveryAction(kind="restore", step=steps[idx],
+                              rollbacks=rollbacks, event=event)
+
+    def restore(self, action: RecoveryAction, template):
+        self.last_restore_info = {"tier": "disk", "version": action.step}
+        return self.store.restore(action.step, template)
+
+
+class ValidatedCheckpointRecovery:
+    """One safe application-level checkpoint (paper Alg. 2). At each
+    boundary the replicas' state fingerprints are compared: equal -> the
+    checkpoint is VALID, committed, and the previous one deleted (exactly
+    one valid checkpoint exists); different -> nothing is stored and
+    recovery rolls back, at most once, to the previous valid one."""
+
+    level = 3
+
+    def __init__(self, store: CheckpointStore, checkpoint_interval: int,
+                 async_: bool = False):
+        # synchronous by default: the previous version is deleted only
+        # after the new one is durable
+        self.store = store
+        self.interval = checkpoint_interval
+        self.async_ = async_
+        self.last_restore_info: Optional[dict] = None
+
+    def maybe_checkpoint(self, step: int, dual_state, fingerprints=None,
+                         fp_equal: Optional[bool] = None
+                         ) -> Optional[DetectionEvent]:
+        """None if no boundary or the checkpoint was committed; a
+        DetectionEvent if its validation FAILED (paper Alg. 2 line 16).
+        `dual_state` carries replica 0's state under 'r0'; only r0 is
+        stored (provably equal to r1 when `fp_equal`)."""
+        if step == 0 or step % self.interval != 0:
+            return None
+        if fp_equal is None:
+            raise ValueError("L3 checkpointing requires the replica "
+                             "state-fingerprint comparison")
+        if not bool(fp_equal):
+            return DetectionEvent(step=step, boundary="ckpt_validate",
+                                  effect="FSC",
+                                  detail={"reason": "app-level checkpoint "
+                                          "hash mismatch (corrupted)"})
+        prev = self.store.latest(valid_only=True)
+        self.store.save(step, dual_state["r0"], kind="app", valid=True,
+                        fingerprint=fingerprints, async_=self.async_)
+        self.store.wait()
+        if prev is not None and prev != step:
+            self.store.delete(prev)   # "the previous can be discarded"
+        return None
+
+    def on_detection(self, event: DetectionEvent) -> RecoveryAction:
+        target = self.store.latest(valid_only=True)
+        if target is None:
+            return RecoveryAction(kind="restart_scratch", rollbacks=1,
+                                  event=event)
+        return RecoveryAction(kind="restore", step=target, rollbacks=1,
+                              event=event)
+
+    def restore(self, action: RecoveryAction, template_single):
+        """The single validated state; the engine seeds every replica from
+        it (valid by construction)."""
+        self.last_restore_info = {"tier": "disk", "version": action.step}
+        return self.store.restore(action.step, template_single)
 
 
 class RetryRecovery:
@@ -155,3 +331,31 @@ class SlotRecovery:
         self._pending_restores.update(restored)
         self.last_restore_info = {"tier": "device", "slots": restored}
         return dual
+
+
+def make_recovery(sedar_cfg, workdir: Optional[str] = None):
+    """The recovery policy of a SedarConfig: L1 SafeStop, or L2/L3 over the
+    flat disk store under `<workdir or checkpoint_dir>/checkpoints`
+    (`ckpt_delta` with level 2: the delta store; `ckpt_compress`:
+    compressed leaves). The tier hierarchy is not ported: any
+    `ckpt_tiers` but "disk" raises."""
+    d = workdir or sedar_cfg.checkpoint_dir
+    if sedar_cfg.level <= 1:
+        return SafeStop()
+    tiers = [t.strip() for t in str(sedar_cfg.ckpt_tiers).split(",")
+             if t.strip()]
+    if tiers != ["disk"]:
+        raise NotImplementedError(
+            f"ckpt_tiers={sedar_cfg.ckpt_tiers!r}: only the flat 'disk' "
+            "store is ported (the device/host/partner tiers are ROADMAP "
+            "Queue 1's tier-hierarchy item)")
+    delta = bool(sedar_cfg.ckpt_delta) and sedar_cfg.level == 2
+    store_cls = DeltaCheckpointStore if delta else CheckpointStore
+    store = store_cls(os.path.join(d, "checkpoints"),
+                      compress=bool(sedar_cfg.ckpt_compress))
+    if sedar_cfg.level == 2:
+        return MultiCheckpointRecovery(
+            store, os.path.join(d, "rollbacks.json"),
+            sedar_cfg.checkpoint_interval, sedar_cfg.max_checkpoints,
+            async_=sedar_cfg.async_checkpoint)
+    return ValidatedCheckpointRecovery(store, sedar_cfg.checkpoint_interval)

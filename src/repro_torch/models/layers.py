@@ -236,10 +236,89 @@ def mlp(cfg, p, x):
 
 
 def embed_tokens(cfg, emb_p, tokens):
-    return emb_p["tok"][tokens].to(_dt(cfg))
+    """The token rows of the embedding. `F.embedding` rather than indexing:
+    the same rows, and a backward that is deterministic on the CPU with
+    several threads too (indexing's accumulate is not there), so two
+    replicas' gradients agree bit for bit on either device."""
+    return F.embedding(tokens, emb_p["tok"]).to(_dt(cfg))
 
 
 def logits_from_hidden(cfg, emb_p, h):
     if cfg.tie_embeddings:
         return torch.einsum("bsd,vd->bsv", h, emb_p["tok"].to(h.dtype))
     return torch.einsum("bsd,dv->bsv", h, emb_p["head"].to(h.dtype))
+
+
+# ---------------------------------------------------------------------------
+# Loss
+# ---------------------------------------------------------------------------
+
+def cross_entropy_loss(logits, targets, *, z_loss: float = 1e-4):
+    """Token-mean cross-entropy with the z-loss, in f32. The gold logits are
+    a `gather` (its backward is a deterministic scatter-add on the card
+    under deterministic algorithms)."""
+    lf = logits.to(torch.float32)
+    lse = torch.logsumexp(lf, dim=-1)
+    gold = torch.gather(lf, -1, targets.to(torch.int64)[..., None])[..., 0]
+    loss = torch.mean(lse - gold)
+    if z_loss:
+        loss = loss + z_loss * torch.mean(lse * lse)
+    return loss
+
+
+CE_CHUNK = 512      # seq chunk of the streamed head + CE path
+
+
+def ce_chunk_body(carry, xs, w_or_emb, tied: bool):
+    """One seq chunk of the streamed cross-entropy: the head projection AND
+    the CE of the chunk, so the full (B, S, V) logits never exist.
+    carry=(nll_sum, z_sum); xs=(h_chunk (B,c,D), tgt_chunk (B,c),
+    valid (B,c))."""
+    nll_sum, z_sum = carry
+    h, tgt, valid = xs
+    if tied:
+        logits = torch.einsum("bcd,vd->bcv", h, w_or_emb.to(h.dtype))
+    else:
+        logits = torch.einsum("bcd,dv->bcv", h, w_or_emb.to(h.dtype))
+    lf = logits.to(torch.float32)
+    lse = torch.logsumexp(lf, dim=-1)
+    gold = torch.gather(lf, -1, tgt.to(torch.int64)[..., None])[..., 0]
+    m = valid.to(torch.float32)
+    return (nll_sum + torch.sum((lse - gold) * m),
+            z_sum + torch.sum(lse * lse * m)), None
+
+
+def chunked_cross_entropy(cfg, emb_p, h, targets, *, chunk: int = CE_CHUNK,
+                          z_loss: float = 1e-4):
+    """Streamed head + CE over seq chunks. h: (B,S,D); targets: (B,S). Each
+    chunk's logits are recomputed in the backward (activation
+    checkpointing), never kept, as the reference's `jax.checkpoint` with
+    nothing saveable does."""
+    from torch.utils.checkpoint import checkpoint
+
+    B, S, D = h.shape
+    c = min(chunk, S)
+    pS = (-S) % c
+    if pS:
+        h = F.pad(h, (0, 0, 0, pS))
+        targets = F.pad(targets, (0, pS))
+    n = h.shape[1] // c
+    valid = (torch.arange(h.shape[1], device=h.device) < S).reshape(n, c)
+    w = emb_p["tok"] if cfg.tie_embeddings else emb_p["head"]
+
+    def body(nll_sum, z_sum, hc, tc, vc):
+        return ce_chunk_body((nll_sum, z_sum), (hc, tc, vc), w,
+                             cfg.tie_embeddings)[0]
+
+    carry = (torch.zeros((), dtype=torch.float32, device=h.device),
+             torch.zeros((), dtype=torch.float32, device=h.device))
+    for i in range(n):
+        sl = slice(i * c, (i + 1) * c)
+        carry = checkpoint(body, *carry, h[:, sl], targets[:, sl],
+                           valid[i].expand(B, c), use_reentrant=False)
+    nll_sum, z_sum = carry
+    n_tok = B * S
+    loss = nll_sum / n_tok
+    if z_loss:
+        loss = loss + z_loss * (z_sum / n_tok)
+    return loss

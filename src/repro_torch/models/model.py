@@ -2,6 +2,7 @@
 `build_model(cfg, device)` -> a uniform API over the decoder LM.
 
     model.init(seed)                          -> params on model.device
+    model.loss(params, batch)                 -> (loss, metrics)
     model.prefill(params, batch, max_len)     -> (logits, cache)
     model.decode_step(params, cache, tokens, pos[, row_blocks])
                                     -> (logits, cache)
@@ -27,6 +28,9 @@ class Model:
         """Seeded random params, generated on the model's device."""
         gen = torch.Generator(device=self.device).manual_seed(seed)
         return tfm.init_lm(gen, self.cfg, self.device)
+
+    def loss(self, params, batch):
+        return tfm.lm_loss(self.cfg, params, batch)
 
     def prefill(self, params, batch, max_len: int):
         return tfm.lm_prefill(self.cfg, params, batch["tokens"], max_len,

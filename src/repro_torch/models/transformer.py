@@ -1,5 +1,5 @@
-"""Dense decoder LM: init, full-sequence trunk, prefill and decode (the dense
-branch of the reference's `models/transformer.py`).
+"""Dense decoder LM: init, full-sequence trunk, training loss, prefill and
+decode (the dense branch of the reference's `models/transformer.py`).
 
 The reference scans over stacked layer params with `lax.scan`; here a
 Python loop walks the layers and slices each stacked leaf (a view, no
@@ -84,6 +84,28 @@ def lm_hidden(cfg, params, tokens, collect_kv: bool = False):
     x = nn.rms_norm(x, params["final_ln"], cfg.norm_eps)
     kv = (torch.stack(ks), torch.stack(vs)) if collect_kv else None
     return x, kv
+
+
+def lm_loss(cfg, params, batch):
+    """batch: {"tokens": (B,S), "targets": (B,S)} -> (loss, {"loss": loss}).
+    Sequences longer than CE_CHUNK stream the head + CE over seq chunks, so
+    the (B,S,V) logits never exist. The backward is autograd's; the flash
+    kernel K2 has no backward, as in the reference (whose Pallas kernel has
+    no VJP), so `attention_impl="pallas"` cannot train."""
+    if cfg.attention_impl == "pallas":
+        raise NotImplementedError(
+            "attention_impl='pallas' has no backward (K2 is forward-only, as "
+            "the reference's Pallas kernel is): train with 'xla'")
+    if batch.get("frontend_embeds") is not None:
+        raise NotImplementedError("frontend models are not ported")
+    h, _ = lm_hidden(cfg, params, batch["tokens"])
+    if h.shape[1] > nn.CE_CHUNK:
+        loss = nn.chunked_cross_entropy(cfg, params["embed"], h,
+                                        batch["targets"])
+    else:
+        logits = nn.logits_from_hidden(cfg, params["embed"], h)
+        loss = nn.cross_entropy_loss(logits, batch["targets"])
+    return loss, {"loss": loss}
 
 
 def init_cache(cfg, batch: int, max_len: int,

@@ -59,6 +59,32 @@ def tree_map(fn: Callable[..., Any], tree, *rest):
     return fn(tree, *rest)
 
 
+def unflatten_like(template, new_leaves):
+    """A tree of `template`'s structure whose leaves, in flatten order, are
+    `new_leaves` (the counterpart of `jax.tree_util.tree_unflatten`)."""
+    new_leaves = list(new_leaves)
+    used = [0]
+
+    def walk(node):
+        if node is None:
+            return None
+        if isinstance(node, dict):
+            new = dict(node)
+            for k in sorted(node):
+                new[k] = walk(node[k])
+            return new
+        if _is_container(node):
+            return type(node)(walk(c) for c in node)
+        used[0] += 1
+        return new_leaves[used[0] - 1]
+
+    out = walk(template)
+    if used[0] != len(new_leaves):
+        raise ValueError(f"{len(new_leaves)} leaves for a template of "
+                         f"{used[0]}")
+    return out
+
+
 def replace_leaf(tree, leaf_idx: int, new_leaf):
     """Copy of `tree` with leaf `leaf_idx` (flatten order) replaced. Only
     the containers on the leaf's path are copied; every other leaf is the

@@ -582,3 +582,89 @@ def test_fused_step_rows_agree_bitwise_on_the_card(card):
         assert {r.rid: list(r.tokens) for r in got} == want
         assert not rep.detections
         assert kfp.launch_count.n - before >= 2 * n * rep.steps
+
+
+def _trainer(card, cfg, workdir, sedar, spec=None, steps=6, seq=16):
+    from repro_torch.configs import SedarConfig, TrainConfig
+    from repro_torch.core.policy import make_trainer
+    rc = RunConfig(model=cfg, train=TrainConfig(
+        global_batch=4, seq_len=seq, steps=steps, warmup_steps=2, lr=1e-3),
+        sedar=SedarConfig(**sedar))
+    return make_trainer(rc, str(workdir), inj_spec=spec,
+                        notify=lambda e: None, device=card)
+
+
+def test_full_width_training_step_replicas_agree_bitwise(card, tmp_path):
+    """qwen2-0.5b at full width: two replicas' backward passes on the same
+    params and batch give bitwise equal grads (the embedding's index
+    accumulate, the gold-logit gather and the bf16 GEMMs are deterministic
+    under deterministic algorithms), K1 in place on the grads equals its
+    plain version, and one protected step detects nothing."""
+    tr = _trainer(card, get_config("qwen2-0.5b"), tmp_path,
+                  dict(level=1, replication="sequential"), steps=1, seq=256)
+    state = tr.init_state(seed=0)
+    batch = tr.batch(0)
+    loss0, g0 = tr.loss_and_grads(state["params"], batch)
+    loss1, g1 = tr.loss_and_grads(state["params"], batch)
+    assert torch.equal(loss0, loss1) and bool(torch.isfinite(loss0))
+    for a, b in zip(tree_util.leaves(g0), tree_util.leaves(g1)):
+        assert torch.equal(a, b)
+    table = kfp.leaf_table(tree_util.leaves(g0))
+    got = tfp.pytree_fingerprint_fused(g0).cpu().numpy()
+    want = kfp.fingerprint_leaves_plain(table).cpu().numpy()
+    assert np.array_equal(got[[0, 1, 3]], want[[0, 1, 3]])
+    del g1
+    before = kfp.launch_count.n
+    _, rep = tr.run(1, dual=tr.engine.executor.init_dual(state))
+    assert not rep.detections and rep.steps_completed == 1
+    assert kfp.launch_count.n - before >= 2
+
+
+def test_l3_fault_run_ends_equal_to_its_clean_run(card, tmp_path):
+    """paper-testapp on the card, L3: a grads fault at step 3 is detected,
+    restored from the validated checkpoint of step 2 (the card digests its
+    leaves with K1 and checks them again on restore), and the run ends
+    bitwise equal to the clean one."""
+    cfg = get_config("paper-testapp")
+    sedar = dict(level=3, replication="sequential", validate_interval=1,
+                 param_validate_interval=2, checkpoint_interval=2)
+    clean = _trainer(card, cfg, tmp_path / "clean", sedar)
+    state = clean.init_state(seed=0)
+    _, crep = clean.run(6, dual=clean.engine.executor.init_dual(state))
+    spec = InjectionSpec(leaf_idx=0, flat_idx=5, bit=20, step=3, replica=1,
+                         target="grads")
+    fault = _trainer(card, cfg, tmp_path / "fault", sedar, spec)
+    _, frep = fault.run(6, dual=fault.engine.executor.init_dual(state))
+    assert not crep.detections and crep.checkpoints == [2, 4, 6]
+    assert [(e.step, e.boundary) for e in frep.detections] == [(3, "commit")]
+    assert [(r["kind"], r["step"]) for r in frep.recoveries] == \
+        [("restore", 2)]
+    assert np.array_equal(frep.final_state_fp[:, :2],
+                          crep.final_state_fp[:, :2])
+    assert frep.losses == crep.losses
+
+
+def test_checkpoint_digests_on_the_card_equal_the_host_digests(card,
+                                                               tmp_path):
+    """A state on the card is digested by K1 (one launch per word leaf)
+    and equals numpy's digest of the same bytes; a restore onto the card
+    returns the bits and rejects a corrupted leaf."""
+    import os
+    from repro_torch.checkpoint import store as cstore
+    gen = torch.Generator(device=card).manual_seed(3)
+    state = {"w": torch.randn(1000, 33, generator=gen, device=card),
+             "n": torch.arange(7, dtype=torch.int32, device=card),
+             "s": torch.zeros((), dtype=torch.int32, device=card)}
+    host, digests = cstore.snapshot(state)
+    assert digests == [cstore._leaf_digest(a) for a in host]
+    st = cstore.CheckpointStore(str(tmp_path / "ck"))
+    st.save(1, state)
+    back = st.restore(1, state)
+    for a, b in zip(tree_util.leaves(back), tree_util.leaves(state)):
+        assert a.is_cuda and torch.equal(a, b)
+    path = os.path.join(st.dir, "ckpt_00000001", "leaf_00000.npy")
+    arr = np.load(path)
+    arr[0] ^= 1
+    np.save(path, arr)
+    with pytest.raises(cstore.CheckpointCorruptionError):
+        st.restore(1, state)
