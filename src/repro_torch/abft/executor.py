@@ -129,9 +129,12 @@ class AbftExecutor(ReplicaExecutor):
     n_replicas = 1
 
     def __init__(self, step_fn: Callable, state_fp_fn: Callable,
+                 fast_state_fp_fn: Optional[Callable] = None,
                  hybrid: bool = False, validate_interval: int = 0):
         self.step_fn = step_fn
-        self.state_fp_fn = state_fp_fn   # hybrid's commit/entry fingerprint
+        self.state_fp_fn = state_fp_fn   # per leaf: reports, L2/L3 manifests
+        # hybrid's commit/entry fingerprint (default: the same function)
+        self.fast_state_fp_fn = fast_state_fp_fn or state_fp_fn
         self.hybrid = hybrid
         self.validate_interval = validate_interval
         if hybrid:
@@ -160,6 +163,9 @@ class AbftExecutor(ReplicaExecutor):
         self._last_fp_step = -1
         self._pending_commit = None
         return {"r0": single}
+
+    # a restored L3 checkpoint is a new state: a new baseline
+    adopt_single = init_dual
 
     def note_external_update(self) -> None:
         # the caller mutated the resident state outside a protected step:
@@ -209,7 +215,7 @@ class AbftExecutor(ReplicaExecutor):
 
     def _commit(self, dual, next_step: int):
         if self.hybrid:
-            self._last_fp = self.state_fp_fn(dual["r0"])
+            self._last_fp = self.fast_state_fp_fn(dual["r0"])
             self._last_fp_step = next_step
         return dual
 
@@ -228,7 +234,7 @@ class AbftExecutor(ReplicaExecutor):
     def _resident_fp_equal(self, dual) -> bool:
         if self._last_fp is None:
             return True
-        cur = self.state_fp_fn(dual["r0"])
+        cur = self.fast_state_fp_fn(dual["r0"])
         return hostsync.read_bool(fingerprints_equal(self._last_fp, cur),
                                   label="state_validate")
 
@@ -238,3 +244,16 @@ class AbftExecutor(ReplicaExecutor):
         return DetectionEvent(step=step, boundary="validate", effect="FSC",
                               detail={"reason": "resident state diverged "
                                       "from its commit-time fingerprint"})
+
+    def validated_fp(self, dual):
+        """(replica 0's per-leaf fingerprint, "equal") for an L3 checkpoint.
+        There is no second replica: hybrid reads "equal" from the resident
+        state's compare against its commit-time fingerprint (an at-rest
+        fault since the commit fails it, so the checkpoint keeps its
+        guarantee); pure abft has no state check and reads True."""
+        equal = self._resident_fp_equal(dual) if self.hybrid else True
+        return (hostsync.read_scalar(self.state_fp_fn(dual["r0"]),
+                                     label="validated_fp"), equal)
+
+    def state_fp(self, dual):
+        return self.state_fp_fn(dual["r0"])

@@ -45,8 +45,8 @@ class DeltaCheckpointStore(CheckpointStore):
     def save(self, step: int, state, *, kind: str = "system",
              valid: Optional[bool] = None, fingerprint=None,
              async_: bool = False, extra: Optional[dict] = None,
-             compress: Optional[bool] = None) -> None:
-        host, digests = snapshot(state)
+             compress: Optional[bool] = None, snap=None) -> None:
+        host, digests = snap if snap is not None else snapshot(state)
         # the delta plan needs the digests before the write is enqueued
         if digests is None:
             digests = [_leaf_digest(a) for a in host]

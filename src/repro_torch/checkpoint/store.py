@@ -229,13 +229,16 @@ class CheckpointStore:
     def save(self, step: int, state, *, kind: str = "system",
              valid: Optional[bool] = None, fingerprint=None,
              async_: bool = False, extra: Optional[dict] = None,
-             compress: Optional[bool] = None) -> None:
+             compress: Optional[bool] = None, snap=None) -> None:
         """Snapshot `state` (a tree of tensors) as version `step`. The copy
         to the host completes before this returns; with `async_` the
         serialization runs on a writer thread. `compress=True` stores each
         leaf via np.savez_compressed (the digests are of the content, so
-        both forms carry the same digests)."""
-        host, digests = snapshot(state)
+        both forms carry the same digests). `snap`, a `snapshot(state)`
+        already taken (digests None: computed on the writer thread), lets
+        the tier hierarchy share one device-to-host copy among its
+        tiers."""
+        host, digests = snap if snap is not None else snapshot(state)
         man = Manifest(step=step, kind=kind, valid=valid,
                        fingerprint=_fingerprint_json(fingerprint),
                        n_leaves=len(host), extra=extra or {},

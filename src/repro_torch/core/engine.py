@@ -19,7 +19,9 @@ owning a full state image, with the TOE watchdog timing), its slot-granular
 `SlottedSequentialExecutor` (continuous-batching serving: per-slot
 fingerprints, localized mismatches, partial commit), the single-launch
 `FusedSequentialExecutor` and `SlottedFusedExecutor` (both replicas stacked
-as 2N rows of ONE state and stepped by one decode) and, in
+as 2N rows of ONE state and stepped by one decode), the training state's
+`StackedFusedExecutor` (both replicas on a leading axis of every leaf,
+stepped by one vmapped step, with the deferred window) and, in
 `abft/executor.py`, the replica-free `AbftExecutor` ("abft"/"hybrid"),
 whose `repair()` commits a checksum-corrected step forward before the
 recovery policy is asked.
@@ -40,6 +42,7 @@ step — so `generate()` keeps its commit-per-step gate.
 from __future__ import annotations
 
 import time
+import weakref
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
@@ -128,6 +131,41 @@ def _localize(c0, c1) -> List[Dict[str, Any]]:
 def _clone_state(state):
     return tree_util.tree_map(
         lambda x: x.clone() if isinstance(x, torch.Tensor) else x, state)
+
+
+class _StateMemo:
+    """One verdict memoized on a committed state by identity, without
+    keeping the state alive: the key is the state's id and weak references
+    to its tensor leaves. A freed or replaced leaf breaks the key, so a
+    recycled id can never return its verdict, and the memo never holds a
+    state's memory after the caller dropped it."""
+
+    def __init__(self):
+        self._key = None
+        self._value = None
+
+    @staticmethod
+    def _tensors(state):
+        return [x for x in tree_util.leaves(state)
+                if isinstance(x, torch.Tensor)]
+
+    def get(self, state):
+        if self._key is None or self._key[0] != id(state):
+            return None
+        now = self._tensors(state)
+        if len(now) != len(self._key[1]) or any(
+                r() is not x for r, x in zip(self._key[1], now)):
+            return None
+        return self._value
+
+    def put(self, state, value):
+        self._key = (id(state), [weakref.ref(x)
+                                 for x in self._tensors(state)])
+        self._value = value
+        return value
+
+    def clear(self) -> None:
+        self._key = self._value = None
 
 
 class ReplicaExecutor:
@@ -254,7 +292,7 @@ class SequentialExecutor(ReplicaExecutor):
         self.toe_timeout_s = toe_timeout_s
         # scenario hook: {(step, replica): seconds} of one-shot delays
         self.delay_source = delay_source or (lambda: {})
-        self._eq = (None, None)   # (an r0 state, its FSC verdict)
+        self._eq = _StateMemo()   # the FSC verdict of the committed r0
 
     def init_dual(self, single):
         return {"r0": single, "r1": _clone_state(single)}
@@ -278,7 +316,7 @@ class SequentialExecutor(ReplicaExecutor):
             exec_t[rid] = time.monotonic() - t_r
             if self.watchdog is not None:
                 self.watchdog.beat(rid, step)
-        self._eq = (None, None)
+        self._eq.clear()
         return outs, exec_t
 
     def _launch_with_toe(self, dual, batch, step: int, armed):
@@ -326,18 +364,17 @@ class SequentialExecutor(ReplicaExecutor):
 
     def _resident_eq(self, dual) -> bool:
         """Full-state replica comparison, memoized on the committed r0
-        state itself (compared by identity, and held, so a freed state's
-        recycled id can never return its verdict): validate() and
-        validated_fp() land on the same state within one step and must not
-        reduce it twice. Every launch drops the memo."""
-        if self._eq[0] is dual["r0"]:
-            return self._eq[1]
+        state (`_StateMemo`): validate() and validated_fp() land on the
+        same state within one step and must not reduce it twice. Every
+        launch drops the memo."""
+        hit = self._eq.get(dual["r0"])
+        if hit is not None:
+            return hit
         equal = hostsync.read_bool(
             fingerprints_equal(self.fast_state_fp_fn(dual["r0"]),
                                self.fast_state_fp_fn(dual["r1"])),
             label="state_validate")
-        self._eq = (dual["r0"], equal)
-        return equal
+        return self._eq.put(dual["r0"], equal)
 
     def validate(self, dual, step: int) -> Optional[DetectionEvent]:
         if self._resident_eq(dual):
@@ -580,6 +617,117 @@ class SlottedFusedExecutor(FusedSequentialExecutor):
         if not compare:
             return {"s": cand}, aux, eq
         return {"s": self._gate(eq, cand, dual["s"])}, aux, eq
+
+
+# ---------------------------------------------------------------------------
+# Fused training executor: both replicas on a leading replica axis
+# ---------------------------------------------------------------------------
+
+def stack_leading(single, n: int = 2):
+    """One state holding `n` replica images on a new leading axis of every
+    tensor leaf (parameters are not row-separable, and a 0-d step counter
+    has no rows); other leaves are shared."""
+    return tree_util.tree_map(
+        lambda x: torch.stack([x] * n) if isinstance(x, torch.Tensor) else x,
+        single)
+
+
+def replica_view(stacked, r: int):
+    """Replica `r`'s image of a leading-axis stacked state (views)."""
+    return tree_util.tree_map(
+        lambda x: x[r] if isinstance(x, torch.Tensor) else x, stacked)
+
+
+class StackedFusedExecutor(ReplicaExecutor):
+    """Time redundancy in ONE set of launches for a training state (the
+    reference's vmapped `FusedSequentialExecutor`): every leaf carries both
+    replicas on a leading axis of 2, and one step runs them together. Fused
+    step_fn contract: `(stacked, batch, armed) -> (candidate, fps (2, 4),
+    aux)`; `state_fp_fn` / `fast_state_fp_fn` fingerprint one replica's
+    image (a `replica_view`).
+
+    The commit gate adopts the candidate only where the replicas matched.
+    At lag 1 the predicate is read first and the host keeps the pre-step
+    state on a mismatch. In deferred mode the gate runs on the device with
+    no read: `where(eq, candidate, pre-step)` per leaf, written into the
+    candidate's own (fresh) tensors, so a mismatched step freezes both
+    replicas in place and later steps run batch-skewed until the flush
+    localizes the fault and a checkpoint rollback repairs the skew, as in
+    the reference. Off-boundary steps (no compare) adopt the candidate
+    unconditionally. Per-replica TOE timing does not exist: the replicas
+    share one launch."""
+
+    name = "fused"
+    n_replicas = 2
+    supports_deferred = True
+
+    def __init__(self, step_fn: Callable, state_fp_fn: Callable,
+                 fast_state_fp_fn: Optional[Callable] = None):
+        self.step_fn = step_fn
+        self.state_fp_fn = state_fp_fn
+        self.fast_state_fp_fn = fast_state_fp_fn or state_fp_fn
+        self._eq = _StateMemo()   # the FSC verdict of the committed state
+
+    def init_dual(self, single):
+        return {"s": stack_leading(single, self.n_replicas)}
+
+    adopt_single = init_dual   # a validated single state seeds both replicas
+
+    def primary(self, dual):
+        return replica_view(dual["s"], 0)
+
+    def peek(self, dual, key: str):
+        return replica_view(dual["s"][key], 0)
+
+    def _launch(self, dual, batch, armed):
+        cand, fps, aux = self.step_fn(dual["s"], batch, armed)
+        self._eq.clear()
+        return cand, fingerprints_equal(fps[0], fps[1]), aux
+
+    def execute(self, dual, batch, step: int, armed, compare: bool):
+        cand, eq, aux = self._launch(dual, batch, armed)
+        if compare and not hostsync.read_bool(eq, label="commit_compare"):
+            # gated: the pre-step state carries on (the fused path trades
+            # the leaf-level localization away, as in the reference)
+            return dual, aux, DetectionEvent(step=step, boundary="commit",
+                                             effect="TDC",
+                                             detail={"fused": True})
+        return {"s": cand}, aux, None
+
+    def execute_deferred(self, dual, batch, step: int, armed,
+                         compare: bool = True):
+        cand, eq, aux = self._launch(dual, batch, armed)
+        if compare:
+            tree_util.tree_map(
+                lambda c, p: torch.where(eq, c, p, out=c)
+                if isinstance(c, torch.Tensor) else c, cand, dual["s"])
+        return {"s": cand}, aux, eq
+
+    def _resident_eq(self, dual) -> bool:
+        """Full-state replica compare (two K1 launches on the card, one
+        read), memoized on the stacked state as the sequential
+        executor's."""
+        hit = self._eq.get(dual["s"])
+        if hit is not None:
+            return hit
+        fps = [self.fast_state_fp_fn(replica_view(dual["s"], r))
+               for r in range(self.n_replicas)]
+        equal = hostsync.read_bool(fingerprints_equal(fps[0], fps[1]),
+                                   label="state_validate")
+        return self._eq.put(dual["s"], equal)
+
+    def validate(self, dual, step: int) -> Optional[DetectionEvent]:
+        if self._resident_eq(dual):
+            return None
+        return DetectionEvent(step=step, boundary="validate", effect="FSC")
+
+    def validated_fp(self, dual):
+        return (hostsync.read_scalar(self.state_fp_fn(self.primary(dual)),
+                                     label="validated_fp"),
+                self._resident_eq(dual))
+
+    def state_fp(self, dual):
+        return self.state_fp_fn(self.primary(dual))
 
 
 class SedarEngine:

@@ -17,19 +17,22 @@ def make_engine(sedar_cfg, *, step_fn: Callable, recovery: Any = None,
                 init_fn: Optional[Callable] = None,
                 notify: Optional[Callable] = None,
                 delay_source: Optional[Callable[[], dict]] = None,
-                slots: Optional[int] = None):
+                slots: Optional[int] = None,
+                stack: str = "rows"):
     """Assemble a `SedarEngine` for one workload.
 
     backend: "none" | "sequential" | "fused" | "abft" | "hybrid" (defaults
     to sedar_cfg.replication); all but "none" also need `state_fp_fn`.
     "fused" steps both replicas in one launch over a state that stacks
-    them as row blocks: step_fn then follows the fused contract
-    `(stacked, batch, armed) -> (candidate, fps (2, ...), aux)`
-    (`core/engine.py::FusedSequentialExecutor`).
+    them: as row blocks (`stack="rows"`, serving's decode state,
+    `core/engine.py::FusedSequentialExecutor`) or on a leading replica
+    axis of every leaf (`stack="leading"`, a training state,
+    `StackedFusedExecutor`); step_fn then follows the fused contract
+    `(stacked, batch, armed) -> (candidate, fps (2, ...), aux)`.
     abft/hybrid run replica-free: step_fn may return a 4th element (an
     `abft.ref.AbftReport` from checksummed kernels), and hybrid also checks
-    the commit-time state fingerprint (`state_fp_fn`; the reference's
-    `fast_state_fp_fn`) at the FSC cadence. Sequential: `state_fp_fn` is
+    the commit-time state fingerprint (`fast_state_fp_fn`, default
+    `state_fp_fn`) at the FSC cadence. Sequential: `state_fp_fn` is
     the per-leaf fingerprint (reports, L2 manifests, L3 validation),
     `fast_state_fp_fn` (default: the same) the FSC compare. `recovery`
     defaults to the config's (`make_recovery(sedar_cfg, workdir)`: L1, or
@@ -46,6 +49,7 @@ def make_engine(sedar_cfg, *, step_fn: Callable, recovery: Any = None,
                                          PlainExecutor, SedarEngine,
                                          SequentialExecutor,
                                          SlottedFusedExecutor,
+                                         StackedFusedExecutor,
                                          SlottedSequentialExecutor)
 
     backend = backend or sedar_cfg.replication
@@ -68,14 +72,20 @@ def make_engine(sedar_cfg, *, step_fn: Callable, recovery: Any = None,
     elif backend == "fused":
         if state_fp_fn is None:
             raise ValueError("backend 'fused' needs state_fp_fn")
-        executor = (SlottedFusedExecutor(step_fn, state_fp_fn, n_slots=slots)
-                    if slots else FusedSequentialExecutor(step_fn,
-                                                          state_fp_fn))
+        if stack == "leading":
+            executor = StackedFusedExecutor(
+                step_fn, state_fp_fn, fast_state_fp_fn=fast_state_fp_fn)
+        elif slots:
+            executor = SlottedFusedExecutor(step_fn, state_fp_fn,
+                                            n_slots=slots)
+        else:
+            executor = FusedSequentialExecutor(step_fn, state_fp_fn)
     elif backend in ("abft", "hybrid"):
         if state_fp_fn is None:
             raise ValueError(f"backend {backend!r} needs state_fp_fn")
         from repro_torch.abft.executor import AbftExecutor
         executor = AbftExecutor(step_fn, state_fp_fn,
+                                fast_state_fp_fn=fast_state_fp_fn,
                                 hybrid=(backend == "hybrid"),
                                 validate_interval=schedule.validate_interval)
     else:

@@ -19,8 +19,11 @@ committed only after the replicas' state fingerprints were proven equal.
 The rollback counter lives OUTSIDE the checkpoints (`rollbacks.json`, the
 paper's failures.txt), so it survives restores.
 
-Only the flat disk store is ported: a `ckpt_tiers` other than "disk"
-raises (ROADMAP Queue 1, the tier hierarchy).
+With `tiers` (a `checkpoint.tiers.TieredCheckpointer`, `ckpt_tiers` other
+than "disk") L2 and L3 save into the device/host/disk/partner hierarchy and
+restore through its cost-aware planner; where the state came from (tier,
+version, fallbacks) is `last_restore_info`, which the engine merges into
+its recovery record.
 """
 from __future__ import annotations
 
@@ -31,6 +34,7 @@ from typing import Any, Callable, Dict, List, Optional
 
 from repro_torch.checkpoint.delta import DeltaCheckpointStore
 from repro_torch.checkpoint.store import CheckpointStore
+from repro_torch.checkpoint.tiers import TieredCheckpointer, make_tiered
 from repro_torch.core import hostsync
 from repro_torch.core.detection import DetectionEvent
 
@@ -91,37 +95,78 @@ class MultiCheckpointRecovery:
         restore(ckpt_no)                      # or restart from scratch
 
     The chain is never pruned (any checkpoint may be dirty) unless the
-    bounded mode `max_checkpoints` is asked for."""
+    bounded mode `max_checkpoints` is asked for.
+
+    With `tiers` the chain spans the whole hierarchy: the device/host rings
+    hold dense recent versions, the disk/partner stores the sparse durable
+    ones. Alg. 1's counter then walks the UNION of versions at or below the
+    detected fault's step, newest first, and each restore goes through the
+    planner (the cheapest tier holding the version, with corruption
+    fallback)."""
 
     level = 2
 
     def __init__(self, store: CheckpointStore, counter_path: str,
                  checkpoint_interval: int, max_checkpoints: int = 0,
-                 async_: bool = True):
+                 async_: bool = True,
+                 tiers: Optional[TieredCheckpointer] = None):
         self.store = store
         self.counter = ExternalCounter(counter_path)
         self.interval = checkpoint_interval
         self.max_checkpoints = max_checkpoints
         self.async_ = async_
+        self.tiers = tiers
         # where the last restore came from; the engine merges it into its
         # recovery record
         self.last_restore_info: Optional[dict] = None
 
+    # -- cadence hooks (the engine gates its fingerprint reads on them) ------
+
     def due(self, step: int) -> bool:
+        if self.tiers is not None:
+            return self.tiers.due(step)
         return self.interval > 0 and step % self.interval == 0
 
-    # the flat store's every version is durable and manifest-writing
-    fp_needed = due
-    sync_due = due
+    def fp_needed(self, step: int) -> bool:
+        """Whether this save needs the state fingerprint (a host read): only
+        manifest-writing tiers record it, so a ring-only save stays free of
+        host reads."""
+        if self.tiers is not None:
+            return self.tiers.fp_needed(step)
+        return self.due(step)
+
+    def sync_due(self, step: int) -> bool:
+        """Whether a DURABLE tier is due at `step`: the engine flushes the
+        deferred window first, so every host/disk/partner version predates
+        every unvalidated step. Device-ring saves do not force a flush:
+        their slots may hold unvalidated state, and the restore's bound at
+        the faulty step keeps them out."""
+        if self.tiers is not None:
+            return self.tiers.sync_due(step)
+        return self.due(step)
 
     def maybe_checkpoint(self, step: int, dual_state, fingerprints=None,
                          validated_floor: Optional[int] = None) -> bool:
         """Cut a system-level checkpoint right after a validated commit
         (paper: "the best moments to take them are when the communications
         have just been validated"). `validated_floor`, the engine's first
-        unvalidated step, is the bounded chain's retention floor."""
+        unvalidated step, is the bounded chain's (and the rings')
+        retention floor. Returns whether a DURABLE version was cut (what
+        the engine records as a checkpoint)."""
         if step == 0 or not self.due(step):
             return False
+        if self.tiers is not None:
+            saved = self.tiers.save(step, dual_state,
+                                    fingerprint=fingerprints, kind="system",
+                                    async_=self.async_,
+                                    keep_floor=validated_floor)
+            # GC only when a durable store grew: gc_keep_last waits for the
+            # writer and lists the directory
+            if self.max_checkpoints and \
+                    any(t in ("disk", "partner") for t in saved):
+                self.tiers.gc_keep_last(self.max_checkpoints,
+                                        keep_floor=validated_floor)
+            return any(t != "device" for t in saved)
         self.store.save(step, dual_state, kind="system", valid=None,
                         fingerprint=fingerprints, async_=self.async_)
         if self.max_checkpoints:
@@ -136,9 +181,16 @@ class MultiCheckpointRecovery:
         from the beginning. The first detection restores the NEWEST
         checkpoint (possibly dirty), each re-detection one further back.
         `store.steps()` waits for pending async writes, so ckpt_count is
-        exact right after a checkpoint boundary."""
+        exact right after a checkpoint boundary. A tiered chain is bounded
+        at the event's faulty step: the rings snapshot optimistically inside
+        the deferred window, so versions newer than the fault exist and are
+        corrupt by construction."""
         rollbacks = self.counter.increment()
-        steps = self.store.steps()
+        if self.tiers is not None:
+            steps = [v for v in self.tiers.versions()
+                     if event.step is None or v <= event.step]
+        else:
+            steps = self.store.steps()
         idx = len(steps) - rollbacks
         if idx < 0:
             # the fault predates every checkpoint (paper Fig. 2a)
@@ -148,6 +200,14 @@ class MultiCheckpointRecovery:
                               rollbacks=rollbacks, event=event)
 
     def restore(self, action: RecoveryAction, template):
+        if self.tiers is not None:
+            # a durability barrier even when a ring serves the state: a
+            # replay must never re-cut a version whose first async write is
+            # still in flight
+            self.tiers.wait()
+            state, info = self.tiers.restore(action.step, template)
+            self.last_restore_info = info
+            return state
         self.last_restore_info = {"tier": "disk", "version": action.step}
         return self.store.restore(action.step, template)
 
@@ -157,17 +217,25 @@ class ValidatedCheckpointRecovery:
     boundary the replicas' state fingerprints are compared: equal -> the
     checkpoint is VALID, committed, and the previous one deleted (exactly
     one valid checkpoint exists); different -> nothing is stored and
-    recovery rolls back, at most once, to the previous valid one."""
+    recovery rolls back, at most once, to the previous valid one.
+
+    With `tiers` the validated state goes into EVERY enabled tier at the
+    boundary, and "exactly one valid checkpoint" holds PER TIER
+    (`keep_only`): a restore comes from the cheapest tier (normally the
+    device ring: no disk read), the partner store being the corruption
+    fallback of last resort."""
 
     level = 3
 
     def __init__(self, store: CheckpointStore, checkpoint_interval: int,
-                 async_: bool = False):
+                 async_: bool = False,
+                 tiers: Optional[TieredCheckpointer] = None):
         # synchronous by default: the previous version is deleted only
         # after the new one is durable
         self.store = store
         self.interval = checkpoint_interval
         self.async_ = async_
+        self.tiers = tiers
         self.last_restore_info: Optional[dict] = None
 
     def maybe_checkpoint(self, step: int, dual_state, fingerprints=None,
@@ -187,6 +255,16 @@ class ValidatedCheckpointRecovery:
                                   effect="FSC",
                                   detail={"reason": "app-level checkpoint "
                                           "hash mismatch (corrupted)"})
+        if self.tiers is not None:
+            # into every tier synchronously (each tier's previous version
+            # goes only once the new one is durable everywhere), then one
+            # valid version per tier
+            self.tiers.save(step, dual_state["r0"], kind="app", valid=True,
+                            fingerprint=fingerprints, async_=False,
+                            force=True)
+            self.tiers.wait()
+            self.tiers.keep_only(step)
+            return None
         prev = self.store.latest(valid_only=True)
         self.store.save(step, dual_state["r0"], kind="app", valid=True,
                         fingerprint=fingerprints, async_=self.async_)
@@ -196,7 +274,8 @@ class ValidatedCheckpointRecovery:
         return None
 
     def on_detection(self, event: DetectionEvent) -> RecoveryAction:
-        target = self.store.latest(valid_only=True)
+        target = self.tiers.latest_valid() if self.tiers is not None \
+            else self.store.latest(valid_only=True)
         if target is None:
             return RecoveryAction(kind="restart_scratch", rollbacks=1,
                                   event=event)
@@ -206,6 +285,10 @@ class ValidatedCheckpointRecovery:
     def restore(self, action: RecoveryAction, template_single):
         """The single validated state; the engine seeds every replica from
         it (valid by construction)."""
+        if self.tiers is not None:
+            state, info = self.tiers.restore(action.step, template_single)
+            self.last_restore_info = info
+            return state
         self.last_restore_info = {"tier": "disk", "version": action.step}
         return self.store.restore(action.step, template_single)
 
@@ -333,29 +416,26 @@ class SlotRecovery:
         return dual
 
 
-def make_recovery(sedar_cfg, workdir: Optional[str] = None):
+def make_recovery(sedar_cfg, workdir: Optional[str] = None,
+                  notify: Optional[Callable[[dict], None]] = None):
     """The recovery policy of a SedarConfig: L1 SafeStop, or L2/L3 over the
-    flat disk store under `<workdir or checkpoint_dir>/checkpoints`
+    disk store under `<workdir or checkpoint_dir>/checkpoints`
     (`ckpt_delta` with level 2: the delta store; `ckpt_compress`:
-    compressed leaves). The tier hierarchy is not ported: any
-    `ckpt_tiers` but "disk" raises."""
+    compressed leaves). A `ckpt_tiers` beyond the flat "disk" routes L2/L3
+    through a `TieredCheckpointer` (`checkpoint/tiers.py::make_tiered`;
+    `notify` receives its tier-fallback events)."""
     d = workdir or sedar_cfg.checkpoint_dir
     if sedar_cfg.level <= 1:
         return SafeStop()
-    tiers = [t.strip() for t in str(sedar_cfg.ckpt_tiers).split(",")
-             if t.strip()]
-    if tiers != ["disk"]:
-        raise NotImplementedError(
-            f"ckpt_tiers={sedar_cfg.ckpt_tiers!r}: only the flat 'disk' "
-            "store is ported (the device/host/partner tiers are ROADMAP "
-            "Queue 1's tier-hierarchy item)")
     delta = bool(sedar_cfg.ckpt_delta) and sedar_cfg.level == 2
     store_cls = DeltaCheckpointStore if delta else CheckpointStore
     store = store_cls(os.path.join(d, "checkpoints"),
                       compress=bool(sedar_cfg.ckpt_compress))
+    tiers = make_tiered(sedar_cfg, d, disk_store=store, notify=notify)
     if sedar_cfg.level == 2:
         return MultiCheckpointRecovery(
             store, os.path.join(d, "rollbacks.json"),
             sedar_cfg.checkpoint_interval, sedar_cfg.max_checkpoints,
-            async_=sedar_cfg.async_checkpoint)
-    return ValidatedCheckpointRecovery(store, sedar_cfg.checkpoint_interval)
+            async_=sedar_cfg.async_checkpoint, tiers=tiers)
+    return ValidatedCheckpointRecovery(store, sedar_cfg.checkpoint_interval,
+                                       tiers=tiers)

@@ -1,9 +1,11 @@
 """Training launcher (the reference's `launch/train.py`).
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b \
-        --steps 8 --level 3 [--replication sequential|none] \
+        --steps 8 --level 3 \
+        [--replication none|sequential|fused|abft|hybrid] \
         [--inject-step N] [--validate-lag D] [--ckpt-delta] \
-        [--ckpt-compress] [--device cpu]
+        [--ckpt-compress] [--ckpt-tiers device,host,disk,partner] \
+        [--device cpu]
 
 As in the reference, `--smoke` is a store_true flag that defaults to True,
 so the launcher always trains the reduced configuration; the full-width run
@@ -12,7 +14,9 @@ is driven through the API (`chip_smoke.py`). It runs on the card unless
 flips bit 21 of element 11 of gradient leaf 3 on replica 1 at step N (the
 reference's fault). It prints the report's summary, each detection and
 recovery, then the run directory (`--workdir`, else a fresh one under the
-temp dir). The reference's manual-vote baseline, elastic, metrics,
+temp dir). `--ckpt-tiers` names the checkpoint tiers of L2/L3 (the
+device ring every step, host and partner at the checkpoint interval;
+"disk" alone is the flat store). The reference's manual-vote baseline, elastic, metrics,
 autotune and trace flags are not ported.
 """
 from __future__ import annotations
@@ -38,7 +42,8 @@ def main() -> None:
     ap.add_argument("--steps", type=int, default=8)
     ap.add_argument("--level", type=int, default=3, choices=(1, 2, 3))
     ap.add_argument("--replication", default="sequential",
-                    choices=("none", "sequential"))
+                    choices=("none", "sequential", "fused", "abft",
+                             "hybrid"))
     ap.add_argument("--validate-lag", type=int, default=1,
                     help="deferred validation window D: read the commit "
                          "predicates back every D steps")
@@ -47,6 +52,9 @@ def main() -> None:
                          "previous version become manifest references")
     ap.add_argument("--ckpt-compress", action="store_true",
                     help="compress leaf payloads (np.savez_compressed)")
+    ap.add_argument("--ckpt-tiers", default="disk",
+                    help="comma list of checkpoint tiers from device, host, "
+                         "disk, partner (L2/L3)")
     ap.add_argument("--smoke", action="store_true", default=True)
     ap.add_argument("--global-batch", type=int, default=4)
     ap.add_argument("--seq-len", type=int, default=16)
@@ -72,7 +80,8 @@ def main() -> None:
                           checkpoint_interval=args.ckpt_interval,
                           param_validate_interval=args.ckpt_interval,
                           ckpt_delta=args.ckpt_delta,
-                          ckpt_compress=args.ckpt_compress))
+                          ckpt_compress=args.ckpt_compress,
+                          ckpt_tiers=args.ckpt_tiers))
     if args.workdir is None:
         args.workdir = tempfile.mkdtemp(prefix="sedar_train_")
     else:

@@ -1,5 +1,6 @@
 """SEDAR-protected training (the reference's `runtime/train.py`), a thin
-layer over the engine for the `none` and `sequential` backends.
+layer over the engine for the single-card backends `none`, `sequential`,
+`fused`, `abft` and `hybrid`.
 
 Everything about the protocol (replica compare, TDC commit gate, FSC
 validation, TOE watchdog, the L1/L2/L3 checkpoint boundaries and recovery)
@@ -8,19 +9,30 @@ is in `core/engine.py`; this module supplies the training pieces:
   * the replica step: loss and grads (autograd) -> [inject] -> the grads'
     fingerprint (K1, one launch over every gradient leaf in place, with
     `fused_fingerprint`) -> the optimizer's out-of-place update -> [inject];
+  * the fused step (`fused`): both replicas' states stacked on a leading
+    axis of 2 and stepped together — the forward through `torch.vmap` over
+    the stacked params with autograd's backward through it, the optimizer
+    through `torch.vmap` over the stacked leaves; K1 (a ctypes kernel,
+    which vmap cannot enter) runs outside, one launch per replica's view of
+    the stacked grads; a fault lands on replica 1's slice;
+  * the single-instance step of `abft`/`hybrid`: the same replica step
+    with no grads fingerprint (there is no replica to compare it with) and
+    no checksummed product, as in the reference, whose training step is
+    uninstrumented: abft detects nothing in training, hybrid adds the
+    resident-state fingerprint check (`abft/executor.py`);
   * the state fingerprints: per leaf (`state_fp`: reports, L2 manifests, L3
-    validation) and whole-state (`state_fp_fast`: the FSC compare), both
-    through K1 on the card;
+    validation) and whole-state (`state_fp_fast`: the FSC compare and
+    hybrid's commit and entry fingerprints), both through K1 on the card;
   * the outer loop: the step counter tracked on the host (a recovery
     re-reads it once), per-step losses kept on the device and drained in
     batches, `truncate_to` keeping the loss record on the delivered
     trajectory across rollbacks, the final validation and the durability
-    barrier.
+    barrier (every disk-backed checkpoint tier).
 
 The engine's "batch" is the pair (host step, batch): injection decides on
 the host from the step, as the port's injection does everywhere. Runs on
-the card unless `device="cpu"` is given. `fused`, `abft`, `hybrid`, `pod`
-and `vote` training are not ported and raise.
+the card unless `device="cpu"` is given. `pod` and `vote` training are not
+ported and raise.
 """
 from __future__ import annotations
 
@@ -37,6 +49,7 @@ from repro_torch import tree as tree_util
 from repro_torch.configs.base import RunConfig
 from repro_torch.core import hostsync
 from repro_torch.core.detection import DetectionEvent, SedarSafeStop, Watchdog
+from repro_torch.core.engine import replica_view
 from repro_torch.core.fingerprint import (leaf_fingerprints,
                                           pytree_fingerprint_fused)
 from repro_torch.core.injection import InjectionFlag, InjectionSpec, inject_tree
@@ -50,9 +63,6 @@ from repro_torch.optim import apply_updates, make_optimizer
 # backends the reference trains with that the port does not, and where
 # ROADMAP.md queues them
 _NOT_PORTED = {
-    "fused": "Queue 1 (fused/abft/hybrid training)",
-    "abft": "Queue 1 (fused/abft/hybrid training)",
-    "hybrid": "Queue 1 (fused/abft/hybrid training)",
     "pod": "Queue 1 (the mesh backends)",
     "vote": "Queue 1 (the mesh backends)",
 }
@@ -116,14 +126,17 @@ class SedarTrainer:
         self.recovery = make_recovery(self.sedar, workdir)
         self.watchdog = Watchdog(self.sedar.toe_timeout_s)
         self.notify = notify or (lambda e: print(str(e), flush=True))
+        fused = self.backend == "fused"
         self.engine = make_engine(
             self.sedar, backend=self.backend,
-            step_fn=self._replica_step, state_fp_fn=self._state_fp,
+            step_fn=self._fused_step if fused else self._replica_step,
+            state_fp_fn=self._state_fp,
             fast_state_fp_fn=self._state_fp_fast,
             recovery=self.recovery, watchdog=self.watchdog,
             inj_spec=inj_spec, inj_flag=self.inj_flag,
             init_fn=self.init_dual, notify=self.notify,
-            delay_source=lambda: self.toe_delay)
+            delay_source=lambda: self.toe_delay,
+            stack="leading" if fused else "rows")
 
     # -- state ----------------------------------------------------------------
 
@@ -160,6 +173,59 @@ class SedarTrainer:
             torch.zeros_like(p) if g is None else g.contiguous()
             for g, p in zip(grads, leaves)])
 
+    def loss_and_grads_stacked(self, params, batch):
+        """`loss_and_grads` of both replicas at once: `params` stacks them
+        on a leading axis of 2. The forward is one `torch.vmap` over the
+        stacked leaves; autograd's backward of the summed losses gives each
+        replica its own gradient (d sum / d loss_r = 1 exactly). Returns
+        (losses (2,), stacked grads, each contiguous)."""
+        leaves = [p.detach().requires_grad_(True)
+                  for p in tree_util.leaves(params)]
+        with torch.enable_grad():
+            losses = torch.vmap(lambda p: self.model.loss(p, batch)[0])(
+                tree_util.unflatten_like(params, leaves))
+            grads = torch.autograd.grad(losses.sum(), leaves,
+                                        allow_unused=True)
+        return losses.detach(), tree_util.unflatten_like(params, [
+            torch.zeros_like(p) if g is None else g.contiguous()
+            for g, p in zip(grads, leaves)])
+
+    def _inject_stacked(self, tree, target: str, step: int, armed):
+        """The fault of a fused step: `inject_tree` decides per replica on
+        that replica's view, and a flip it makes is written into that
+        replica's slice of the stacked leaf (a fresh tensor of this step)."""
+        spec = self.inj_spec
+        if spec is None or spec.target != target:
+            return tree
+        for r in range(2):
+            view = replica_view(tree, r)
+            hit = inject_tree(view, spec, step=step, replica_id=r,
+                              armed=armed)
+            if hit is not view:
+                leaf = tree_util.leaves(tree)[spec.leaf_idx]
+                leaf[r].copy_(tree_util.leaves(hit)[spec.leaf_idx])
+        return tree
+
+    def _fused_step(self, stacked, step_batch, armed):
+        """(stacked state, (host step, batch), armed) -> (candidate, grads
+        fingerprints (2, 4), replica 0's loss): both replicas in one set of
+        launches, K1 once per replica's grads view (a contiguous slice of
+        each stacked leaf, read in place)."""
+        step, batch = step_batch
+        params = stacked["params"]
+        losses, grads = self.loss_and_grads_stacked(params, batch)
+        grads = self._inject_stacked(grads, "grads", step, armed)
+        fps = torch.stack([self._grad_fp(replica_view(grads, r))
+                           for r in range(2)])
+        updates, new_opt = torch.vmap(self.opt.update)(
+            grads, stacked["opt"], params, stacked["step"])
+        new_params = apply_updates(params, updates)
+        new_params = self._inject_stacked(new_params, "params", step, armed)
+        new_opt = self._inject_stacked(new_opt, "opt_state", step, armed)
+        cand = {"params": new_params, "opt": new_opt,
+                "step": stacked["step"] + 1}
+        return cand, fps, losses[0]
+
     def batch(self, step: int):
         """The batch of `step` on the trainer's device."""
         return {k: upload(np.asarray(v, np.int64), self.device)
@@ -176,7 +242,9 @@ class SedarTrainer:
         if spec is not None and spec.target == "grads":
             grads = inject_tree(grads, spec, step=step,
                                 replica_id=replica_id, armed=armed)
-        fp = self._grad_fp(grads)
+        # abft/hybrid have no second replica to compare the grads with
+        fp = self._grad_fp(grads) if self.backend != "abft" and \
+            self.backend != "hybrid" else None
         updates, new_opt = self.opt.update(grads, state["opt"], params,
                                            state["step"])
         new_params = apply_updates(params, updates)
@@ -270,12 +338,18 @@ class SedarTrainer:
             executed += 1
             outcome = eng.run_protected_step(dual, (step, self.batch(step)),
                                              step)
-            dual = outcome.dual
-            if outcome.committed:
-                aux_buf.append(outcome.aux)
+            # unpacked and dropped: the outcome must not keep a state alive
+            # through a recovery and the next step
+            dual, aux, event = outcome.dual, outcome.aux, outcome.event
+            committed = outcome.committed
+            del outcome
+            # aux is None when the executor refused the step before running
+            # it (hybrid's entry check): there is no loss to record
+            if committed and aux is not None:
+                aux_buf.append(aux)
                 step += 1
-            if outcome.event is not None:
-                if not recover(outcome.event):
+            if event is not None:
+                if not recover(event):
                     break
             elif len(aux_buf) >= 4096 and not eng.pending_validation:
                 drain()
@@ -300,8 +374,11 @@ class SedarTrainer:
             self._state_fp(eng.executor.primary(dual)),
             label="final_fp")).view(np.uint32)
         # durability barrier: the async writers are daemon threads; without
-        # it a process exit can strand .tmp staging dirs
-        store = getattr(self.recovery, "store", None)
+        # it a process exit can strand .tmp staging dirs (tiered configs:
+        # every disk-backed tier, the partner store too)
+        tiers = getattr(self.recovery, "tiers", None)
+        store = tiers if tiers is not None else \
+            getattr(self.recovery, "store", None)
         if store is not None:
             store.wait()
         rep.wall_s = time.time() - t0

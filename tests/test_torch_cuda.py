@@ -1,7 +1,9 @@
 """Card-only tests of the port: each CUDA kernel against its plain PyTorch
 version (K1 on packed buffers and on leaves read in place, one launch per
-call), the protected serving path through K1/K2, and the ABFT slice
-(K3, K4, a replica-free generate). Every test
+call), the protected serving path through K1/K2, the ABFT slice
+(K3, K4, a replica-free generate), training (the replicas' grads, fused's
+stacked grads, a device-tier restore) and the replica campaign at n=4096.
+Every test
 here is marked `cuda` and skips without a card. The file imports nothing of
 JAX, so it also runs on a machine without it:
 
@@ -668,3 +670,88 @@ def test_checkpoint_digests_on_the_card_equal_the_host_digests(card,
     np.save(path, arr)
     with pytest.raises(cstore.CheckpointCorruptionError):
         st.restore(1, state)
+
+
+def test_fused_full_width_grads_replicas_agree_bitwise(card, tmp_path):
+    """qwen2-0.5b at full width under fused: the vmapped backward of the
+    stacked replicas gives bitwise equal grads in both replicas' slices,
+    and K1 on each replica's view (in place, one launch each) equals its
+    plain version and the other view's words."""
+    from repro_torch.core.engine import replica_view
+    tr = _trainer(card, get_config("qwen2-0.5b"), tmp_path,
+                  dict(level=1, replication="fused"), steps=1, seq=256)
+    state = tr.init_state(seed=0)
+    dual = tr.engine.executor.init_dual(state)
+    del state
+    losses, grads = tr.loss_and_grads_stacked(dual["s"]["params"],
+                                              tr.batch(0))
+    del dual
+    assert torch.equal(losses[0], losses[1])
+    views = [replica_view(grads, r) for r in range(2)]
+    for a, b in zip(tree_util.leaves(views[0]), tree_util.leaves(views[1])):
+        assert torch.equal(a, b)
+    words = []
+    for v in views:
+        table = kfp.leaf_table(tree_util.leaves(v))
+        before = kfp.launch_count.n
+        got = tfp.pytree_fingerprint_fused(v).cpu().numpy()
+        assert kfp.launch_count.n == before + 1
+        want = kfp.fingerprint_leaves_plain(table).cpu().numpy()
+        assert np.array_equal(got[[0, 1, 3]], want[[0, 1, 3]])
+        words.append(got)
+    assert np.array_equal(words[0], words[1])
+
+
+def test_device_tier_restore_reads_no_disk(card, tmp_path):
+    """paper-testapp on the card, L3 with the device, host and disk tiers:
+    the grads fault restores from the device ring with 0 disk reads and 0
+    host reads, and the run ends bitwise equal to its flat-disk clean
+    run."""
+    from repro_torch.checkpoint import count_disk_reads
+    cfg = get_config("paper-testapp")
+    sedar = dict(level=3, replication="sequential", validate_interval=1,
+                 param_validate_interval=2, checkpoint_interval=2)
+    clean = _trainer(card, cfg, tmp_path / "clean", sedar)
+    state = clean.init_state(seed=0)
+    _, crep = clean.run(6, dual=clean.engine.executor.init_dual(state))
+    spec = InjectionSpec(leaf_idx=0, flat_idx=5, bit=20, step=3, replica=1,
+                         target="grads")
+    tiered = _trainer(card, cfg, tmp_path / "tiers",
+                      dict(sedar, ckpt_tiers="device,host,disk"), spec)
+    counted = {}
+    restore = tiered.recovery.restore
+
+    def counting(action, template):
+        with count_disk_reads() as dr, hostsync.count_transfers() as ht:
+            out = restore(action, template)
+        counted.update(disk=dr.reads, host=ht.transfers)
+        return out
+
+    tiered.recovery.restore = counting
+    _, rep = tiered.run(6, dual=tiered.engine.executor.init_dual(state))
+    assert counted == {"disk": 0, "host": 0}
+    assert rep.restored_from == ["device"]
+    assert np.array_equal(rep.final_state_fp[:, :2],
+                          crep.final_state_fp[:, :2])
+    assert rep.losses == crep.losses
+
+
+@pytest.mark.parametrize("window,proc,datum,effect", [
+    ("SCATTER", "W", "A", "TDC"),
+    ("GATHER", "M", "C", "FSC"),
+    ("CK2", "W", "i", "TOE"),
+])
+def test_campaign_row_at_n4096(card, window, proc, datum, effect):
+    """The replica campaign with 64 MB matrices on the card: the row
+    matches `predict`, the result is within the f32 bound of the f64
+    truth, and the recovered C equals the clean run's bitwise."""
+    from repro_torch.core.scenarios import (MatmulTestApp, all_scenarios,
+                                            campaign_row)
+    app = MatmulTestApp(n=4096, workers=2, device=card)
+    app.run(None)
+    clean = [m["M.C"].clone() for m in app.last_mem]
+    s = next(x for x in all_scenarios()
+             if (x.window, x.process, x.datum) == (window, proc, datum))
+    row = campaign_row(s, app.run(s))
+    assert row["match"] and row["obs"]["effect"] == effect
+    assert all(torch.equal(m["M.C"], c) for m, c in zip(app.last_mem, clean))

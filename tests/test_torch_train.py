@@ -285,15 +285,12 @@ def test_launcher_raises_without_a_card(tmp_path, monkeypatch):
         launch_train.main()
 
 
-@pytest.mark.parametrize("what", ["fused", "abft", "hybrid", "pod", "vote",
-                                  "pallas", "tiers"])
+@pytest.mark.parametrize("what", ["pod", "vote", "pallas"])
 def test_what_is_not_ported_raises(tmp_path, what):
     sedar = SedarConfig(level=3, replication="sequential")
     model = CFG
     if what == "pallas":
         model = dataclasses.replace(CFG, attention_impl="pallas")
-    elif what == "tiers":
-        sedar = dataclasses.replace(sedar, ckpt_tiers="device,disk")
     else:
         sedar = dataclasses.replace(sedar, replication=what)
     rc = RunConfig(model=model, train=TrainConfig(**TRAIN), sedar=sedar)
