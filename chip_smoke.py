@@ -43,6 +43,15 @@ counts set to 0 just before it and read just after:
     misses), the device/host/disk tiers (a restore from the device ring
     with no disk or host read), ms/step of all five backends in turns,
     and L1/L2 plus the tiers and the partner fallback on paper-testapp;
+  * the telemetry loop (phase telemetry): the serve phase's server with
+    metrics, journal, trace and a serve-mode autotuner on reads, launches
+    and streams exactly what it does with them off; a journaled lag-8 slot
+    fault that `obs.reconcile` reproduces; a trace with the serving spans;
+    the serve launcher with --metrics-dir --trace --autotune and the
+    status page as subprocesses; full-width L3 training at lag 8 with a
+    train-mode autotuner whose reconfigs land at clean boundaries, losses
+    bitwise equal to the run with telemetry off; the calibrated temporal
+    model and `advise()` on it;
   * a small f32 model on the card against the plain CPU path.
 
 Any failed check exits non-zero. The last two lines are a JSON object of
@@ -1685,7 +1694,7 @@ def phase_serve(kfp, kfa, main):
             print(f"  x{e.count:<7d} {e.self_device_time_total / 1e3:9.3f} "
                   f"ms {e.key[:90]}", flush=True)
     print(f"serve phase took {time.time() - t_phase:.1f} s", flush=True)
-    return runs[1][3]
+    return runs[1][3], {"dual": dual, "clean": clean, "lag1": runs[1]}
 
 
 def _timed(obj, name: str, out: list) -> None:
@@ -1989,6 +1998,8 @@ def phase_train(kfp):
         k1_launches += phase_train_tiers(kfp, trainer, make_state,
                                          rep.losses, l3, spec)
         print(f"{since()} train tiers done", flush=True)
+        k1_launches += phase_telemetry_train(kfp, trainer, make_state, l3)
+        print(f"{since()} train telemetry done", flush=True)
         del init
         _free()
         phase_train_app()
@@ -2500,6 +2511,348 @@ def phase_tiers_app():
 
 
 
+TELEMETRY_TRAIN_STEPS = 8
+TELEMETRY_TRAIN_LAG = 8
+ADVISE_MTBE_HOURS = (1.0, 24.0, 720.0)
+
+
+def _obs_off(obs) -> None:
+    """Every telemetry surface of the port's switchboard off."""
+    obs.disable_metrics()
+    obs.set_journal(None)
+    obs.disable_trace()
+    obs.shutdown()
+
+
+def _stage_means(obs) -> dict:
+    """{stage: (spans, mean ms)} of the stage-duration histograms."""
+    out = {}
+    for labels in obs.metrics.labels_of("sedar_stage_duration_seconds"):
+        h = obs.metrics.get_histogram("sedar_stage_duration_seconds",
+                                      **labels)
+        out[labels["stage"]] = (h.count, 1e3 * h.total / max(h.count, 1))
+    return out
+
+
+def _snap_line(snap) -> str:
+    p = snap.params
+    return (f"t_step {p.t_step * 3.6e6:.3f} ms, t_sync "
+            f"{p.t_sync * 3.6e6:.3f} ms, MTBE {snap.mtbe_hours:.4g} h, "
+            f"confidence {snap.confidence:.3f}, samples {snap.sample_counts}")
+
+
+def phase_telemetry_serve(kfp, kfa, main, served) -> dict:
+    """Slice 6, serving: the telemetry loop (metrics registry, fault
+    journal, trace spans, a serve-mode Autotuner) on the serve phase's
+    server and params, 8 requests in 4 slots at full width, every run
+    under sync-debug "error". (a) Telemetry off and on in turns at lag 8
+    (off, on, on, off), then on at lag 1: the same host reads by label,
+    the same K1 and K2 launches and the same streams as with it off (the
+    tuner estimates and watches but never applies: an applied lag change
+    would move the reads); ms/step of each run printed (recorded, not
+    gated), and the calibrated t_step/t_sync beside the wall ms/step at
+    lag 1 and 8. (b) The lag-8 slot fault (slot 1's logits bit 14 at tick
+    5) with the journal on: `obs.reconcile` reproduces the engine's
+    detections, recoveries, alerts and reconfigs. (c) Its Chrome trace
+    parses and holds the decode_tick, prefill_pack, deferred_flush and
+    rollback spans. (d) `python -m repro_torch.launch.serve --continuous
+    --metrics-dir --trace --autotune` on the card prints its [obs] and
+    [autotune] lines, and `python -m repro_torch.launch.status` renders
+    its directory. Returns the kernels' launches in the lag-8 on run."""
+    import shutil
+    import tempfile
+
+    from repro_torch import obs
+    from repro_torch.configs import RunConfig
+    from repro_torch.core import hostsync
+    from repro_torch.core import temporal_model as tm
+    from repro_torch.core.injection import InjectionSpec
+    from repro_torch.core.policy import Autotuner, AutotuneConfig, make_server
+
+    dev = torch.device("cuda")
+    cfg, params = main["cfg"], main["params"]
+    dual, clean = served["dual"], served["clean"]
+    name = torch.cuda.get_device_name(0)
+    t_phase = time.time()
+    root = tempfile.mkdtemp(prefix="sedar_obs_")
+
+    def since() -> str:
+        return f"[telemetry phase +{time.time() - t_phase:.1f} s]"
+
+    def serve(srv, lag, on):
+        tuner = journal = trace = None
+        if on:
+            obs.enable_metrics()
+            journal = obs.FaultJournal()
+            obs.set_journal(journal)
+            trace = obs.enable_trace()
+            tuner = Autotuner(tm.PAPER_TABLE3["JACOBI"], AutotuneConfig(
+                mode="serve", serve_slots=SERVE_SLOTS, persistence=10 ** 6,
+                backend="sequential"))
+        kfp.launch_count.reset()
+        kfa.launch_count.reset()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            with hostsync.count_transfers(cross_thread=True) as st:
+                out, rep = srv.serve(params, serve_requests(),
+                                     slots=SERVE_SLOTS, validate_lag=lag,
+                                     max_len=SERVE_MAX_LEN, autotune=tuner)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        res = {"out": out, "rep": rep, "reads": st.by_label,
+               "counts": {"fingerprint": kfp.launch_count.n,
+                          "flash_attention": kfa.launch_count.n},
+               "streams": {r.rid: list(r.tokens) for r in out},
+               "ms": rep.wall_s / rep.steps * 1e3, "tuner": tuner}
+        if on:
+            tuner.estimator.ingest(obs.metrics, journal)
+            res.update(journal=journal.records(), trace=trace,
+                       snap=tuner.estimator.calibrated_params(),
+                       stages=_stage_means(obs))
+            _obs_off(obs)
+        return res
+
+    try:
+        # (a) the same reads, launches and streams with telemetry on
+        turns = [(on, serve(dual, SERVE_LAG, on))
+                 for on in (False, True, True, False)]
+        ref = turns[0][1]
+        for on, r in turns:
+            check(r["streams"] == clean and not r["rep"].detections,
+                  f"lag {SERVE_LAG} telemetry {'on' if on else 'off'}: "
+                  f"streams differ from the unprotected run")
+            check(r["reads"] == ref["reads"],
+                  f"lag {SERVE_LAG} telemetry {'on' if on else 'off'}: "
+                  f"host reads {r['reads']}, off {ref['reads']}")
+            check(r["counts"] == ref["counts"],
+                  f"lag {SERVE_LAG} telemetry {'on' if on else 'off'}: "
+                  f"launches {r['counts']}, off {ref['counts']}")
+        print(f"telemetry on {name}, serve lag {SERVE_LAG} (8 requests, 4 "
+              f"slots, full width): the same host reads {ref['reads']}, "
+              f"the same launches {ref['counts']} and the same streams "
+              f"with metrics, journal, trace and a serve-mode autotuner on "
+              f"as off; ms/step (wall / steps) in turns off, on, on, off: "
+              + " / ".join(f"{r['ms']:.2f}" for _, r in turns)
+              + f" {since()}", flush=True)
+        lag1_out, lag1_rep, lag1_reads, lag1_counts = served["lag1"]
+        r1 = serve(dual, 1, True)
+        check(r1["streams"] == clean and r1["reads"] == lag1_reads
+              and r1["counts"] == lag1_counts,
+              f"lag 1 telemetry on: reads {r1['reads']} (off "
+              f"{lag1_reads}), launches {r1['counts']} (off {lag1_counts})")
+        print(f"telemetry on, serve lag 1: the same host reads "
+              f"{r1['reads']}, launches {r1['counts']} and streams as the "
+              f"serve phase's run with it off; ms/step {r1['ms']:.2f} on, "
+              f"{lag1_rep.wall_s / lag1_rep.steps * 1e3:.2f} off (that "
+              f"phase) {since()}", flush=True)
+        on8 = turns[1][1]
+        for lag, r in ((1, r1), (SERVE_LAG, on8)):
+            print(f"calibrated from serve lag {lag} (host-clock spans): "
+                  f"{_snap_line(r['snap'])}; measured wall "
+                  f"{r['ms']:.2f} ms/step; span means (count, ms) "
+                  + ", ".join(f"{k} ({n}, {m:.3f})"
+                              for k, (n, m) in sorted(r["stages"].items())),
+                  flush=True)
+
+        # (b) the journal reproduces the engine on the lag-8 slot fault
+        spec = dict(leaf_idx=1, flat_idx=7, bit=BF16_EXP_BIT,
+                    step=SERVE_FAULT_TICK, replica=1, target="slot")
+        fsrv = make_server(RunConfig(model=cfg), backend="sequential",
+                           device=dev, inj_spec=InjectionSpec(**spec))
+        rf = serve(fsrv, SERVE_LAG, True)
+        eng = fsrv._batch_engines[(SERVE_SLOTS, SERVE_MAX_LEN, SERVE_LAG)][0]
+        verdict = obs.reconcile(rf["journal"], eng.detections,
+                                eng.recoveries,
+                                alerts=rf["tuner"].alerts.records,
+                                reconfigs=eng.reconfigs)
+        events = [(e.step, e.boundary, e.detail.get("slots"))
+                  for e in rf["rep"].detections]
+        kinds = [r["kind"] for r in rf["journal"]]
+        check(events == [(SERVE_FAULT_TICK, "deferred", [1])]
+              and rf["rep"].rollbacks == 1
+              and len(rf["rep"].completed) == 8,
+              f"journaled lag-{SERVE_LAG} slot fault: events {events}")
+        check(all(rf["streams"][r.rid] == clean[r.rid] for r in rf["out"]),
+              "journaled slot fault: a stream differs from the clean run")
+        check(verdict == {"detections_match": True,
+                          "recoveries_match": True, "alerts_match": True,
+                          "reconfigs_match": True},
+              f"the journal does not reproduce the engine: {verdict}")
+        print(f"journaled lag-{SERVE_LAG} slot fault: events {events}, "
+              f"journal kinds {kinds}, reconcile {verdict} {since()}",
+              flush=True)
+
+        # (c) the trace parses and holds the serving spans
+        path = os.path.join(root, "trace.json")
+        rf["trace"].write(path)
+        with open(path) as fh:
+            spans = {}
+            for e in json.load(fh)["traceEvents"]:
+                spans[e["name"]] = spans.get(e["name"], 0) + 1
+        want = {"decode_tick", "prefill_pack", "deferred_flush", "rollback"}
+        check(want <= set(spans), f"trace spans {spans}")
+        print(f"trace of the fault run ({os.path.getsize(path)} bytes): "
+              f"spans {spans}", flush=True)
+
+        # (d) the launcher and the status page, end to end on the card
+        here = os.path.dirname(os.path.abspath(__file__))
+        env = dict(os.environ, PYTHONPATH=os.path.join(here, "src"))
+        mdir = os.path.join(root, "launcher")
+        cmd = [sys.executable, "-m", "repro_torch.launch.serve",
+               "--continuous", "--validate-lag", str(SERVE_LAG),
+               "--metrics-dir", mdir, "--trace",
+               os.path.join(mdir, "trace.json"), "--autotune",
+               "--autotune-interval", "4"]
+        t0 = time.time()
+        p = subprocess.run(cmd, cwd=here, env=env, capture_output=True,
+                           text=True, timeout=600)
+        lines = [ln for ln in p.stdout.splitlines()
+                 if ln.startswith(("[obs] kpis", "[obs] predicted",
+                                   "[obs] trace", "[autotune]"))]
+        check(p.returncode == 0, f"the serve launcher exited "
+              f"{p.returncode}: {p.stderr[-2000:]}")
+        check(any(ln.startswith("[obs] kpis") for ln in lines)
+              and any(ln.startswith("[autotune] calibrated") for ln in lines),
+              f"the serve launcher printed no [obs]/[autotune] lines: "
+              f"{p.stdout[-2000:]}")
+        print(f"serve launcher with --metrics-dir --trace --autotune on the "
+              f"card ({time.time() - t0:.1f} s): "
+              + p.stdout.splitlines()[0], flush=True)
+        for ln in lines:
+            print(f"  {ln}", flush=True)
+        s = subprocess.run([sys.executable, "-m", "repro_torch.launch.status",
+                            "--metrics-dir", mdir, "--once"], cwd=here,
+                           env=env, capture_output=True, text=True,
+                           timeout=300)
+        check(s.returncode == 0 and "decode_tick" in s.stdout
+              and "calibrated:" in s.stdout,
+              f"the status page did not render: {s.stdout[-1000:]} "
+              f"{s.stderr[-1000:]}")
+        print("status page of the launcher's directory:", flush=True)
+        for ln in s.stdout.splitlines():
+            print(f"  {ln}", flush=True)
+    finally:
+        _obs_off(obs)
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"telemetry phase (serving) took {time.time() - t_phase:.1f} s",
+          flush=True)
+    return on8["counts"]
+
+
+def phase_telemetry_train(kfp, trainer, make_state, l3) -> int:
+    """Slice 6, training: qwen2-0.5b at full width, L3 sequential with the
+    validated checkpoint on the device tier (as phase train_backends),
+    deferred validation at lag 8, TELEMETRY_TRAIN_STEPS steps, with the
+    metrics registry, the journal and a train-mode Autotuner evaluating
+    every 2 steps (persistence 1, no confidence floor, so it may retune
+    the lag). (e) Every reconfig the tuner applied landed at a clean
+    boundary (an empty predicate ring) and stands in `engine.reconfigs`
+    and in the journal alike. (f) The losses and K1's launches equal the
+    same run with telemetry off, bitwise. Prints the calibrated
+    SedarParams and `advise()` on them at an MTBE of 1, 24 and 720 hours.
+    Returns K1's launches in the run with telemetry off."""
+    import dataclasses
+
+    from repro_torch import obs
+    from repro_torch.core import temporal_model as tm
+    from repro_torch.core.policy import Autotuner, AutotuneConfig, advise
+
+    t_phase = time.time()
+    sedar = dataclasses.replace(l3, ckpt_tiers="device",
+                                validate_lag=TELEMETRY_TRAIN_LAG)
+
+    def run(on):
+        tr = trainer(f"telemetry_{'on' if on else 'off'}", sedar)
+        eng, calls, journal = tr.engine, [], None
+        if on:
+            obs.enable_metrics()
+            journal = obs.FaultJournal()
+            obs.set_journal(journal)
+            tr.autotune = Autotuner(tm.PAPER_TABLE3["JACOBI"],
+                                    AutotuneConfig(
+                                        interval_steps=2, persistence=1,
+                                        min_confidence=0.0, mode="train",
+                                        backend="sequential"))
+            apply = eng.apply_reconfig
+
+            def watched(**kw):
+                pending = eng.pending_validation
+                rec = apply(**kw)
+                calls.append((pending, rec))
+                return rec
+            eng.apply_reconfig = watched
+        kfp.launch_count.reset()
+        try:
+            rep = tr.run(TELEMETRY_TRAIN_STEPS,
+                         dual=eng.executor.init_dual(make_state()))[1]
+            res = {"rep": rep, "k1": kfp.launch_count.n, "calls": calls,
+                   "reconfigs": list(eng.reconfigs)}
+            if on:
+                est = tr.autotune.estimator
+                est.ingest(obs.metrics, journal)
+                res.update(
+                    journal=journal.records(), snap=est.calibrated_params(),
+                    stages=_stage_means(obs),
+                    verdict=obs.reconcile(journal.records(), eng.detections,
+                                          eng.recoveries,
+                                          alerts=tr.autotune.alerts.records,
+                                          reconfigs=eng.reconfigs))
+        finally:
+            _obs_off(obs)
+        del tr, eng
+        _free()
+        return res
+
+    off = run(False)
+    on = run(True)
+    rep_off, rep_on = off["rep"], on["rep"]
+    check(not rep_on.detections and not rep_off.detections
+          and rep_on.steps_completed == TELEMETRY_TRAIN_STEPS,
+          f"telemetry training runs: {rep_on.summary()} / "
+          f"{rep_off.summary()}")
+    check(rep_on.losses == rep_off.losses and on["k1"] == off["k1"],
+          f"telemetry on changed the losses ({rep_on.losses} vs "
+          f"{rep_off.losses}) or K1's launches ({on['k1']} vs {off['k1']})")
+    applied = [rec for _, rec in on["calls"] if rec is not None]
+    check(all(not pending for pending, rec in on["calls"]
+              if rec is not None),
+          "a reconfig was applied with predicates pending")
+    journaled = [r["record"] for r in on["journal"]
+                 if r["kind"] == "reconfig"]
+    check(applied == on["reconfigs"] and len(journaled) == len(applied)
+          and all(on["verdict"].values()),
+          f"reconfigs: applied {applied}, engine {on['reconfigs']}, "
+          f"journal {journaled}, reconcile {on['verdict']}")
+    ms_on = rep_on.wall_s * 1e3 / TELEMETRY_TRAIN_STEPS
+    ms_off = rep_off.wall_s * 1e3 / TELEMETRY_TRAIN_STEPS
+    print(f"telemetry on, training (L3 sequential, device tier, lag "
+          f"{TELEMETRY_TRAIN_LAG}, {TELEMETRY_TRAIN_STEPS} steps): losses "
+          f"and K1's launches ({on['k1']}) bitwise equal to the run with it "
+          f"off; ms/step {ms_on:.2f} on, {ms_off:.2f} off; checkpoints "
+          f"{rep_on.checkpoints}; reconfigs applied at clean boundaries "
+          f"{[(r['step'], r['changes']) for r in applied]}, each in the "
+          f"journal; reconcile {on['verdict']}", flush=True)
+    snap = on["snap"]
+    print(f"calibrated SedarParams from training: {_snap_line(snap)}; span "
+          f"means (count, ms) "
+          + ", ".join(f"{k} ({n}, {m:.3f})"
+                      for k, (n, m) in sorted(on["stages"].items()))
+          + "; tier costs (h) "
+          + ", ".join(f"{t} save {c.t_save:.3e} restore {c.t_restore:.3e}"
+                      for t, c in snap.tier_costs.items()), flush=True)
+    for mtbe in ADVISE_MTBE_HOURS:
+        a = advise(snap.params, mtbe)
+        print(f"advise() on the card's calibration at MTBE {mtbe:g} h: "
+              f"strategy {a.strategy}, level {a.level}, t_i {a.t_i:.4g} h, "
+              f"validate_lag {a.validate_lag}, tier schedule "
+              f"{a.tier_schedule}, serve lag {a.serve_validate_lag}, "
+              f"detection {a.detection_mechanism}", flush=True)
+    print(f"telemetry phase (training) took {time.time() - t_phase:.1f} s",
+          flush=True)
+    return off["k1"]
+
+
 def phase_reference():
     """Small f32 model: the card's path (kernels) against the plain CPU path
     (which the CPU tests hold to the JAX package)."""
@@ -2531,6 +2884,7 @@ def phase_reference():
 
 
 def main() -> None:
+    t_start = time.time()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke test needs a GPU")
     here = os.path.dirname(os.path.abspath(__file__))
@@ -2572,8 +2926,9 @@ def main() -> None:
     k4 = phase_k4(kab, kfa, report)
     counts, main_run = phase_main(kfp, kfa, get_config("qwen2-0.5b"))
     phase_abft_serve(kfp, kfa, main_run)
-    serve_counts = phase_serve(kfp, kfa, main_run)
-    del main_run
+    serve_counts, served = phase_serve(kfp, kfa, main_run)
+    telemetry_counts = phase_telemetry_serve(kfp, kfa, main_run, served)
+    del main_run, served
     kfp.launch_count.reset()
     train_k1 = phase_train(kfp)
     check(train_k1 > 0, "K1 never launched by the trainer")
@@ -2587,6 +2942,9 @@ def main() -> None:
         check(k["launches"] > 0, f"kernel {k['name']} never launched")
     for k, n in serve_counts.items():
         check(n > 0, f"kernel {k} never launched by serve()")
+    for k, n in telemetry_counts.items():
+        check(n > 0, f"kernel {k} never launched with telemetry on")
+    print(f"chip smoke took {time.time() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

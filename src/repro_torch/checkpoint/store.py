@@ -106,9 +106,16 @@ def count_disk_reads() -> Iterator[DiskReadStats]:
         _read_active.remove(st)
 
 
+# Process-wide metrics fan-in, installed by
+# `repro_torch.obs.enable_metrics()` (None when metrics are off).
+_metrics_note = None
+
+
 def _note_disk_read(label: str, items: int = 1) -> None:
     for st in _read_active:
         st.note(label, items)
+    if _metrics_note is not None:
+        _metrics_note(label, items)
 
 
 def _leaf_digest(arr: np.ndarray) -> List[int]:

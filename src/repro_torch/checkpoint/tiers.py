@@ -40,6 +40,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch import tree as tree_util
 from repro_torch.checkpoint.store import (CheckpointCorruptionError,
                                           CheckpointStore, snapshot)
@@ -297,7 +298,8 @@ class TieredCheckpointer:
             return iv > 0 and (force or self.schedule.tier_due(tier, step))
 
         if self.device is not None and _due("device"):
-            self.device.save(step, state, keep_floor)
+            with obs.span("checkpoint_tier", tier="device", step=step):
+                self.device.save(step, state, keep_floor)
             saved.append("device")
 
         host_due = self.host is not None and _due("host")
@@ -306,22 +308,26 @@ class TieredCheckpointer:
         if host_due or disk_due or partner_due:
             host_leaves, digests = snapshot(state)
             if host_due:
-                self.host.save(step, host_leaves, state, keep_floor)
+                with obs.span("checkpoint_tier", tier="host", step=step):
+                    self.host.save(step, host_leaves, state, keep_floor)
                 saved.append("host")
             if disk_due:
-                self.disk.save(step, state, kind=kind, valid=valid,
-                               fingerprint=fingerprint, async_=async_,
-                               snap=(host_leaves, digests))
+                with obs.span("checkpoint_tier", tier="disk", step=step):
+                    self.disk.save(step, state, kind=kind, valid=valid,
+                                   fingerprint=fingerprint, async_=async_,
+                                   snap=(host_leaves, digests))
                 saved.append("disk")
             if partner_due:
                 # independent digests: the partner's writer recomputes them
                 # from the same host buffers
-                self.partner.save(step, state, kind=kind, valid=valid,
-                                  fingerprint=fingerprint, async_=async_,
-                                  snap=(host_leaves, None))
+                with obs.span("checkpoint_tier", tier="partner", step=step):
+                    self.partner.save(step, state, kind=kind, valid=valid,
+                                      fingerprint=fingerprint, async_=async_,
+                                      snap=(host_leaves, None))
                 saved.append("partner")
         for t in saved:
             self.saves_by_tier[t] = self.saves_by_tier.get(t, 0) + 1
+            obs.note_tier_save(t, step)
         return saved
 
     # -- version queries -------------------------------------------------------
@@ -410,7 +416,8 @@ class TieredCheckpointer:
         sees a recovery record, not an exception, unless EVERY candidate
         fails. Returns (state, info): the winning tier and version plus any
         fallbacks, for the engine's recovery record."""
-        candidates = self.plan(version=version, max_step=max_step)
+        with obs.span("restore_plan", version=version, max_step=max_step):
+            candidates = self.plan(version=version, max_step=max_step)
         if not candidates:
             raise KeyError(
                 f"no restorable version (requested {version}, "
@@ -419,16 +426,19 @@ class TieredCheckpointer:
         last_err: Optional[Exception] = None
         for tier, v in candidates:
             try:
-                state = self._restore_from(tier, v, template)
+                with obs.span("restore", tier=tier, version=v):
+                    state = self._restore_from(tier, v, template)
             except (CheckpointCorruptionError, FileNotFoundError, KeyError,
                     ValueError, OSError) as e:
                 ev = {"kind": "tier_fallback", "tier": tier, "version": v,
                       "error": f"{type(e).__name__}: {e}"}
                 fallbacks.append(ev)
                 self.events.append(ev)
+                obs.note_tier_event(ev)
                 self.notify(ev)
                 last_err = e
                 continue
+            obs.note_tier_restore(tier, v)
             info: Dict[str, Any] = {"tier": tier, "version": v}
             if fallbacks:
                 info["fallbacks"] = fallbacks

@@ -41,6 +41,7 @@ step — so `generate()` keeps its commit-per-step gate.
 """
 from __future__ import annotations
 
+import dataclasses
 import time
 import weakref
 from dataclasses import dataclass
@@ -49,6 +50,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch import tree as tree_util
 from repro_torch.core import hostsync
 from repro_torch.core.detection import (DetectionEvent, SedarSafeStop,
@@ -765,6 +767,12 @@ class SedarEngine:
         # its emission tensors and flush_deferred reads the drained window
         # in the SAME batch as the combined commit predicate
         self.emission_ring = None
+        # autotuner transitions are per run: reset() restores the configured
+        # schedule and lag, so a cached engine never carries a tuned knob
+        # into the next run
+        self.reconfigs: List[Dict[str, Any]] = []
+        self._base_schedule = self.schedule
+        self._base_lag = self.validate_lag
 
     @property
     def pending_validation(self) -> bool:
@@ -778,6 +786,62 @@ class SedarEngine:
         self._ring.clear()
         self.validated_frontier = 0
         self.emission_ring = None     # callers re-attach per run
+        self.reconfigs.clear()
+        self.schedule = self._base_schedule
+        self.validate_lag = self._base_lag
+
+    def apply_reconfig(self, *, validate_lag: Optional[int] = None,
+                       checkpoint_interval: Optional[int] = None,
+                       tier_schedule=None,
+                       reason: str = "") -> Optional[Dict[str, Any]]:
+        """Apply an autotuner knob change at a clean boundary.
+
+        A lag change only takes effect when the deferred ring is EMPTY:
+        every optimistic commit so far has been validated, so changing the
+        window cannot strand an unvalidated predicate or change which steps
+        a pending fault rolls back. A call mid-window returns None (the
+        caller retries after the next flush). The `__init__` clamps apply:
+        an executor without deferred support or an L0-retry recovery keeps
+        lag 1 whatever the tuner asks. A no-op returns None unjournaled; an
+        applied transition is appended to `reconfigs` and journaled as a
+        `reconfig` line."""
+        if self._ring:
+            return None
+        changes: Dict[str, Any] = {}
+        if validate_lag is not None:
+            lag = max(int(validate_lag), 1)
+            if not self.executor.supports_deferred or isinstance(
+                    self.recovery, RetryRecovery):
+                lag = 1
+            if lag != self.validate_lag:
+                changes["validate_lag"] = {"from": self.validate_lag,
+                                           "to": lag}
+                self.validate_lag = lag
+                self.schedule = dataclasses.replace(self.schedule,
+                                                    validate_lag=lag)
+        if checkpoint_interval is not None:
+            ci = max(int(checkpoint_interval), 0)
+            if ci != self.schedule.checkpoint_interval:
+                changes["checkpoint_interval"] = {
+                    "from": self.schedule.checkpoint_interval, "to": ci}
+                self.schedule = dataclasses.replace(
+                    self.schedule, checkpoint_interval=ci)
+                if hasattr(self.recovery, "interval"):
+                    self.recovery.interval = ci
+        if tier_schedule is not None:
+            tiers = getattr(self.recovery, "tiers", None)
+            if tiers is not None and tiers.schedule != tier_schedule:
+                changes["tier_schedule"] = {
+                    "from": dataclasses.asdict(tiers.schedule),
+                    "to": dataclasses.asdict(tier_schedule)}
+                tiers.schedule = tier_schedule
+        if not changes:
+            return None
+        rec = {"kind": "reconfig", "step": int(self.validated_frontier),
+               "reason": str(reason), "changes": changes}
+        self.reconfigs.append(rec)
+        obs.note_reconfig(rec)
+        return rec
 
     def init_dual(self):
         if self.init_fn is None:
@@ -811,7 +875,8 @@ class SedarEngine:
         checkpoint right after it."""
         if self.executor.can_validate and \
                 self.schedule.validate_due(new_step):
-            event = self.executor.validate(dual, new_step)
+            with obs.span("validate", step=new_step):
+                event = self.executor.validate(dual, new_step)
             if event is not None:
                 return StepOutcome(dual=dual, aux=aux, event=event)
         return StepOutcome(dual=dual, aux=aux,
@@ -876,18 +941,23 @@ class SedarEngine:
             if drain is not None:
                 # nothing pending: every parked row was proven clean by an
                 # earlier flush — pure delivery
-                emis.deliver(hostsync.batched_get(drain, label="token_emit"))
+                with obs.span("token_drain", rows=len(emis)):
+                    vals = hostsync.batched_get(drain, label="token_emit")
+                emis.deliver(vals)
             return None
         steps_, preds = zip(*self._ring)
         combined = torch.all(torch.stack(list(preds)))
         drain_vals = None
         if drain is not None:
-            vals = hostsync.batched_get([combined] + drain,
-                                        label="token_emit")
+            with obs.span("deferred_flush", steps=len(self._ring),
+                          drain_rows=len(emis)):
+                vals = hostsync.batched_get([combined] + drain,
+                                            label="token_emit")
             ok = bool(np.all(vals[0]))
             drain_vals = vals[1:]
         else:
-            ok = hostsync.read_bool(combined, label="deferred_flush")
+            with obs.span("deferred_flush", steps=len(self._ring)):
+                ok = hostsync.read_bool(combined, label="deferred_flush")
         if ok:
             self.validated_frontier = steps_[-1] + 1
             self._ring.clear()
@@ -941,37 +1011,47 @@ class SedarEngine:
         # the recovery target predates them and the steps re-run
         self._ring.clear()
         self.detections.append(event)
+        obs.note_detection(event)
         self.notify(event)
         fix = self.executor.repair(event, dual)
         if fix is not None:
             # forward correction (abft): commit the repaired candidate, no
             # rollback and no retry
             repaired, record = fix
-            self.recoveries.append(dict(record, at=event.step))
+            record = dict(record, at=event.step)
+            self.recoveries.append(record)
+            obs.note_recovery(record)
             return repaired
         action: RecoveryAction = self.recovery.on_detection(event)
         record = {"kind": action.kind, "step": action.step,
                   "rollbacks": action.rollbacks, "at": event.step}
         self.recoveries.append(record)
-        if action.kind == "stop":
-            raise SedarSafeStop(event)
-        if action.kind == "retry":
-            return dual      # transient fault: re-execute the same step
-        if action.kind == "restart_scratch":
-            self.validated_frontier = 0
-            return self.init_dual()
-        if action.step is not None:
-            self.validated_frontier = min(self.validated_frontier,
-                                          action.step)
-        if isinstance(self.recovery, ValidatedCheckpointRecovery):
-            # L3 stores ONE validated state: seed every replica from it
-            single = self.recovery.restore(action,
-                                           self.executor.primary(dual))
-            self._merge_restore_info(record)
-            return self.executor.adopt_single(single)
-        restored = self.recovery.restore(action, dual)
-        self._merge_restore_info(record)
-        return restored
+        # journal in a finally: the record goes out AFTER the restore's
+        # tier and version are merged in, and even when safe-stop raises
+        try:
+            if action.kind == "stop":
+                raise SedarSafeStop(event)
+            if action.kind == "retry":
+                return dual      # transient fault: re-execute the same step
+            if action.kind == "restart_scratch":
+                self.validated_frontier = 0
+                return self.init_dual()
+            if action.step is not None:
+                self.validated_frontier = min(self.validated_frontier,
+                                              action.step)
+            with obs.span("rollback", step=action.step, kind=action.kind):
+                if isinstance(self.recovery, ValidatedCheckpointRecovery):
+                    # L3 stores ONE validated state: seed every replica
+                    # from it
+                    single = self.recovery.restore(
+                        action, self.executor.primary(dual))
+                    self._merge_restore_info(record)
+                    return self.executor.adopt_single(single)
+                restored = self.recovery.restore(action, dual)
+                self._merge_restore_info(record)
+                return restored
+        finally:
+            obs.note_recovery(record)
 
     def _merge_restore_info(self, record: Dict[str, Any]) -> None:
         """Fold where the restore came from (tier, version) into the
@@ -1002,17 +1082,22 @@ class SedarEngine:
             fp = hostsync.read_scalar(self.executor.state_fp(dual),
                                       label="checkpoint_fp") \
                 if r.fp_needed(step) else None
-            if r.maybe_checkpoint(step, dual, fp,
-                                  validated_floor=self.validated_frontier):
-                self.checkpoints.append(step)
+            with obs.span("checkpoint", step=step):
+                if r.maybe_checkpoint(step, dual, fp,
+                                      validated_floor=self.validated_frontier):
+                    self.checkpoints.append(step)
+                    obs.note_checkpoint(step)
             return None
         if isinstance(r, ValidatedCheckpointRecovery):
             if step == 0 or step % r.interval != 0:
                 return None
             fp0, fp_equal = self.executor.validated_fp(dual)
-            ev = r.maybe_checkpoint(step, {"r0": self.executor.primary(dual)},
-                                    fp0, fp_equal=fp_equal)
+            with obs.span("checkpoint", step=step):
+                ev = r.maybe_checkpoint(step,
+                                        {"r0": self.executor.primary(dual)},
+                                        fp0, fp_equal=fp_equal)
             if ev is None:
                 self.checkpoints.append(step)
+                obs.note_checkpoint(step)
             return ev
         return None   # SafeStop / RetryRecovery / SlotRecovery store none

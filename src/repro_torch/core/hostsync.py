@@ -18,13 +18,16 @@ region on a process-wide, lock-protected list that every thread's reads
 walk, so it also counts reads issued by other threads while it is open.
 The detokenize consumer of continuous serving (`runtime/emission.py`) reads
 nothing from the device: it walks host arrays the serving thread fetched.
+Independent of either mode, when `repro_torch.obs.enable_metrics()` is on
+every `_note` also fans into the process-wide registry through the
+`_metrics_note` hook, which aggregates across threads.
 """
 from __future__ import annotations
 
 import contextlib
 import threading
 from dataclasses import dataclass, field
-from typing import Any, Dict, Iterator, List, Sequence
+from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -57,6 +60,10 @@ _active = _ActiveStats()
 _shared_lock = threading.Lock()
 _shared: List[TransferStats] = []
 
+# Process-wide metrics fan-in, installed by `repro_torch.obs.enable_metrics()`.
+# None when metrics are off, so the disabled cost is one `is None` test.
+_metrics_note: Optional[Callable[[str, int], None]] = None
+
 
 @contextlib.contextmanager
 def count_transfers(cross_thread: bool = False) -> Iterator[TransferStats]:
@@ -82,6 +89,8 @@ def _note(label: str, items: int = 1) -> None:
         with _shared_lock:
             for st in _shared:
                 st.note(label, items)
+    if _metrics_note is not None:
+        _metrics_note(label, items)
 
 
 @contextlib.contextmanager

@@ -22,8 +22,26 @@ to sequential, as the reference's does, and ignores `--dual`. Its
 `--fault-slot` flips a bit of that slot's logits row on replica 1 (replica
 0 under none), or, under abft/hybrid, of that slot's row of the
 checksummed block (a kernel-domain fault: a flip before the encode would
-be invisible to the guard by construction). The reference's heartbeat,
-metrics, trace, warmup and autotune flags come with the telemetry slice.
+be invisible to the guard by construction).
+
+Telemetry, as in the reference:
+
+    # metrics registry + fault journal (metrics.prom, journal.jsonl), a
+    # Chrome trace of the stage spans, and the closed-loop autotuner
+    ... --continuous --metrics-dir DIR --trace DIR/trace.json \
+        --autotune --autotune-interval 4 [--slo-availability 0.999]
+    PYTHONPATH=src python -m repro_torch.launch.status --metrics-dir DIR \
+        --once
+
+    # liveness in a shared heartbeat directory; stale peers are reported
+    ... --heartbeat-dir DIR --host-id 0 --n-hosts 2 --hb-timeout 60
+
+`--metrics-dir` prints `[obs]` lines (KPIs, predicted against observed, the
+Prometheus snapshot), `--autotune` the `[autotune]` lines (the calibrated
+step and sync times, alerts, evaluations), `--heartbeat-dir` a `[cluster]`
+line. The reference's `--warmup` is left out: it compiles XLA programs
+ahead of traffic, and eager PyTorch has none (the kernels are built at
+first use).
 """
 from __future__ import annotations
 
@@ -41,7 +59,8 @@ def _parse_prompt_mix(spec: str):
     return tuple(lengths), tuple(weights)
 
 
-def _continuous(args, cfg) -> None:
+def _continuous(args, cfg, ob=None) -> None:
+    from repro_torch import obs
     from repro_torch.configs import RunConfig, TrainConfig
     from repro_torch.core.injection import InjectionSpec
     from repro_torch.core.policy import make_server
@@ -77,9 +96,21 @@ def _continuous(args, cfg) -> None:
         prompt_lengths=lengths, length_weights=weights,
         max_new_choices=tuple(int(x) for x in args.max_new.split(",")),
         vocab=min(cfg.vocab_size, 200), seed=args.seed)
+    tuner = None
+    if args.autotune:
+        from repro_torch.core import temporal_model as tm
+        from repro_torch.core.policy import Autotuner, AutotuneConfig
+        tuner = Autotuner(
+            tm.PAPER_TABLE3["JACOBI"],
+            AutotuneConfig(interval_steps=args.autotune_interval,
+                           mode="serve", serve_slots=args.slots,
+                           backend=backend,
+                           slo_availability=args.slo_availability,
+                           slo_goodput=args.slo_goodput))
     out, rep = srv.serve(
         params, reqs, slots=args.slots, validate_lag=args.validate_lag,
-        queue_depth=args.queue_depth, drain_cadence=args.drain_cadence,
+        queue_depth=args.queue_depth, autotune=tuner,
+        drain_cadence=args.drain_cadence,
         notify_reject=lambda r, e: print(
             f"[SEDAR] request {r.rid} REJECTED after {e.boundary} fault "
             f"(per-request safe stop)", flush=True))
@@ -100,6 +131,23 @@ def _continuous(args, cfg) -> None:
           f"prefill retries={rep.prefill_retries}")
     for e in rep.detections:
         print(f"  {e} slots={e.detail.get('slots')}")
+    if ob is not None and ob.journal is not None:
+        kpis = ob.kpis(steps=rep.steps, tokens=rep.tokens_emitted)
+        print(f"[obs] kpis: {kpis}")
+        rows = obs.reconcile_with_advice(kpis,
+                                         validate_lag=args.validate_lag)
+        for row in rows:
+            print(f"[obs] predicted-vs-observed {row['metric']}: "
+                  f"predicted {row['predicted']}, observed "
+                  f"{row['observed']} -> {'OK' if row['ok'] else 'MISS'}")
+    if tuner is not None:
+        snap = tuner.estimator.calibrated_params()
+        print(f"[autotune] calibrated: t_step={snap.params.t_step:.3e} h, "
+              f"t_sync={snap.params.t_sync:.3e} h, "
+              f"mtbe={snap.mtbe_hours:.3g} h, "
+              f"confidence={snap.confidence:.2f}")
+        print(f"[autotune] {len(tuner.alerts.records)} alert(s), "
+              f"{tuner.evaluations} evaluation(s)")
 
 
 def _where(srv) -> str:
@@ -163,12 +211,46 @@ def main() -> None:
     ap.add_argument("--fault-persistent", action="store_true",
                     help="stuck bit: re-inject every step (drives the "
                          "per-request rejection path)")
+    # -- cluster membership ------------------------------------------------
+    ap.add_argument("--heartbeat-dir", default=None,
+                    help="publish this server's liveness to a shared "
+                         "heartbeat directory and report any stale peers "
+                         "after the run")
+    ap.add_argument("--host-id", type=int, default=0)
+    ap.add_argument("--n-hosts", type=int, default=1)
+    ap.add_argument("--hb-timeout", type=float, default=60.0,
+                    help="seconds without a heartbeat before a peer is "
+                         "declared stale")
+    # -- observability -----------------------------------------------------
+    ap.add_argument("--metrics-dir", default=None,
+                    help="enable the metrics registry + fault journal: "
+                         "writes metrics.prom and journal.jsonl here and "
+                         "prints the Prometheus snapshot after the run")
+    ap.add_argument("--trace", default=None, metavar="PATH",
+                    help="record per-stage trace spans to a Chrome-trace "
+                         "JSON (host clock: a span over work that reads "
+                         "nothing back times its dispatch)")
+    # -- closed-loop autotuning --------------------------------------------
+    ap.add_argument("--autotune", action="store_true",
+                    help="closed-loop calibration: estimate decode-tick/"
+                         "flush costs and MTBE online, retune the serve "
+                         "lag at clean flush boundaries (needs "
+                         "--metrics-dir + --continuous)")
+    ap.add_argument("--autotune-interval", type=int, default=16,
+                    help="decode ticks between autotuner evaluations")
+    ap.add_argument("--slo-availability", type=float, default=None,
+                    help="availability SLO target (e.g. 0.999)")
+    ap.add_argument("--slo-goodput", type=float, default=None,
+                    help="goodput SLO target as a 0-1 fraction")
     args = ap.parse_args()
+    if args.autotune and not (args.continuous and args.metrics_dir):
+        ap.error("--autotune needs --continuous and --metrics-dir")
 
     # deterministic cuBLAS needs this before the first cuBLAS call
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import numpy as np
 
+    from repro_torch import obs
     from repro_torch.configs import (RunConfig, TrainConfig, get_config,
                                      reduce_for_smoke)
     from repro_torch.core.policy import make_server
@@ -176,20 +258,42 @@ def main() -> None:
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = reduce_for_smoke(cfg)
+    ob = obs.configure(metrics_dir=args.metrics_dir, trace=args.trace)
+    hb = mon = None
+    if args.heartbeat_dir:
+        from repro_torch.runtime.cluster import ClusterMonitor, Heartbeat
+        hb = Heartbeat(args.heartbeat_dir, args.host_id)
+        hb.beat(0)
+        mon = ClusterMonitor(args.heartbeat_dir, args.n_hosts,
+                             timeout_s=args.hb_timeout)
     if args.continuous:
-        _continuous(args, cfg)
-        return
-    srv = make_server(RunConfig(model=cfg, train=TrainConfig()),
-                      dual=args.dual, backend=args.backend,
-                      device=args.device)
-    params = srv.model.init(seed=0)
-    prompts = {"tokens": np.random.RandomState(0).randint(
-        0, min(cfg.vocab_size, 200), (args.batch, args.prompt_len))}
-    toks, rep = srv.generate(params, prompts, steps=args.steps)
-    tps = rep.tokens_emitted / max(rep.wall_s, 1e-9)
-    print(f"{args.arch}: {rep.tokens_emitted} tokens, {tps:.1f} tok/s "
-          f"({_where(srv)}), backend={srv.backend}, "
-          f"detections={len(rep.detections)}")
+        _continuous(args, cfg, ob)
+    else:
+        srv = make_server(RunConfig(model=cfg, train=TrainConfig()),
+                          dual=args.dual, backend=args.backend,
+                          device=args.device)
+        params = srv.model.init(seed=0)
+        prompts = {"tokens": np.random.RandomState(0).randint(
+            0, min(cfg.vocab_size, 200), (args.batch, args.prompt_len))}
+        toks, rep = srv.generate(params, prompts, steps=args.steps)
+        tps = rep.tokens_emitted / max(rep.wall_s, 1e-9)
+        print(f"{args.arch}: {rep.tokens_emitted} tokens, {tps:.1f} tok/s "
+              f"({_where(srv)}), backend={srv.backend}, "
+              f"detections={len(rep.detections)}")
+    if hb is not None:
+        if not hb.beat(args.steps):
+            print(f"[cluster] heartbeat write failed "
+                  f"({hb.io_errors} IO errors) — peers will see this "
+                  f"host as stale")
+        stale = mon.stale_hosts()
+        print(f"[cluster] host {args.host_id} of {args.n_hosts}: "
+              f"{'stale peers ' + str(stale) if stale else 'all peers live'}")
+    snap = ob.finalize()
+    if snap:
+        print(f"[obs] metrics snapshot ({args.metrics_dir}/metrics.prom):")
+        print(snap, end="")
+    if args.trace:
+        print(f"[obs] trace written to {args.trace}")
 
 
 if __name__ == "__main__":

@@ -43,6 +43,8 @@ from typing import Any, Callable, Dict, List, Optional, Set, Tuple
 import numpy as np
 import torch
 
+from repro_torch import obs
+
 
 class _Parked:
     """One decode tick's parked emission: device tensors + host bookkeeping."""
@@ -150,6 +152,7 @@ class TokenRing:
             dead_all=[e.dead_all for e in self._entries])
         self._entries.clear()
         self.drains += 1
+        obs.note_drain(len(batch.steps))
         self.sink(batch)
         return batch
 
@@ -190,6 +193,7 @@ def deliver_batch(batch: DrainBatch,
                 if on_token is not None:
                     on_token(req, req.tokens[-1], len(req.tokens) - 1)
                 delivered += 1
+    obs.note_tokens(delivered)
     return delivered, retracted
 
 
@@ -228,10 +232,14 @@ class DetokenizeConsumer:
             self._consume(batch)
             return
         self._q.put(batch)              # blocks when full: backpressure
-        self.backlog_peak = max(self.backlog_peak, self._q.qsize())
+        depth = self._q.qsize()
+        self.backlog_peak = max(self.backlog_peak, depth)
+        if obs.metrics_enabled():
+            obs.metrics.set_gauge("sedar_serve_consumer_backlog", depth)
 
     def _consume(self, batch: DrainBatch) -> None:
-        d, r = deliver_batch(batch, self.on_token)
+        with obs.span("detokenize", rows=len(batch.steps)):
+            d, r = deliver_batch(batch, self.on_token)
         self.delivered += d
         self.retracted += r
         self.batches += 1
@@ -247,6 +255,9 @@ class DetokenizeConsumer:
                 self.errors.append(exc)
             finally:
                 self._q.task_done()
+                if obs.metrics_enabled():
+                    obs.metrics.set_gauge("sedar_serve_consumer_backlog",
+                                          self._q.qsize())
 
     def quiesce(self) -> None:
         """Block until every submitted batch has been delivered."""

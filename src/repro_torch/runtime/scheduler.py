@@ -23,17 +23,19 @@ the active mask) until the validated frontier passes its finish step.
 
 `synthetic_requests` is the seeded open-loop traffic replay; the latency
 helpers report TTFT, inter-token gaps and time to the last token with the
-nearest-rank `percentile`. The reference's metrics-registry calls are left
-out (telemetry is ported separately).
+nearest-rank `obs.percentile`. With metrics on, the queue reports its
+depth, a backpressure rejection is noted and a released request its TTFT.
 """
 from __future__ import annotations
 
-import math
 from collections import deque
 from dataclasses import dataclass, field
 from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
+
+from repro_torch import obs
+from repro_torch.obs import percentile
 
 # Request lifecycle states
 PENDING = "pending"      # created, not yet arrived
@@ -42,17 +44,6 @@ RUNNING = "running"      # owns a slot, decoding
 DRAINING = "draining"    # token budget reached, awaiting validation
 DONE = "done"
 REJECTED = "rejected"
-
-
-def percentile(values: Iterable[float], q: float) -> float:
-    """Nearest-rank percentile: rank = ceil(q/100 * N) clamped to [1, N] of
-    the sorted values (numpy's method="inverted_cdf"); 0.0 when empty."""
-    vals = sorted(values)
-    if not vals:
-        return 0.0
-    n = len(vals)
-    rank = math.ceil((float(q) / 100.0) * n)
-    return float(vals[min(max(rank, 1), n) - 1])
 
 
 @dataclass
@@ -102,13 +93,20 @@ class RequestQueue:
             req.status = REJECTED
             req.reject_reason = "backpressure"
             self.rejected.append(req)
+            obs.note_rejection(-1, rid=req.rid, slot=None,
+                               reason="backpressure")
             return False
         req.status = QUEUED
         self._q.append(req)
+        if obs.metrics_enabled():
+            obs.metrics.set_gauge("sedar_serve_queue_depth", len(self._q))
         return True
 
     def pop(self) -> Optional[Request]:
-        return self._q.popleft() if self._q else None
+        req = self._q.popleft() if self._q else None
+        if req is not None and obs.metrics_enabled():
+            obs.metrics.set_gauge("sedar_serve_queue_depth", len(self._q))
+        return req
 
 
 class SlotScheduler:
@@ -176,6 +174,11 @@ class SlotScheduler:
         req.status = DONE
         req.slot = None
         self.slots[slot] = None
+        if obs.metrics_enabled() and \
+                req.arrival_time is not None and req.token_times:
+            obs.metrics.observe(
+                "sedar_serve_ttft_seconds",
+                req.token_times[0] - req.arrival_time)
         return req
 
     def reject(self, slot: int, reason: str) -> Request:

@@ -86,6 +86,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.abft.executor import logits_checksum_guard
 from repro_torch.checkpoint.tiers import SlotRing
 from repro_torch.configs.base import RunConfig
@@ -511,8 +512,9 @@ class SedarServer:
         admission snapshot and emit its prefill token."""
         dev = self.device
         prompt = upload(req.prompt[None, :].astype(np.int64), dev)
-        logits, cache = self.model.prefill(params, {"tokens": prompt},
-                                           max_len)
+        with obs.span("prefill_pack", step=t, pack=1, packed=False):
+            logits, cache = self.model.prefill(params, {"tokens": prompt},
+                                               max_len)
         tok = torch.argmax(logits, dim=-1)                       # (1,)
         sl = {"cache": cache, "tok": tok,
               "pos": torch.full((), req.prompt_len, dtype=torch.int64,
@@ -570,7 +572,9 @@ class SedarServer:
             # retries relaunch the original pack, so a stuck lane keeps
             # hitting the same occupant; admitted rows are recomputed, not
             # re-admitted
-            res = self.prefiller.protected_pack(params, prompts, max_len, t)
+            with obs.span("prefill_pack", step=t, pack=len(pairs)):
+                res = self.prefiller.protected_pack(params, prompts,
+                                                    max_len, t)
             rep.prefill_packs += 1
             toks, verdicts = hostsync.batched_get(
                 [res["tok"], res["verdict"]], label="prefill_emit")
@@ -598,10 +602,12 @@ class SedarServer:
             if corrected:
                 # prefill events never pass through eng.on_detection (the
                 # pack retries inline), so the correction is journaled here
-                events.append(DetectionEvent(
+                ev = DetectionEvent(
                     step=t, boundary="prefill", effect="abft_corrected",
                     detail={"slots": [pairs[i][0] for i in corrected],
-                            "rids": [pairs[i][1].rid for i in corrected]}))
+                            "rids": [pairs[i][1].rid for i in corrected]})
+                events.append(ev)
+                obs.note_detection(ev)
             if (bad or corrected) and spec is not None \
                     and not spec.persistent:
                 self.inj_flag.mark()   # the transient fault manifested
@@ -614,6 +620,7 @@ class SedarServer:
                 detail={"slots": [pairs[i][0] for i in bad],
                         "rids": [pairs[i][1].rid for i in bad]})
             events.append(ev)
+            obs.note_detection(ev)
             budget -= 1
             if budget <= 0:
                 for i in bad:
@@ -621,6 +628,8 @@ class SedarServer:
                     sched.reject(slot, "prefill validation failed: "
                                  "consecutive retry budget exhausted")
                     rep.rejected.append(req.rid)
+                    obs.note_rejection(t, rid=req.rid, slot=slot,
+                                       reason="prefill_persistent")
                     if notify is not None:
                         notify(req, events[-1])
                 break
@@ -669,6 +678,8 @@ class SedarServer:
                 sched.reject(slot, "per-request safe stop: consecutive "
                              "retry budget exhausted")
                 rep.rejected.append(req.rid)
+                obs.note_rejection(event.step, rid=req.rid, slot=slot,
+                                   reason="persistent_fault")
                 if notify is not None:
                     notify(req, event)
             ring.evict(slot)
@@ -704,7 +715,7 @@ class SedarServer:
               max_len: Optional[int] = None,
               validate_lag: Optional[int] = None, queue_depth: int = 0,
               max_steps: Optional[int] = None, notify_reject=None,
-              packed_prefill: bool = True,
+              packed_prefill: bool = True, autotune=None,
               drain_cadence: Optional[int] = None, on_token=None,
               consumer_depth: int = 8):
         """Continuous-batching protected decode over an open-loop request
@@ -724,7 +735,12 @@ class SedarServer:
         (from the consumer thread in drain mode); `consumer_depth` bounds
         the consumer's queue. `queue_depth` bounds the admission queue (a
         full queue rejects at once); `packed_prefill=False` admits each
-        request with its own exact-shape prefill."""
+        request with its own exact-shape prefill. `autotune` (a
+        `core/policy.py::Autotuner` with mode="serve") retunes the lag at
+        clean flush boundaries: the loop re-reads the lag every tick, the
+        drain cadence follows it, and dropping to lag 1 delivers everything
+        parked; the engine's reset() restores the configured lag for the
+        next call."""
         rep = BatchServeReport()
         t0 = time.time()
         for r in requests:
@@ -779,6 +795,8 @@ class SedarServer:
                             + len(requests)) * 4 + 64
         try:
             while t < cap and (pending or len(sched.queue) or sched.busy):
+                # the autotuner may have moved the lag at the last boundary
+                ring_on = eng.validate_lag > 1
                 while pending and pending[0].arrival <= t:
                     req = pending.pop(0)
                     req.arrival_time = time.time()     # TTFT reference
@@ -846,7 +864,8 @@ class SedarServer:
                 if drain_on:
                     # owner snapshot for the rows this tick will park
                     tokring.owners = dict(sched.running_items())
-                outcome = eng.run_protected_step(dual, params, t)
+                with obs.span("decode_tick", step=t):
+                    outcome = eng.run_protected_step(dual, params, t)
                 dual = outcome.dual
                 rep.steps += 1
                 if drain_on:
@@ -864,6 +883,24 @@ class SedarServer:
                     # clean flush boundary: cut the Tier-0 slot snapshots
                     self._snapshot_slots(eng, dual, sched, ring,
                                          version=t + 1)
+                if autotune is not None and autotune.maybe_tune(eng, t + 1):
+                    # a reconfig applies only at a clean boundary (the
+                    # predicate ring is empty), so the state is validated
+                    if eng.validate_lag == 1 and drain_on:
+                        # leaving deferred mode: deliver everything parked
+                        # and fall back to per-tick emission (lag 1 never
+                        # parks)
+                        eng.flush_deferred(final=True)
+                        consumer.quiesce()
+                        eng.emission_ring = None
+                        drain_on = False
+                    elif eng.validate_lag > 1 and not ring_on:
+                        # entering deferred mode: the running slots need a
+                        # Tier-0 version for a fault in the first window
+                        self._snapshot_slots(eng, dual, sched, ring,
+                                             version=t + 1)
+                    if drain_on and not drain_cadence:
+                        tokring.cadence = eng.validate_lag
                 if drain_on:
                     # budget decisions ride the host count; drained slots
                     # release once a flush moved the frontier past them
@@ -887,6 +924,7 @@ class SedarServer:
                         if target == len(req.tokens) + 1:
                             req.tokens.append(int(toks[slot, 0]))
                             req.token_times.append(now_wall)
+                            obs.note_tokens(1)
                             if on_token is not None:
                                 on_token(req, req.tokens[-1],
                                          len(req.tokens) - 1)

@@ -45,6 +45,7 @@ from typing import Any, Callable, Dict, List, Optional
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch import tree as tree_util
 from repro_torch.configs.base import RunConfig
 from repro_torch.core import hostsync
@@ -99,9 +100,12 @@ class SedarTrainer:
                  inj_spec: Optional[InjectionSpec] = None,
                  toe_delay: Optional[Dict[Any, float]] = None,
                  data=None, notify: Optional[Callable] = None,
-                 device=None):
+                 device=None, autotune=None):
         self.cfg = run_cfg
         self.workdir = workdir
+        # closed-loop knob tuning: a `core/policy.py::Autotuner` whose
+        # maybe_tune() ticks after every protected step
+        self.autotune = autotune
         self.backend = run_cfg.sedar.replication
         if self.backend == "dual":          # the reference's alias
             self.backend = "sequential"
@@ -336,8 +340,9 @@ class SedarTrainer:
                 rep.stopped = True
                 break
             executed += 1
-            outcome = eng.run_protected_step(dual, (step, self.batch(step)),
-                                             step)
+            with obs.span("train_step", step=step):
+                outcome = eng.run_protected_step(
+                    dual, (step, self.batch(step)), step)
             # unpacked and dropped: the outcome must not keep a state alive
             # through a recovery and the next step
             dual, aux, event = outcome.dual, outcome.aux, outcome.event
@@ -353,6 +358,10 @@ class SedarTrainer:
                     break
             elif len(aux_buf) >= 4096 and not eng.pending_validation:
                 drain()
+            if self.autotune is not None:
+                # host-side only (registry and journal reads); a lag change
+                # lands through apply_reconfig, at a clean flush boundary
+                self.autotune.maybe_tune(eng, step)
 
         # final validation (paper: final results comparison)
         if not rep.stopped:

@@ -2,8 +2,9 @@
 version (K1 on packed buffers and on leaves read in place, one launch per
 call), the protected serving path through K1/K2, the ABFT slice
 (K3, K4, a replica-free generate), training (the replicas' grads, fused's
-stacked grads, a device-tier restore) and the replica campaign at n=4096.
-Every test
+stacked grads, a device-tier restore), the replica campaign at n=4096 and
+the telemetry loop at full width (no added read or launch; a journaled
+fault run that reconciles). Every test
 here is marked `cuda` and skips without a card. The file imports nothing of
 JAX, so it also runs on a machine without it:
 
@@ -755,3 +756,86 @@ def test_campaign_row_at_n4096(card, window, proc, datum, effect):
     row = campaign_row(s, app.run(s))
     assert row["match"] and row["obs"]["effect"] == effect
     assert all(torch.equal(m["M.C"], c) for m, c in zip(app.last_mem, clean))
+
+
+def _telemetry_serve(srv, params, reqs, lag, on):
+    """One serve() under sync-debug "error", telemetry off or on (metrics,
+    journal, trace and a serve-mode autotuner that never applies) -> (out,
+    report, host reads, (K1, K2) launches, journal records, tuner)."""
+    from repro_torch import obs
+    from repro_torch.core import temporal_model as tm
+    from repro_torch.core.policy import Autotuner, AutotuneConfig
+    tuner = journal = None
+    if on:
+        obs.enable_metrics()
+        journal = obs.FaultJournal()
+        obs.set_journal(journal)
+        obs.enable_trace()
+        tuner = Autotuner(tm.PAPER_TABLE3["JACOBI"], AutotuneConfig(
+            interval_steps=2, mode="serve", persistence=10 ** 6))
+    before = (kfp.launch_count.n, kfa.launch_count.n)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with hostsync.count_transfers(cross_thread=True) as st:
+            out, rep = srv.serve(params, reqs(), slots=3, validate_lag=lag,
+                                 autotune=tuner)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+        records = journal.records() if journal is not None else []
+        obs.disable_metrics()
+        obs.set_journal(None)
+        obs.disable_trace()
+        obs.shutdown()
+    launches = (kfp.launch_count.n - before[0], kfa.launch_count.n - before[1])
+    return out, rep, st.by_label, launches, records, tuner
+
+
+def _full_width_server(card, **kw):
+    cfg = dataclasses.replace(get_config("qwen2-0.5b"),
+                              attention_impl="pallas")
+    return make_server(RunConfig(model=cfg), dual=True, device=card, **kw)
+
+
+def _short_requests():
+    from repro_torch.runtime.scheduler import synthetic_requests
+    return synthetic_requests(3, arrival_rate=1.0, prompt_lengths=(16, 40),
+                              max_new_choices=(6, 10), vocab=151936, seed=2)
+
+
+@pytest.mark.parametrize("lag", [1, 8])
+def test_telemetry_adds_no_read_or_launch_at_full_width(card, lag):
+    """qwen2-0.5b at full width, 3 short requests: with the telemetry loop
+    on, the same host reads by label, the same K1 and K2 launches and the
+    same tokens as with it off."""
+    srv = _full_width_server(card)
+    params = srv.model.init(seed=0)
+    off = _telemetry_serve(srv, params, _short_requests, lag, False)
+    on = _telemetry_serve(srv, params, _short_requests, lag, True)
+    assert not off[1].detections and not on[1].detections
+    assert on[2] == off[2]
+    assert on[3] == off[3] and off[3][0] > 0 and off[3][1] > 0
+    assert {r.rid: list(r.tokens) for r in on[0]} == \
+        {r.rid: list(r.tokens) for r in off[0]}
+    assert on[5].evaluations > 0
+
+
+def test_journaled_slot_fault_reconciles_at_full_width(card):
+    """The lag-8 slot fault (slot 1's bf16 logits, bit 14, tick 3): one
+    deferred detection rolled back, and the journal reproduces the
+    engine's detections, recoveries, alerts and reconfigs."""
+    from repro_torch import obs
+    spec = InjectionSpec(leaf_idx=1, flat_idx=7, bit=14, step=3, replica=1,
+                         target="slot")
+    srv = _full_width_server(card, inj_spec=spec)
+    params = srv.model.init(seed=0)
+    out, rep, _, _, records, tuner = _telemetry_serve(
+        srv, params, _short_requests, 8, True)
+    (eng, _, _), = srv._batch_engines.values()
+    assert [(e.step, e.boundary, e.detail.get("slots"))
+            for e in rep.detections] == [(3, "deferred", [1])]
+    assert rep.rollbacks == 1 and len(rep.completed) == 3
+    assert obs.reconcile(records, eng.detections, eng.recoveries,
+                         alerts=tuner.alerts.records,
+                         reconfigs=eng.reconfigs) == {
+        "detections_match": True, "recoveries_match": True,
+        "alerts_match": True, "reconfigs_match": True}
