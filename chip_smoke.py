@@ -52,6 +52,14 @@ counts set to 0 just before it and read just after:
     train-mode autotuner whose reconfigs land at clean boundaries, losses
     bitwise equal to the run with telemetry off; the calibrated temporal
     model and `advise()` on it;
+  * the model families (phase families): protected `generate()` of
+    recurrentgemma-2b (hybrid: RG-LRU blocks and local attention, B=2 ×
+    4,096 prompt tokens, K2 at hd 256 with its 2,048 window), internvl2-2b
+    (vlm: 256 stub patch embeddings + 256 tokens, hd 128) and phi3.5-moe
+    (moe, 8 of its 32 layers, hd 128) at full width under none,
+    sequential and abft in turns (equal streams, a replica fault retried,
+    a checksum-block fault corrected forward), and K2 at each family's
+    prefill shape against its plain version and SDPA;
   * a small f32 model on the card against the plain CPU path.
 
 Any failed check exits non-zero. The last two lines are a JSON object of
@@ -401,14 +409,15 @@ def phase_k1_tree(kfp, main):
           flush=True)
 
 
-def check_k2(kfa, B: int, S: int, seed: int, what: str):
-    """K2 against its plain version in bf16 on seeded (B, S) inputs at
-    qwen2-0.5b's heads, in the model's layout: elementwise within atol 1e-3
-    + rtol 8e-3 (one bf16 rounding step is at most 2^-7 of the value), each
-    row within 1e-2 of its largest output, and two launches bitwise equal.
+def check_k2(kfa, B: int, S: int, seed: int, what: str, H: int = 14,
+             KV: int = 2, hd: int = 64, window: int = 0):
+    """K2 against its plain version in bf16 on seeded (B, S) inputs, causal
+    (and within `window` when > 0), at qwen2-0.5b's heads unless others
+    are given, in the model's layout: elementwise within atol 1e-3 + rtol
+    8e-3 (one bf16 rounding step is at most 2^-7 of the value), each row
+    within 1e-2 of its largest output, and two launches bitwise equal.
     Returns (q, k, v, max abs err, max error per row's largest value)."""
     dev = torch.device("cuda")
-    H, KV, hd = 14, 2, 64
     gen = torch.Generator(device=dev).manual_seed(seed)
     # model layout (B, S, heads, hd), viewed as (B, heads, S, hd) as the
     # model's prefill passes it
@@ -418,9 +427,9 @@ def check_k2(kfa, B: int, S: int, seed: int, what: str):
                     dtype=torch.bfloat16).transpose(1, 2)
     v = torch.randn(B, S, KV, hd, generator=gen, device=dev,
                     dtype=torch.bfloat16).transpose(1, 2)
-    got = kfa.flash_attention_fwd(q, k, v, causal=True)
-    again = kfa.flash_attention_fwd(q, k, v, causal=True)
-    want = kfa.flash_attention_plain(q, k, v, causal=True)
+    got = kfa.flash_attention_fwd(q, k, v, causal=True, window=window)
+    again = kfa.flash_attention_fwd(q, k, v, causal=True, window=window)
+    want = kfa.flash_attention_plain(q, k, v, causal=True, window=window)
     diff = (got.float() - want.float()).abs()
     err = float(diff.max())
     over = float((diff - (1e-3 + 8e-3 * want.float().abs())).max())
@@ -480,9 +489,9 @@ def phase_k2(kfa):
     return entry
 
 
-def decode_ms(rep) -> float:
+def decode_ms(rep, steps: int = STEPS) -> float:
     """Host wall time per decode step of a generate (prefill excluded)."""
-    return (rep.wall_s - rep.prefill_s) / (STEPS - 1) * 1e3
+    return (rep.wall_s - rep.prefill_s) / (steps - 1) * 1e3
 
 
 def phase_main(kfp, kfa, cfg_full):
@@ -2853,6 +2862,247 @@ def phase_telemetry_train(kfp, trainer, make_state, l3) -> int:
     return off["k1"]
 
 
+FAMILY_STEPS = 32
+# (arch, batch, prompt tokens, layers kept of the config's or None): full
+# width, seeded weights; phi3.5-moe's 32 layers would need ~167 GB of f32
+# weights, its depth is cut to 8 (~42 GB)
+FAMILY_CASES = (("recurrentgemma-2b", 2, 4096, None),
+                ("internvl2-2b", 4, 256, None),
+                ("phi3.5-moe-42b-a6.6b", 4, 256, 8))
+
+
+def _window_pairs(S: int, W: int) -> int:
+    """Unmasked (q, k) pairs of causal attention over S positions, within
+    W positions of the query when W > 0."""
+    if not W or W >= S:
+        return S * (S + 1) // 2
+    return W * (W + 1) // 2 + (S - W) * W
+
+
+def family_k2(kfa, cfg, B: int, S: int, what: str) -> dict:
+    """K2 at a family's prefill shape (its heads, head dim and window):
+    `check_k2`, then timed beside its plain version and SDPA with the same
+    mask, and its bound. Returns its kernel-line entry."""
+    import torch.nn.functional as F
+    H, KV, hd, W = (cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
+                    cfg.window_size)
+    q, k, v, err, row_err = check_k2(kfa, B, S, S + hd, what, H, KV, hd, W)
+    pos = torch.arange(S, device=q.device)
+    mask = ((pos[:, None] >= pos[None, :]) & (pos[:, None] - pos[None, :] < W)
+            if W else None)
+
+    def kernel():
+        kfa.flash_attention_fwd(q, k, v, causal=True, window=W)
+
+    def sdpa():
+        if W:
+            F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                           enable_gqa=True)
+        else:
+            F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                           enable_gqa=True)
+
+    ms, lib_ms = device_ms(kernel, 20), device_ms(sdpa, 20)
+    plain_ms = device_ms(
+        lambda: kfa.flash_attention_plain(q, k, v, causal=True, window=W), 3)
+    flops = 4.0 * B * H * hd * _window_pairs(S, W)
+    nbytes = 2.0 * B * S * hd * (2 * H + 2 * KV)
+    b_ms, b_by = bound(nbytes, flops)
+    print(f"K2 {what} (B={B} H={H}/{KV} S={S} hd={hd} window={W}): max abs "
+          f"err {err:.3e}, per row's largest value {row_err:.3e} vs plain "
+          f"(bf16), two launches bitwise equal, device {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms; bound {b_ms:.5f} ms "
+          f"({b_by}), {flops / ms / 1e9:.1f} TFLOP/s on the function's count",
+          flush=True)
+    return {"name": f"flash_attention_hd{hd}_{what}", "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:33",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
+
+
+def _family_run(kfp, kfa, srv, params, prompt, what: str):
+    """One counted generate: kernel counts set to 0 just before, read just
+    after; (tokens, report, counts, host reads, peak GiB)."""
+    from repro_torch.core import hostsync
+    torch.cuda.synchronize()
+    kfp.launch_count.reset()
+    kfa.launch_count.reset()
+    torch.cuda.reset_peak_memory_stats()
+    with hostsync.count_transfers() as st:
+        toks, rep = srv.generate(params, prompt, steps=FAMILY_STEPS)
+    counts = {"fingerprint": kfp.launch_count.n,
+              "flash_attention": kfa.launch_count.n}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    events = [(e.step, e.boundary, e.effect) for e in rep.detections]
+    print(f"  {what}: prefill+first token {rep.prefill_s * 1e3:.1f} ms, "
+          f"decode {decode_ms(rep, FAMILY_STEPS):.2f} ms/step, launches "
+          f"{counts}, host reads {st.by_label}, detections {events}, retries "
+          f"{rep.retries}, peak {peak:.2f} GiB", flush=True)
+    return toks, rep, counts, st.by_label
+
+
+def family_decode_profile(srv, params, prompt, pos: int, what: str) -> None:
+    """Where one unprotected decode step's time goes (profiler on): the
+    device-busy share of its wall, the shares of the copy kernels (the f32
+    to bf16 weight casts of the eager step) and of the fill kernels
+    (deterministic mode fills each fresh output, the casts' too), and the
+    kernels that take the device time."""
+    logits, cache = srv.model.prefill(params, prompt, pos + FAMILY_STEPS + 8)
+    tok = torch.argmax(logits, dim=-1)
+    del logits
+
+    def step():
+        srv.model.decode_step(params, cache, tok, pos)
+
+    step()
+    torch.cuda.synchronize()
+    wall_ms, busy_ms, launches, kern, calls = device_profile(step)
+    def share(word):
+        return sum(e.self_device_time_total for e in kern
+                   if word in e.key.lower()) / 1e3
+
+    copy_ms, fill_ms = share("copy"), share("fill")
+    print(f"  profile of one {what} decode step (none, profiler on): wall "
+          f"{wall_ms:.2f} ms, device busy {busy_ms:.2f} ms "
+          f"({100 * busy_ms / wall_ms:.1f}%), copy kernels {copy_ms:.2f} ms "
+          f"({100 * copy_ms / busy_ms:.1f}% of busy), fill kernels "
+          f"{fill_ms:.2f} ms ({100 * fill_ms / busy_ms:.1f}%), {launches} "
+          f"kernels, {calls} launch calls", flush=True)
+    for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:5]:
+        print(f"  {e.self_device_time_total / 1e3:9.3f} ms "
+              f"{100 * e.self_device_time_total / 1e3 / busy_ms:5.1f}% "
+              f"x{e.count:<6d} {e.key[:90]}", flush=True)
+    del cache, tok
+
+
+def phase_families(kfp, kfa):
+    """Slice 7: protected generate() of the hybrid (recurrentgemma-2b), vlm
+    (internvl2-2b) and moe (phi3.5-moe, 8 of 32 layers) families at full
+    width with seeded weights and K2 prefill, under none, sequential and
+    abft in turns: equal streams, no detection on a clean run, a final_ln
+    bit-30 fault on replica 1 detected and retried, a logits element of the
+    abft checksum block corrected forward, both with the clean tokens.
+    One unprotected decode step of each family is profiled. Then K2 at
+    each family's prefill shape. Returns (K1 launches, the K2 kernel-line
+    entries, one per family's shape, with that family's launches)."""
+    import dataclasses
+
+    from repro_torch.configs import RunConfig, get_config
+    from repro_torch.core.injection import InjectionSpec
+    from repro_torch.core.policy import make_server
+    from repro_torch.models import moe, transformer as tfm
+    from repro_torch.tree import flatten_with_path, leaves
+
+    t_phase = time.time()
+    dev = torch.device("cuda")
+    k1_total, entries = 0, []
+    for arch, B, S, depth in FAMILY_CASES:
+        cfg = dataclasses.replace(get_config(arch), attention_impl="pallas")
+        if depth:
+            cfg = dataclasses.replace(cfg, num_layers=depth)
+        rng = np.random.RandomState(7)
+        prompt = {"tokens": torch.from_numpy(
+            rng.randint(0, cfg.vocab_size, (B, S))).to(dev)}
+        P = cfg.frontend_seq if cfg.frontend else 0
+        if P:
+            prompt["frontend_embeds"] = 0.1 * torch.from_numpy(
+                rng.standard_normal((B, P, cfg.frontend_dim)).astype(
+                    np.float32)).to(dev)
+        servers = {b: make_server(RunConfig(model=cfg), backend=b, device=dev)
+                   for b in ("none", "sequential", "abft")}
+        t0 = time.time()
+        params = servers["none"].model.init(seed=0)
+        torch.cuda.synchronize()
+        n_params = sum(p.numel() for p in leaves(params))
+        attn_layers = (sum(k == "attention" for k in cfg.block_pattern)
+                       * (cfg.num_layers // len(cfg.block_pattern))
+                       + sum(k == "attention" for k in tfm.pattern_tail(cfg))
+                       if cfg.block_pattern else cfg.num_layers)
+        print(f"families: {cfg.name} [{cfg.family}] {cfg.num_layers}L "
+              f"d={cfg.d_model} H={cfg.num_heads}/{cfg.num_kv_heads} "
+              f"hd={cfg.head_dim} V={cfg.vocab_size} window="
+              f"{cfg.window_size}, {n_params / 1e9:.2f}B f32 params (seeded "
+              f"init {time.time() - t0:.2f} s), B={B} prompt={S}"
+              f"{f' + {P} frontend' if P else ''} steps={FAMILY_STEPS}",
+              flush=True)
+        if cfg.family == "moe":
+            _, _, aux = tfm.lm_hidden(cfg, params, prompt["tokens"])
+            print(f"  moe prefill drop fraction {float(aux['moe_drop_frac'])}"
+                  f" (capacity factor {moe.CAPACITY_FACTOR}, "
+                  f"{moe.capacity(cfg, B * S)} per expert, {B * S} tokens, top-"
+                  f"{cfg.experts_per_token} of {cfg.num_experts}), aux loss "
+                  f"{float(aux['moe_aux']):.4f}", flush=True)
+            del aux
+        servers["none"].generate(params, prompt, steps=2)      # warm-up
+        runs = {}
+        for b in ("none", "sequential", "abft"):
+            runs[b] = _family_run(kfp, kfa, servers[b], params, prompt,
+                                  f"{b} clean")
+        toks = runs["none"][0]
+        check(toks.shape == (B, FAMILY_STEPS)
+              and bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
+              f"{arch}: tokens {toks.shape} out of range")
+        for b, (t, rep, counts, reads) in runs.items():
+            check(np.array_equal(t, toks), f"{arch}: {b} tokens differ from "
+                  f"the unprotected run")
+            check(not rep.detections and not rep.stopped,
+                  f"{arch}: clean {b} run detected "
+                  f"{[str(e) for e in rep.detections]}")
+            check(counts["flash_attention"] == attn_layers,
+                  f"{arch}: K2 launched {counts['flash_attention']} != "
+                  f"{attn_layers} times under {b}")
+        check(runs["sequential"][2]["fingerprint"] == 2 * (FAMILY_STEPS - 1),
+              f"{arch}: K1 launched {runs['sequential'][2]['fingerprint']} "
+              f"!= {2 * (FAMILY_STEPS - 1)} times under sequential")
+        check(runs["sequential"][3] == {"commit_compare": FAMILY_STEPS - 1,
+                                        "token_emit": FAMILY_STEPS},
+              f"{arch}: sequential host reads {runs['sequential'][3]}")
+        k2_launches = 0
+        for b in ("none", "sequential", "abft"):    # in turns, again
+            _, rep, counts, _ = _family_run(kfp, kfa, servers[b], params,
+                                            prompt, f"{b} clean (turn 2)")
+            check(not rep.detections, f"{arch}: clean {b} detected")
+            k1_total += counts["fingerprint"]
+            k2_launches += counts["flash_attention"]
+        family_decode_profile(servers["none"], params, prompt, S + P, arch)
+
+        step = S + P + 5
+        final_ln = [p for p, _ in flatten_with_path(params)].index(
+            "['final_ln']")
+        specs = {"sequential": InjectionSpec(
+                     leaf_idx=final_ln, flat_idx=3, bit=30, step=step,
+                     replica=1, target="params"),
+                 "abft": InjectionSpec(
+                     leaf_idx=0, flat_idx=1 * (cfg.vocab_size + 1) + 5,
+                     bit=30, step=step, replica=0, target="kernel")}
+        for b, spec in specs.items():
+            fsrv = make_server(RunConfig(model=cfg), backend=b, device=dev,
+                               inj_spec=spec)
+            ftoks, frep, _, _ = _family_run(kfp, kfa, fsrv, params, prompt,
+                                            f"{b} fault")
+            events = [(e.step, e.boundary, e.effect) for e in frep.detections]
+            check(events == [(step, "commit", "TDC")],
+                  f"{arch}: {b} fault events {events}")
+            if b == "sequential":
+                check(frep.retries == 1, f"{arch}: retries {frep.retries}")
+            else:
+                check(frep.retries == 0 and bool(
+                    frep.detections[0].detail.get("abft_corrected")),
+                      f"{arch}: abft fault not corrected forward")
+            check(not frep.stopped and np.array_equal(ftoks, toks),
+                  f"{arch}: {b} fault run changed the tokens")
+            del fsrv
+        del servers, params, runs
+        _free()
+        entry = family_k2(kfa, cfg, B, S + P, arch)
+        entry["launches"] = k2_launches
+        entries.append(entry)
+        torch.cuda.empty_cache()
+    print(f"families phase took {time.time() - t_phase:.1f} s", flush=True)
+    return k1_total, entries
+
+
 def phase_reference():
     """Small f32 model: the card's path (kernels) against the plain CPU path
     (which the CPU tests hold to the JAX package)."""
@@ -2929,15 +3179,20 @@ def main() -> None:
     serve_counts, served = phase_serve(kfp, kfa, main_run)
     telemetry_counts = phase_telemetry_serve(kfp, kfa, main_run, served)
     del main_run, served
+    _free()
+    families_k1, wide_k2 = phase_families(kfp, kfa)
     kfp.launch_count.reset()
     train_k1 = phase_train(kfp)
     check(train_k1 > 0, "K1 never launched by the trainer")
     phase_reference()
     # the main path's K1 launches, the training paths' and the replica
     # campaign's, each counted from 0 just before its run
-    k1["launches"] = counts["fingerprint"] + train_k1 + campaign_k1
+    k1["launches"] = (counts["fingerprint"] + train_k1 + campaign_k1
+                      + families_k1)
     k2["launches"] = counts["flash_attention"]
-    kernels = [k1, k2, k3, k4]
+    print("K2 launches: " + ", ".join(
+        f"{e['name']} {e['launches']}" for e in (k2, *wide_k2)), flush=True)
+    kernels = [k1, k2, *wide_k2, k3, k4]
     for k in kernels:
         check(k["launches"] > 0, f"kernel {k['name']} never launched")
     for k, n in serve_counts.items():

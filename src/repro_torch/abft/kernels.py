@@ -36,7 +36,8 @@ from repro_torch.abft.ref import (DEFAULT_TAU_FACTOR, AbftReport,
                                   attention_checksum_encode, attention_verify,
                                   checksum_encode, verify_and_correct)
 from repro_torch.kernels import _build
-from repro_torch.kernels.flash_attention import (HEAD_DIMS, check_aligned,
+from repro_torch.kernels.flash_attention import (check_aligned,
+                                                check_head_dim,
                                                 flash_attention_plain)
 
 matmul_launch_count = _build.LaunchCount("abft_matmul")
@@ -165,8 +166,7 @@ def flash_attention_ck(q, k, v_aug, *, causal: bool = True,
         raise RuntimeError(f"no K4 kernel for device {q.device}")
     if not (q.dtype == k.dtype == v_aug.dtype == torch.float32):
         raise TypeError("K4 takes float32 q, k, v_aug")
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"K4 is built for head_dim in {HEAD_DIMS}, got {hd}")
+    check_head_dim("K4", torch.float32, hd)
     if q.stride(3) != 1 or k.stride(3) != 1 or v_aug.stride(3) != 1:
         raise ValueError("K4 needs a contiguous head dim (stride 1)")
     if max(Sq, Sk) >= 2 ** 31:

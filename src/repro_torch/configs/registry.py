@@ -1,5 +1,6 @@
-"""Architecture registry: ``--arch <id>`` resolution for the dense family,
-the part of the reference's registry that the port can run."""
+"""Architecture registry: ``--arch <id>`` resolution for the families the
+port can run (dense, moe, hybrid, vlm); dbrx-132b is registered as a
+config only (132B parameters fit no single card)."""
 from __future__ import annotations
 
 import importlib
@@ -12,6 +13,10 @@ _ARCH_MODULES: Dict[str, str] = {
     "starcoder2-7b":      "repro_torch.configs.starcoder2_7b",
     "qwen2-72b":          "repro_torch.configs.qwen2_72b",
     "qwen2-0.5b":         "repro_torch.configs.qwen2_0_5b",
+    "phi3.5-moe-42b-a6.6b": "repro_torch.configs.phi35_moe_42b",
+    "dbrx-132b":          "repro_torch.configs.dbrx_132b",
+    "recurrentgemma-2b":  "repro_torch.configs.recurrentgemma_2b",
+    "internvl2-2b":       "repro_torch.configs.internvl2_2b",
     "paper-testapp":      "repro_torch.configs.paper_testapp",
 }
 

@@ -21,16 +21,22 @@
 // per (b, h, 64-row q tile), heaviest causal tiles first. The q tile is
 // loaded once into shared memory and each 64-key K and V tile comes through
 // a two-stage ring by cp.async (16-byte copies, zero-filled past Sq/Sk), so
-// the next tile's copy overlaps this tile's products. Tiles are stored as
-// [row][hd] with the 128-byte swizzle (hd 64) or the 32-byte swizzle
-// (hd 16). S = Q K^T is wgmma m64n64k16 (bf16 in, f32 accumulate, both
-// operands from shared memory, K as the K-major B operand); the scale
+// the next tile's copy overlaps this tile's products. Head dims 16, 64,
+// 128 and 256. Tiles are stored as [row][hd] with the 32-byte swizzle at
+// hd 16, and from hd 64 up as hd / 64 panels of 64 columns, each with the
+// 128-byte swizzle (one panel row is one swizzle atom). S = Q K^T is
+// hd / 16 wgmma m64n64k16 (bf16 in, f32 accumulate, both operands from
+// shared memory, K as the K-major B operand; the descriptor steps 32 bytes
+// along a panel row and then to the next panel); the scale
 // 1/sqrt(hd) is applied to the f32 scores, as the reference does. The
 // online softmax (m, l) stays in f32 registers; each row lives in a quad of
 // threads, whose max is taken with shuffles. Only tiles on the diagonal, the
 // window edge or past Sk apply the element mask; tiles the mask removes for
 // every row are skipped. O += P V is wgmma with P from registers (the score
-// accumulator's layout is the A fragment's) and V as the MN-major B operand.
+// accumulator's layout is the A fragment's) and V as the MN-major B operand,
+// one m64n64k16 per 64-column panel of V (n16 at hd 16): at hd 256 the O
+// accumulator is 128 f32 registers a thread. Shared memory is Q plus two
+// K/V stages, 5 tiles of 64 x hd bf16: 41 KB at hd 64, 161 KB at hd 256.
 // P is split into bf16 hi = bf16(p) and lo = bf16(p - hi), two wgmma into
 // the same f32 O: one bf16 rounding of p (2^-9) would move outputs by more
 // than a bf16 step, hi + lo keeps p to ~2^-17, and the executed work is
@@ -392,25 +398,51 @@ __device__ __forceinline__ void reg_fence(uint32_t& r) {
   asm volatile("" : "+r"(r)::"memory");
 }
 
-// A tile is 64 rows of hd bf16 (row pitch 2 hd bytes) stored with the
-// hardware swizzle that matches the pitch: 128-byte for hd 64 (16-byte
-// chunk c of row r at chunk c ^ (r % 8)), 32-byte for hd 16 (chunk c at
-// c ^ ((r / 4) % 2)). Both are "byte offset bits [4, 4+n) ^= bits [7, 7+n)".
+// A tile is 64 rows of hd bf16. hd 16: one [64][16] tile (row pitch 32
+// bytes) with the 32-byte swizzle (16-byte chunk c of row r at chunk
+// c ^ ((r / 4) % 2)). hd >= 64: hd / 64 panels of [64 rows][64 columns]
+// (row pitch 128 bytes, 8 KB each, one after the other), each with the
+// 128-byte swizzle (chunk c of row r at chunk c ^ (r % 8)), so that one
+// panel row is one swizzle atom whatever hd is. Both swizzles are "byte
+// offset bits [4, 4+n) ^= bits [7, 7+n)" within a panel.
+template <int HD>
+__host__ __device__ constexpr int panel_cols() { return HD >= 64 ? 64 : HD; }
+template <int HD>
+__host__ __device__ constexpr int panel_bytes() {
+  return TKV * panel_cols<HD>() * 2;
+}
+
 template <int HD>
 __device__ __forceinline__ uint32_t swz(uint32_t off) {
-  constexpr uint32_t mask = HD == 64 ? 7u : 1u;
+  constexpr uint32_t mask = HD >= 64 ? 7u : 1u;
   return off ^ (((off >> 7) & mask) << 4);
 }
 
-// wgmma shared-memory descriptor: start address, leading byte offset
-// (unused by these swizzled layouts, set to 1), stride byte offset = one
-// 8-row group (8 * 2 hd bytes), layout 1 = 128-byte swizzle, 3 = 32-byte.
+// byte offset of 16-byte chunk c (8 columns) of row r in a tile
+template <int HD>
+__device__ __forceinline__ uint32_t tile_off(int r, int c) {
+  constexpr int CPP = panel_cols<HD>() / 8;  // chunks per panel row
+  return (c / CPP) * panel_bytes<HD>() +
+         swz<HD>(r * panel_cols<HD>() * 2 + (c % CPP) * 16);
+}
+
+// wgmma shared-memory descriptor of one panel: start address, leading byte
+// offset (unused by these swizzled layouts, set to 1), stride byte offset =
+// one 8-row group (8 rows of the panel pitch), layout 1 = 128-byte swizzle,
+// 3 = 32-byte.
 template <int HD>
 __device__ __forceinline__ uint64_t make_desc(uint32_t saddr) {
-  constexpr uint64_t layout = HD == 64 ? 1 : 3;
-  constexpr uint64_t sbo = (8 * 2 * HD) >> 4;
+  constexpr uint64_t layout = HD >= 64 ? 1 : 3;
+  constexpr uint64_t sbo = (8 * 2 * panel_cols<HD>()) >> 4;
   return (uint64_t)((saddr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
          (sbo << 32) | (layout << 62);
+}
+
+// descriptor step to k16 slice kk of a K-major operand (Q or K): panel
+// kk / 4, then 32 bytes per slice along the swizzled panel row
+template <int HD>
+__device__ __forceinline__ uint64_t k_slice(int kk) {
+  return (uint64_t)(((kk / 4) * panel_bytes<HD>() + (kk % 4) * 32) >> 4);
 }
 
 // rows [pos0, pos0 + 64) of a (pos, hd) matrix with row stride rs (elements)
@@ -428,7 +460,7 @@ __device__ __forceinline__ void load_tile(uint32_t sdst,
     const int c = i % CPR;
     const int p = pos0 + r;
     const bool ok = p < limit;
-    cp_async16(sdst + swz<HD>(r * HD * 2 + c * 16),
+    cp_async16(sdst + tile_off<HD>(r, c),
                ok ? g + (long long)p * rs + c * 8 : g, ok);
   }
 }
@@ -455,8 +487,7 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
 }
 
 // D (64 x 64, f32) += A (64 x 16, registers) * B (16 x 64), B MN-major
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
-                                             const uint32_t (&a)[4],
+__device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t (&a)[4],
                                              uint64_t db) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
@@ -490,11 +521,22 @@ __device__ __forceinline__ void wgmma_rs_n16(float (&d)[8],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// O (64 x hd) += A (16 keys of P) * V rows [16 kk, 16 kk + 16): one n16
+// product at hd 16, else one n64 product per 64-column panel of V into
+// the accumulator's 32-register block of that panel
 template <int HD>
-__device__ __forceinline__ void wgmma_rs(float (&d)[HD / 2],
-                                         const uint32_t (&a)[4], uint64_t db) {
-  if constexpr (HD == 64) wgmma_rs_n64(d, a, db);
-  else wgmma_rs_n16(d, a, db);
+__device__ __forceinline__ void wgmma_pv(float (&o)[HD / 2],
+                                         const uint32_t (&a)[4], uint64_t dv,
+                                         int kk) {
+  constexpr uint64_t rows16 = (16 * 2 * panel_cols<HD>()) >> 4;
+  if constexpr (HD == 16) {
+    wgmma_rs_n16(o, a, dv + kk * rows16);
+  } else {
+#pragma unroll
+    for (int j = 0; j < HD / 64; ++j)
+      wgmma_rs_n64(o + 32 * j, a,
+                   dv + j * (panel_bytes<HD>() >> 4) + kk * rows16);
+  }
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat162 x) {
@@ -565,7 +607,7 @@ flash_fwd_wgmma(const __nv_bfloat16* __restrict__ q,
     fence_proxy_async();
     __syncthreads();
 
-    // S = Q K^T: hd / 16 steps of k16 (32 bytes along the swizzled row)
+    // S = Q K^T: hd / 16 steps of k16 (32 bytes along a swizzled panel row)
     float s[32];
 #pragma unroll
     for (int i = 0; i < 32; ++i) s[i] = 0.f;
@@ -573,7 +615,7 @@ flash_fwd_wgmma(const __nv_bfloat16* __restrict__ q,
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < HD / 16; ++kk)
-      wgmma_ss_n64(s, dq + 2 * kk, dk + 2 * kk, kk > 0);
+      wgmma_ss_n64(s, dq + k_slice<HD>(kk), dk + k_slice<HD>(kk), kk > 0);
     wgmma_commit();
     wgmma_wait0();
 #pragma unroll
@@ -630,15 +672,15 @@ flash_fwd_wgmma(const __nv_bfloat16* __restrict__ q,
             p0 - __low2float(hi), p1 - __high2float(hi)));
       }
 
-    // O += P V: 4 steps of 16 keys (16 rows of 2 hd bytes each)
+    // O += P V: 4 steps of 16 keys, each over every panel of V
     const uint64_t dv = make_desc<HD>(sv);
 #pragma unroll
     for (int i = 0; i < HD / 2; ++i) reg_fence(oacc[i]);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
-      wgmma_rs<HD>(oacc, phi[kk], dv + kk * (16 * 2 * HD >> 4));
-      wgmma_rs<HD>(oacc, plo[kk], dv + kk * (16 * 2 * HD >> 4));
+      wgmma_pv<HD>(oacc, phi[kk], dv, kk);
+      wgmma_pv<HD>(oacc, plo[kk], dv, kk);
     }
     wgmma_commit();
     wgmma_wait0();
@@ -679,12 +721,19 @@ flash_fwd_wgmma(const __nv_bfloat16* __restrict__ q,
 }
 
 template <int HD>
-void launch_wgmma(const void* q, const void* k, const void* v, void* o,
+int launch_wgmma(const void* q, const void* k, const void* v, void* o,
                  const long long* st, int B, int H, int KV, int Sq, int Sk,
                  int causal, int window, float scale, cudaStream_t stream) {
   const Strides qs{st[0], st[1], st[2]}, ks{st[3], st[4], st[5]},
       vs{st[6], st[7], st[8]}, os{st[9], st[10], st[11]};
-  const int smem = 5 * TKV * HD * 2 + 1024;  // Q, two K/V stages, alignment
+  // Q, two K/V stages, alignment: 41 KB at hd 64, 161 KB at hd 256
+  constexpr int smem = 5 * TKV * HD * 2 + 1024;
+  if constexpr (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        flash_fwd_wgmma<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
+    if (e != cudaSuccess) return (int)e;
+  }
   const dim3 grid((Sq + TQ - 1) / TQ, H, B);
   flash_fwd_wgmma<HD><<<grid, WG, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q),
@@ -692,14 +741,16 @@ void launch_wgmma(const void* q, const void* k, const void* v, void* o,
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
       qs, ks, vs, os, H, KV, Sq, Sk, causal, window,
       scale * 1.4426950408889634f);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype: 0 = float32 (flash_fwd_f32), 1 = bfloat16 (wgmma body). q, k, v
-// 16-byte aligned with strides that are multiples of 16 bytes (8 bf16 or 4
-// f32 elements), which the wrapper checks. head_dim: 16 or 64. strides: 12
-// element strides (b, h, s) of q, k, v, o. Returns the launch's error code.
+// dtype: 0 = float32 (flash_fwd_f32, head_dim 16 or 64), 1 = bfloat16
+// (wgmma body, head_dim 16, 64, 128 or 256). q, k, v 16-byte aligned with
+// strides that are multiples of 16 bytes (8 bf16 or 4 f32 elements), which
+// the wrapper checks. strides: 12 element strides (b, h, s) of q, k, v, o.
+// Returns the launch's error code.
 extern "C" int sedar_flash_fwd(int dtype, int head_dim, const void* q,
                                const void* k, const void* v, void* o,
                                const long long* strides, int B, int H, int KV,
@@ -707,17 +758,19 @@ extern "C" int sedar_flash_fwd(int dtype, int head_dim, const void* q,
                                float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (Sq <= 0 || B <= 0 || H <= 0) return (int)cudaGetLastError();
-  if (dtype == 1 && head_dim == 64)
-    launch_wgmma<64>(q, k, v, o, strides, B, H, KV, Sq, Sk, causal, window, scale, st);
-  else if (dtype == 1 && head_dim == 16)
-    launch_wgmma<16>(q, k, v, o, strides, B, H, KV, Sq, Sk, causal, window, scale, st);
-  else if (dtype == 0 && head_dim == 64)
+  if (dtype == 1) {
+    switch (head_dim) {
+      case 16: return launch_wgmma<16>(q, k, v, o, strides, B, H, KV, Sq, Sk, causal, window, scale, st);
+      case 64: return launch_wgmma<64>(q, k, v, o, strides, B, H, KV, Sq, Sk, causal, window, scale, st);
+      case 128: return launch_wgmma<128>(q, k, v, o, strides, B, H, KV, Sq, Sk, causal, window, scale, st);
+      case 256: return launch_wgmma<256>(q, k, v, o, strides, B, H, KV, Sq, Sk, causal, window, scale, st);
+    }
+  } else if (dtype == 0 && head_dim == 64) {
     return launch_f32<64, false>(q, k, v, o, strides, B, H, KV, Sq, Sk, causal, window, scale, st);
-  else if (dtype == 0 && head_dim == 16)
+  } else if (dtype == 0 && head_dim == 16) {
     return launch_f32<16, false>(q, k, v, o, strides, B, H, KV, Sq, Sk, causal, window, scale, st);
-  else
-    return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 // K4: head_dim 16 or 64, float32 only; v is v_aug (row length head_dim + 1,

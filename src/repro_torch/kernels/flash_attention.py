@@ -12,8 +12,9 @@ contiguous), so the model's (B, S, H, hd) tensors are passed as transposed
 views without a copy, and it writes its output in (B, Sq, H, hd) memory
 order: `kernels.ops.flash_attention` hands the model a contiguous result.
 
-Each input type has one kernel: bf16 runs on the tensor cores (`wgmma`),
-f32 in true f32 on the FFMA units (the body K4 shares). Both copy q, k and
+Each input type has one kernel: bf16 runs on the tensor cores (`wgmma`)
+at head dims 16, 64, 128 and 256, f32 in true f32 on the FFMA units (the
+body K4 shares) at 16 and 64 (`HEAD_DIMS`). Both copy q, k and
 v into shared memory 16 bytes at a time, so they need them 16-byte aligned
 with strides that are multiples of 16 bytes (8 bf16 or 4 f32 elements; the
 model's tensors are).
@@ -32,7 +33,10 @@ import torch
 
 from repro_torch.kernels import _build
 
-HEAD_DIMS = (16, 64)
+# head dims each body is built for: the bf16 wgmma body takes the model
+# families' 128 and 256 too; the f32 body (K4's as well) keeps 16 and 64,
+# its shared memory at hd 256 would exceed the SM's 227 KB
+HEAD_DIMS = {torch.float32: (16, 64), torch.bfloat16: (16, 64, 128, 256)}
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 launch_count = _build.LaunchCount("flash_attention")
@@ -89,6 +93,14 @@ def _check(q, k, v) -> None:
         raise ValueError("q, k, v on different devices")
 
 
+def check_head_dim(what: str, dtype: torch.dtype, hd: int) -> None:
+    """Raise ValueError unless the `dtype` body is built for head dim hd."""
+    dims = HEAD_DIMS.get(dtype, ())
+    if hd not in dims:
+        raise ValueError(f"{what} ({dtype}) is built for head_dim in {dims}, "
+                         f"got {hd}")
+
+
 def check_aligned(what: str, **tensors) -> None:
     """Raise ValueError unless each tensor starts on a 16-byte boundary and
     its strides over dims of size > 1 (other than the last, which must be
@@ -117,8 +129,7 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True,
     KV, Sk = k.shape[1], k.shape[2]
     if q.dtype not in _DTYPE_CODE:
         raise TypeError(f"K2 takes float32 or bfloat16, got {q.dtype}")
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"K2 is built for head_dim in {HEAD_DIMS}, got {hd}")
+    check_head_dim("K2", q.dtype, hd)
     if q.stride(3) != 1 or k.stride(3) != 1 or v.stride(3) != 1:
         raise ValueError("K2 needs a contiguous head dim (stride 1)")
     if max(Sq, Sk) >= 2 ** 31:

@@ -275,6 +275,10 @@ def main() -> None:
         params = srv.model.init(seed=0)
         prompts = {"tokens": np.random.RandomState(0).randint(
             0, min(cfg.vocab_size, 200), (args.batch, args.prompt_len))}
+        if cfg.frontend:
+            # the frontend stub: precomputed patch embeddings
+            prompts["frontend_embeds"] = 0.1 * np.ones(
+                (args.batch, cfg.frontend_seq, cfg.frontend_dim), np.float32)
         toks, rep = srv.generate(params, prompts, steps=args.steps)
         tps = rep.tokens_emitted / max(rep.wall_s, 1e-9)
         print(f"{args.arch}: {rep.tokens_emitted} tokens, {tps:.1f} tok/s "

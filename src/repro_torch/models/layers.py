@@ -1,5 +1,5 @@
-"""Dense layer library (the dense subset of the reference's
-`models/layers.py`), plain functions on tensors.
+"""Layer library (the reference's `models/layers.py` without its chunked
+XLA attention forms), plain functions on tensors.
 
 Conventions, as in the reference:
   * params are nested dicts of tensors; a stacked layer dict has a leading
@@ -160,13 +160,18 @@ def _gqa_out(w, v, out_dtype):
     return o.reshape(B, S, KV * G, v.shape[-1]).to(out_dtype)
 
 
-def causal_attention(q, k, v):
-    """Exact causal attention with f32 softmax. q:(B,S,H,hd) k,v:(B,T,KV,hd)."""
+def causal_attention(q, k, v, window: int = 0):
+    """Exact causal attention with f32 softmax. q:(B,S,H,hd) k,v:(B,T,KV,hd).
+    `window` > 0 keeps only the keys within `window` positions of the
+    query (local attention, the reference's sliding-window forms)."""
     scale = 1.0 / math.sqrt(q.shape[-1])
     logits = _gqa_scores(q, k, scale)
     S, T = logits.shape[-2], logits.shape[-1]
-    mask = (torch.arange(S, device=q.device)[:, None]
-            >= torch.arange(T, device=q.device)[None, :])
+    qpos = torch.arange(S, device=q.device)[:, None]
+    kpos = torch.arange(T, device=q.device)[None, :]
+    mask = qpos >= kpos
+    if window:
+        mask = mask & (qpos - kpos < window)
     logits = torch.where(mask, logits, torch.full_like(logits, -1e30))
     w = torch.softmax(logits, dim=-1)
     return _gqa_out(w, v, q.dtype)
@@ -188,28 +193,51 @@ def row_positions(pos: torch.Tensor, T: int) -> RowPositions:
                                                           None, :])
 
 
-def decode_attention(q, k_cache, v_cache, pos):
+def decode_attention(q, k_cache, v_cache, pos, window: int = 0):
     """Single-token decode. q: (B,1,H,hd); caches: (B,T,KV,hd); pos: the
     current 0-based position, a host int shared by every row or the
-    `RowPositions` of per-row positions (slots > pos are masked)."""
+    `RowPositions` of per-row positions (slots > pos are masked).
+
+    `window` > 0: the caches are a ring of T = min(window, max_len) slots,
+    position p at slot p % window (`cache_update`, and the prefill writes
+    the same slots). Slot s holds a live position once written: every slot
+    when pos + 1 >= T, else slots <= pos. The ring then holds exactly the
+    positions pos - window + 1 .. pos that local attention sees."""
     T = k_cache.shape[1]
     scale = 1.0 / math.sqrt(q.shape[-1])
     logits = _gqa_scores(q, k_cache, scale)               # (B,KV,G,1,T)
-    valid = (pos.visible if isinstance(pos, RowPositions)
-             else torch.arange(T, device=q.device) <= pos)
+    if window:
+        if isinstance(pos, RowPositions):
+            raise NotImplementedError("ring-buffer window caches decode at "
+                                      "one shared position")
+        valid = (torch.ones((T,), dtype=torch.bool, device=q.device)
+                 if pos + 1 >= T else
+                 torch.arange(T, device=q.device) <= pos)
+    else:
+        valid = (pos.visible if isinstance(pos, RowPositions)
+                 else torch.arange(T, device=q.device) <= pos)
     logits = torch.where(valid, logits, torch.full_like(logits, -1e30))
     w = torch.softmax(logits, dim=-1)
     return _gqa_out(w, v_cache, q.dtype)
 
 
-def cache_update(k_cache, v_cache, k_new, v_new, pos):
+def cache_update(k_cache, v_cache, k_new, v_new, pos, window: int = 0):
     """Write one token's k/v into slot ``pos`` IN PLACE and return the
     caches; `pos` is a host int (every row) or `RowPositions` (row b at
     pos[b]: one masked select per cache, written back into it; no index
     tensors, so no bounds checks or sort, and no host read). In place is
     safe under re-execution: decode writes slot `pos` before it attends to
     it and masks every later slot, so a retried step overwrites exactly
-    what the failed attempt wrote."""
+    what the failed attempt wrote.
+
+    `window` > 0 writes ring slot ``pos % window`` (a host int position).
+    The position it evicts, pos - window, is outside the window of pos and
+    of every later position, so a retried step is as safe as above."""
+    if window:
+        if isinstance(pos, RowPositions):
+            raise NotImplementedError("ring-buffer window caches decode at "
+                                      "one shared position")
+        pos = pos % window
     if isinstance(pos, RowPositions):
         torch.where(pos.hit, k_new.to(k_cache.dtype), k_cache, out=k_cache)
         torch.where(pos.hit, v_new.to(v_cache.dtype), v_cache, out=v_cache)

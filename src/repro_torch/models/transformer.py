@@ -1,11 +1,20 @@
-"""Dense decoder LM: init, full-sequence trunk, training loss, prefill and
-decode (the dense branch of the reference's `models/transformer.py`).
+"""Decoder LM (the reference's `models/transformer.py`): init, full-sequence
+trunk, training loss, prefill and decode for the dense, moe, vlm and
+hybrid families.
 
-The reference scans over stacked layer params with `lax.scan`; here a
-Python loop walks the layers and slices each stacked leaf (a view, no
-copy). Params keep the reference's tree — per-layer stacks with a leading L
-axis under ``params["layers"]`` — so a leaf index and a fingerprint mean the
-same leaf in both packages.
+  dense / moe / vlm : a homogeneous layer stack, params["layers"] stacked
+                      over L; moe swaps the MLP for `moe.moe_mlp`; vlm puts
+                      the frontend's embeddings in front of the tokens.
+  hybrid (griffin)  : pattern groups (rec, rec, attn) stacked over G in
+                      params["groups"], the rest in params["tail"], blocks
+                      named b{i}_{kind}; the attention blocks are local
+                      (cfg.window_size) with ring-buffer decode caches.
+
+The reference scans over stacked params with `lax.scan`; here a Python
+loop walks the layers (groups) and slices each stacked leaf (a view, no
+copy). Params keep the reference's tree, so a leaf index and a fingerprint
+mean the same leaf in both packages. The ssm (xlstm) and audio (enc-dec)
+families are not ported yet.
 """
 from __future__ import annotations
 
@@ -16,129 +25,369 @@ import torch
 from repro_torch import tree as tree_util
 from repro_torch.kernels import ops
 from repro_torch.models import layers as nn
+from repro_torch.models import moe as moe_lib
+from repro_torch.models import recurrent as rec_lib
 
+PORTED_FAMILIES = ("dense", "moe", "vlm", "hybrid")
+PORTED_BLOCKS = ("attention", "recurrent")
+
+
+def check_family(cfg) -> None:
+    """Raise NotImplementedError for what the port cannot run yet."""
+    if cfg.family not in PORTED_FAMILIES or any(
+            kind not in PORTED_BLOCKS for kind in cfg.block_pattern):
+        raise NotImplementedError(
+            f"family {cfg.family!r} is not ported yet: the ssm (xlstm) and "
+            f"audio (enc-dec) families come in slice 8")
+
+
+def _is_moe(cfg) -> bool:
+    return cfg.family == "moe" and cfg.num_experts > 0
+
+
+def pattern_tail(cfg) -> Tuple[str, ...]:
+    pat = tuple(cfg.block_pattern)
+    return pat[: cfg.num_layers - (cfg.num_layers // len(pat)) * len(pat)]
+
+
+# ---------------------------------------------------------------------------
+# Init
+# ---------------------------------------------------------------------------
 
 def _init_dense_layer_stack(gen, cfg, L: int, device):
     pdt = nn.torch_dtype(cfg.param_dtype)
+    mlp = (moe_lib.init_moe(gen, cfg, L, device) if _is_moe(cfg)
+           else nn.init_mlp(gen, cfg, L, device))
     return {"attn": nn.init_attention(gen, cfg, L, device),
-            "mlp": nn.init_mlp(gen, cfg, L, device),
+            "mlp": mlp,
             "ln1": torch.zeros((L, cfg.d_model), dtype=pdt, device=device),
             "ln2": torch.zeros((L, cfg.d_model), dtype=pdt, device=device)}
 
 
+def _init_group_stack(gen, cfg, pattern, G: int, device):
+    """One stacked group of blocks following `pattern`."""
+    pdt = nn.torch_dtype(cfg.param_dtype)
+    p = {}
+    for i, kind in enumerate(pattern):
+        core = (nn.init_attention(gen, cfg, G, device) if kind == "attention"
+                else rec_lib.init_recurrent_block(gen, cfg, G, device))
+        entry = {"core": core,
+                 "ln": torch.zeros((G, cfg.d_model), dtype=pdt, device=device)}
+        if cfg.d_ff:
+            entry["mlp"] = nn.init_mlp(gen, cfg, G, device)
+            entry["ln2"] = torch.zeros((G, cfg.d_model), dtype=pdt,
+                                       device=device)
+        p[f"b{i}_{kind}"] = entry
+    return p
+
+
 def init_lm(gen: torch.Generator, cfg, device) -> Dict[str, Any]:
     """Seeded random params (f32 masters) on `device`."""
-    if cfg.family != "dense" or cfg.block_pattern:
-        raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
+    check_family(cfg)
     pdt = nn.torch_dtype(cfg.param_dtype)
-    return {"embed": nn.init_embedding(gen, cfg, device),
-            "final_ln": torch.zeros((cfg.d_model,), dtype=pdt, device=device),
-            "layers": _init_dense_layer_stack(gen, cfg, cfg.num_layers, device)}
+    params = {"embed": nn.init_embedding(gen, cfg, device),
+              "final_ln": torch.zeros((cfg.d_model,), dtype=pdt,
+                                      device=device)}
+    if cfg.block_pattern:
+        pat = tuple(cfg.block_pattern)
+        params["groups"] = _init_group_stack(
+            gen, cfg, pat, cfg.num_layers // len(pat), device)
+        tail = pattern_tail(cfg)
+        if tail:
+            params["tail"] = _init_group_stack(gen, cfg, tail, 1, device)
+    else:
+        params["layers"] = _init_dense_layer_stack(gen, cfg, cfg.num_layers,
+                                                   device)
+    return params
+
+
+def _slice(tree, i: int):
+    """Layer (group) i's slice of a stacked tree (views)."""
+    return tree_util.tree_map(lambda a: a[i], tree)
+
+
+def _stack(trees):
+    """Per-group trees of one structure -> one tree stacked over groups."""
+    return tree_util.tree_map(lambda *xs: torch.stack(xs), *trees)
 
 
 def layer_params(params, i: int):
     """Layer i's slice of the stacked layer params (views)."""
-    return tree_util.tree_map(lambda a: a[i], params["layers"])
+    return _slice(params["layers"], i)
 
 
-def _attention_dispatch(cfg, q, k, v):
+def _stages(cfg, tree):
+    """(name, pattern, stacked tree, depth) of the groups, then of the tail
+    if any; `tree` is the params or a cache."""
+    out = [("groups", tuple(cfg.block_pattern))]
+    if "tail" in tree:
+        out.append(("tail", pattern_tail(cfg)))
+    return [(name, pat, tree[name],
+             tree_util.leaves(tree[name])[0].shape[0]) for name, pat in out]
+
+
+# ---------------------------------------------------------------------------
+# Blocks
+# ---------------------------------------------------------------------------
+
+def _attention_dispatch(cfg, q, k, v, window: int = 0):
     """attention_impl="pallas": the flash kernel K2 (its plain version on the
     CPU); otherwise exact plain attention at every length (the reference's
-    chunked XLA form above CHUNKED_THRESHOLD computes the same function)."""
+    chunked and windowed XLA forms compute the same function)."""
     if cfg.attention_impl == "pallas":
-        return ops.flash_attention(q, k, v, causal=True)
-    return nn.causal_attention(q, k, v)
+        return ops.flash_attention(q, k, v, causal=True, window=window)
+    return nn.causal_attention(q, k, v, window)
 
 
-def _attn_full(cfg, lp, x, sin, cos):
+def _attn_full(cfg, ln, ap, x, sin, cos, window: int = 0):
     """Pre-norm attention sub-block over the full sequence. Returns
     (x + attn, k, v) with k rotated, as the decode cache stores them."""
-    h = nn.rms_norm(x, lp["ln1"], cfg.norm_eps)
-    q, k, v = nn.qkv_project(cfg, lp["attn"], h)
+    h = nn.rms_norm(x, ln, cfg.norm_eps)
+    q, k, v = nn.qkv_project(cfg, ap, h)
     q = nn.apply_rope(q, sin, cos)
     k = nn.apply_rope(k, sin, cos)
-    o = _attention_dispatch(cfg, q, k, v)
-    return x + nn.out_project(cfg, lp["attn"], o), k, v
+    o = _attention_dispatch(cfg, q, k, v, window)
+    return x + nn.out_project(cfg, ap, o), k, v
 
 
 def _mlp_sub(cfg, lp, x):
+    """Pre-norm MLP (or MoE) sub-block -> (x + mlp, moe aux or None)."""
     h = nn.rms_norm(x, lp["ln2"], cfg.norm_eps)
-    return x + nn.mlp(cfg, lp["mlp"], h)
+    if _is_moe(cfg) and "router" in lp["mlp"]:
+        o, aux = moe_lib.moe_mlp(cfg, lp["mlp"], h)
+        return x + o, aux
+    return x + nn.mlp(cfg, lp["mlp"], h), None
 
 
-def lm_hidden(cfg, params, tokens, collect_kv: bool = False):
-    """tokens: (B, S) -> (hidden (B,S,D), kv or None). kv is (k, v), each
-    (L, B, S, KV, hd), when `collect_kv`."""
+def _attn_decode(cfg, ln, ap, x, kc, vc, sin, cos, pos, row_blocks: int = 1,
+                 window: int = 0):
+    """One attention block, single token; kc/vc (B,T,KV,hd) are written in
+    place (`layers.cache_update`)."""
+    h = nn.rms_norm(x, ln, cfg.norm_eps)
+    q, k, v = nn.qkv_project(cfg, ap, h)
+    q = nn.apply_rope(q, sin, cos)
+    k = nn.apply_rope(k, sin, cos)
+    kc, vc = nn.cache_update(kc, vc, k, v, pos, window=window)
+    o = _decode_attention(q, kc, vc, pos, row_blocks, window)
+    return x + nn.out_project(cfg, ap, o)
+
+
+def _group_full(cfg, gp, x, sin, cos, pattern, max_len: Optional[int] = None,
+                cache_dtype=torch.bfloat16):
+    """One (sliced) pattern group over the full sequence. With `max_len`
+    also returns the group's decode states (prefill), else None."""
+    states = {} if max_len is not None else None
+    W = cfg.window_size
+    for i, kind in enumerate(pattern):
+        name = f"b{i}_{kind}"
+        lp = gp[name]
+        if kind == "attention":
+            x, k, v = _attn_full(cfg, lp["ln"], lp["core"], x, sin, cos, W)
+            if states is not None:
+                states[name] = {"k": _ring(k, W, max_len, cache_dtype),
+                                "v": _ring(v, W, max_len, cache_dtype)}
+        else:
+            h = nn.rms_norm(x, lp["ln"], cfg.norm_eps)
+            o, (cs, hs) = rec_lib.recurrent_block(cfg, lp["core"], h)
+            x = x + o
+            if states is not None:
+                states[name] = {"conv": cs.float(), "h": hs}
+        if "mlp" in lp:
+            x, _ = _mlp_sub(cfg, lp, x)
+    return x, states
+
+
+def _ring(k, W: int, max_len: int, cache_dtype):
+    """A prefill's (B, S, KV, hd) keys (or values) as a decode cache of
+    T = min(W, max_len) rows holding position p at ring slot p % W (the
+    last min(W, S) positions), or of max_len rows without a window. When
+    S > W the last W positions, which start at S - W, are the slots rolled
+    by S % W."""
+    B, S, KV, hd = k.shape
+    if not W:
+        c = torch.zeros((B, max_len, KV, hd), dtype=cache_dtype,
+                        device=k.device)
+        c[:, :S] = k.to(cache_dtype)
+        return c
+    T = min(W, max_len)
+    if S >= W:
+        return torch.roll(k[:, S - W:].to(cache_dtype), shifts=S % W, dims=1)
+    c = torch.zeros((B, T, KV, hd), dtype=cache_dtype, device=k.device)
+    c[:, :S] = k.to(cache_dtype)
+    return c
+
+
+def _group_decode(cfg, gp, gc, x, sin, cos, pos, pattern):
+    """One (sliced) pattern group, single token. Attention caches are
+    written in place; recurrent states come back as new tensors."""
+    new = {}
+    for i, kind in enumerate(pattern):
+        name = f"b{i}_{kind}"
+        lp, c = gp[name], gc[name]
+        if kind == "attention":
+            x = _attn_decode(cfg, lp["ln"], lp["core"], x, c["k"], c["v"],
+                             sin, cos, pos, window=cfg.window_size)
+        else:
+            h = nn.rms_norm(x, lp["ln"], cfg.norm_eps)
+            o, (cs, hs) = rec_lib.recurrent_block(
+                cfg, lp["core"], h, conv_state=c["conv"], h_state=c["h"],
+                decode=True)
+            x = x + o
+            new[name] = {"conv": cs.to(c["conv"].dtype), "h": hs}
+        if "mlp" in lp:
+            x, _ = _mlp_sub(cfg, lp, x)
+    return x, new
+
+
+# ---------------------------------------------------------------------------
+# Full forward (train / prefill trunk)
+# ---------------------------------------------------------------------------
+
+def _embed(cfg, params, tokens, frontend_embeds=None):
     x = nn.embed_tokens(cfg, params["embed"], tokens)
+    if frontend_embeds is not None:
+        x = torch.cat([frontend_embeds.to(x.dtype), x], dim=1)
+    return x
+
+
+def lm_hidden(cfg, params, tokens, frontend_embeds=None,
+              collect_kv: bool = False):
+    """tokens: (B, S_text); frontend_embeds: (B, P, D) or None ->
+    (hidden (B,S,D), kv or None, aux dict), S = P + S_text. kv is (k, v),
+    each (L, B, S, KV, hd), when `collect_kv` (layer stacks only); aux holds
+    the moe family's `moe_aux` and `moe_drop_frac`, each the mean over
+    layers."""
+    x = _embed(cfg, params, tokens, frontend_embeds)
     S = x.shape[1]
     sin, cos = nn.rope_tables(torch.arange(S, device=x.device),
                               cfg.head_dim, cfg.rope_theta)
-    ks, vs = [], []
-    for i in range(cfg.num_layers):
-        lp = layer_params(params, i)
-        x, k, v = _attn_full(cfg, lp, x, sin, cos)
-        x = _mlp_sub(cfg, lp, x)
+    kv, aux_out = None, {}
+    if cfg.block_pattern:
+        for _, pat, stack, depth in _stages(cfg, params):
+            for g in range(depth):
+                x, _ = _group_full(cfg, _slice(stack, g), x, sin, cos, pat)
+    else:
+        ks, vs, auxes = [], [], []
+        for i in range(cfg.num_layers):
+            lp = layer_params(params, i)
+            x, k, v = _attn_full(cfg, lp["ln1"], lp["attn"], x, sin, cos)
+            x, aux = _mlp_sub(cfg, lp, x)
+            if collect_kv:
+                ks.append(k)
+                vs.append(v)
+            if aux is not None:
+                auxes.append(aux)
         if collect_kv:
-            ks.append(k)
-            vs.append(v)
+            kv = (torch.stack(ks), torch.stack(vs))
+        if auxes:
+            aux_out = {name: torch.mean(torch.stack([a[name] for a in auxes]))
+                       for name in auxes[0]}
     x = nn.rms_norm(x, params["final_ln"], cfg.norm_eps)
-    kv = (torch.stack(ks), torch.stack(vs)) if collect_kv else None
-    return x, kv
+    return x, kv, aux_out
 
 
 def lm_loss(cfg, params, batch):
-    """batch: {"tokens": (B,S), "targets": (B,S)} -> (loss, {"loss": loss}).
-    Sequences longer than CE_CHUNK stream the head + CE over seq chunks, so
-    the (B,S,V) logits never exist. The backward is autograd's; the flash
-    kernel K2 has no backward, as in the reference (whose Pallas kernel has
-    no VJP), so `attention_impl="pallas"` cannot train."""
+    """batch: {"tokens": (B,S), "targets": (B,S), ["frontend_embeds"]} ->
+    (loss, metrics). The loss covers text positions only; moe adds
+    0.01 * moe_aux. Sequences longer than CE_CHUNK stream the head + CE
+    over seq chunks, so the (B,S,V) logits never exist. The backward is
+    autograd's; the flash kernel K2 has no backward, as in the reference
+    (whose Pallas kernel has no VJP), so `attention_impl="pallas"` cannot
+    train."""
     if cfg.attention_impl == "pallas":
         raise NotImplementedError(
             "attention_impl='pallas' has no backward (K2 is forward-only, as "
             "the reference's Pallas kernel is): train with 'xla'")
-    if batch.get("frontend_embeds") is not None:
-        raise NotImplementedError("frontend models are not ported")
-    h, _ = lm_hidden(cfg, params, batch["tokens"])
+    fe = batch.get("frontend_embeds")
+    h, _, aux = lm_hidden(cfg, params, batch["tokens"], fe)
+    if fe is not None:
+        h = h[:, fe.shape[1]:, :]     # text positions only
     if h.shape[1] > nn.CE_CHUNK:
         loss = nn.chunked_cross_entropy(cfg, params["embed"], h,
                                         batch["targets"])
     else:
         logits = nn.logits_from_hidden(cfg, params["embed"], h)
         loss = nn.cross_entropy_loss(logits, batch["targets"])
-    return loss, {"loss": loss}
+    metrics = {"loss": loss, **aux}
+    if "moe_aux" in aux:
+        loss = loss + 0.01 * aux["moe_aux"]
+    return loss, metrics
+
+
+# ---------------------------------------------------------------------------
+# Decode cache, decode step, prefill
+# ---------------------------------------------------------------------------
+
+def _group_cache(cfg, pattern, n: int, batch: int, max_len: int,
+                 cache_dtype, device):
+    c = {}
+    KV, hd = cfg.num_kv_heads, cfg.head_dim
+    for i, kind in enumerate(pattern):
+        if kind == "attention":
+            T = min(cfg.window_size, max_len) if cfg.window_size else max_len
+            shape = (n, batch, T, KV, hd)
+            c[f"b{i}_{kind}"] = {
+                "k": torch.zeros(shape, dtype=cache_dtype, device=device),
+                "v": torch.zeros(shape, dtype=cache_dtype, device=device)}
+        else:
+            c[f"b{i}_{kind}"] = {
+                "conv": torch.zeros((n, batch, cfg.conv_width - 1, cfg.d_rnn),
+                                    dtype=torch.float32, device=device),
+                "h": torch.zeros((n, batch, cfg.d_rnn), dtype=torch.float32,
+                                 device=device)}
+    return c
 
 
 def init_cache(cfg, batch: int, max_len: int,
-               cache_dtype=torch.bfloat16, device=None) -> Dict[str, torch.Tensor]:
+               cache_dtype=torch.bfloat16, device=None) -> Dict[str, Any]:
+    """An all-zero decode cache: {"k", "v"} (L, batch, max_len, KV, hd) for
+    a layer stack; for pattern groups {"groups", ["tail"]}, each block
+    {"k", "v"} (n, batch, T, KV, hd) with T = min(window, max_len), or the
+    recurrent {"conv" (n, batch, conv_width - 1, d_rnn), "h" (n, batch,
+    d_rnn)} in f32."""
+    check_family(cfg)
+    if cfg.block_pattern:
+        pat = tuple(cfg.block_pattern)
+        cache = {"groups": _group_cache(cfg, pat, cfg.num_layers // len(pat),
+                                        batch, max_len, cache_dtype, device)}
+        tail = pattern_tail(cfg)
+        if tail:
+            cache["tail"] = _group_cache(cfg, tail, 1, batch, max_len,
+                                         cache_dtype, device)
+        return cache
     shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=cache_dtype, device=device),
             "v": torch.zeros(shape, dtype=cache_dtype, device=device)}
 
 
-def _decode_attention(q, kc, vc, pos, row_blocks: int):
+def _decode_attention(q, kc, vc, pos, row_blocks: int, window: int = 0):
     """Decode attention over `row_blocks` equal blocks of rows, one call
     each: a block of B rows then runs the very batched products a B-row
     decode runs (cuBLAS picks its algorithm by the batch count, so the
     stacked replicas of the fused backend would otherwise get other
     bits than a replica decoded alone)."""
     if row_blocks == 1:
-        return nn.decode_attention(q, kc, vc, pos)
+        return nn.decode_attention(q, kc, vc, pos, window)
     n = q.shape[0] // row_blocks
     outs = []
     for r in range(row_blocks):
         rows = slice(r * n, (r + 1) * n)
         p = (nn.RowPositions(hit=pos.hit[rows], visible=pos.visible[rows])
              if isinstance(pos, nn.RowPositions) else pos)
-        outs.append(nn.decode_attention(q[rows], kc[rows], vc[rows], p))
+        outs.append(nn.decode_attention(q[rows], kc[rows], vc[rows], p,
+                                        window))
     return torch.cat(outs)
 
 
 def lm_decode_step(cfg, params, cache, tokens, pos, row_blocks: int = 1):
     """One serve step. tokens: (B,); pos: 0-based absolute position of this
     token, a host int shared by every row or a (B,) device tensor of
-    per-row positions (continuous serving's slots; no host read). Updates
-    `cache` in place (see layers.cache_update) and returns (logits (B,V),
-    cache). `row_blocks` > 1 computes the attention block by block
+    per-row positions (continuous serving's slots; no host read; layer
+    stacks only). Returns (logits (B,V), cache). KV caches are updated in
+    place (see layers.cache_update); the pattern families' recurrent
+    states come back as new tensors in a new cache dict, so the cache that
+    was passed in still holds the states the step started from.
+    `row_blocks` > 1 computes the attention block by block
     (`_decode_attention`)."""
     x = nn.embed_tokens(cfg, params["embed"], tokens[:, None])
     if isinstance(pos, torch.Tensor):
@@ -147,16 +396,30 @@ def lm_decode_step(cfg, params, cache, tokens, pos, row_blocks: int = 1):
     else:
         sin, cos = nn.rope_tables(torch.arange(pos, pos + 1, device=x.device),
                                   cfg.head_dim, cfg.rope_theta)
-    for i in range(cfg.num_layers):
-        lp = layer_params(params, i)
-        h = nn.rms_norm(x, lp["ln1"], cfg.norm_eps)
-        q, k, v = nn.qkv_project(cfg, lp["attn"], h)
-        q = nn.apply_rope(q, sin, cos)
-        k = nn.apply_rope(k, sin, cos)
-        kc, vc = nn.cache_update(cache["k"][i], cache["v"][i], k, v, pos)
-        o = _decode_attention(q, kc, vc, pos, row_blocks)
-        x = x + nn.out_project(cfg, lp["attn"], o)
-        x = _mlp_sub(cfg, lp, x)
+    if cfg.block_pattern:
+        if row_blocks != 1 or isinstance(pos, nn.RowPositions):
+            raise NotImplementedError("pattern families decode one batch at "
+                                      "one shared position")
+        new_cache = {}
+        for part, pat, stack, depth in _stages(cfg, params):
+            stacked = cache[part]
+            news = []
+            for g in range(depth):
+                x, new = _group_decode(cfg, _slice(stack, g),
+                                       _slice(stacked, g), x, sin, cos, pos,
+                                       pat)
+                news.append(new)
+            new_cache[part] = {
+                name: (_stack([n[name] for n in news])
+                       if name in news[0] else stacked[name])
+                for name in stacked}
+        cache = new_cache
+    else:
+        for i in range(cfg.num_layers):
+            lp = layer_params(params, i)
+            x = _attn_decode(cfg, lp["ln1"], lp["attn"], x, cache["k"][i],
+                             cache["v"][i], sin, cos, pos, row_blocks)
+            x, _ = _mlp_sub(cfg, lp, x)
     x = nn.rms_norm(x, params["final_ln"], cfg.norm_eps)
     logits = nn.logits_from_hidden(cfg, params["embed"], x)[:, 0, :]
     return logits, cache
@@ -164,28 +427,56 @@ def lm_decode_step(cfg, params, cache, tokens, pos, row_blocks: int = 1):
 
 def lm_prefill(cfg, params, tokens, max_len: int,
                cache_dtype=torch.bfloat16,
-               lengths: Optional[torch.Tensor] = None
-               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Run the trunk over the prompt and build the decode cache.
-    Returns (last_logits (B,V), cache).
+               lengths: Optional[torch.Tensor] = None,
+               frontend_embeds: Optional[torch.Tensor] = None
+               ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """Run the trunk over the prompt (the frontend's P embeddings first,
+    when given) and build the decode cache. Returns (last_logits (B,V),
+    cache); decode continues at position P + S.
 
-    `lengths` (B,) enables RIGHT-PADDED prompts: the last hidden state is
-    gathered at each row's true final position. Causal attention keeps pad
-    columns out of every real position, and decode overwrites slot `pos`
-    before attending it, so the pad entries written into the cache beyond
-    `lengths` are never observed."""
-    if cfg.window_size and lengths is not None:
-        raise NotImplementedError("length-gathered prefill is incompatible "
-                                  "with ring-buffer window caches")
-    B, S = tokens.shape
-    h, (k, v) = lm_hidden(cfg, params, tokens, collect_kv=True)
+    `lengths` (B,) enables RIGHT-PADDED prompts (layer stacks only): the
+    last hidden state is gathered at each row's true final position.
+    Causal attention keeps pad columns out of every real position, and
+    decode overwrites slot `pos` before attending it, so the pad entries
+    written into the cache beyond `lengths` are never observed. Recurrent
+    states and ring-buffer window caches fold in every position, so
+    `lengths` raises there."""
+    if lengths is not None and (cfg.block_pattern or cfg.window_size):
+        raise NotImplementedError(
+            "length-gathered (right-padded) prefill needs positions to be "
+            "skippable; recurrent states and ring-buffer window caches fold "
+            "every position in")
+    if cfg.block_pattern:
+        if frontend_embeds is not None:
+            raise NotImplementedError("pattern families take no frontend")
+        x = _embed(cfg, params, tokens)
+        S = x.shape[1]
+        sin, cos = nn.rope_tables(torch.arange(S, device=x.device),
+                                  cfg.head_dim, cfg.rope_theta)
+        cache = {}
+        for part, pat, stack, depth in _stages(cfg, params):
+            states = []
+            for g in range(depth):
+                x, st = _group_full(cfg, _slice(stack, g), x, sin, cos, pat,
+                                    max_len, cache_dtype)
+                states.append(st)
+            cache[part] = _stack(states)
+        x = nn.rms_norm(x, params["final_ln"], cfg.norm_eps)
+        logits = nn.logits_from_hidden(cfg, params["embed"], x[:, -1:, :])
+        return logits[:, 0, :], cache
+
+    B = tokens.shape[0]
+    h, (k, v), _ = lm_hidden(cfg, params, tokens, frontend_embeds,
+                             collect_kv=True)
+    S = h.shape[1]
     cache = init_cache(cfg, B, max_len, cache_dtype, device=h.device)
     cache["k"][:, :, :S] = k.to(cache_dtype)
     cache["v"][:, :, :S] = v.to(cache_dtype)
     if lengths is None:
         h_last = h[:, -1:, :]
     else:
-        idx = torch.clamp(lengths.to(torch.int64) - 1, 0, S - 1)
+        P = frontend_embeds.shape[1] if frontend_embeds is not None else 0
+        idx = torch.clamp(lengths.to(torch.int64) - 1 + P, 0, S - 1)
         h_last = torch.take_along_dim(h, idx[:, None, None], dim=1)
     logits = nn.logits_from_hidden(cfg, params["embed"], h_last)[:, 0, :]
     return logits, cache

@@ -135,9 +135,12 @@ class BucketedPrefill:
 
     @property
     def supported(self) -> bool:
-        """Padding is invisible only without ring-buffer window caches
-        (`build_model` admits nothing but the dense family)."""
-        return not self.model.cfg.window_size
+        """The reference's gate: padding is invisible only to layer stacks
+        without ring-buffer window caches or a frontend (recurrent states
+        and ring caches fold every position in)."""
+        cfg = self.model.cfg
+        return (not cfg.block_pattern and not cfg.window_size
+                and not cfg.frontend and cfg.family != "audio")
 
     def usable_buckets(self, max_len: int) -> Tuple[int, ...]:
         """Buckets the cache can hold (prefill writes `bucket` positions

@@ -76,6 +76,15 @@ replaced by new tensors at every step and state surgery (the emission ring
 parks them), and `t`, the decode tick that gates injection, is a host int.
 The mesh backends ("pod", "vote"), live autotuning and the telemetry calls
 are not ported.
+
+Model families: `generate()` serves every family the port builds (dense,
+moe, hybrid, vlm) under none, sequential and abft; a vlm prompt passes
+its frontend's `frontend_embeds` (B, P, D) and decode starts at
+position S + P. `fused` and `hybrid`, and `serve()`, take the dense
+family only for now: fused's row-block stacking doubles the tokens a MoE
+layer routes (its capacity and cumsum positions then differ from a
+replica alone), and hybrid's resident baseline and serve()'s slot surgery
+assume a dense KV cache.
 """
 from __future__ import annotations
 
@@ -110,6 +119,8 @@ from repro_torch.runtime.scheduler import (DRAINING, RUNNING, RequestQueue,
                                            SlotScheduler)
 
 BACKENDS = ("none", "sequential", "fused", "abft", "hybrid")
+# backends generate() runs for the moe, hybrid and vlm families
+FAMILY_BACKENDS = ("none", "sequential", "abft")
 # targets a decode step's parameter injection leaves to another stage
 _NOT_PARAMS = ("kernel", "prefill", "prefill_kernel")
 
@@ -182,6 +193,11 @@ class SedarServer:
         if backend not in BACKENDS:
             raise NotImplementedError(f"backend {backend!r} is not ported "
                                       f"yet (ported: {BACKENDS})")
+        if run_cfg.model.family != "dense" and backend not in FAMILY_BACKENDS:
+            raise NotImplementedError(
+                f"backend {backend!r} serves the dense family only; the "
+                f"{run_cfg.model.family} family runs {FAMILY_BACKENDS} (fused "
+                f"and hybrid for it come in slice 8)")
         self.device = resolve_device(device)
         make_deterministic(self.device)
         self.cfg = run_cfg
@@ -305,7 +321,9 @@ class SedarServer:
                  max_len: Optional[int] = None
                  ) -> "tuple[np.ndarray, ServeReport]":
         """Greedy generation of `steps` tokens per sequence (the first comes
-        from prefill). Returns ((B, steps) tokens, report)."""
+        from prefill). `prompt_batch`: {"tokens" (B, S)[, "frontend_embeds"
+        (B, P, D)]}; a frontend's P positions come before the tokens, and
+        decode starts at S + P. Returns ((B, steps) tokens, report)."""
         rep = ServeReport()
         t0 = time.time()
         eng = self.engine
@@ -315,17 +333,22 @@ class SedarServer:
         tokens = torch.as_tensor(prompt_batch["tokens"]).to(self.device,
                                                              torch.int64)
         B, S = tokens.shape
-        max_len = max_len or (S + steps + 8)
+        batch = {"tokens": tokens}
+        fe = prompt_batch.get("frontend_embeds")
+        if fe is not None:
+            batch["frontend_embeds"] = torch.as_tensor(fe).to(self.device)
+        P = batch["frontend_embeds"].shape[1] if fe is not None else 0
+        max_len = max_len or (S + P + steps + 8)
         pre = None
-        if self.prefiller.supported:
+        if self.prefiller.supported and fe is None:
             pre = self.prefiller.prefill_padded(params, tokens, max_len)
         if pre is None:
-            pre = self.model.prefill(params, {"tokens": tokens}, max_len)
+            pre = self.model.prefill(params, batch, max_len)
         logits, cache = pre
         tok = torch.argmax(logits, dim=-1)
         out = [hostsync.read_scalar(tok, label="token_emit")]
         rep.prefill_s = time.time() - t0
-        pos = S
+        pos = S + P
         dual = eng.executor.init_dual({"cache": cache, "tok": tok, "pos": pos})
 
         while len(out) < steps:
@@ -741,6 +764,14 @@ class SedarServer:
         drain cadence follows it, and dropping to lag 1 delivers everything
         parked; the engine's reset() restores the configured lag for the
         next call."""
+        if self.cfg.model.frontend:
+            raise NotImplementedError(
+                "continuous batching serves token-prompt families; frontend "
+                "(VLM/audio) prompts need per-request embed plumbing")
+        if self.cfg.model.family != "dense":
+            raise NotImplementedError(
+                f"serve() takes the dense family only; the "
+                f"{self.cfg.model.family} family comes in slice 8")
         rep = BatchServeReport()
         t0 = time.time()
         for r in requests:

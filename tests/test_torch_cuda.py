@@ -212,6 +212,51 @@ def test_k2_kernel_vs_plain(card, dtype, B, H, KV, Sq, Sk, hd, causal,
         assert torch.equal(got, again)
 
 
+# bf16 only (the f32 body keeps hd 16 and 64): the model families' head
+# dims, causal and windowed with Sk > window, ragged tiles, GQA, Sq != Sk
+ATTN_WIDE_CASES = [
+    (2, 16, 8, 130, 130, 128, True, 0),    # internvl2-2b's heads
+    (1, 32, 8, 257, 257, 128, True, 0),    # phi3.5-moe's heads
+    (1, 4, 2, 100, 190, 128, False, 0),
+    (2, 4, 2, 300, 300, 128, True, 100),
+    (1, 10, 1, 320, 320, 256, True, 128),  # recurrentgemma-2b's heads
+    (2, 10, 1, 200, 200, 256, True, 0),
+    (1, 4, 1, 70, 150, 256, False, 0),
+    (1, 2, 1, 333, 333, 256, True, 77),
+]
+
+
+@pytest.mark.parametrize("B,H,KV,Sq,Sk,hd,causal,window", ATTN_WIDE_CASES)
+def test_k2_bf16_wide_head_dims_vs_plain(card, B, H, KV, Sq, Sk, hd, causal,
+                                         window):
+    """K2 bf16 at hd 128 and 256 (64-column panels): within one bf16
+    rounding step of the plain version, bitwise repeatable, one launch."""
+    r = np.random.RandomState(Sq + hd)
+    q, k, v = (torch.from_numpy(r.standard_normal(s).astype(np.float32)
+                                ).to(card, torch.bfloat16)
+               for s in ((B, H, Sq, hd), (B, KV, Sk, hd), (B, KV, Sk, hd)))
+    before = kfa.launch_count.n
+    got = kfa.flash_attention_fwd(q, k, v, causal=causal, window=window)
+    want = kfa.flash_attention_plain(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert kfa.launch_count.n == before + 1
+    torch.testing.assert_close(got.float(), want.float(), atol=1e-3,
+                               rtol=8e-3)
+    again = kfa.flash_attention_fwd(q, k, v, causal=causal, window=window)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("hd", [128, 256])
+def test_k2_f32_and_k4_refuse_wide_head_dims_without_launch(card, hd):
+    q = torch.zeros(1, 2, 64, hd, device=card)
+    before = (kfa.launch_count.n, kab.flash_ck_launch_count.n)
+    with pytest.raises(ValueError, match="built for head_dim"):
+        kfa.flash_attention_fwd(q, q, q)
+    with pytest.raises(ValueError, match="built for head_dim"):
+        kab.flash_attention_ck(q, q, attention_checksum_encode(q))
+    assert (kfa.launch_count.n, kab.flash_ck_launch_count.n) == before
+
+
 def test_k2_bf16_unaligned_view_raises_without_launch(card):
     """The bf16 kernel's 16-byte copies need 16-byte aligned inputs: a view
     one element off the boundary is refused before any launch."""
