@@ -2865,10 +2865,13 @@ def phase_telemetry_train(kfp, trainer, make_state, l3) -> int:
 FAMILY_STEPS = 32
 # (arch, batch, prompt tokens, layers kept of the config's or None): full
 # width, seeded weights; phi3.5-moe's 32 layers would need ~167 GB of f32
-# weights, its depth is cut to 8 (~42 GB)
+# weights, its depth is cut to 8 (~42 GB). xlstm-125m's prompt is 4 mLSTM
+# chunks; seamless-m4t-medium's encoder takes 1,024 stub frames.
 FAMILY_CASES = (("recurrentgemma-2b", 2, 4096, None),
                 ("internvl2-2b", 4, 256, None),
-                ("phi3.5-moe-42b-a6.6b", 4, 256, 8))
+                ("phi3.5-moe-42b-a6.6b", 4, 256, 8),
+                ("xlstm-125m", 4, 1024, None),
+                ("seamless-m4t-medium", 4, 256, None))
 
 
 def _window_pairs(S: int, W: int) -> int:
@@ -2976,16 +2979,80 @@ def family_decode_profile(srv, params, prompt, pos: int, what: str) -> None:
     del cache, tok
 
 
+def abft_fault_column(srv, params, prompt, toks, pos: int, step: int,
+                      what: str):
+    """(column, clean logit (1, 5)): the column of the abft fault in row 1
+    of the logits block at decode position `step` is 5, or the first
+    column after it whose clean logit lies in (-1, 1), where a flip of bit
+    30 scales the value by 2**128, far above the checksum threshold. At
+    |v| in [1, 2) the flip makes a NaN, which the guard misses in both
+    packages (ROADMAP Queue 3, F3); at |v| >= 2 it shrinks the value by
+    2**-128, a change below the threshold. Fails if no column qualifies.
+    The clean logits come from the unprotected model fed the clean
+    tokens."""
+    logits, cache = srv.model.prefill(params, prompt, pos + FAMILY_STEPS + 8)
+    tk = torch.from_numpy(toks).to(logits.device)
+    for p in range(pos, step + 1):
+        logits, cache = srv.model.decode_step(params, cache, tk[:, p - pos], p)
+    row = logits[1].float().cpu().numpy()
+    del logits, cache
+    small = np.abs(row[5:]) < 1.0
+    check(bool(small.any()), f"{what}: no clean logit of row 1 from column "
+          f"5 on lies in (-1, 1) at position {step}")
+    col = 5 + int(np.argmax(small))
+    v = float(row[5])
+    case = ("bit 30 scales it by 2**128" if abs(v) < 1 else
+            "bit 30 makes a NaN (F3)" if abs(v) < 2 else
+            "bit 30 shrinks it below the checksum threshold")
+    print(f"  {what}: clean logit (1, 5) at position {step} is {v!r}: "
+          f"{case}; the abft fault goes to (1, {col}), clean logit "
+          f"{float(row[col])!r}", flush=True)
+    return col, v
+
+
+def slstm_prefill_share(srv, params, prompt, max_len: int) -> None:
+    """How much of an xLSTM prefill the sLSTM blocks take (their token loop
+    is host-dispatched, one small step per token): one prefill timed on
+    the host clock with the card synchronized around it and around each
+    sLSTM block (the syncs stall the queue, so both times include it)."""
+    from repro_torch.models import xlstm
+
+    block, spent = xlstm.slstm_block, []
+
+    def timed(*a, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = block(*a, **kw)
+        torch.cuda.synchronize()
+        spent.append(time.perf_counter() - t)
+        return out
+
+    xlstm.slstm_block = timed
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        srv.model.prefill(params, prompt, max_len)
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+    finally:
+        xlstm.slstm_block = block
+    print(f"  xlstm prefill (synchronized per sLSTM block): {total * 1e3:.1f} "
+          f"ms, of which the {len(spent)} sLSTM blocks {sum(spent) * 1e3:.1f} "
+          f"ms ({100 * sum(spent) / total:.1f}%)", flush=True)
+
+
 def phase_families(kfp, kfa):
-    """Slice 7: protected generate() of the hybrid (recurrentgemma-2b), vlm
-    (internvl2-2b) and moe (phi3.5-moe, 8 of 32 layers) families at full
-    width with seeded weights and K2 prefill, under none, sequential and
-    abft in turns: equal streams, no detection on a clean run, a final_ln
-    bit-30 fault on replica 1 detected and retried, a logits element of the
-    abft checksum block corrected forward, both with the clean tokens.
-    One unprotected decode step of each family is profiled. Then K2 at
-    each family's prefill shape. Returns (K1 launches, the K2 kernel-line
-    entries, one per family's shape, with that family's launches)."""
+    """Slices 7 and 8: protected generate() of the hybrid
+    (recurrentgemma-2b), vlm (internvl2-2b), moe (phi3.5-moe, 8 of 32
+    layers), ssm (xlstm-125m) and audio (seamless-m4t-medium) families at
+    full width with seeded weights and K2 prefill, under none, sequential
+    and abft in turns: equal streams, no detection on a clean run, a
+    final_ln bit-30 fault on replica 1 detected and retried, a logits
+    element of the abft checksum block corrected forward, both with the
+    clean tokens. One unprotected decode step of each family is profiled.
+    Then K2 at each attention family's prefill shape (xlstm has none).
+    Returns (K1 launches, the K2 kernel-line entries, one per family's
+    shape, with that family's launches)."""
     import dataclasses
 
     from repro_torch.configs import RunConfig, get_config
@@ -3004,11 +3071,12 @@ def phase_families(kfp, kfa):
         rng = np.random.RandomState(7)
         prompt = {"tokens": torch.from_numpy(
             rng.randint(0, cfg.vocab_size, (B, S))).to(dev)}
-        P = cfg.frontend_seq if cfg.frontend else 0
-        if P:
+        if cfg.frontend:        # vlm patches or audio frames
             prompt["frontend_embeds"] = 0.1 * torch.from_numpy(
-                rng.standard_normal((B, P, cfg.frontend_dim)).astype(
-                    np.float32)).to(dev)
+                rng.standard_normal((B, cfg.frontend_seq, cfg.frontend_dim)
+                                    ).astype(np.float32)).to(dev)
+        # decode positions count a vlm's patches, not an encoder's frames
+        P = cfg.frontend_seq if cfg.family == "vlm" else 0
         servers = {b: make_server(RunConfig(model=cfg), backend=b, device=dev)
                    for b in ("none", "sequential", "abft")}
         t0 = time.time()
@@ -3024,8 +3092,8 @@ def phase_families(kfp, kfa):
               f"hd={cfg.head_dim} V={cfg.vocab_size} window="
               f"{cfg.window_size}, {n_params / 1e9:.2f}B f32 params (seeded "
               f"init {time.time() - t0:.2f} s), B={B} prompt={S}"
-              f"{f' + {P} frontend' if P else ''} steps={FAMILY_STEPS}",
-              flush=True)
+              f"{f' + {cfg.frontend_seq} {cfg.frontend}' if cfg.frontend else ''}"
+              f" steps={FAMILY_STEPS}, decode from {S + P}", flush=True)
         if cfg.family == "moe":
             _, _, aux = tfm.lm_hidden(cfg, params, prompt["tokens"])
             print(f"  moe prefill drop fraction {float(aux['moe_drop_frac'])}"
@@ -3066,16 +3134,47 @@ def phase_families(kfp, kfa):
             k1_total += counts["fingerprint"]
             k2_launches += counts["flash_attention"]
         family_decode_profile(servers["none"], params, prompt, S + P, arch)
+        if cfg.family == "ssm":
+            slstm_prefill_share(servers["none"], params, prompt,
+                                S + FAMILY_STEPS + 8)
 
         step = S + P + 5
         final_ln = [p for p, _ in flatten_with_path(params)].index(
-            "['final_ln']")
+            "['decoder']['final_ln']" if cfg.family == "audio"
+            else "['final_ln']")
+        col, v5 = abft_fault_column(servers["none"], params, prompt, toks,
+                                    S + P, step, arch)
         specs = {"sequential": InjectionSpec(
                      leaf_idx=final_ln, flat_idx=3, bit=30, step=step,
                      replica=1, target="params"),
                  "abft": InjectionSpec(
-                     leaf_idx=0, flat_idx=1 * (cfg.vocab_size + 1) + 5,
+                     leaf_idx=0, flat_idx=1 * (cfg.vocab_size + 1) + col,
                      bit=30, step=step, replica=0, target="kernel")}
+        if col != 5:
+            # the protocol's own element, (1, 5), where the flip is no fault
+            # the guard can see: its outcome is checked. A NaN (F3) escapes
+            # and row 1's greedy argmax takes its index, as on the CPU
+            fsrv = make_server(RunConfig(model=cfg), backend="abft",
+                               device=dev, inj_spec=dataclasses.replace(
+                                   specs["abft"], flat_idx=cfg.vocab_size + 6))
+            ftoks, frep, _, _ = _family_run(kfp, kfa, fsrv, params, prompt,
+                                            "abft fault at (1, 5)")
+            t = step - (S + P) + 1          # the token decoded at `step`
+            print(f"  abft fault at (1, 5): tokens equal the clean run "
+                  f"{np.array_equal(ftoks, toks)}; row 1 emits "
+                  f"{int(ftoks[1, t])} at position {step} (clean "
+                  f"{int(toks[1, t])})", flush=True)
+            check(not frep.detections and frep.retries == 0
+                  and not frep.stopped,
+                  f"{arch}: abft fault at (1, 5) (clean logit {v5!r}): "
+                  f"detections {[str(e) for e in frep.detections]}, "
+                  f"retries {frep.retries}, the guard cannot see it")
+            if abs(v5) < 2:
+                check(int(ftoks[1, t]) == 5 and int(toks[1, t]) != 5,
+                      f"{arch}: F3's NaN at (1, 5): row 1 emits "
+                      f"{int(ftoks[1, t])} at position {step} (clean "
+                      f"{int(toks[1, t])}), not the NaN's index 5")
+            del fsrv
         for b, spec in specs.items():
             fsrv = make_server(RunConfig(model=cfg), backend=b, device=dev,
                                inj_spec=spec)
@@ -3095,9 +3194,10 @@ def phase_families(kfp, kfa):
             del fsrv
         del servers, params, runs
         _free()
-        entry = family_k2(kfa, cfg, B, S + P, arch)
-        entry["launches"] = k2_launches
-        entries.append(entry)
+        if attn_layers:         # the decoder's self-attention for audio
+            entry = family_k2(kfa, cfg, B, S + P, arch)
+            entry["launches"] = k2_launches
+            entries.append(entry)
         torch.cuda.empty_cache()
     print(f"families phase took {time.time() - t_phase:.1f} s", flush=True)
     return k1_total, entries

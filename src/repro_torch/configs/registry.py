@@ -1,6 +1,6 @@
-"""Architecture registry: ``--arch <id>`` resolution for the families the
-port can run (dense, moe, hybrid, vlm); dbrx-132b is registered as a
-config only (132B parameters fit no single card)."""
+"""Architecture registry: ``--arch <id>`` resolution for the six families
+the port runs (dense, moe, hybrid, vlm, ssm, audio); dbrx-132b is
+registered as a config only (132B parameters fit no single card)."""
 from __future__ import annotations
 
 import importlib
@@ -17,6 +17,8 @@ _ARCH_MODULES: Dict[str, str] = {
     "dbrx-132b":          "repro_torch.configs.dbrx_132b",
     "recurrentgemma-2b":  "repro_torch.configs.recurrentgemma_2b",
     "internvl2-2b":       "repro_torch.configs.internvl2_2b",
+    "seamless-m4t-medium": "repro_torch.configs.seamless_m4t_medium",
+    "xlstm-125m":         "repro_torch.configs.xlstm_125m",
     "paper-testapp":      "repro_torch.configs.paper_testapp",
 }
 

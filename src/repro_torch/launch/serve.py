@@ -276,7 +276,8 @@ def main() -> None:
         prompts = {"tokens": np.random.RandomState(0).randint(
             0, min(cfg.vocab_size, 200), (args.batch, args.prompt_len))}
         if cfg.frontend:
-            # the frontend stub: precomputed patch embeddings
+            # the frontend stub: precomputed patch embeddings (vlm) or
+            # speech frames (audio)
             prompts["frontend_embeds"] = 0.1 * np.ones(
                 (args.batch, cfg.frontend_seq, cfg.frontend_dim), np.float32)
         toks, rep = srv.generate(params, prompts, steps=args.steps)

@@ -160,12 +160,15 @@ def _gqa_out(w, v, out_dtype):
     return o.reshape(B, S, KV * G, v.shape[-1]).to(out_dtype)
 
 
-def causal_attention(q, k, v, window: int = 0):
-    """Exact causal attention with f32 softmax. q:(B,S,H,hd) k,v:(B,T,KV,hd).
+def causal_attention(q, k, v, window: int = 0, *, causal: bool = True):
+    """Exact attention with f32 softmax. q:(B,S,H,hd) k,v:(B,T,KV,hd).
     `window` > 0 keeps only the keys within `window` positions of the
-    query (local attention, the reference's sliding-window forms)."""
+    query (local attention, the reference's sliding-window forms);
+    `causal=False` masks nothing (the encoder and cross-attention)."""
     scale = 1.0 / math.sqrt(q.shape[-1])
     logits = _gqa_scores(q, k, scale)
+    if not causal:
+        return _gqa_out(torch.softmax(logits, dim=-1), v, q.dtype)
     S, T = logits.shape[-2], logits.shape[-1]
     qpos = torch.arange(S, device=q.device)[:, None]
     kpos = torch.arange(T, device=q.device)[None, :]

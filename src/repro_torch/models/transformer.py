@@ -1,6 +1,6 @@
 """Decoder LM (the reference's `models/transformer.py`): init, full-sequence
-trunk, training loss, prefill and decode for the dense, moe, vlm and
-hybrid families.
+trunk, training loss, prefill and decode for the dense, moe, vlm, hybrid
+and ssm families.
 
   dense / moe / vlm : a homogeneous layer stack, params["layers"] stacked
                       over L; moe swaps the MLP for `moe.moe_mlp`; vlm puts
@@ -9,12 +9,14 @@ hybrid families.
                       params["groups"], the rest in params["tail"], blocks
                       named b{i}_{kind}; the attention blocks are local
                       (cfg.window_size) with ring-buffer decode caches.
+  ssm (xlstm)       : pattern groups (mlstm, slstm), the same way; their
+                      decode states are recurrent (models/xlstm.py).
 
 The reference scans over stacked params with `lax.scan`; here a Python
 loop walks the layers (groups) and slices each stacked leaf (a view, no
 copy). Params keep the reference's tree, so a leaf index and a fingerprint
-mean the same leaf in both packages. The ssm (xlstm) and audio (enc-dec)
-families are not ported yet.
+mean the same leaf in both packages. The audio family (enc-dec) is
+`models/encdec.py`.
 """
 from __future__ import annotations
 
@@ -27,18 +29,22 @@ from repro_torch.kernels import ops
 from repro_torch.models import layers as nn
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import recurrent as rec_lib
+from repro_torch.models import xlstm as xlstm_lib
 
-PORTED_FAMILIES = ("dense", "moe", "vlm", "hybrid")
-PORTED_BLOCKS = ("attention", "recurrent")
+PORTED_FAMILIES = ("dense", "moe", "vlm", "hybrid", "ssm", "audio")
+PORTED_BLOCKS = ("attention", "recurrent", "mlstm", "slstm")
 
 
 def check_family(cfg) -> None:
-    """Raise NotImplementedError for what the port cannot run yet."""
-    if cfg.family not in PORTED_FAMILIES or any(
-            kind not in PORTED_BLOCKS for kind in cfg.block_pattern):
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet: the ssm (xlstm) and "
-            f"audio (enc-dec) families come in slice 8")
+    """Raise NotImplementedError for a family or block kind the port does
+    not know (the reference knows no other)."""
+    if cfg.family not in PORTED_FAMILIES:
+        raise NotImplementedError(f"unknown model family {cfg.family!r} "
+                                  f"(ported: {PORTED_FAMILIES})")
+    for kind in cfg.block_pattern:
+        if kind not in PORTED_BLOCKS:
+            raise NotImplementedError(f"unknown block kind {kind!r} "
+                                      f"(ported: {PORTED_BLOCKS})")
 
 
 def _is_moe(cfg) -> bool:
@@ -67,13 +73,16 @@ def _init_dense_layer_stack(gen, cfg, L: int, device):
 def _init_group_stack(gen, cfg, pattern, G: int, device):
     """One stacked group of blocks following `pattern`."""
     pdt = nn.torch_dtype(cfg.param_dtype)
+    init_core = {"attention": nn.init_attention,
+                 "recurrent": rec_lib.init_recurrent_block,
+                 "mlstm": xlstm_lib.init_mlstm_block,
+                 "slstm": xlstm_lib.init_slstm_block}
     p = {}
     for i, kind in enumerate(pattern):
-        core = (nn.init_attention(gen, cfg, G, device) if kind == "attention"
-                else rec_lib.init_recurrent_block(gen, cfg, G, device))
-        entry = {"core": core,
+        entry = {"core": init_core[kind](gen, cfg, G, device),
                  "ln": torch.zeros((G, cfg.d_model), dtype=pdt, device=device)}
-        if cfg.d_ff:
+        # the xLSTM blocks carry their own projections
+        if kind in ("attention", "recurrent") and cfg.d_ff:
             entry["mlp"] = nn.init_mlp(gen, cfg, G, device)
             entry["ln2"] = torch.zeros((G, cfg.d_model), dtype=pdt,
                                        device=device)
@@ -188,13 +197,38 @@ def _group_full(cfg, gp, x, sin, cos, pattern, max_len: Optional[int] = None,
                                 "v": _ring(v, W, max_len, cache_dtype)}
         else:
             h = nn.rms_norm(x, lp["ln"], cfg.norm_eps)
-            o, (cs, hs) = rec_lib.recurrent_block(cfg, lp["core"], h)
+            o, st = _state_block(cfg, kind, lp["core"], h)
             x = x + o
             if states is not None:
-                states[name] = {"conv": cs.float(), "h": hs}
+                states[name] = st
         if "mlp" in lp:
             x, _ = _mlp_sub(cfg, lp, x)
     return x, states
+
+
+def _state_block(cfg, kind: str, core, h, state=None):
+    """A recurrent-state block (recurrent, mlstm or slstm) over h ->
+    (output, its decode state as the cache's leaves, f32). With `state`
+    (those leaves) it is one decode step; the state comes back as new
+    tensors, never written in place."""
+    decode = state is not None
+    st = state or {}
+    if kind == "recurrent":
+        o, (cs, hs) = rec_lib.recurrent_block(
+            cfg, core, h, conv_state=st.get("conv"), h_state=st.get("h"),
+            decode=decode)
+        return o, {"conv": cs.float(), "h": hs}
+    if kind == "mlstm":
+        o, (cs, (C, n, m)) = xlstm_lib.mlstm_block(
+            cfg, core, h, decode=decode,
+            state=(st["conv"], (st["C"], st["n"], st["m"])) if decode
+            else None)
+        return o, {"conv": cs.float(), "C": C, "n": n, "m": m}
+    o, (cs, (c, n2, hh, m)) = xlstm_lib.slstm_block(       # slstm
+        cfg, core, h, decode=decode,
+        state=(st["conv"], (st["c"], st["n2"], st["h"], st["m"]))
+        if decode else None)
+    return o, {"conv": cs.float(), "c": c, "n2": n2, "h": hh, "m": m}
 
 
 def _ring(k, W: int, max_len: int, cache_dtype):
@@ -229,11 +263,8 @@ def _group_decode(cfg, gp, gc, x, sin, cos, pos, pattern):
                              sin, cos, pos, window=cfg.window_size)
         else:
             h = nn.rms_norm(x, lp["ln"], cfg.norm_eps)
-            o, (cs, hs) = rec_lib.recurrent_block(
-                cfg, lp["core"], h, conv_state=c["conv"], h_state=c["h"],
-                decode=True)
+            o, new[name] = _state_block(cfg, kind, lp["core"], h, state=c)
             x = x + o
-            new[name] = {"conv": cs.to(c["conv"].dtype), "h": hs}
         if "mlp" in lp:
             x, _ = _mlp_sub(cfg, lp, x)
     return x, new
@@ -318,23 +349,35 @@ def lm_loss(cfg, params, batch):
 # Decode cache, decode step, prefill
 # ---------------------------------------------------------------------------
 
+def _layers(n: int, leaves):
+    """n stacked copies (a leading layer axis) of each leaf."""
+    return {k: t.unsqueeze(0).repeat(n, *([1] * t.dim()))
+            for k, t in leaves.items()}
+
+
 def _group_cache(cfg, pattern, n: int, batch: int, max_len: int,
                  cache_dtype, device):
     c = {}
     KV, hd = cfg.num_kv_heads, cfg.head_dim
     for i, kind in enumerate(pattern):
+        name = f"b{i}_{kind}"
         if kind == "attention":
             T = min(cfg.window_size, max_len) if cfg.window_size else max_len
             shape = (n, batch, T, KV, hd)
-            c[f"b{i}_{kind}"] = {
+            c[name] = {
                 "k": torch.zeros(shape, dtype=cache_dtype, device=device),
                 "v": torch.zeros(shape, dtype=cache_dtype, device=device)}
+        elif kind == "recurrent":
+            conv, h = rec_lib.init_recurrent_state(cfg, batch, device)
+            c[name] = _layers(n, {"conv": conv, "h": h})
+        elif kind == "mlstm":
+            conv, (C, nn_, m) = xlstm_lib.init_mlstm_state(cfg, batch, device)
+            c[name] = _layers(n, {"conv": conv, "C": C, "n": nn_, "m": m})
         else:
-            c[f"b{i}_{kind}"] = {
-                "conv": torch.zeros((n, batch, cfg.conv_width - 1, cfg.d_rnn),
-                                    dtype=torch.float32, device=device),
-                "h": torch.zeros((n, batch, cfg.d_rnn), dtype=torch.float32,
-                                 device=device)}
+            conv, (cc, n2, h, m) = xlstm_lib.init_slstm_state(cfg, batch,
+                                                              device)
+            c[name] = _layers(n, {"conv": conv, "c": cc, "n2": n2, "h": h,
+                                  "m": m})
     return c
 
 
@@ -342,9 +385,11 @@ def init_cache(cfg, batch: int, max_len: int,
                cache_dtype=torch.bfloat16, device=None) -> Dict[str, Any]:
     """An all-zero decode cache: {"k", "v"} (L, batch, max_len, KV, hd) for
     a layer stack; for pattern groups {"groups", ["tail"]}, each block
-    {"k", "v"} (n, batch, T, KV, hd) with T = min(window, max_len), or the
-    recurrent {"conv" (n, batch, conv_width - 1, d_rnn), "h" (n, batch,
-    d_rnn)} in f32."""
+    {"k", "v"} (n, batch, T, KV, hd) with T = min(window, max_len), or its
+    f32 recurrent state: recurrent {"conv" (n, batch, conv_width - 1,
+    d_rnn), "h" (n, batch, d_rnn)}; mlstm {"conv", "C" (n, batch, H, hd,
+    hd), "n" (n, batch, H, hd), "m" (n, batch, H)}; slstm {"conv", "c",
+    "n2", "h", "m", each (n, batch, d_model) but conv}, with m at -1e30."""
     check_family(cfg)
     if cfg.block_pattern:
         pat = tuple(cfg.block_pattern)

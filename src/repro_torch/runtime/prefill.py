@@ -19,8 +19,9 @@ this row alone), 1 = clean, 2 = clean after a forward correction (admit,
 and record the detection). The server's whole admission read is one
 `batched_get([tok, verdict])`.
 
-Right-padding is a dense-family property: causal attention keeps pad
-columns out of every real position, the last hidden state is gathered at
+Right-padding is a dense-family property (not moe: pad tokens would route
+through top-k): causal attention keeps pad columns out of every real
+position, the last hidden state is gathered at
 each row's true end (`lm_prefill(lengths=...)`), and decode overwrites
 cache slot `pos` before attending it.
 """
@@ -135,12 +136,17 @@ class BucketedPrefill:
 
     @property
     def supported(self) -> bool:
-        """The reference's gate: padding is invisible only to layer stacks
-        without ring-buffer window caches or a frontend (recurrent states
-        and ring caches fold every position in)."""
+        """Padding is invisible only to dense layer stacks without
+        ring-buffer window caches or a frontend (recurrent states and ring
+        caches fold every position in). The reference's gate also admits
+        moe; the port does not, its one deliberate divergence here: pad
+        tokens would route through top-k, taking capacity and expert
+        positions from the real tokens, and change their logits. A MoE
+        prompt takes the exact prefill (eager PyTorch compiles nothing, so
+        that costs nothing)."""
         cfg = self.model.cfg
         return (not cfg.block_pattern and not cfg.window_size
-                and not cfg.frontend and cfg.family != "audio")
+                and not cfg.frontend and cfg.family not in ("audio", "moe"))
 
     def usable_buckets(self, max_len: int) -> Tuple[int, ...]:
         """Buckets the cache can hold (prefill writes `bucket` positions

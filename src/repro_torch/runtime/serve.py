@@ -77,14 +77,16 @@ parks them), and `t`, the decode tick that gates injection, is a host int.
 The mesh backends ("pod", "vote"), live autotuning and the telemetry calls
 are not ported.
 
-Model families: `generate()` serves every family the port builds (dense,
-moe, hybrid, vlm) under none, sequential and abft; a vlm prompt passes
-its frontend's `frontend_embeds` (B, P, D) and decode starts at
-position S + P. `fused` and `hybrid`, and `serve()`, take the dense
-family only for now: fused's row-block stacking doubles the tokens a MoE
-layer routes (its capacity and cumsum positions then differ from a
-replica alone), and hybrid's resident baseline and serve()'s slot surgery
-assume a dense KV cache.
+Model families: `generate()` serves all six families the port builds
+(dense, moe, hybrid, vlm, ssm, audio) under none, sequential and abft. A
+vlm prompt passes its frontend's `frontend_embeds` (B, P, D) and decode
+starts at position S + P; an audio prompt passes the encoder's frames as
+`frontend_embeds` and decode starts at S (the frames are not decoder
+positions). `fused` and `hybrid`, and `serve()`, take the dense family
+only for now: fused's row-block stacking doubles the tokens a MoE layer
+routes (its capacity and cumsum positions then differ from a replica
+alone), and hybrid's resident baseline and serve()'s slot surgery assume
+a dense KV cache.
 """
 from __future__ import annotations
 
@@ -119,7 +121,7 @@ from repro_torch.runtime.scheduler import (DRAINING, RUNNING, RequestQueue,
                                            SlotScheduler)
 
 BACKENDS = ("none", "sequential", "fused", "abft", "hybrid")
-# backends generate() runs for the moe, hybrid and vlm families
+# backends generate() runs for the families other than dense
 FAMILY_BACKENDS = ("none", "sequential", "abft")
 # targets a decode step's parameter injection leaves to another stage
 _NOT_PARAMS = ("kernel", "prefill", "prefill_kernel")
@@ -197,7 +199,7 @@ class SedarServer:
             raise NotImplementedError(
                 f"backend {backend!r} serves the dense family only; the "
                 f"{run_cfg.model.family} family runs {FAMILY_BACKENDS} (fused "
-                f"and hybrid for it come in slice 8)")
+                f"and hybrid for it come in slice 9)")
         self.device = resolve_device(device)
         make_deterministic(self.device)
         self.cfg = run_cfg
@@ -322,8 +324,10 @@ class SedarServer:
                  ) -> "tuple[np.ndarray, ServeReport]":
         """Greedy generation of `steps` tokens per sequence (the first comes
         from prefill). `prompt_batch`: {"tokens" (B, S)[, "frontend_embeds"
-        (B, P, D)]}; a frontend's P positions come before the tokens, and
-        decode starts at S + P. Returns ((B, steps) tokens, report)."""
+        (B, P, D)]}; a vlm frontend's P positions come before the tokens,
+        and decode starts at S + P; an audio frontend's frames feed the
+        encoder, and decode starts at S. Returns ((B, steps) tokens,
+        report)."""
         rep = ServeReport()
         t0 = time.time()
         eng = self.engine
@@ -337,7 +341,8 @@ class SedarServer:
         fe = prompt_batch.get("frontend_embeds")
         if fe is not None:
             batch["frontend_embeds"] = torch.as_tensor(fe).to(self.device)
-        P = batch["frontend_embeds"].shape[1] if fe is not None else 0
+        P = (batch["frontend_embeds"].shape[1]
+             if fe is not None and self.cfg.model.family == "vlm" else 0)
         max_len = max_len or (S + P + steps + 8)
         pre = None
         if self.prefiller.supported and fe is None:
@@ -771,7 +776,7 @@ class SedarServer:
         if self.cfg.model.family != "dense":
             raise NotImplementedError(
                 f"serve() takes the dense family only; the "
-                f"{self.cfg.model.family} family comes in slice 8")
+                f"{self.cfg.model.family} family comes in slice 9")
         rep = BatchServeReport()
         t0 = time.time()
         for r in requests:

@@ -471,6 +471,36 @@ def test_reduced_abft_generate_on_the_card_equals_the_cpu_path(card):
 
 
 
+@pytest.mark.parametrize("arch", ["xlstm-125m", "seamless-m4t-medium"])
+def test_reduced_ssm_and_audio_generate_on_the_card(card, arch):
+    """The ssm (mLSTM + sLSTM) and audio (encoder-decoder, K2 on the
+    decoder's prefill) families, f32 reduced: the unprotected and the
+    sequential servers on the card emit the same tokens, with no detection
+    and no device read outside `hostsync`."""
+    from repro_torch.tree import tree_map
+    cfg = dataclasses.replace(reduce_for_smoke(get_config(arch)),
+                              attention_impl="pallas")
+    rng = np.random.RandomState(0)
+    prompt = {"tokens": torch.from_numpy(rng.randint(0, 200, (2, 16)))}
+    if cfg.frontend:
+        prompt["frontend_embeds"] = torch.from_numpy((0.1 * rng.standard_normal(
+            (2, cfg.frontend_seq, cfg.frontend_dim))).astype(np.float32))
+    params = make_server(RunConfig(model=cfg), device="cpu").model.init(0)
+    gparams = tree_map(lambda t: t.to(card), params)
+    gprompt = tree_map(lambda t: t.to(card), prompt)
+    out = {}
+    for backend in ("none", "sequential"):
+        srv = make_server(RunConfig(model=cfg), backend=backend, device=card)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out[backend] = srv.generate(gparams, gprompt, steps=6)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    np.testing.assert_array_equal(out["none"][0], out["sequential"][0])
+    assert not out["sequential"][1].detections
+    assert not out["sequential"][1].stopped
+
+
 def test_slot_fingerprints_make_one_k1_launch_call_per_row(card):
     """Continuous serving's per-slot fingerprints: one K1 wrapper call and
     one host launch call per row, the bf16 rows read in place, hash words

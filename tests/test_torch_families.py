@@ -1,9 +1,11 @@
-"""The port's moe, hybrid (RG-LRU + local attention) and vlm families against
-the JAX reference, on the same params (carried across by
-`bridge.params_from_numpy`) at reduce_for_smoke size in f32: the loss (moe
-with `moe_aux` and `moe_drop_frac`), prefill logits, 4 decode steps of
-logits and every cache leaf; the MoE layer at a token count where tokens
-drop (the drop fraction equal, not close); the RG-LRU scan; K2's plain
+"""The port's moe, hybrid (RG-LRU + local attention), vlm, ssm (xLSTM) and
+audio (encoder-decoder) families against the JAX reference, on the same
+params (carried across by `bridge.params_from_numpy`) at reduce_for_smoke
+size in f32: the loss (moe with `moe_aux` and `moe_drop_frac`), prefill
+logits, 4 decode steps of logits and every cache leaf (xlstm at S = 16
+with `mlstm_chunk` 8, so two chunks run); the MoE layer at a token count
+where tokens drop (the drop fraction equal, not close); the RG-LRU scan;
+the chunkwise mLSTM, an sLSTM block and an encoder layer; K2's plain
 version at the families' head dims 128 and 256 against the Pallas kernel
 in interpret mode; and the port's ring-buffer window cache against its own
 full forward at prompt lengths that are not a multiple of the window (the
@@ -26,10 +28,12 @@ from repro.configs import get_config as jget_config
 from repro.configs import reduce_for_smoke as jreduce
 from repro.kernels.flash_attention import flash_attention_pallas
 from repro.models import build_model as jbuild_model
+from repro.models import encdec as jencdec
 from repro.models import moe as jmoe
 from repro.models import model as jmodel
 from repro.models import recurrent as jrec
 from repro.models import transformer as jtfm
+from repro.models import xlstm as jxlstm
 
 from repro_torch import tree as tree_util
 from repro_torch.abft import kernels as kab
@@ -38,9 +42,11 @@ from repro_torch.configs import (ModelConfig, get_config, list_archs,
                                  reduce_for_smoke)
 from repro_torch.kernels import flash_attention as kfa
 from repro_torch.models import build_model, moe as tmoe
+from repro_torch.models import encdec as tencdec
 from repro_torch.models import model as tmodel
 from repro_torch.models import recurrent as trec
 from repro_torch.models import transformer as ttfm
+from repro_torch.models import xlstm as txlstm
 from repro_torch.runtime.prefill import BucketedPrefill
 
 torch.set_num_threads(1)
@@ -48,8 +54,9 @@ torch.set_num_threads(1)
 TOL = dict(atol=1e-4, rtol=1e-4)
 LAYER_TOL = dict(atol=1e-5, rtol=1e-5)
 FAMILIES = {"moe": "phi3.5-moe-42b-a6.6b", "hybrid": "recurrentgemma-2b",
-            "vlm": "internvl2-2b"}
-B, S, STEPS = 2, 16, 4        # hybrid: S % window (8) == 0
+            "vlm": "internvl2-2b", "ssm": "xlstm-125m",
+            "audio": "seamless-m4t-medium"}
+B, S, STEPS = 2, 16, 4        # hybrid: S % window (8) == 0; ssm: 2 chunks
 
 
 def _np(x):
@@ -99,7 +106,7 @@ def test_param_tree_and_counts_match_reference(family):
               for p, _ in jax.tree_util.tree_flatten_with_path(jp)[0]]
     assert [p for p, _ in tree_util.flatten_with_path(tp)] == jpaths
     # the port's seeded init builds the same tree with the same shapes
-    mine = ttfm.init_lm(torch.Generator().manual_seed(0), tcfg, "cpu")
+    mine = build_model(tcfg, "cpu").init(seed=0)
     assert [(p, tuple(l.shape)) for p, l in tree_util.flatten_with_path(mine)] \
         == [(p, tuple(l.shape)) for p, l in tree_util.flatten_with_path(tp)]
     n = sum(l.numel() for l in tree_util.leaves(mine))
@@ -116,10 +123,22 @@ def test_full_size_param_counts_match_reference(arch):
 
 
 @pytest.mark.parametrize("arch", list_archs())
+def test_full_size_active_param_counts_match_reference(arch):
+    """`active_only` against the reference: a MoE arch counts its router
+    and k of its experts, fewer than its total; any other arch its total."""
+    cfg = ModelConfig(**dataclasses.asdict(jget_config(arch)))
+    active = tmodel.count_params_analytic(cfg, active_only=True)
+    assert active == jmodel.count_params_analytic(jget_config(arch),
+                                                  active_only=True)
+    total = tmodel.count_params_analytic(cfg)
+    assert (active < total) if cfg.family == "moe" else (active == total)
+
+
+@pytest.mark.parametrize("arch", list_archs())
 def test_param_count_matches_init(arch):
     """The formula counts what the port's init builds, at smoke size."""
     cfg = reduce_for_smoke(get_config(arch))
-    params = ttfm.init_lm(torch.Generator().manual_seed(0), cfg, "cpu")
+    params = build_model(cfg, "cpu").init(seed=0)
     assert tmodel.count_params_analytic(cfg) == \
         sum(l.numel() for l in tree_util.leaves(params))
 
@@ -135,8 +154,8 @@ def test_loss_matches_reference(family):
     tb = {"tokens": torch.from_numpy(toks), "targets": torch.from_numpy(tgt)}
     if fe is not None:
         jb["frontend_embeds"], tb["frontend_embeds"] = _j(fe), _t(fe)
-    jl, jm = jtfm.lm_loss(jcfg, jp, jb)
-    tl, tm = ttfm.lm_loss(tcfg, tp, tb)
+    jl, jm = jbuild_model(jcfg).loss(jp, jb)
+    tl, tm = build_model(tcfg, "cpu").loss(tp, tb)
     np.testing.assert_allclose(_np(tl), _np(jl), **TOL)
     assert sorted(tm) == sorted(jm)
     for k in jm:
@@ -147,16 +166,27 @@ def test_loss_matches_reference(family):
 
 
 def test_prefill_decode_and_cache_match_reference(family):
+    """Decode positions count the frontend's embeddings for vlm only: the
+    audio family's frames feed the encoder."""
     jcfg, tcfg, jp, tp, fe = (family[k] for k in
                               ("jcfg", "tcfg", "jp", "tp", "fe"))
-    P = jcfg.frontend_seq if fe is not None else 0
+    P = jcfg.frontend_seq if jcfg.family == "vlm" else 0
     max_len = S + P + STEPS + 4
     toks = np.random.RandomState(2).randint(0, jcfg.vocab_size, (B, S))
-    jl, jc = jtfm.lm_prefill(jcfg, jp, jnp.asarray(toks, jnp.int32), max_len,
-                             cache_dtype=jnp.float32, frontend_embeds=_j(fe))
-    tl, tc = ttfm.lm_prefill(tcfg, tp, torch.from_numpy(toks), max_len,
-                             cache_dtype=torch.float32,
-                             frontend_embeds=_t(fe))
+    if jcfg.family == "audio":
+        jl, jc = jencdec.encdec_prefill(jcfg, jp, _j(fe),
+                                        jnp.asarray(toks, jnp.int32), max_len,
+                                        cache_dtype=jnp.float32)
+        tl, tc = tencdec.encdec_prefill(tcfg, tp, _t(fe),
+                                        torch.from_numpy(toks), max_len,
+                                        cache_dtype=torch.float32)
+    else:
+        jl, jc = jtfm.lm_prefill(jcfg, jp, jnp.asarray(toks, jnp.int32),
+                                 max_len, cache_dtype=jnp.float32,
+                                 frontend_embeds=_j(fe))
+        tl, tc = ttfm.lm_prefill(tcfg, tp, torch.from_numpy(toks), max_len,
+                                 cache_dtype=torch.float32,
+                                 frontend_embeds=_t(fe))
     np.testing.assert_allclose(_np(tl), _np(jl), **TOL)
 
     def same_cache():
@@ -169,11 +199,21 @@ def test_prefill_decode_and_cache_match_reference(family):
             np.testing.assert_allclose(_np(t), j, **TOL)
 
     same_cache()
+    jmodel_, tmodel_ = jbuild_model(jcfg), build_model(tcfg, "cpu")
+    # the all-zero decode cache: the same leaves, shapes, dtypes and values
+    jzero = jax.tree_util.tree_flatten_with_path(
+        jmodel_.init_cache(B, max_len)[0])[0]
+    tzero = tree_util.flatten_with_path(tmodel_.init_cache(B, max_len))
+    assert [p for p, _ in tzero] == [jax.tree_util.keystr(p)
+                                     for p, _ in jzero]
+    for (_, t), (_, j) in zip(tzero, jzero):
+        assert str(t.dtype).split(".")[-1] == str(j.dtype)
+        np.testing.assert_array_equal(_np(t), np.asarray(j, np.float32))
     for i in range(STEPS):
         nxt = np.random.RandomState(10 + i).randint(0, jcfg.vocab_size, (B,))
-        jl, jc = jtfm.lm_decode_step(jcfg, jp, jc, jnp.asarray(nxt, jnp.int32),
+        jl, jc = jmodel_.decode_step(jp, jc, jnp.asarray(nxt, jnp.int32),
                                      jnp.asarray(S + P + i, jnp.int32))
-        tl, tc = ttfm.lm_decode_step(tcfg, tp, tc, torch.from_numpy(nxt),
+        tl, tc = tmodel_.decode_step(tp, tc, torch.from_numpy(nxt),
                                      S + P + i)
         np.testing.assert_allclose(_np(tl), _np(jl), **TOL)
     same_cache()
@@ -300,20 +340,110 @@ def test_windowed_decode_equals_its_own_full_forward(S_):
 
 
 @pytest.mark.parametrize("arch,supported", [
-    ("qwen2-0.5b", True), ("phi3.5-moe-42b-a6.6b", True),
-    ("recurrentgemma-2b", False), ("internvl2-2b", False)])
+    ("qwen2-0.5b", True), ("phi3.5-moe-42b-a6.6b", False),
+    ("recurrentgemma-2b", False), ("internvl2-2b", False),
+    ("xlstm-125m", False), ("seamless-m4t-medium", False)])
 def test_bucketed_prefill_gate_is_the_reference_gate(arch, supported):
+    """The reference's gate, but for one deliberate divergence: it admits
+    moe, whose pad tokens route through top-k and change the real tokens'
+    logits (ROADMAP Queue 3, F2); the port prefills a MoE prompt exactly."""
     model = build_model(reduce_for_smoke(get_config(arch)), "cpu")
     assert BucketedPrefill(model).supported is supported
 
 
-@pytest.mark.parametrize("family_", ["ssm", "audio"])
-def test_unported_families_raise_naming_slice_8(family_):
-    cfg = dataclasses.replace(reduce_for_smoke(get_config("qwen2-0.5b")),
-                              family=family_)
-    with pytest.raises(NotImplementedError, match="slice 8"):
+@pytest.mark.parametrize("field,value,match", [
+    ("family", "speech", "unknown model family 'speech'"),
+    ("block_pattern", ("mlstm", "mamba"), "unknown block kind 'mamba'")])
+def test_unknown_family_or_block_kind_raises(field, value, match):
+    """Every family and block kind the reference builds is ported; anything
+    else raises, never running as another kind."""
+    cfg = dataclasses.replace(reduce_for_smoke(get_config("xlstm-125m")),
+                              **{field: value})
+    with pytest.raises(NotImplementedError, match=match):
         build_model(cfg, "cpu")
-    xl = dataclasses.replace(reduce_for_smoke(get_config("recurrentgemma-2b")),
-                             block_pattern=("mlstm", "slstm"))
-    with pytest.raises(NotImplementedError, match="slice 8"):
-        build_model(xl, "cpu")
+    with pytest.raises(NotImplementedError, match=match):
+        ttfm.init_cache(cfg, 1, 8)
+
+
+def _mlstm_inputs(cfg, S_, seed):
+    r = np.random.RandomState(seed)
+    H, hd = cfg.num_heads, cfg.head_dim
+    q, k, v = (r.standard_normal((2, H, S_, hd)).astype(np.float32)
+               for _ in range(3))
+    i_raw = r.standard_normal((2, H, S_)).astype(np.float32)
+    f_raw = (3.0 + r.standard_normal((2, H, S_))).astype(np.float32)
+    return q, k, v, i_raw, f_raw
+
+
+@pytest.mark.parametrize("S_,chunk,carried", [(16, 8, False), (8, 8, False),
+                                              (24, 8, True), (12, 4, True)])
+def test_mlstm_chunkwise_matches_reference_and_sequential(S_, chunk, carried):
+    """The chunkwise mLSTM against the JAX `mlstm_chunkwise` and the port's
+    token-by-token recurrence, from an empty or a carried (C, n, m)."""
+    cfg = reduce_for_smoke(get_config("xlstm-125m"))
+    xs = _mlstm_inputs(cfg, S_, S_ + chunk)
+    state = None
+    if carried:
+        warm = _mlstm_inputs(cfg, chunk, 99)
+        _, state = jxlstm.mlstm_chunkwise(*map(jnp.asarray, warm), chunk)
+        state = tuple(np.array(a) for a in state)
+    jh, jst = jxlstm.mlstm_chunkwise(
+        *map(jnp.asarray, xs), chunk,
+        None if state is None else tuple(map(jnp.asarray, state)))
+    tst0 = None if state is None else tuple(map(torch.from_numpy, state))
+    th, tst = txlstm.mlstm_chunkwise(*map(torch.from_numpy, xs), chunk, tst0)
+    sh, sst = txlstm.ref_mlstm_sequential(*map(torch.from_numpy, xs),
+                                          state=tst0)
+    for t, j in zip((th, *tst), (jh, *jst)):
+        np.testing.assert_allclose(_np(t), _np(j), **LAYER_TOL)
+    for t, j in zip((th, *tst), (sh, *sst)):
+        np.testing.assert_allclose(_np(t), _np(j), **LAYER_TOL)
+    with pytest.raises(ValueError, match="S % chunk"):
+        txlstm.mlstm_chunkwise(*map(torch.from_numpy, xs), 5)
+
+
+@pytest.mark.parametrize("S_,with_state", [(6, False), (1, True)])
+def test_slstm_block_matches_reference(S_, with_state):
+    """One sLSTM block (conv, gates, the token loop, head norm and gated
+    FFN) and its state, from an empty state or (S = 1, a decode step) from
+    a carried one."""
+    jcfg = jreduce(jget_config("xlstm-125m"))
+    tcfg = reduce_for_smoke(get_config("xlstm-125m"))
+    jp, _ = jxlstm.init_slstm_block(jax.random.PRNGKey(8), jcfg)
+    tp = params_from_numpy(jax.tree.map(np.asarray, jp))
+    r = np.random.RandomState(S_)
+    D = jcfg.d_model
+    x = r.standard_normal((2, S_, D)).astype(np.float32)
+    state = None
+    if with_state:
+        conv = r.standard_normal((2, jcfg.conv_width - 1, D))
+        cell = [r.standard_normal((2, D)) for _ in range(4)]
+        cell[1] = np.abs(cell[1]) + 0.5          # a positive normalizer
+        state = (conv.astype(np.float32),
+                 tuple(c.astype(np.float32) for c in cell))
+    jo, (jcs, jcell) = jxlstm.slstm_block(
+        jcfg, jp, jnp.asarray(x), decode=with_state,
+        state=None if state is None else jax.tree.map(jnp.asarray, state))
+    to, (tcs, tcell) = txlstm.slstm_block(
+        tcfg, tp, torch.from_numpy(x), decode=with_state,
+        state=None if state is None else (torch.from_numpy(state[0]),
+                                          tuple(map(torch.from_numpy,
+                                                    state[1]))))
+    for t, j in zip((to, tcs, *tcell), (jo, jcs, *jcell)):
+        np.testing.assert_allclose(_np(t), _np(j), **LAYER_TOL)
+
+
+def test_encoder_layer_matches_reference():
+    """One bidirectional encoder layer (and the final norm) over the stub
+    frames."""
+    jcfg = dataclasses.replace(jreduce(jget_config("seamless-m4t-medium")),
+                               encoder_layers=1)
+    tcfg = dataclasses.replace(
+        reduce_for_smoke(get_config("seamless-m4t-medium")), encoder_layers=1)
+    jp = jbuild_model(jcfg).init(jax.random.PRNGKey(9))
+    tp = params_from_numpy(jax.tree.map(np.asarray, jp))
+    frames = np.random.RandomState(9).standard_normal(
+        (2, 11, jcfg.d_model)).astype(np.float32)
+    want = jencdec.encode(jcfg, jp, jnp.asarray(frames))
+    got = tencdec.encode(tcfg, tp, torch.from_numpy(frames))
+    np.testing.assert_allclose(_np(got), _np(want), **LAYER_TOL)

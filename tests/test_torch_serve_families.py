@@ -1,15 +1,19 @@
-"""Protected `generate()` of the moe, hybrid and vlm families against the JAX
-reference's `SedarServer.generate`, on the same seeded prompt and the same
-params (carried across by `bridge.params_from_numpy`), at reduce_for_smoke
-size in f32 with `attention_impl="pallas"` (K2's plain version on the
-CPU). The vlm prompt passes `frontend_embeds`, and the hybrid prompt is a
-multiple of the window (the reference's ring is misplaced otherwise).
+"""Protected `generate()` of the moe, hybrid, vlm, ssm (xLSTM) and audio
+(encoder-decoder) families against the JAX reference's
+`SedarServer.generate`, on the same seeded prompt and the same params
+(carried across by `bridge.params_from_numpy`), at reduce_for_smoke size
+in f32 with `attention_impl="pallas"` (K2's plain version on the CPU). The
+vlm prompt passes `frontend_embeds` (decode starts at S + P), the audio
+prompt passes the encoder's frames the same way (decode starts at S), and
+the hybrid prompt is a multiple of the window (the reference's ring is
+misplaced otherwise).
 
 Held exactly: the emitted tokens under none, sequential and abft; under
 the same `InjectionSpec` (a bit-30 flip of `final_ln` on replica 1, or of
 one element of the abft logits checksum block) the (step, boundary,
 effect) stream of detections, the retries and the recoveries; the counted
-host reads per step."""
+host reads per step. Also: a MoE prompt off the bucket ladder is
+prefilled exactly, never padded (F2)."""
 import dataclasses
 
 import numpy as np
@@ -30,6 +34,7 @@ from repro_torch.configs import RunConfig, get_config, reduce_for_smoke
 from repro_torch.core import hostsync
 from repro_torch.core.injection import InjectionSpec
 from repro_torch.core.policy import make_server
+from repro_torch.models import build_model
 from repro_torch.runtime.scheduler import Request
 
 torch.set_num_threads(1)
@@ -38,7 +43,8 @@ STEPS = 6
 B, S = 2, 16
 V = 257               # reduce_for_smoke vocabulary
 FAMILIES = {"moe": "phi3.5-moe-42b-a6.6b", "hybrid": "recurrentgemma-2b",
-            "vlm": "internvl2-2b"}
+            "vlm": "internvl2-2b", "ssm": "xlstm-125m",
+            "audio": "seamless-m4t-medium"}
 
 
 def _cfgs(arch):
@@ -65,19 +71,22 @@ def fam(request):
     jparams = srv.model.init(jax.random.PRNGKey(0))
     prompt = {"tokens": np.random.RandomState(0).randint(
         0, 200, (B, S)).astype(np.int32)}
-    P = 0
     if jcfg.frontend:
-        P = jcfg.frontend_seq
         prompt["frontend_embeds"] = (0.1 * np.random.RandomState(1)
-                                     .standard_normal((B, P, jcfg.frontend_dim))
+                                     .standard_normal((B, jcfg.frontend_seq,
+                                                       jcfg.frontend_dim))
                                      ).astype(np.float32)
+    # decode positions count a vlm's patches, not an audio encoder's frames
+    P = jcfg.frontend_seq if jcfg.family == "vlm" else 0
     clean, _ = srv.generate(jparams, prompt, steps=STEPS)
     tparams = params_from_numpy(jax.tree.map(np.asarray, jparams))
     paths = [p for p, _ in tree_util.flatten_with_path(tparams)]
     return {"name": request.param, "jcfg": jcfg, "tcfg": tcfg,
             "jparams": jparams, "tparams": tparams, "prompt": prompt,
             "clean": clean, "P": P,
-            "final_ln": paths.index("['final_ln']")}
+            "final_ln": paths.index("['decoder']['final_ln']"
+                                    if jcfg.family == "audio"
+                                    else "['final_ln']")}
 
 
 def _port(fam, backend, spec=None, **kw):
@@ -127,21 +136,47 @@ def test_abft_kernel_fault_corrected_forward_like_reference(fam):
     spec = dict(leaf_idx=0, flat_idx=1 * (V + 1) + 5, bit=30, step=step,
                 replica=0, target="kernel")
     (toks, rep, srv), (jtoks, jrep, jsrv) = _pair(fam, "abft", spec)
-    assert _events(rep) == _events(jrep) == [(step, "commit", "TDC", True)]
-    assert _recs(srv.engine) == _recs(jsrv.engine) == \
-        [("abft_correct", None, 0, step)]
+    assert _events(rep) == _events(jrep)
+    assert _recs(srv.engine) == _recs(jsrv.engine)
     assert rep.retries == jrep.retries == 0
+    np.testing.assert_array_equal(toks, jtoks)
+    if fam["name"] == "ssm":
+        # logit (1, 5) lies in [1, 2) here: bit 30 makes it a NaN, whose
+        # residual compares False in both packages, so the fault escapes
+        # ABFT and row 1 emits token 5 (ROADMAP Queue 3, F3)
+        assert _events(rep) == [] and toks[1, 3] == 5
+        assert not np.array_equal(toks, fam["clean"])
+        return
+    assert _events(rep) == [(step, "commit", "TDC", True)]
+    assert _recs(srv.engine) == [("abft_correct", None, 0, step)]
     np.testing.assert_array_equal(toks, fam["clean"])
-    np.testing.assert_array_equal(jtoks, fam["clean"])
+
+
+def test_decode_starts_after_the_prompt_and_a_vlm_frontend(fam):
+    """The first decode step runs at position S + P: P counts a vlm's
+    patches, not the audio encoder's frames (its frames are no decoder
+    positions, as in the reference)."""
+    srv = _port(fam, "none")
+    seen = []
+    decode = srv.model.decode_step
+
+    def spy(params, cache, tokens, pos, **kw):
+        seen.append(pos)
+        return decode(params, cache, tokens, pos, **kw)
+
+    srv.model.decode_step = spy
+    toks, _ = srv.generate(fam["tparams"], fam["prompt"], steps=3)
+    assert seen == [S + fam["P"], S + fam["P"] + 1]
+    np.testing.assert_array_equal(toks, fam["clean"][:, :3])
 
 
 def test_backends_and_serve_not_yet_ported_for_the_families_raise(fam):
     for backend in ("fused", "hybrid"):
-        with pytest.raises(NotImplementedError, match="slice 8"):
+        with pytest.raises(NotImplementedError, match="slice 9"):
             _port(fam, backend)
     srv = _port(fam, "none")
     reqs = [Request(rid=0, prompt=np.arange(4), max_new_tokens=2)]
-    match = "frontend" if fam["name"] == "vlm" else "slice 8"
+    match = "frontend" if fam["name"] in ("vlm", "audio") else "slice 9"
     with pytest.raises(NotImplementedError, match=match):
         srv.serve(fam["tparams"], reqs, slots=2)
 
@@ -154,3 +189,34 @@ def test_launcher_runs_the_family_on_the_cpu(fam, monkeypatch, capsys):
     launcher.main()
     out = capsys.readouterr().out
     assert "backend=sequential" in out and "detections=0" in out
+
+
+@pytest.mark.parametrize("B_,S_", [(4, 5), (4, 13), (2, 20), (1, 40)])
+def test_moe_prompt_off_the_ladder_prefills_exactly(B_, S_):
+    """F2: padding a MoE prompt to its bucket (8, 16, 32, 64) would route the
+    pad tokens through top-k and move the real tokens' logits. generate()'s
+    first-token logits equal `model.prefill` at the exact length, bit for
+    bit, with a cache deep enough for the bucket."""
+    _, tcfg = _cfgs(FAMILIES["moe"])
+    srv = _port({"tcfg": tcfg}, "sequential")
+    params = srv.model.init(seed=0)
+    toks = torch.from_numpy(np.random.RandomState(S_).randint(0, V, (B_, S_)))
+    max_len = 80
+    got = []
+    prefill = srv.model.prefill
+
+    def spy(params, batch, max_len):
+        out = prefill(params, batch, max_len)
+        got.append((dict(batch), out[0]))
+        return out
+
+    srv.model.prefill = spy
+    out, rep = srv.generate(params, {"tokens": toks}, steps=2,
+                            max_len=max_len)
+    want, _ = build_model(tcfg, "cpu").prefill(params, {"tokens": toks},
+                                               max_len)
+    (batch, logits), = got
+    assert "lengths" not in batch and batch["tokens"].shape == (B_, S_)
+    assert torch.equal(logits, want)
+    np.testing.assert_array_equal(out[:, 0], torch.argmax(want, -1).numpy())
+    assert not rep.detections
