@@ -24,8 +24,9 @@ counts set to 0 just before it and read just after:
     the unprotected tokens; a kernel fault is corrected forward), with K1
     in place on the hybrid backend's fingerprint tree of a real state and
     a profile (launches per decode step) of dual, abft and hybrid;
-  * continuous-batching `SedarServer.serve` of the same model (8 requests
-    in 4 slots, under sync-debug "error"): unprotected, dual and fused at
+  * continuous-batching `SedarServer.serve` of the same model at 8 of its
+    24 layers (8 requests in 4 slots, under sync-debug "error"):
+    unprotected, dual and fused at
     lag 1 and lag 8, abft and hybrid, slot, kernel-domain and admission
     fault campaigns, K1 (also its row-limit leaves, hybrid's resident
     baseline) and K2 (also at the fused pack's 2K rows) held against their
@@ -55,11 +56,17 @@ counts set to 0 just before it and read just after:
   * the model families (phase families): protected `generate()` of
     recurrentgemma-2b (hybrid: RG-LRU blocks and local attention, B=2 ×
     4,096 prompt tokens, K2 at hd 256 with its 2,048 window), internvl2-2b
-    (vlm: 256 stub patch embeddings + 256 tokens, hd 128) and phi3.5-moe
-    (moe, 8 of its 32 layers, hd 128) at full width under none,
-    sequential and abft in turns (equal streams, a replica fault retried,
-    a checksum-block fault corrected forward), and K2 at each family's
-    prefill shape against its plain version and SDPA;
+    (vlm: 256 stub patch embeddings + 256 tokens, hd 128), phi3.5-moe
+    (moe, 8 of its 32 layers, hd 128), xlstm-125m (ssm) and
+    seamless-m4t-medium (audio) at full width under none, sequential,
+    abft, fused and hybrid in turns (equal streams, replica faults
+    retried, checksum-block faults corrected forward, hybrid's retry at an
+    entry check with no false FSC and its catch of an at-rest flip), and
+    K2 at each family's prefill shape against its plain version and SDPA;
+  * continuous `serve()` of the moe, ssm and hybrid families (phase
+    family_serve): phi3.5-moe (8 layers), xlstm-125m and recurrentgemma-2b
+    at full width, every backend under sync-debug "error", slot and
+    admission faults, and K1's ring rows against their plain version;
   * a small f32 model on the card against the plain CPU path.
 
 Any failed check exits non-zero. The last two lines are a JSON object of
@@ -1239,7 +1246,8 @@ SERVE_SLOTS = 4
 SERVE_LAG = 8
 SERVE_FAULT_TICK = 5
 SERVE_MAX_LEN = 256 + 32 + 8
-SERVE_TURN_STEPS = 24
+SERVE_TURN_STEPS = 16
+SERVE_LAYERS = 8    # the serve phase's depth: 8 of qwen2-0.5b's 24 layers
 SERVE_PROFILE_STEPS = 8
 BF16_EXP_BIT = 14   # the top exponent bit of a bf16, bit 30 of an f32
 
@@ -1265,8 +1273,8 @@ def _top2_margin(srv, params, req, idx: int) -> float:
 
 
 def phase_serve(kfp, kfa, main):
-    """Continuous-batching `serve()` of the main path's model at full width
-    (slot scheduler, packed protected admission through K1 lanes and K2,
+    """Continuous-batching `serve()` of the main path's model at full width,
+    its depth cut to SERVE_LAYERS with its own seeded params (slot scheduler, packed protected admission through K1 lanes and K2,
     per-slot K1 fingerprints), every serving call under sync-debug
     "error": unprotected, dual at lag 1 and at lag 8 (drain on), then a
     transient slot fault at lag 1 and lag 8, a stuck slot bit and an
@@ -1275,8 +1283,10 @@ def phase_serve(kfp, kfa, main):
     admission kernel fault corrected forward; K1's row-limit leaves and K2
     at the fused pack shapes against their plain versions; every backend
     in turns; dual and fused lag-1 profiles. Returns the kernels' launches
-    in the dual lag-1 run."""
+    in the dual lag-1 run, and the servers, streams, config and params the
+    telemetry phase reuses."""
     import contextlib
+    import dataclasses
 
     from repro_torch.configs import RunConfig
     from repro_torch.core import hostsync
@@ -1286,7 +1296,7 @@ def phase_serve(kfp, kfa, main):
     from repro_torch.runtime.scheduler import ttft_percentiles_ms
 
     dev = torch.device("cuda")
-    cfg, params = main["cfg"], main["params"]
+    cfg = dataclasses.replace(main["cfg"], num_layers=SERVE_LAYERS)
     rc = RunConfig(model=cfg)
     name = torch.cuda.get_device_name(0)
     t_phase = time.time()
@@ -1319,6 +1329,9 @@ def phase_serve(kfp, kfa, main):
 
     plain = make_server(rc, backend="none", device=dev)
     dual = make_server(rc, dual=True, device=dev)
+    params = plain.model.init(seed=0)
+    print(f"serve phase: {cfg.name} at full width, {cfg.num_layers} of "
+          f"{main['cfg'].num_layers} layers, seeded params", flush=True)
     out0, rep0, reads0, counts0 = serve(plain, 1)
     clean = streams(out0)
     check(sorted(rep0.completed) == list(range(8)) and not rep0.detections,
@@ -1703,7 +1716,8 @@ def phase_serve(kfp, kfa, main):
             print(f"  x{e.count:<7d} {e.self_device_time_total / 1e3:9.3f} "
                   f"ms {e.key[:90]}", flush=True)
     print(f"serve phase took {time.time() - t_phase:.1f} s", flush=True)
-    return runs[1][3], {"dual": dual, "clean": clean, "lag1": runs[1]}
+    return runs[1][3], {"dual": dual, "clean": clean, "lag1": runs[1],
+                        "cfg": cfg, "params": params}
 
 
 def _timed(obj, name: str, out: list) -> None:
@@ -2579,7 +2593,7 @@ def phase_telemetry_serve(kfp, kfa, main, served) -> dict:
     from repro_torch.core.policy import Autotuner, AutotuneConfig, make_server
 
     dev = torch.device("cuda")
-    cfg, params = main["cfg"], main["params"]
+    cfg, params = served["cfg"], served["params"]
     dual, clean = served["dual"], served["clean"]
     name = torch.cuda.get_device_name(0)
     t_phase = time.time()
@@ -2863,6 +2877,9 @@ def phase_telemetry_train(kfp, trainer, make_state, l3) -> int:
 
 
 FAMILY_STEPS = 32
+FAMILY_FAULT_STEPS = 12   # the fused and hybrid fault runs' tokens
+FAMILY_INTERVAL = 4       # hybrid's entry check at positions divisible by 4
+FAMILY_BACKENDS = ("none", "sequential", "abft", "fused", "hybrid")
 # (arch, batch, prompt tokens, layers kept of the config's or None): full
 # width, seeded weights; phi3.5-moe's 32 layers would need ~167 GB of f32
 # weights, its depth is cut to 8 (~42 GB). xlstm-125m's prompt is 4 mLSTM
@@ -2882,13 +2899,14 @@ def _window_pairs(S: int, W: int) -> int:
     return W * (W + 1) // 2 + (S - W) * W
 
 
-def family_k2(kfa, cfg, B: int, S: int, what: str) -> dict:
-    """K2 at a family's prefill shape (its heads, head dim and window):
-    `check_k2`, then timed beside its plain version and SDPA with the same
-    mask, and its bound. Returns its kernel-line entry."""
+def family_k2(kfa, cfg, B: int, S: int, what: str, window=None) -> dict:
+    """K2 at a family's prefill shape (its heads, head dim and window, or
+    `window` where given): `check_k2`, then timed beside its plain version
+    and SDPA with the same mask, and its bound. Returns its kernel-line
+    entry."""
     import torch.nn.functional as F
-    H, KV, hd, W = (cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
-                    cfg.window_size)
+    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    W = cfg.window_size if window is None else window
     q, k, v, err, row_err = check_k2(kfa, B, S, S + hd, what, H, KV, hd, W)
     pos = torch.arange(S, device=q.device)
     mask = ((pos[:, None] >= pos[None, :]) & (pos[:, None] - pos[None, :] < W)
@@ -2924,25 +2942,131 @@ def family_k2(kfa, cfg, B: int, S: int, what: str) -> dict:
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
 
 
-def _family_run(kfp, kfa, srv, params, prompt, what: str):
+def k2_shape(cfg, B: int, S: int) -> tuple:
+    """The key K2's wrapper counts a causal bf16 prefill launch of the
+    family's attention under (`launch_count.shapes`)."""
+    return (B, cfg.num_heads, cfg.num_kv_heads, S, S, cfg.head_dim, 1,
+            cfg.window_size, torch.bfloat16)
+
+
+def k2_entries(kfa, cfg, shapes, what: str) -> list:
+    """One kernels-line entry per K2 shape that a family's runs launched
+    (`shapes`, the wrapper's counts by shape): each held against its plain
+    version and timed at that very shape (`family_k2`), with that shape's
+    launches. Fails on a launch that is not a causal bf16 prefill of the
+    family's heads."""
+    entries = []
+    for key in sorted(shapes, key=lambda t: t[:8]):
+        B, S, W = key[0], key[3], key[7]
+        check(key == k2_shape(cfg, B, S)[:7] + (W, torch.bfloat16),
+              f"{what}: K2 launched at {key}, not a causal bf16 prefill of "
+              f"the family's heads")
+        e = family_k2(kfa, cfg, B, S, f"{what}_B{B}_S{S}", window=W)
+        e["launches"] = shapes[key]
+        entries.append(e)
+    return entries
+
+
+def _family_run(kfp, kfa, srv, params, prompt, what: str,
+                steps: int = FAMILY_STEPS, max_len=None):
     """One counted generate: kernel counts set to 0 just before, read just
-    after; (tokens, report, counts, host reads, peak GiB)."""
+    after; (tokens, report, counts, host reads, peak GiB). A shorter run
+    passes the longer run's `max_len`: the cache depth is a shape of the
+    decode's products, whose bits can depend on it."""
     from repro_torch.core import hostsync
     torch.cuda.synchronize()
     kfp.launch_count.reset()
     kfa.launch_count.reset()
     torch.cuda.reset_peak_memory_stats()
     with hostsync.count_transfers() as st:
-        toks, rep = srv.generate(params, prompt, steps=FAMILY_STEPS)
+        toks, rep = srv.generate(params, prompt, steps=steps,
+                                 max_len=max_len)
     counts = {"fingerprint": kfp.launch_count.n,
               "flash_attention": kfa.launch_count.n}
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     events = [(e.step, e.boundary, e.effect) for e in rep.detections]
     print(f"  {what}: prefill+first token {rep.prefill_s * 1e3:.1f} ms, "
-          f"decode {decode_ms(rep, FAMILY_STEPS):.2f} ms/step, launches "
-          f"{counts}, host reads {st.by_label}, detections {events}, retries "
-          f"{rep.retries}, peak {peak:.2f} GiB", flush=True)
+          f"decode {decode_ms(rep, steps):.2f} ms/step, launches "
+          f"{counts}, host reads {st.by_label}, detections {events[:3]}"
+          f"{' ...' if len(events) > 3 else ''}, retries {rep.retries}, "
+          f"stopped {rep.stopped}, peak {peak:.2f} GiB", flush=True)
     return toks, rep, counts, st.by_label
+
+
+STACKED_STEPS = 8
+
+
+def stacked_decode_bits(model, params, prompt, pos: int, what: str) -> bool:
+    """The fused backend's two layouts of a family's decode, bit for bit on
+    the card: one prefill of B rows, its cache stacked twice along each
+    leaf's slot axis, then STACKED_STEPS greedy steps of the B rows alone
+    against the 2B stacked rows decoded together with the attention per
+    half (`Model._decode(row_blocks=2)`) and against each half decoded on
+    its own (`Model._in_blocks`); at the host position (generate()) and,
+    for a family `serve()` takes, at per-row positions (each row its own
+    MoE dispatch group). A MoE model also holds its expert products at
+    the decode buffer's rows of one replica (G * Cg) against the first
+    rows of twice as many. Prints each; returns whether the stacked
+    decode kept a replica's logits bits at every step."""
+    from repro_torch.models import moe, transformer as tfm
+    from repro_torch.tree import tree_map
+
+    cfg, dev = model.cfg, torch.device("cuda")
+    B = prompt["tokens"].shape[0]
+    _, cache0 = model.prefill(params, prompt, pos + STACKED_STEPS + 8)
+    axes = model.slot_axes()
+    row_pos = [False] + ([True] if cfg.family in ("moe", "hybrid", "ssm")
+                         else [])
+    stacked_ok = True
+    for per_row in row_pos:
+        one = tree_map(lambda c: c.clone(), cache0)
+        two = tree_map(lambda c, ax: torch.cat([c, c], dim=ax), cache0, axes)
+        blk = tree_map(lambda c: c.clone(), two)
+        tok = prompt["tokens"][:, -1]
+        first, worst, blk_same = None, 0.0, True
+        for s in range(STACKED_STEPS):
+            p1 = torch.full((B,), pos + s, device=dev) if per_row else pos + s
+            p2 = torch.cat([p1, p1]) if per_row else p1
+            tok2 = torch.cat([tok, tok])
+            l1, one = model._decode(params, one, tok, p1)
+            l2, two = model._decode(params, two, tok2, p2, row_blocks=2)
+            l3, blk = model._in_blocks(params, blk, tok2, p2, 2)
+            same = torch.equal(l1, l2[:B]) and torch.equal(l1, l2[B:])
+            if not same and first is None:
+                first = s
+            worst = max(worst, float((l2[:B].float() - l1.float()).abs()
+                                     .max()))
+            blk_same &= torch.equal(l1, l3[:B]) and torch.equal(l1, l3[B:])
+            tok = torch.argmax(l1, -1)
+        stacked_ok &= first is None
+        off = ("" if first is None else f" (first off at step {first}, "
+               f"max |dlogit| {worst:.3e})")
+        print(f"  stacked decode ({'per-row' if per_row else 'host'} "
+              f"positions, {STACKED_STEPS} steps from {pos}): 2B rows "
+              f"together bitwise equal to a replica alone "
+              f"{first is None}{off}; each half on its own {blk_same}",
+              flush=True)
+        check(blk_same, f"{what}: a half decoded on its own differs from a "
+              f"replica alone")
+    if cfg.family == "moe":
+        lp = tfm.layer_params(params, 0)["mlp"]
+        gen = torch.Generator(device=dev).manual_seed(5)
+        res = {}
+        for rows in (moe.capacity(cfg, B), SERVE_SLOTS * moe.capacity(cfg, 1)):
+            buf = torch.randn(cfg.num_experts, rows, cfg.d_model,
+                              generator=gen, device=dev).bfloat16()
+            hid = torch.randn(cfg.num_experts, rows, cfg.d_ff,
+                              generator=gen, device=dev).bfloat16()
+            for name, x, w, eq in (
+                    ("w_gate", buf, lp["w_gate"], "ecd,edf->ecf"),
+                    ("w_down", hid, lp["w_down"], "ecf,efd->ecd")):
+                a = torch.einsum(eq, x, w.bfloat16())
+                b = torch.einsum(eq, torch.cat([x, x], 1), w.bfloat16())
+                res[f"{name} {rows} vs {2 * rows} rows"] = (
+                    torch.equal(a, b[:, :rows]) and torch.equal(a, b[:, rows:]))
+        print(f"  moe expert products, the first rows bitwise equal at the "
+              f"stacked buffer's height: {res}", flush=True)
+    return stacked_ok
 
 
 def family_decode_profile(srv, params, prompt, pos: int, what: str) -> None:
@@ -2979,6 +3103,18 @@ def family_decode_profile(srv, params, prompt, pos: int, what: str) -> None:
     del cache, tok
 
 
+def clean_logits(srv, params, prompt, toks, pos: int, step: int):
+    """The clean (B, V) logits at decode position `step`, from the
+    unprotected model fed the clean tokens (f32, on the host)."""
+    logits, cache = srv.model.prefill(params, prompt, pos + FAMILY_STEPS + 8)
+    tk = torch.from_numpy(toks).to(logits.device)
+    for p in range(pos, step + 1):
+        logits, cache = srv.model.decode_step(params, cache, tk[:, p - pos], p)
+    out = logits.float().cpu().numpy()
+    del logits, cache
+    return out
+
+
 def abft_fault_column(srv, params, prompt, toks, pos: int, step: int,
                       what: str):
     """(column, clean logit (1, 5)): the column of the abft fault in row 1
@@ -2990,12 +3126,7 @@ def abft_fault_column(srv, params, prompt, toks, pos: int, step: int,
     2**-128, a change below the threshold. Fails if no column qualifies.
     The clean logits come from the unprotected model fed the clean
     tokens."""
-    logits, cache = srv.model.prefill(params, prompt, pos + FAMILY_STEPS + 8)
-    tk = torch.from_numpy(toks).to(logits.device)
-    for p in range(pos, step + 1):
-        logits, cache = srv.model.decode_step(params, cache, tk[:, p - pos], p)
-    row = logits[1].float().cpu().numpy()
-    del logits, cache
+    row = clean_logits(srv, params, prompt, toks, pos, step)[1]
     small = np.abs(row[5:]) < 1.0
     check(bool(small.any()), f"{what}: no clean logit of row 1 from column "
           f"5 on lies in (-1, 1) at position {step}")
@@ -3041,24 +3172,135 @@ def slstm_prefill_share(srv, params, prompt, max_len: int) -> None:
           f"ms ({100 * sum(spent) / total:.1f}%)", flush=True)
 
 
-def phase_families(kfp, kfa):
-    """Slices 7 and 8: protected generate() of the hybrid
-    (recurrentgemma-2b), vlm (internvl2-2b), moe (phi3.5-moe, 8 of 32
-    layers), ssm (xlstm-125m) and audio (seamless-m4t-medium) families at
-    full width with seeded weights and K2 prefill, under none, sequential
-    and abft in turns: equal streams, no detection on a clean run, a
-    final_ln bit-30 fault on replica 1 detected and retried, a logits
-    element of the abft checksum block corrected forward, both with the
-    clean tokens. One unprotected decode step of each family is profiled.
-    Then K2 at each attention family's prefill shape (xlstm has none).
-    Returns (K1 launches, the K2 kernel-line entries, one per family's
-    shape, with that family's launches)."""
+def family_faults(kfp, kfa, cfg, params, prompt, toks, pos: int, step: int,
+                  col: int, final_ln: int, plain, arch: str) -> None:
+    """Slice 9's fault runs of one family, FAMILY_FAULT_STEPS tokens each:
+    fused, the final_ln fault on replica 1 at `step` (detected, retried);
+    hybrid, the abft fault at (1, `col`) corrected forward, an uncorrectable
+    pair of logits flips at an entry-check position (retried, no FSC: the
+    failed attempt's in-place cache row or ring slot is outside the
+    baseline) and, for the ring and recurrent families, an at-rest flip of
+    a live ring slot or recurrent state before an entry check (FSC there,
+    at every retry, then the safe stop, as in the reference)."""
     import dataclasses
 
-    from repro_torch.configs import RunConfig, get_config
+    from repro_torch.configs import RunConfig, SedarConfig
+    from repro_torch.core.injection import InjectionSpec
+    from repro_torch.core.policy import make_server
+    from repro_torch.tree import flatten_with_path
+
+    dev = torch.device("cuda")
+    V, n = cfg.vocab_size, FAMILY_FAULT_STEPS
+    want = toks[:, :n]
+    rc_h = RunConfig(model=cfg, sedar=SedarConfig(
+        param_validate_interval=FAMILY_INTERVAL))
+
+    def run(backend, spec, what, flip=None):
+        srv = make_server(rc_h if backend == "hybrid" else RunConfig(
+            model=cfg), backend=backend, device=dev, inj_spec=spec)
+        if flip is not None:
+            at, fn = flip
+            execute = srv.engine.executor.execute
+
+            def flipped(dual, batch, s, armed, compare):
+                if s == at:
+                    fn(dual["r0"]["cache"], s)
+                return execute(dual, batch, s, armed, compare)
+            srv.engine.executor.execute = flipped
+        out = _family_run(kfp, kfa, srv, params, prompt, what, steps=n,
+                          max_len=pos + FAMILY_STEPS + 8)
+        del srv
+        return out
+
+    def events(rep):
+        return [(e.step, e.boundary, e.effect,
+                 bool(e.detail.get("abft_corrected"))) for e in rep.detections]
+
+    ftoks, frep, _, _ = run("fused", InjectionSpec(
+        leaf_idx=final_ln, flat_idx=3, bit=30, step=step, replica=1,
+        target="params"), "fused fault")
+    check(events(frep) == [(step, "commit", "TDC", False)]
+          and frep.retries == 1 and not frep.stopped
+          and np.array_equal(ftoks, want),
+          f"{arch}: fused final_ln fault: events {events(frep)}, retries "
+          f"{frep.retries}, tokens equal {np.array_equal(ftoks, want)}")
+    ftoks, frep, _, _ = run("hybrid", InjectionSpec(
+        leaf_idx=0, flat_idx=1 * (V + 1) + col, bit=30, step=step, replica=0,
+        target="kernel"), "hybrid logits fault")
+    check(events(frep) == [(step, "commit", "TDC", True)]
+          and frep.retries == 0 and np.array_equal(ftoks, want),
+          f"{arch}: hybrid logits fault not corrected forward: "
+          f"{events(frep)}")
+    # an entry-check position, and two logits of rows 0 and 1 in (-1, 1)
+    # one column apart: bit 30 scales both by 2**128, two rows and two
+    # columns of residuals fail, so the guard cannot correct it
+    estep = pos + 2 + (-(pos + 2)) % FAMILY_INTERVAL
+    lg = np.abs(clean_logits(plain, params, prompt, toks, pos, estep)) < 1.0
+    pair = lg[0, 5:-1] & lg[1, 6:]
+    check(bool(pair.any()), f"{arch}: no pair of small logits at {estep}")
+    c = 5 + int(np.argmax(pair))
+    ftoks, frep, _, reads = run("hybrid", InjectionSpec(
+        leaf_idx=0, flat_idx=c, bit=30, step=estep, replica=0,
+        target="kernel", n_elems=2), "hybrid uncorrectable at an entry check")
+    check(events(frep) == [(estep, "commit", "TDC", False)]
+          and frep.retries == 1 and not frep.stopped
+          and np.array_equal(ftoks, want),
+          f"{arch}: hybrid retry at entry-check position {estep}: events "
+          f"{events(frep)} (a false FSC would follow the TDC), retries "
+          f"{frep.retries}")
+    print(f"  hybrid: uncorrectable flips at (0, {c}) and (1, {c + 1}) at "
+          f"entry-check position {estep} retried with no FSC; host reads "
+          f"{reads}", flush=True)
+    if cfg.family not in ("hybrid", "ssm"):
+        return
+    W = cfg.window_size
+    path = ("['groups']['b2_attention']['k']" if cfg.family == "hybrid"
+            else "['groups']['b0_mlstm']['C']")
+
+    def flip(cache, s):
+        leaf = dict(flatten_with_path(cache))[path]
+        if cfg.family == "hybrid":      # the ring slot position s - 1 fills
+            leaf[0, 1, (s - 1) % W, 0, 7] += 1.0
+        else:
+            leaf[0, 1, 2, 3, 4] += 1.0
+    ftoks, frep, _, _ = run("hybrid", None, "hybrid at-rest flip",
+                            flip=(estep, flip))
+    ev = events(frep)
+    check(ev and all(e == (estep, "validate", "FSC", False) for e in ev)
+          and frep.stopped,
+          f"{arch}: at-rest flip of {path} before {estep}: events {ev}, "
+          f"stopped {frep.stopped}")
+    print(f"  hybrid: at-rest flip of {path} before position {estep} caught "
+          f"at its entry check ({len(ev)} FSC events, then the safe stop, "
+          f"as in the reference)", flush=True)
+
+
+def phase_families(kfp, kfa):
+    """Slices 7 to 9: protected generate() of the hybrid
+    (recurrentgemma-2b), vlm (internvl2-2b), moe (phi3.5-moe, 8 of 32
+    layers), ssm (xlstm-125m) and audio (seamless-m4t-medium) families at
+    full width with seeded weights and K2 prefill, under none, sequential,
+    abft, fused and hybrid in turns: equal streams, no detection on a clean
+    run, a final_ln bit-30 fault on replica 1 detected and retried
+    (sequential and fused), a logits element of the abft checksum block
+    corrected forward (abft and hybrid), all with the clean tokens; under
+    hybrid an uncorrectable logits fault at an entry-check position retried
+    with no false FSC, and (recurrentgemma, xlstm) an at-rest flip of a live
+    ring slot or a recurrent state caught at the next entry check. Before
+    the runs, the fused backend's two decode layouts against a replica
+    alone (`stacked_decode_bits`): a family outside `BLOCKWISE_FAMILIES`
+    decodes stacked and must keep the bits. One unprotected decode step
+    of each family is profiled. Then K2 at each
+    attention family's prefill shape (xlstm has none). Returns (K1
+    launches, the K2 kernel-line entries, one per family's shape, with
+    that family's launches)."""
+    import dataclasses
+
+    from repro_torch.configs import RunConfig, SedarConfig, get_config
     from repro_torch.core.injection import InjectionSpec
     from repro_torch.core.policy import make_server
     from repro_torch.models import moe, transformer as tfm
+    from repro_torch.models.model import BLOCKWISE_FAMILIES
     from repro_torch.tree import flatten_with_path, leaves
 
     t_phase = time.time()
@@ -3077,8 +3319,11 @@ def phase_families(kfp, kfa):
                                     ).astype(np.float32)).to(dev)
         # decode positions count a vlm's patches, not an encoder's frames
         P = cfg.frontend_seq if cfg.family == "vlm" else 0
-        servers = {b: make_server(RunConfig(model=cfg), backend=b, device=dev)
-                   for b in ("none", "sequential", "abft")}
+        rc_h = RunConfig(model=cfg, sedar=SedarConfig(
+            param_validate_interval=FAMILY_INTERVAL))
+        servers = {b: make_server(rc_h if b == "hybrid" else
+                                  RunConfig(model=cfg), backend=b, device=dev)
+                   for b in FAMILY_BACKENDS}
         t0 = time.time()
         params = servers["none"].model.init(seed=0)
         torch.cuda.synchronize()
@@ -3103,8 +3348,13 @@ def phase_families(kfp, kfa):
                   f"{float(aux['moe_aux']):.4f}", flush=True)
             del aux
         servers["none"].generate(params, prompt, steps=2)      # warm-up
+        stacked = stacked_decode_bits(servers["none"].model, params, prompt,
+                                      S + P, arch)
+        check(stacked or cfg.family in BLOCKWISE_FAMILIES,
+              f"{arch}: the fused backend decodes the stacked rows together, "
+              f"and they lost a replica's bits")
         runs = {}
-        for b in ("none", "sequential", "abft"):
+        for b in FAMILY_BACKENDS:
             runs[b] = _family_run(kfp, kfa, servers[b], params, prompt,
                                   f"{b} clean")
         toks = runs["none"][0]
@@ -3126,13 +3376,31 @@ def phase_families(kfp, kfa):
         check(runs["sequential"][3] == {"commit_compare": FAMILY_STEPS - 1,
                                         "token_emit": FAMILY_STEPS},
               f"{arch}: sequential host reads {runs['sequential'][3]}")
-        k2_launches = 0
-        for b in ("none", "sequential", "abft"):    # in turns, again
+        check(runs["fused"][2]["fingerprint"] == 2 * (FAMILY_STEPS - 1)
+              and runs["fused"][3] == runs["sequential"][3],
+              f"{arch}: fused K1 {runs['fused'][2]} host reads "
+              f"{runs['fused'][3]}")
+        checks = runs["hybrid"][3].get("state_validate", 0)
+        check(checks > 0 and runs["hybrid"][3] == {
+                  "abft_verdict": FAMILY_STEPS - 1, "token_emit": FAMILY_STEPS,
+                  "state_validate": checks}
+              and runs["hybrid"][2]["fingerprint"]
+              == FAMILY_STEPS - 1 + checks,
+              f"{arch}: hybrid K1 {runs['hybrid'][2]} (one resident "
+              f"fingerprint per commit and per entry check), host reads "
+              f"{runs['hybrid'][3]}")
+        k2_launches, k2_shapes = 0, set()
+        for b in FAMILY_BACKENDS[::-1]:    # in turns, again
             _, rep, counts, _ = _family_run(kfp, kfa, servers[b], params,
                                             prompt, f"{b} clean (turn 2)")
             check(not rep.detections, f"{arch}: clean {b} detected")
             k1_total += counts["fingerprint"]
             k2_launches += counts["flash_attention"]
+            k2_shapes |= set(kfa.launch_count.shapes)
+        check(k2_shapes == ({k2_shape(cfg, B, S + P)} if attn_layers
+                            else set()),
+              f"{arch}: K2 launched at {sorted(k2_shapes, key=str)}, not "
+              f"only at the prefill shape it is held at below")
         family_decode_profile(servers["none"], params, prompt, S + P, arch)
         if cfg.family == "ssm":
             slstm_prefill_share(servers["none"], params, prompt,
@@ -3192,6 +3460,8 @@ def phase_families(kfp, kfa):
             check(not frep.stopped and np.array_equal(ftoks, toks),
                   f"{arch}: {b} fault run changed the tokens")
             del fsrv
+        family_faults(kfp, kfa, cfg, params, prompt, toks, S + P, step, col,
+                      final_ln, servers["none"], arch)
         del servers, params, runs
         _free()
         if attn_layers:         # the decoder's self-attention for audio
@@ -3201,6 +3471,312 @@ def phase_families(kfp, kfa):
         torch.cuda.empty_cache()
     print(f"families phase took {time.time() - t_phase:.1f} s", flush=True)
     return k1_total, entries
+
+
+# (arch, layers kept or None, prompt lengths): full width, seeded weights.
+# recurrentgemma's prompts straddle its 2,048 window: a 2,040-token prompt
+# wraps the ring during decode, 2,100 and 4,096 start wrapped at other
+# phases.
+FAMILY_SERVE_CASES = (("phi3.5-moe-42b-a6.6b", 8, (96, 200, 256)),
+                      ("xlstm-125m", None, (96, 200, 256)),
+                      ("recurrentgemma-2b", None, (2040, 2100, 4096)))
+
+
+def phase_family_serve(kfp, kfa) -> dict:
+    """Slice 9: continuous serve() of the moe (phi3.5-moe, 8 of 32 layers),
+    ssm (xlstm-125m) and hybrid (recurrentgemma-2b) families at full width,
+    8 requests in 4 slots (arrivals 0.5 per tick, budgets 16 or 32),
+    every run under sync-debug "error": none, sequential at lag 1 and 8,
+    fused, abft and hybrid, each completed stream equal to sequential's
+    at the same lag, lag 8 reading nothing per tick; a slot fault (slot
+    1's logits bit 14 at tick 5) at lag 1 and 8, sequential and fused,
+    recovered with the clean streams. phi3.5-moe admits through protected
+    packs of one prompt in these runs (`max_pack=1`: a MoE pack routes its
+    prompts together, so with others in its pack a stream would hang on
+    admission timing, which the lag and a rollback move), its decode drops
+    no token (one dispatch group of one token per slot, capacity 4), and
+    an admission fault at tick 0 is caught (sequential) or corrected
+    (abft) in the pack; then at the server's default `max_pack` (packs of
+    up to 4 prompts of one exact length, no pad) the traffic at lag 8 and
+    a burst of 8 prompts at tick 0 at lag 1 and 8 fill packs of two, 0
+    detections, fused equal to sequential at the same lag. ms/step, tokens/s,
+    K1/K2 launches and peak memory per family and backend; then K2 at each
+    shape these runs launched it (`k2_entries`). Returns ({arch: each
+    kernel's launches in these runs}, the K2 kernels-line entries)."""
+    import collections
+    import contextlib
+    import dataclasses
+
+    from repro_torch.configs import RunConfig, SedarConfig, get_config
+    from repro_torch.core import hostsync
+    from repro_torch.core.injection import InjectionSpec
+    from repro_torch.core.policy import make_server
+    from repro_torch.models import moe, transformer as tfm
+    from repro_torch.runtime.scheduler import Request, synthetic_requests
+
+    t_phase = time.time()
+    dev = torch.device("cuda")
+    totals, entries = {}, []
+
+    def since() -> str:
+        return f"[family serve phase +{time.time() - t_phase:.1f} s]"
+
+    @contextlib.contextmanager
+    def strict():
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            yield
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+    for arch, depth, lengths in FAMILY_SERVE_CASES:
+        cfg = dataclasses.replace(get_config(arch), attention_impl="pallas")
+        if depth:
+            cfg = dataclasses.replace(cfg, num_layers=depth)
+        max_len = max(lengths) + 32 + 8
+        totals[arch] = {"fingerprint": 0, "flash_attention": 0}
+        k2_shapes = collections.Counter()
+        is_moe = cfg.family == "moe"
+        kw = {"max_pack": 1} if is_moe else {}
+        rc = RunConfig(model=cfg)
+        rc_h = RunConfig(model=cfg, sedar=SedarConfig(
+            param_validate_interval=8))
+        servers = {b: make_server(rc_h if b == "hybrid" else rc, backend=b,
+                                  device=dev, **kw)
+                   for b in ("none", "sequential", "fused", "abft", "hybrid")}
+        params = servers["none"].model.init(seed=0)
+        attn = (sum(k == "attention" for k in cfg.block_pattern)
+                * (cfg.num_layers // len(cfg.block_pattern))
+                + sum(k == "attention" for k in tfm.pattern_tail(cfg))
+                if cfg.block_pattern else cfg.num_layers)
+        print(f"family serve: {cfg.name} [{cfg.family}] {cfg.num_layers}L "
+              f"d={cfg.d_model}, prompts {lengths}, 8 requests in "
+              f"{SERVE_SLOTS} slots, max_len {max_len}"
+              f"{', max_pack 1' if is_moe else ''}", flush=True)
+
+        def requests():
+            return synthetic_requests(8, arrival_rate=0.5,
+                                      prompt_lengths=lengths,
+                                      max_new_choices=(16, 32),
+                                      vocab=cfg.vocab_size, seed=0)
+
+        def burst():
+            # 8 prompts at tick 0, two lengths: exact-length packs of two
+            rng = np.random.RandomState(1)
+            return [Request(rid=i, prompt=rng.randint(
+                        0, cfg.vocab_size, n).astype(np.int32),
+                        max_new_tokens=(16, 32)[i % 2], arrival=0)
+                    for i, n in enumerate((96, 96, 256, 256) * 2)]
+
+        def serve(srv, lag, what, traffic=requests, **skw):
+            torch.cuda.synchronize()
+            kfp.launch_count.reset()
+            kfa.launch_count.reset()
+            torch.cuda.reset_peak_memory_stats()
+            with strict(), hostsync.count_transfers(cross_thread=True) as st:
+                out, rep = srv.serve(params, traffic(), slots=SERVE_SLOTS,
+                                     validate_lag=lag, max_len=max_len,
+                                     **skw)
+            torch.cuda.synchronize()
+            counts = {"fingerprint": kfp.launch_count.n,
+                      "flash_attention": kfa.launch_count.n}
+            k2_shapes.update(kfa.launch_count.shapes)
+            for k in counts:
+                totals[arch][k] += counts[k]
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            events = [(e.step, e.boundary, e.effect, e.detail.get("slots"))
+                      for e in rep.detections]
+            print(f"  {what} lag {lag}: {rep.steps} steps, "
+                  f"{rep.prefill_packs} packs, {rep.tokens_emitted} tokens, "
+                  f"{rep.wall_s / max(rep.steps, 1) * 1e3:.2f} ms/step "
+                  f"(wall / steps, admission included), "
+                  f"{rep.tokens_per_s:.1f} tokens/s, launches {counts}, host "
+                  f"reads {reads_str(st.by_label)}, events {events[:3]}, "
+                  f"retries {rep.retries}, rollbacks {rep.rollbacks}, "
+                  f"completed {len(rep.completed)}, peak {peak:.2f} GiB "
+                  f"{since()}", flush=True)
+            return out, rep, st.by_label, counts, events
+
+        def reads_str(reads):
+            return {k: v for k, v in sorted(reads.items())}
+
+        drops = []
+        if is_moe:
+            # every decode MoE call's drop fraction, kept on the device
+            mlp = moe.moe_mlp
+
+            def spy(cfg_, p, x, groups=1):
+                out = mlp(cfg_, p, x, groups)
+                if x.shape[1] == 1:
+                    drops.append(out[1]["moe_drop_frac"])
+                return out
+            moe.moe_mlp = spy
+        try:
+            ref, rep_ref, reads_ref, counts_ref, _ = serve(
+                servers["sequential"], 1, "sequential")
+        finally:
+            if is_moe:
+                moe.moe_mlp = mlp
+        clean = {1: {r.rid: list(r.tokens) for r in ref}}
+        check(sorted(rep_ref.completed) == list(range(8))
+              and not rep_ref.detections
+              and all(len(t) == r.max_new_tokens
+                      and all(0 <= x < cfg.vocab_size for x in t)
+                      for r, t in zip(ref, clean[1].values())),
+              f"{arch}: clean sequential serve: completed "
+              f"{rep_ref.completed}")
+        if is_moe:
+            worst = float(torch.stack(drops).max())
+            check(worst == 0.0, f"{arch}: a decode MoE call dropped "
+                  f"{worst} of its pairs")
+            print(f"  moe decode: {len(drops)} MoE calls (one dispatch group "
+                  f"of one token per slot, capacity "
+                  f"{moe.capacity(cfg, 1)}), largest drop fraction {worst}",
+                  flush=True)
+            check(rep_ref.prefill_packs == 8
+                  and counts_ref["flash_attention"]
+                  == 2 * cfg.num_layers * rep_ref.prefill_packs,
+                  f"{arch}: admission not through the protected packs: "
+                  f"{rep_ref.prefill_packs} packs, K2 {counts_ref}")
+        else:
+            check(rep_ref.prefill_packs == 0
+                  and counts_ref["flash_attention"] == 8 * attn
+                  and counts_ref["fingerprint"]
+                  == 2 * SERVE_SLOTS * rep_ref.steps,
+                  f"{arch}: admission not the exact B=1 prefill, or K1/K2 "
+                  f"{counts_ref} for {rep_ref.steps} steps")
+        for b, lag in (("sequential", SERVE_LAG), ("none", 1), ("fused", 1),
+                       ("fused", SERVE_LAG), ("abft", 1), ("hybrid", 1)):
+            out, rep, reads, counts, _ = serve(servers[b], lag, b)
+            streams = {r.rid: list(r.tokens) for r in out}
+            if lag not in clean:
+                clean[lag] = streams
+                print(f"  sequential lag {lag} streams equal lag 1's: "
+                      f"{streams == clean[1]}", flush=True)
+                check(streams == clean[1], f"{arch}: sequential lag {lag} "
+                      f"streams differ from lag 1's")
+            check(not rep.detections and sorted(rep.completed)
+                  == list(range(8)) and streams == clean[lag],
+                  f"{arch}: clean {b} lag {lag}: events "
+                  f"{[str(e) for e in rep.detections]} or streams differ "
+                  f"from sequential lag {lag}")
+            if lag > 1:
+                check(set(reads) == {"prefill_emit", "token_emit"}
+                      and reads["token_emit"]
+                      <= 3 * (rep.steps // SERVE_LAG + 2),
+                      f"{arch}: {b} lag {lag} reads per tick: {reads}")
+            if b == "hybrid":
+                check(reads.get("state_validate", 0) > 0,
+                      f"{arch}: hybrid serve ran no entry check")
+
+        slot_fault = dict(leaf_idx=1, flat_idx=7, bit=BF16_EXP_BIT,
+                          step=SERVE_FAULT_TICK, replica=1, target="slot")
+        for b in ("sequential", "fused"):
+            for lag in (1, SERVE_LAG):
+                srv = make_server(rc, backend=b, device=dev,
+                                  inj_spec=InjectionSpec(**slot_fault), **kw)
+                out, rep, _, _, events = serve(srv, lag, f"{b} slot fault")
+                want = (SERVE_FAULT_TICK, "commit" if lag == 1
+                        else "deferred", "TDC", [1])
+                check(events == [want] and len(rep.completed) == 8
+                      and (rep.rollbacks == 1 if lag > 1
+                           else rep.retries >= 1 and rep.rollbacks == 0)
+                      and all(list(r.tokens) == clean[lag][r.rid]
+                              for r in out),
+                      f"{arch}: {b} slot fault at lag {lag}: events "
+                      f"{events}, retries {rep.retries}, rollbacks "
+                      f"{rep.rollbacks}, or a stream differs")
+                del srv
+        if is_moe:
+            for b, spec, want in (
+                    ("sequential", dict(leaf_idx=0, flat_idx=7,
+                                        bit=BF16_EXP_BIT, step=0, replica=1,
+                                        target="prefill"),
+                     [(0, "prefill", "TDC", [0])]),
+                    ("abft", dict(leaf_idx=0, flat_idx=5, bit=30, step=0,
+                                  replica=0, target="prefill_kernel"),
+                     [(0, "prefill", "abft_corrected", [0])])):
+                srv = make_server(rc, backend=b, device=dev,
+                                  inj_spec=InjectionSpec(**spec), **kw)
+                out, rep, _, _, events = serve(srv, 1, f"{b} admission fault")
+                check(events == want and len(rep.completed) == 8
+                      and rep.prefill_retries == (b == "sequential")
+                      and all(list(r.tokens) == clean[1][r.rid] for r in out),
+                      f"{arch}: {b} admission fault: events {events}, "
+                      f"prefill retries {rep.prefill_retries}")
+                del srv
+            packed = {b: make_server(rc, backend=b, device=dev)
+                      for b in ("sequential", "fused")}
+            for traffic, lag in ((requests, SERVE_LAG), (burst, 1),
+                                 (burst, SERVE_LAG)):
+                (out, rep, _, _, _), (fout, frep, _, _, _) = (
+                    serve(packed[b], lag, f"{b} default max_pack "
+                          f"{traffic.__name__}", traffic)
+                    for b in ("sequential", "fused"))
+                check(not rep.detections and not frep.detections
+                      and len(rep.completed) == len(frep.completed) == 8
+                      and (traffic is requests or rep.prefill_packs < 8)
+                      and {r.rid: list(r.tokens) for r in out}
+                      == {r.rid: list(r.tokens) for r in fout},
+                      f"{arch}: default max_pack, {traffic.__name__} at lag "
+                      f"{lag}: {rep.prefill_packs} packs, events "
+                      f"{rep.detections} {frep.detections}, or fused's "
+                      f"streams differ from sequential's")
+            del packed
+        if cfg.window_size:
+            ring_rows_check(kfp, servers["hybrid"].model, max_len)
+        del servers, params
+        _free()
+        torch.cuda.empty_cache()
+        check(sum(k2_shapes.values()) == totals[arch]["flash_attention"],
+              f"{arch}: K2 shapes {k2_shapes} miss launches")
+        entries += k2_entries(kfa, cfg, k2_shapes, f"{arch}_serve")
+    print(f"family serve phase took {time.time() - t_phase:.1f} s",
+          flush=True)
+    return totals, entries
+
+
+def ring_rows_check(kfp, model, max_len: int) -> None:
+    """K1's ring rows (hybrid's resident baseline of a windowed family) on
+    a seeded serve state of the model's layout, slots at positions below,
+    at and past the window: one launch, h1/h2/absmax bitwise equal to the
+    plain leaf walk; device time beside the bound of the live words read
+    once."""
+    from repro_torch.core.fingerprint import slot_rows_fingerprint
+    from repro_torch.tree import leaves, tree_map
+
+    dev = torch.device("cuda")
+    cfg, W = model.cfg, model.cfg.window_size
+    gen = torch.Generator(device=dev).manual_seed(17)
+    cache = tree_map(lambda t: torch.randn(t.shape, generator=gen,
+                                           device=dev).to(t.dtype),
+                     model.init_cache(SERVE_SLOTS, max_len))
+    pos = torch.tensor([0, W - 1, W, 2 * W + 5], device=dev)
+    tok = torch.arange(SERVE_SLOTS, device=dev)[:, None]
+    kw = {"roles": model.cache_roles(), "axes": model.slot_axes(),
+          "window": W}
+    before = kfp.launch_count.n
+    got = slot_rows_fingerprint(cache, pos, tok, **kw)
+    check(kfp.launch_count.n == before + 1, "K1 ring rows: not one launch")
+    want = slot_rows_fingerprint(tree_map(lambda t: t.cpu(), cache),
+                                 pos.cpu(), tok.cpu(), **kw)
+    check(torch.equal(got[:2].cpu(), want[:2])
+          and got[3].item() == want[3].item(),
+          f"K1 ring rows differ from the plain version: {got} vs {want}")
+    ms = device_ms(lambda: slot_rows_fingerprint(cache, pos, tok, **kw), 50)
+    T = min(W, max_len)
+    live = sum(min(int(p), T) - (1 if int(p) >= T else 0)
+               for p in pos.tolist())
+    ring_bytes = sum(t.element_size() * t[0, 0, 0].numel() * t.shape[0]
+                     for t in leaves(cache) if t.dim() == 5) * live
+    state_bytes = sum(t.numel() * t.element_size() for t in leaves(cache)
+                      if t.dim() != 5)
+    b_ms, b_by = bound(ring_bytes + state_bytes + 8 * SERVE_SLOTS + 16, 0)
+    print(f"K1 ring rows on {cfg.name}'s serve state ({SERVE_SLOTS} slots, "
+          f"pos {pos.tolist()}, window {W}): h1/h2/absmax bitwise equal to "
+          f"the plain version, one launch, device {ms:.4f} ms, bound "
+          f"{b_ms:.5f} ms ({b_by}: live ring rows and the recurrent states "
+          f"read once)", flush=True)
 
 
 def phase_reference():
@@ -3281,6 +3857,8 @@ def main() -> None:
     del main_run, served
     _free()
     families_k1, wide_k2 = phase_families(kfp, kfa)
+    _free()
+    family_serve, serve_k2 = phase_family_serve(kfp, kfa)
     kfp.launch_count.reset()
     train_k1 = phase_train(kfp)
     check(train_k1 > 0, "K1 never launched by the trainer")
@@ -3288,15 +3866,21 @@ def main() -> None:
     # the main path's K1 launches, the training paths' and the replica
     # campaign's, each counted from 0 just before its run
     k1["launches"] = (counts["fingerprint"] + train_k1 + campaign_k1
-                      + families_k1)
+                      + families_k1
+                      + sum(c["fingerprint"] for c in family_serve.values()))
     k2["launches"] = counts["flash_attention"]
     print("K2 launches: " + ", ".join(
-        f"{e['name']} {e['launches']}" for e in (k2, *wide_k2)), flush=True)
-    kernels = [k1, k2, *wide_k2, k3, k4]
+        f"{e['name']} {e['launches']}" for e in (k2, *wide_k2, *serve_k2)),
+        flush=True)
+    kernels = [k1, k2, *wide_k2, *serve_k2, k3, k4]
     for k in kernels:
         check(k["launches"] > 0, f"kernel {k['name']} never launched")
     for k, n in serve_counts.items():
         check(n > 0, f"kernel {k} never launched by serve()")
+    for arch, c in family_serve.items():
+        check(c["fingerprint"] > 0 and (c["flash_attention"] > 0
+                                        or arch.startswith("xlstm")),
+              f"{arch} serve(): launches {c}")
     for k, n in telemetry_counts.items():
         check(n > 0, f"kernel {k} never launched with telemetry on")
     print(f"chip smoke took {time.time() - t_start:.1f} s", flush=True)

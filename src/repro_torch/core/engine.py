@@ -414,19 +414,22 @@ def _slot_mismatch_event(eq, step: int,
                                   **(extra or {})})
 
 
-def slot_select(mask, new, old, n_slots: int, axis: int = 0):
-    """Per-slot merge of two states: `where(mask)` along the slot axis for
-    tensors that carry it (shape[axis] == n_slots); other leaves (the host
-    decode tick) and leaves both states share adopt `new`. The KV cache,
-    written in place by the step, is one tensor in both states, so the
-    merge leaves it as it is: only `tok`, `pos` and `active` select."""
-    def sel(a, b):
+def slot_select(mask, new, old, n_slots: int):
+    """Per-slot merge of two decode states: `where(mask)` along each
+    tensor's row axis (`_row_axis`: the cache's leaves keep the model's
+    layout, every other entry has its rows first) where it holds n_slots
+    rows; other leaves (the host decode tick) and leaves both states share
+    adopt `new`. A KV cache, written in place by the step, is one tensor
+    in both states, so the merge leaves it as it is; recurrent states,
+    new tensors each step, select per slot like `tok`, `pos` and
+    `active`."""
+    def sel(a, axis, b):
         if (a is b or not isinstance(a, torch.Tensor) or a.dim() <= axis
                 or a.shape[axis] != n_slots):
             return a
         m = mask.reshape((1,) * axis + (n_slots,) + (1,) * (a.dim() - axis - 1))
         return torch.where(m, a, b)
-    return tree_util.tree_map(sel, new, old)
+    return _map_rows(sel, new, old)
 
 
 class SlottedSequentialExecutor(SequentialExecutor):

@@ -24,8 +24,9 @@ Two granularities, as in the reference:
     (a pack's per-prompt lanes): one K1 call per row or lane, reading the
     leaves in place; on CUDA tensors K1 or an error, never a fallback.
   * resident -- `slot_rows_fingerprint` -> (4,): one K1 call over every
-    slot's cache rows [0, pos[i]) and the tokens, the positions read by
-    the kernel from the device (K1's row-limit leaves).
+    slot's cache rows [0, pos[i]) (a ring's live rows but pos[i] % W),
+    the recurrent states whole, and the tokens, the positions read by the
+    kernel from the device (K1's row-limit leaves).
   * fused    -- `pytree_fingerprint_fused` -> (4,): all leaves hashed as
     ONE word buffer in one launch of kernel K1. On the card, f32, int32,
     uint32, bf16 and int64 leaves laid out as rows of one contiguous run
@@ -219,31 +220,44 @@ def slot_fingerprints(logits: torch.Tensor,
 
 def lane_fingerprints(logits: torch.Tensor, rows) -> torch.Tensor:
     """Per-prompt lanes of a packed prefill -> (K, 4): lane i is the fused
-    fingerprint of {cache: {name: rows[name][i]}, logits: logits[i]} (the
+    fingerprint of {cache: row i of every rows leaf, logits: logits[i]} (the
     reference's `_packed_fn` lanes), one K1 call per lane over the pack
     row's strided views."""
     return torch.stack([
         fingerprint_in_place(tree_util.leaves(
-            {"cache": {name: r[i] for name, r in rows.items()},
+            {"cache": tree_util.tree_map(lambda r: r[i], rows),
              "logits": logits[i]}))
         for i in range(logits.shape[0])])
 
 
-def slot_rows_fingerprint(cache: Dict[str, torch.Tensor], pos: torch.Tensor,
-                          tok: torch.Tensor) -> torch.Tensor:
+def slot_rows_fingerprint(cache, pos: torch.Tensor, tok: torch.Tensor,
+                          roles=None, axes=None,
+                          window: int = 0) -> torch.Tensor:
     """One K1 call -> (4,) over what continuous serving's decode state holds
-    at rest: each slot i's rows [0, pos[i]) of every cache leaf (L, N, T,
-    KV, hd) and the tokens. `pos` stays on the device: the kernel reads
-    each slot's limit there, and the rows at or past it (the failed step's
-    own in-place write, an idle slot's frozen row) count as zero words at
-    their fixed offsets. Leaf order: sorted cache names, slot by slot, then
-    the tokens."""
+    at rest: for each cache leaf of role "rows" (`Model.cache_roles`; the
+    default for every leaf) each slot i's rows [0, pos[i]), for a "ring"
+    of `window` rows each slot's live rows but pos[i] % window, a "whole"
+    leaf as it is, then the tokens. `axes` (`Model.slot_axes`; default 1)
+    gives each leaf's slot axis, its rows the axis after it. `pos` stays on
+    the device: the kernel reads each slot's limit there, and the rows it
+    leaves out (the failed step's own in-place write, an idle slot's
+    frozen row) count as zero words at their fixed offsets. Leaf order:
+    the cache's flatten order (sorted names), slot by slot, then the
+    tokens."""
     leaves, limits = [], []
-    for name in sorted(cache):
-        c = cache[name]
-        for i in range(c.shape[1]):
-            leaves.append(c[:, i])
-            limits.append((pos[i], 1))
+    flat = tree_util.leaves(cache)
+    roles = tree_util.leaves(roles) if roles is not None else ["rows"] * len(
+        flat)
+    axes = tree_util.leaves(axes) if axes is not None else [1] * len(flat)
+    for c, role, ax in zip(flat, roles, axes):
+        if role == "whole":
+            leaves.append(c)
+            limits.append(None)
+            continue
+        ring = (window,) if role == "ring" else ()
+        for i in range(c.shape[ax]):
+            leaves.append(c.select(ax, i))
+            limits.append((pos[i], ax, *ring))
     leaves.append(tok)
     limits.append(None)
     table = kfp.leaf_table(leaves, limits)

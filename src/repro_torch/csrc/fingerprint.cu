@@ -22,7 +22,11 @@
 // index (and never loaded), so the result equals that of the packed
 // buffer with those words zeroed. One slot's cache rows [0, pos[i]) are
 // hashed this way without a host read of pos and without device prefix
-// sums: every word keeps its offset. The table travels by value in the
+// sums: every word keeps its offset. A limit may also name a ring of W
+// rows (a local-attention cache holding position p at row p % W): the row
+// limit % W is then hashed as zero words too, so a ring's live rows but
+// the one the next step overwrites count. Limits without a ring hash as
+// they did before rings existed, bit for bit. The table travels by value in the
 // kernel's parameters (__grid_constant__, at most MAX_LEAVES rows and
 // MAX_LIMITS row limits, under the 4 KB parameter limit), so no
 // host-to-device copy precedes the launch.
@@ -77,7 +81,8 @@ struct Leaf {                   // 48 bytes
 struct Limit {                  // 16 bytes
   const void* ptr;              // the limit element on the device
   uint32_t per_row;             // elements per limited row
-  uint32_t is64;                // 1: int64 element, 0: int32
+  uint32_t mode;                // bit 0: int64 element (else int32);
+                                // bits 1..31: ring rows W (0: no ring)
 };
 
 struct Table {
@@ -129,24 +134,40 @@ struct Chunk {
   unsigned long long e;
   uint32_t leaf, i, cnt;
   uint32_t live;  // elements below the row limit (cnt without a limit)
+  uint32_t skip_lo, skip_hi;  // the ring's skipped elements [lo, hi)
   bool vec;       // one 16-byte load
 };
 
 // elements of a chunk at column `col` of its run that lie below the leaf's
-// row limit: the rest are hashed as zero words
-__device__ __forceinline__ uint32_t live_count(const Table& t, const Leaf& L,
-                                               uint32_t col, uint32_t cnt) {
+// row limit (`live`), and those of the ring row limit % W (`skip_lo` to
+// `skip_hi`, an empty range without a ring): both are hashed as zero words
+__device__ __forceinline__ void live_range(const Table& t, const Leaf& L,
+                                           uint32_t col, Chunk& c) {
+  c.live = c.cnt;
+  c.skip_lo = c.skip_hi = 0u;
   const uint32_t li = (L.kind_vec >> 8) & 0xFFu;
-  if (!li) return cnt;
+  if (!li) return;
   const Limit& m = t.lim[li - 1];
   const long long v =
-      m.is64 ? __ldg(static_cast<const long long*>(m.ptr))
-             : (long long)__ldg(static_cast<const int*>(m.ptr));
-  if (v <= 0) return 0u;
+      (m.mode & 1u) ? __ldg(static_cast<const long long*>(m.ptr))
+                    : (long long)__ldg(static_cast<const int*>(m.ptr));
+  if (v <= 0) {
+    c.live = 0u;
+    return;
+  }
   const unsigned long long end = (unsigned long long)v * m.per_row;
-  if (end <= col) return 0u;
-  const unsigned long long d = end - col;
-  return d >= cnt ? cnt : (uint32_t)d;
+  const unsigned long long d = end <= col ? 0ull : end - col;
+  c.live = d >= c.cnt ? c.cnt : (uint32_t)d;
+  const uint32_t ring = m.mode >> 1;
+  if (ring) {
+    const unsigned long long s0 =
+        (unsigned long long)(v % (long long)ring) * m.per_row;
+    const unsigned long long s1 = s0 + m.per_row;
+    const unsigned long long lo = s0 > col ? s0 - col : 0ull;
+    const unsigned long long hi = s1 > col ? s1 - col : 0ull;
+    c.skip_lo = lo >= c.cnt ? c.cnt : (uint32_t)lo;
+    c.skip_hi = hi >= c.cnt ? c.cnt : (uint32_t)hi;
+  }
 }
 
 __device__ __forceinline__ Chunk locate(const Table& t, int& li,
@@ -164,8 +185,9 @@ __device__ __forceinline__ Chunk locate(const Table& t, int& li,
   c.cnt = min(per, L.run - col);
   c.i = (uint32_t)(L.base + (unsigned long long)row * L.run + col);
   c.e = (unsigned long long)row * L.stride + col;
-  c.live = live_count(t, L, col, c.cnt);
-  c.vec = (L.kind_vec & 4u) && c.cnt == per && c.live == per;
+  live_range(t, L, col, c);
+  c.vec = (L.kind_vec & 4u) && c.cnt == per && c.live == per &&
+          c.skip_lo >= c.skip_hi;
   return c;
 }
 
@@ -204,7 +226,8 @@ __device__ __forceinline__ void mix_chunk(Acc& acc, const Leaf& L,
   for (uint32_t k = 0; k < c.cnt; ++k) {
     const unsigned long long e = c.e + k;
     uint32_t u;
-    if (k >= c.live) u = 0u;  // at or past the row limit
+    if (k >= c.live || (k >= c.skip_lo && k < c.skip_hi))
+      u = 0u;  // at or past the row limit, or the ring's skipped row
     else if (kind == 0) u = __ldg(static_cast<const uint32_t*>(L.ptr) + e);
     else if (kind == 1)
       u = (uint32_t)__ldg(static_cast<const unsigned short*>(L.ptr) + e) << 16;
@@ -233,6 +256,7 @@ fp_leaves(const __grid_constant__ Table t, Acc* __restrict__ partials,
       const unsigned long long g = g0 + b * stride;
       c[b].cnt = 0;
       c[b].live = 0;
+      c[b].skip_lo = c[b].skip_hi = 0;
       c[b].vec = false;
       w[b] = make_uint4(0u, 0u, 0u, 0u);
       if (g < t.nchunks) {
@@ -282,7 +306,8 @@ fp_leaves(const __grid_constant__ Table t, Acc* __restrict__ partials,
 // elements, first global word index, row limit index + 1 or 0); rows and
 // run >= 1, rows * run < 2^32 words per leaf, nleaves <= MAX_LEAVES.
 // limits: nlimits rows of 3 values (pointer to the int32/int64 limit
-// element, 1 if int64 else 0, elements per row), nlimits <= MAX_LIMITS.
+// element, (1 if int64 else 0) | ring rows W << 1, elements per row),
+// nlimits <= MAX_LIMITS.
 // partials: nblocks * 16 bytes and ticket: one unsigned int (0 on entry,
 // 0 again after the launch) of the caller's per-stream workspace; out: 4
 // words. Returns cudaGetLastError()
@@ -298,10 +323,11 @@ extern "C" int sedar_fingerprint_leaves(const long long* leaves, int nleaves,
   Table t{};
   for (int j = 0; j < nlimits; ++j) {
     const long long* r = limits + 3 * j;
-    if (r[0] == 0 || r[2] < 1 || r[2] >= (1ll << 32))
+    if (r[0] == 0 || r[1] < 0 || r[1] >= (1ll << 32) || r[2] < 1 ||
+        r[2] >= (1ll << 32))
       return (int)cudaErrorInvalidValue;
     t.lim[j].ptr = reinterpret_cast<const void*>(r[0]);
-    t.lim[j].is64 = r[1] ? 1u : 0u;
+    t.lim[j].mode = (uint32_t)r[1];
     t.lim[j].per_row = (uint32_t)r[2];
   }
   unsigned long long chunks = 0;

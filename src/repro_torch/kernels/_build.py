@@ -9,13 +9,14 @@ nvcc per missing library, all at once, and waits for all of them.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import hashlib
 import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Optional
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
@@ -29,17 +30,22 @@ _loaded: Dict[str, ctypes.CDLL] = {}
 
 class LaunchCount:
     """Launches of one kernel: each wrapper adds one where it launches its
-    kernel, and nowhere else (the plain CPU path does not count)."""
+    kernel, and nowhere else (the plain CPU path does not count). A
+    wrapper may name the launch's shape: `shapes` counts launches by it."""
 
     def __init__(self, name: str):
         self.name = name
         self.n = 0
+        self.shapes: collections.Counter = collections.Counter()
 
-    def add(self) -> None:
+    def add(self, shape: Optional[tuple] = None) -> None:
         self.n += 1
+        if shape is not None:
+            self.shapes[shape] += 1
 
     def reset(self) -> None:
         self.n = 0
+        self.shapes.clear()
 
 
 def nvcc() -> str:

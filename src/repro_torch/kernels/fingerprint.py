@@ -26,7 +26,9 @@ those of the packed buffer bit for bit without building it. A leaf may
 carry a row limit (`leaf_table(..., limits=)`): a device int element, read
 by the kernel, below which rows are hashed as they are and from which on
 every word of each run is hashed as zero at its fixed index, as if the
-packed buffer held zeros there.
+packed buffer held zeros there. A limit may name a ring of W rows (a
+local-attention cache): row `limit % W`, the one the next decode step
+overwrites, is then hashed as zero words too.
 
 Two wrappers, each with no fallback: a CPU tensor takes the plain version, a
 CUDA tensor launches the kernel (one launch per call) or raises.
@@ -64,7 +66,8 @@ class Leaf(NamedTuple):
     are `rows` runs of `run` contiguous elements, `stride` elements apart;
     its first word has global index `base`. With a row `limit` (a 0-d
     int32/int64 tensor on the leaf's device), the elements of each run at
-    or past `limit * per_row` count as zero words."""
+    or past `limit * per_row` count as zero words; with a `ring` of W rows
+    also those of row `limit % W`."""
 
     tensor: torch.Tensor
     kind: int
@@ -74,6 +77,7 @@ class Leaf(NamedTuple):
     base: int
     limit: Optional[torch.Tensor] = None
     per_row: int = 0
+    ring: int = 0
 
 
 def _mulmod32(a: torch.Tensor, c: int) -> torch.Tensor:
@@ -167,12 +171,13 @@ def leaf_table(leaves: Sequence[torch.Tensor],
     more, or there are more than MAX_LEAVES non-empty leaves or MAX_LIMITS
     distinct row limits.
 
-    `limits`, beside `leaves`, holds None or `(limit, axis)` per leaf:
-    `limit` a 0-d int32/int64 tensor on the leaf's device and `axis` the
-    leaf's row axis. Within each index of the dims before `axis`, the rows
-    at or past `limit` (their elements) are hashed as zero words; e.g. one
-    slot's cache (L, T, KV, hd) with limit pos[i] and axis 1 keeps rows
-    [0, pos[i)) of every layer."""
+    `limits`, beside `leaves`, holds None, `(limit, axis)` or `(limit,
+    axis, ring)` per leaf: `limit` a 0-d int32/int64 tensor on the leaf's
+    device and `axis` the leaf's row axis. Within each index of the dims
+    before `axis`, the rows at or past `limit` (their elements) are hashed
+    as zero words; e.g. one slot's cache (L, T, KV, hd) with limit pos[i]
+    and axis 1 keeps rows [0, pos[i)) of every layer. A `ring` W > 0 also
+    zeroes row `limit % W`: a ring cache's live rows but the next step's."""
     table, base, keys = [], 0, set()
     for j, t in enumerate(leaves):
         kind = KINDS.get(t.dtype)
@@ -184,15 +189,16 @@ def leaf_table(leaves: Sequence[torch.Tensor],
         if lim is None:
             lay, extra = _layout(t), ()
         else:
-            limit, axis = lim
-            if limit.dim() != 0 or limit.dtype not in (torch.int32,
-                                                       torch.int64):
+            limit, axis, ring = (*lim, 0)[:3]
+            if limit.dim() != 0 or limit.dtype not in (
+                    torch.int32, torch.int64) or not 0 <= ring < 2 ** 31:
                 return None
             per_row = 1
             for n in t.shape[axis + 1:]:
                 per_row *= n
-            lay, extra = _limited_layout(t, axis), (limit, per_row)
-            keys.add((limit.data_ptr(), limit.dtype, per_row))
+            lay, extra = (_limited_layout(t, axis),
+                          (limit, per_row, int(ring)))
+            keys.add((limit.data_ptr(), limit.dtype, per_row, int(ring)))
         if lay is None or t.numel() >= 2 ** 32:
             return None
         table.append(Leaf(t, kind, *lay, base, *extra))
@@ -216,13 +222,17 @@ def _leaf_words(leaf: Leaf) -> torch.Tensor:
 
 
 def _live_words(leaf: Leaf) -> torch.Tensor:
-    """The leaf's words with those at or past its row limit zeroed, the
-    limit compared on its own device (no host read)."""
+    """The leaf's words with those at or past its row limit (and a ring's
+    row limit % W) zeroed, the limit compared on its own device (no host
+    read)."""
     words = _leaf_words(leaf)
     if leaf.limit is None:
         return words
     col = torch.arange(leaf.run, device=words.device)
-    keep = col < leaf.limit.to(torch.int64) * leaf.per_row
+    lim = leaf.limit.to(torch.int64)
+    keep = col < lim * leaf.per_row
+    if leaf.ring:
+        keep = keep & (col // leaf.per_row != lim % leaf.ring)
     return torch.where(keep, words.view(leaf.rows, leaf.run), 0).reshape(-1)
 
 
@@ -289,17 +299,19 @@ def _empty_result(dev: torch.device) -> torch.Tensor:
 
 def _limit_rows(table: Sequence[Leaf]):
     """(the kernel's limit rows, each leaf's limit index + 1 or 0): one row
-    per distinct (element, dtype, row width)."""
-    index: Dict[Tuple[int, torch.dtype, int], int] = {}
+    per distinct (element, dtype, row width, ring)."""
+    index: Dict[Tuple[int, torch.dtype, int, int], int] = {}
     rows, refs = [], []
     for leaf in table:
         if leaf.limit is None:
             refs.append(0)
             continue
-        key = (leaf.limit.data_ptr(), leaf.limit.dtype, leaf.per_row)
+        key = (leaf.limit.data_ptr(), leaf.limit.dtype, leaf.per_row,
+               leaf.ring)
         if key not in index:
             index[key] = len(index) + 1
-            rows += [key[0], int(key[1] == torch.int64), key[2]]
+            rows += [key[0], int(key[1] == torch.int64) | key[3] << 1,
+                     key[2]]
         refs.append(index[key])
     return rows, refs
 

@@ -146,5 +146,6 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True,
                 v.data_ptr(), out.data_ptr(), strides, B, H, KV, Sq, Sk,
                 int(bool(causal)), int(window), 1.0 / math.sqrt(hd), stream)
     _build.check(rc, "flash_attention")
-    launch_count.add()
+    launch_count.add((B, H, KV, Sq, Sk, hd, int(bool(causal)), int(window),
+                      q.dtype))
     return out

@@ -1,7 +1,7 @@
 """Serving launcher (the reference's `launch/serve.py`): synchronous
 whole-batch decode or a continuous-batching traffic replay.
 
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b \
+    PYTHONPATH=src python -m repro_torch.launch.serve [--arch xlstm-125m] \
         --batch 4 --steps 16 [--dual | --backend fused|abft] [--device cpu]
 
     # continuous batching: an open-loop synthetic trace through the slot
@@ -14,7 +14,9 @@ whole-batch decode or a continuous-batching traffic replay.
 
 As in the reference, `--smoke` is a store_true flag that defaults to True,
 so the launcher always runs the reduced configuration; the full-width run is
-driven through the API (`chip_smoke.py`). It runs on the card unless
+driven through the API (`chip_smoke.py`). `--arch` defaults to the
+reference's xlstm-125m; `--continuous` serves the dense, moe, hybrid and
+ssm families (a frontend family raises, as in the reference). It runs on the card unless
 `--device cpu` is given. `--backend` picks the protection (none,
 sequential, fused, abft, hybrid). The synchronous run defaults to none,
 and `--dual` alone means sequential there; the continuous replay defaults
@@ -160,7 +162,7 @@ def main() -> None:
     from repro_torch.configs import list_archs
 
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="qwen2-0.5b", choices=list_archs())
+    ap.add_argument("--arch", default="xlstm-125m", choices=list_archs())
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--steps", type=int, default=16)

@@ -148,10 +148,12 @@ def encdec_prefill(cfg, params, frames, tokens, max_len: int,
     return logits[:, 0, :], cache
 
 
-def encdec_decode_step(cfg, params, cache, tokens, pos: int):
+def encdec_decode_step(cfg, params, cache, tokens, pos: int,
+                       row_blocks: int = 1):
     """One decoder step. tokens: (B,); pos: the token's 0-based decoder
     position, a host int shared by every row. The self-attention cache is
-    written in place and the same cache dict comes back."""
+    written in place and the same cache dict comes back. `row_blocks` > 1
+    (the fused backend's replicas): both attentions block by block."""
     x = nn.embed_tokens(cfg, params["embed"], tokens[:, None])
     sin, cos = nn.rope_tables(torch.arange(pos, pos + 1, device=x.device),
                               cfg.head_dim, cfg.rope_theta)
@@ -160,10 +162,11 @@ def encdec_decode_step(cfg, params, cache, tokens, pos: int):
     for i in range(cfg.num_layers):
         lp = tfm._slice(layers, i)
         x = tfm._attn_decode(cfg, lp["ln1"], lp["attn"], x, cache["k"][i],
-                             cache["v"][i], sin, cos, pos)
+                             cache["v"][i], sin, cos, pos, row_blocks)
         hx = nn.rms_norm(x, lp["lnx"], cfg.norm_eps)
         qx, _, _ = nn.qkv_project(cfg, lp["xattn"], hx)
-        ox = nn.decode_attention(qx, cache["xk"][i], cache["xv"][i], last)
+        ox = tfm._decode_attention(qx, cache["xk"][i], cache["xv"][i], last,
+                                   row_blocks)
         x = x + nn.out_project(cfg, lp["xattn"], ox)
         h2 = nn.rms_norm(x, lp["ln2"], cfg.norm_eps)
         x = x + nn.mlp(cfg, lp["mlp"], h2)

@@ -183,23 +183,34 @@ def causal_attention(q, k, v, window: int = 0, *, causal: bool = True):
 class RowPositions(NamedTuple):
     """Per-row decode positions as the masks a decode step uses, built once
     per step by `row_positions`: `hit` (B, T, 1, 1) marks each row's cache
-    slot pos[b], `visible` (B, 1, 1, 1, T) the slots <= pos[b]."""
+    slot (pos[b], or pos[b] % window in a ring), `visible` (B, 1, 1, 1, T)
+    the slots row b attends to."""
 
     hit: torch.Tensor
     visible: torch.Tensor
 
 
-def row_positions(pos: torch.Tensor, T: int) -> RowPositions:
+def row_positions(pos: torch.Tensor, T: int, window: int = 0) -> RowPositions:
+    """The masks of per-row positions `pos` (B,) over T cache slots. With
+    `window` the cache is a ring (`decode_attention`): row b writes slot
+    pos[b] % window and sees every slot once pos[b] + 1 >= T, else the
+    slots <= pos[b]. Built on the device: no index tensor, no host read."""
     t = torch.arange(T, device=pos.device)
-    return RowPositions(hit=(t[None] == pos[:, None])[:, :, None, None],
-                        visible=(t[None] <= pos[:, None])[:, None, None,
-                                                          None, :])
+    p = pos[:, None]
+    if window:
+        hit = t[None] == p % window
+        visible = (t[None] <= p) | (p + 1 >= T)
+    else:
+        hit = t[None] == p
+        visible = t[None] <= p
+    return RowPositions(hit=hit[:, :, None, None],
+                        visible=visible[:, None, None, None, :])
 
 
 def decode_attention(q, k_cache, v_cache, pos, window: int = 0):
     """Single-token decode. q: (B,1,H,hd); caches: (B,T,KV,hd); pos: the
     current 0-based position, a host int shared by every row or the
-    `RowPositions` of per-row positions (slots > pos are masked).
+    `RowPositions` of per-row positions (built with the same `window`).
 
     `window` > 0: the caches are a ring of T = min(window, max_len) slots,
     position p at slot p % window (`cache_update`, and the prefill writes
@@ -209,16 +220,14 @@ def decode_attention(q, k_cache, v_cache, pos, window: int = 0):
     T = k_cache.shape[1]
     scale = 1.0 / math.sqrt(q.shape[-1])
     logits = _gqa_scores(q, k_cache, scale)               # (B,KV,G,1,T)
-    if window:
-        if isinstance(pos, RowPositions):
-            raise NotImplementedError("ring-buffer window caches decode at "
-                                      "one shared position")
+    if isinstance(pos, RowPositions):
+        valid = pos.visible
+    elif window:
         valid = (torch.ones((T,), dtype=torch.bool, device=q.device)
                  if pos + 1 >= T else
                  torch.arange(T, device=q.device) <= pos)
     else:
-        valid = (pos.visible if isinstance(pos, RowPositions)
-                 else torch.arange(T, device=q.device) <= pos)
+        valid = torch.arange(T, device=q.device) <= pos
     logits = torch.where(valid, logits, torch.full_like(logits, -1e30))
     w = torch.softmax(logits, dim=-1)
     return _gqa_out(w, v_cache, q.dtype)
@@ -233,18 +242,16 @@ def cache_update(k_cache, v_cache, k_new, v_new, pos, window: int = 0):
     it and masks every later slot, so a retried step overwrites exactly
     what the failed attempt wrote.
 
-    `window` > 0 writes ring slot ``pos % window`` (a host int position).
-    The position it evicts, pos - window, is outside the window of pos and
-    of every later position, so a retried step is as safe as above."""
-    if window:
-        if isinstance(pos, RowPositions):
-            raise NotImplementedError("ring-buffer window caches decode at "
-                                      "one shared position")
-        pos = pos % window
+    `window` > 0 writes ring slot ``pos % window`` (the `RowPositions`
+    of a ring mark that slot already). The position it evicts, pos -
+    window, is outside the window of pos and of every later position, so a
+    retried step is as safe as above."""
     if isinstance(pos, RowPositions):
         torch.where(pos.hit, k_new.to(k_cache.dtype), k_cache, out=k_cache)
         torch.where(pos.hit, v_new.to(v_cache.dtype), v_cache, out=v_cache)
         return k_cache, v_cache
+    if window:
+        pos = pos % window
     k_cache[:, pos] = k_new[:, 0].to(k_cache.dtype)
     v_cache[:, pos] = v_new[:, 0].to(v_cache.dtype)
     return k_cache, v_cache

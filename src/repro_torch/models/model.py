@@ -4,15 +4,21 @@ ssm) or the encoder-decoder (audio).
 
     model.init(seed)                          -> params on model.device
     model.loss(params, batch)                 -> (loss, metrics)
-    model.prefill(params, batch, max_len)     -> (logits, cache)
+    model.prefill(params, batch, max_len[, row_blocks])
+                                    -> (logits, cache)
                                     (batch: tokens [, lengths]
                                      [, frontend_embeds (B, P, D)]; audio:
                                      tokens, frontend_embeds = the
-                                     encoder's frames)
+                                     encoder's frames; row_blocks: the rows
+                                     are that many independent batches,
+                                     the fused backend's replica copies)
     model.decode_step(params, cache, tokens, pos[, row_blocks])
                                     -> (logits, cache)
                                     (pos: a host int or a (B,) tensor)
     model.init_cache(batch, max_len)          -> an all-zero cache
+    model.slot_axes()                         -> each cache leaf's batch axis
+    model.cache_roles()                       -> each cache leaf's baseline
+                                                 role (rows, ring, whole)
 """
 from __future__ import annotations
 
@@ -20,9 +26,19 @@ from dataclasses import dataclass
 
 import torch
 
+from repro_torch import tree as tree_util
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import encdec as encdec_lib
 from repro_torch.models import transformer as tfm
+
+# Families whose fused backend decodes each replica's block of rows on its
+# own (`Model._in_blocks`), because on the card their stacked 2B-row decode
+# lost a replica's bits: xlstm-125m's logits at the first step, internvl2's
+# at the seventh, a phi3.5-moe `serve()` stream a token
+# (`chip_smoke.py::stacked_decode_bits` and its fused stream checks; PERF.md
+# §6). Every other family decodes the stacked rows together, the
+# attention per block (`transformer._decode_attention`).
+BLOCKWISE_FAMILIES = ("moe", "vlm", "ssm")
 
 
 def count_params_analytic(cfg: ModelConfig, active_only: bool = False) -> int:
@@ -103,18 +119,92 @@ class Model:
     def loss(self, params, batch):
         return tfm.lm_loss(self.cfg, params, batch)
 
-    def prefill(self, params, batch, max_len: int):
+    def prefill(self, params, batch, max_len: int, row_blocks: int = 1):
+        """`row_blocks` > 1: the rows are that many independent batches
+        (the fused backend's replica copies of a pack), prefilled together
+        except in a moe model, which prefills each block on its own, so
+        that each copy routes as its own dispatch group."""
+        if row_blocks != 1 and self.cfg.family == "moe":
+            n = batch["tokens"].shape[0] // row_blocks
+            outs = [self._prefill(params, {k: t[r * n:(r + 1) * n]
+                                           for k, t in batch.items()},
+                                  max_len) for r in range(row_blocks)]
+            return (torch.cat([lg for lg, _ in outs]), tree_util.tree_map(
+                lambda ax, *cs: torch.cat(cs, dim=ax), self.slot_axes(),
+                *[c for _, c in outs]))
+        return self._prefill(params, batch, max_len)
+
+    def _prefill(self, params, batch, max_len: int):
         return tfm.lm_prefill(self.cfg, params, batch["tokens"], max_len,
                               lengths=batch.get("lengths"),
                               frontend_embeds=batch.get("frontend_embeds"))
 
     def decode_step(self, params, cache, tokens, pos, row_blocks: int = 1):
+        """`row_blocks` > 1: the rows are that many independent batches
+        (the fused backend's replicas), decoded together with the
+        attention per block, or each block on its own (`_in_blocks`) in a
+        `BLOCKWISE_FAMILIES` model."""
+        if row_blocks != 1 and self.cfg.family in BLOCKWISE_FAMILIES:
+            return self._in_blocks(params, cache, tokens, pos, row_blocks)
+        return self._decode(params, cache, tokens, pos, row_blocks)
+
+    def _decode(self, params, cache, tokens, pos, row_blocks: int = 1):
         return tfm.lm_decode_step(self.cfg, params, cache, tokens, pos,
                                   row_blocks)
+
+    def _in_blocks(self, params, cache, tokens, pos, row_blocks: int):
+        """One decode per block of rows, each on views of its cache rows:
+        a block runs exactly the products a decode of its rows alone runs.
+        KV caches written in place through the views stay the stacked
+        tensors; new states are concatenated."""
+        n, axes = tokens.shape[0] // row_blocks, self.slot_axes()
+        views = [tree_util.tree_map(lambda c, ax: c.narrow(ax, r * n, n),
+                                    cache, axes) for r in range(row_blocks)]
+        outs = [self._decode(params, views[r], tokens[r * n:(r + 1) * n],
+                             pos[r * n:(r + 1) * n]
+                             if isinstance(pos, torch.Tensor) else pos)
+                for r in range(row_blocks)]
+
+        def join(c, ax, *vo):
+            ins, news = vo[:row_blocks], vo[row_blocks:]
+            if all(o is v for v, o in zip(ins, news)):
+                return c
+            return torch.cat(news, dim=ax)
+        return (torch.cat([lg for lg, _ in outs]),
+                tree_util.tree_map(join, cache, axes, *views,
+                                   *[c for _, c in outs]))
 
     def init_cache(self, batch: int, max_len: int):
         """An all-zero decode cache (`transformer.init_cache`)."""
         return tfm.init_cache(self.cfg, batch, max_len, device=self.device)
+
+    def cache_roles(self):
+        """The cache tree with each leaf's role in a resident baseline of
+        the state a decode step consumes (the hybrid backend's): "rows" for
+        a KV cache of absolute positions (its rows [0, pos) are live),
+        "ring" for a local-attention ring of min(window, max_len) rows
+        (every live row but pos % window, which the step overwrites) and
+        "whole" for a leaf a step replaces or never writes (recurrent
+        states, the cross-attention cache)."""
+        if not hasattr(self, "_cache_roles"):
+            ring = ("ring" if self.cfg.block_pattern and self.cfg.window_size
+                    else "rows")
+            cache = self.init_cache(1, 1)
+            self._cache_roles = tree_util.unflatten_like(cache, [
+                ring if p.endswith(("['k']", "['v']")) else "whole"
+                for p, _ in tree_util.flatten_with_path(cache)])
+        return self._cache_roles
+
+    def slot_axes(self):
+        """The cache tree with each leaf's batch (slot) axis, read off
+        `init_cache`'s layout: the one axis where a 1-row and a 2-row
+        cache differ (state surgery slices each leaf there)."""
+        if not hasattr(self, "_slot_axes"):
+            self._slot_axes = tree_util.tree_map(
+                lambda a, b: next(i for i, (m, n) in enumerate(
+                    zip(a.shape, b.shape)) if m != n),
+                self.init_cache(1, 1), self.init_cache(2, 1))
+        return self._slot_axes
 
 
 class EncDecModel(Model):
@@ -129,7 +219,7 @@ class EncDecModel(Model):
     def loss(self, params, batch):
         return encdec_lib.encdec_loss(self.cfg, params, batch)
 
-    def prefill(self, params, batch, max_len: int):
+    def _prefill(self, params, batch, max_len: int):
         if batch.get("lengths") is not None:
             raise NotImplementedError("the encoder-decoder prefills exact "
                                       "prompts only")
@@ -137,12 +227,12 @@ class EncDecModel(Model):
                                          batch["frontend_embeds"],
                                          batch["tokens"], max_len)
 
-    def decode_step(self, params, cache, tokens, pos, row_blocks: int = 1):
-        if row_blocks != 1 or isinstance(pos, torch.Tensor):
-            raise NotImplementedError("the encoder-decoder decodes one batch "
-                                      "at one shared position")
+    def _decode(self, params, cache, tokens, pos, row_blocks: int = 1):
+        if isinstance(pos, torch.Tensor):
+            raise NotImplementedError("the encoder-decoder decodes at one "
+                                      "shared position")
         return encdec_lib.encdec_decode_step(self.cfg, params, cache, tokens,
-                                             pos)
+                                             pos, row_blocks)
 
     def init_cache(self, batch: int, max_len: int):
         return encdec_lib.init_encdec_cache(self.cfg, batch, max_len,

@@ -1,6 +1,17 @@
 """Mixture-of-Experts layer: top-k routing with capacity-based dispatch, the
-mesh-free `moe_mlp` of the reference's `models/moe.py` (one dispatch
-group; the expert-parallel form waits for the mesh backends).
+mesh-free `moe_mlp` of the reference's `models/moe.py` (the expert-parallel
+form waits for the mesh backends).
+
+Dispatch groups: the reference routes every call's tokens as ONE group,
+and where it serves several independent decodes at once it vmaps them (the
+fused backend's two replicas, `serve()`'s B=1 slot decodes), so each of
+those routes on its own. The port stacks such decodes as the rows of one
+batch, so `moe_mlp(groups=G)` splits the rows into G equal groups, each
+with its own cumsum positions and its own capacity from its own tokens: a
+group routes exactly as the reference's vmapped call does, whatever the
+other groups hold. (The fused backend's replicas run as separate row
+blocks, `Model.decode_step` and `Model.prefill`; stacked, a host-int
+position routes each replica's rows as one group, `lm_decode_step`.)
 
 Routing exactly as the reference: an f32 softmax over the router logits,
 `top_k` and renormalisation; each (token, choice) pair takes the next
@@ -50,11 +61,20 @@ def capacity(cfg, T: int) -> int:
     return max(int(math.ceil(k * T / E * CAPACITY_FACTOR)), 4)
 
 
-def moe_mlp(cfg, p, x):
-    """x: (B, S, D) -> ((B, S, D), {"moe_aux", "moe_drop_frac"})."""
+def moe_mlp(cfg, p, x, groups: int = 1):
+    """x: (B, S, D) -> ((B, S, D), {"moe_aux", "moe_drop_frac"}). The B rows
+    form `groups` dispatch groups G of B / G rows each, routed
+    independently: the kept pairs of group g at their unique slot
+    e * G * Cg + g * Cg + pos, so the experts see (E, G * Cg, D), each
+    group's positions a run of Cg rows. The aux loss and drop fraction are
+    means over the groups."""
     B, S, D = x.shape
+    G = groups
+    if G < 1 or B % G:
+        raise ValueError(f"{B} rows do not split into {G} dispatch groups")
     E, k = cfg.num_experts, cfg.experts_per_token
     T = B * S
+    Tg = T // G
     dt = x.dtype
     xt = x.reshape(T, D)
 
@@ -64,26 +84,29 @@ def moe_mlp(cfg, p, x):
     gate_w, gate_idx = torch.topk(probs, k, dim=-1)             # (T, k)
     gate_w = gate_w / torch.sum(gate_w, dim=-1, keepdim=True)
 
-    # load-balance aux loss (Switch-style)
-    me = torch.mean(probs, dim=0)
-    ce = torch.mean(torch.sum(F.one_hot(gate_idx, E).float(), dim=1), dim=0)
-    aux_loss = E * torch.sum(me * ce)
+    # load-balance aux loss (Switch-style), per group
+    me = torch.mean(probs.reshape(G, Tg, E), dim=1)
+    ce = torch.mean(torch.sum(F.one_hot(gate_idx, E).float(), dim=1)
+                    .reshape(G, Tg, E), dim=1)
+    aux_loss = torch.mean(E * torch.sum(me * ce, dim=-1))
 
     # ---- dispatch --------------------------------------------------------
-    Cg = capacity(cfg, T)
-    flat_e = gate_idx.reshape(T * k)                            # t * k + j
+    Cg = capacity(cfg, Tg)
+    flat_e = gate_idx.reshape(G, Tg * k)                        # t * k + j
     onehot = F.one_hot(flat_e, E)
-    pos_in_e = torch.cumsum(onehot, dim=0) - onehot
-    pos = torch.gather(pos_in_e, 1, flat_e[:, None])[:, 0]
+    pos_in_e = torch.cumsum(onehot, dim=1) - onehot
+    pos = torch.gather(pos_in_e, 2, flat_e[..., None])[..., 0].reshape(T * k)
+    flat_e = flat_e.reshape(T * k)
     keep = pos < Cg
     src = torch.repeat_interleave(xt, k, dim=0) if k > 1 else xt
-    # kept pairs at their unique slot e * Cg + pos, dropped pairs into the
-    # spare row E * Cg, which is cut off
-    slot = torch.where(keep, flat_e * Cg + pos,
-                       torch.full_like(pos, E * Cg))
-    buf = torch.zeros((E * Cg + 1, D), dtype=dt, device=x.device)
+    group = torch.arange(G, device=x.device).repeat_interleave(Tg * k)
+    # kept pairs at their unique slot, dropped pairs into the spare row
+    # E * G * Cg, which is cut off
+    slot = torch.where(keep, (flat_e * G + group) * Cg + pos,
+                       torch.full_like(pos, E * G * Cg))
+    buf = torch.zeros((E * G * Cg + 1, D), dtype=dt, device=x.device)
     buf.index_put_((slot,), src.to(dt))
-    buf = buf[:E * Cg].reshape(E, Cg, D)
+    buf = buf[:E * G * Cg].reshape(E, G * Cg, D)
 
     # ---- expert compute --------------------------------------------------
     h_g = torch.einsum("ecd,edf->ecf", buf, p["w_gate"].to(dt))
@@ -92,7 +115,7 @@ def moe_mlp(cfg, p, x):
     out_buf = torch.einsum("ecf,efd->ecd", h, p["w_down"].to(dt))
 
     # ---- combine ---------------------------------------------------------
-    gathered = out_buf.reshape(E * Cg, D).index_select(
+    gathered = out_buf.reshape(E * G * Cg, D).index_select(
         0, torch.where(keep, slot, torch.zeros_like(slot)))
     gathered = torch.where(keep[:, None], gathered.float(),
                            torch.zeros((), device=x.device))

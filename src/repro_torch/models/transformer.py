@@ -159,11 +159,12 @@ def _attn_full(cfg, ln, ap, x, sin, cos, window: int = 0):
     return x + nn.out_project(cfg, ap, o), k, v
 
 
-def _mlp_sub(cfg, lp, x):
-    """Pre-norm MLP (or MoE) sub-block -> (x + mlp, moe aux or None)."""
+def _mlp_sub(cfg, lp, x, groups: int = 1):
+    """Pre-norm MLP (or MoE) sub-block -> (x + mlp, moe aux or None). A MoE
+    layer routes the rows as `groups` dispatch groups (`moe.moe_mlp`)."""
     h = nn.rms_norm(x, lp["ln2"], cfg.norm_eps)
     if _is_moe(cfg) and "router" in lp["mlp"]:
-        o, aux = moe_lib.moe_mlp(cfg, lp["mlp"], h)
+        o, aux = moe_lib.moe_mlp(cfg, lp["mlp"], h, groups)
         return x + o, aux
     return x + nn.mlp(cfg, lp["mlp"], h), None
 
@@ -251,16 +252,18 @@ def _ring(k, W: int, max_len: int, cache_dtype):
     return c
 
 
-def _group_decode(cfg, gp, gc, x, sin, cos, pos, pattern):
+def _group_decode(cfg, gp, gc, x, sin, cos, pos, pattern,
+                  row_blocks: int = 1):
     """One (sliced) pattern group, single token. Attention caches are
-    written in place; recurrent states come back as new tensors."""
+    written in place (the attention per block of rows); recurrent states
+    come back as new tensors (their rows are independent)."""
     new = {}
     for i, kind in enumerate(pattern):
         name = f"b{i}_{kind}"
         lp, c = gp[name], gc[name]
         if kind == "attention":
             x = _attn_decode(cfg, lp["ln"], lp["core"], x, c["k"], c["v"],
-                             sin, cos, pos, window=cfg.window_size)
+                             sin, cos, pos, row_blocks, cfg.window_size)
         else:
             h = nn.rms_norm(x, lp["ln"], cfg.norm_eps)
             o, new[name] = _state_block(cfg, kind, lp["core"], h, state=c)
@@ -424,27 +427,45 @@ def _decode_attention(q, kc, vc, pos, row_blocks: int, window: int = 0):
     return torch.cat(outs)
 
 
+def _ring_slots(cfg, cache) -> Optional[int]:
+    """T of the pattern families' attention caches (a ring of min(window,
+    max_len) slots, or max_len rows without a window), None without
+    attention blocks."""
+    for part in ("groups", "tail"):
+        for name, c in cache.get(part, {}).items():
+            if name.endswith("_attention"):
+                return c["k"].shape[2]
+    return None
+
+
 def lm_decode_step(cfg, params, cache, tokens, pos, row_blocks: int = 1):
     """One serve step. tokens: (B,); pos: 0-based absolute position of this
     token, a host int shared by every row or a (B,) device tensor of
-    per-row positions (continuous serving's slots; no host read; layer
-    stacks only). Returns (logits (B,V), cache). KV caches are updated in
-    place (see layers.cache_update); the pattern families' recurrent
-    states come back as new tensors in a new cache dict, so the cache that
-    was passed in still holds the states the step started from.
-    `row_blocks` > 1 computes the attention block by block
-    (`_decode_attention`)."""
+    per-row positions (continuous serving's slots; no host read). Returns
+    (logits (B,V), cache). KV caches, dense or ring, are updated in place
+    (see layers.cache_update); the pattern families' recurrent states come
+    back as new tensors in a new cache dict, so the cache that was passed
+    in still holds the states the step started from. `row_blocks` > 1
+    (the fused backend's replicas) computes the attention block by block
+    (`_decode_attention`).
+
+    A MoE layer routes as the reference's vmapped decodes do: per-row
+    positions are `serve()`'s slots, each its own dispatch group (one
+    token, capacity 4); a host-int position routes each block of rows as
+    one group."""
     x = nn.embed_tokens(cfg, params["embed"], tokens[:, None])
+    groups = row_blocks
     if isinstance(pos, torch.Tensor):
+        groups = tokens.shape[0]
         sin, cos = nn.rope_tables(pos[:, None], cfg.head_dim, cfg.rope_theta)
-        pos = nn.row_positions(pos, cache["k"].shape[2])
+        T = (_ring_slots(cfg, cache) if cfg.block_pattern
+             else cache["k"].shape[2])
+        pos = (nn.row_positions(pos, T, cfg.window_size if cfg.block_pattern
+                                else 0) if T else None)
     else:
         sin, cos = nn.rope_tables(torch.arange(pos, pos + 1, device=x.device),
                                   cfg.head_dim, cfg.rope_theta)
     if cfg.block_pattern:
-        if row_blocks != 1 or isinstance(pos, nn.RowPositions):
-            raise NotImplementedError("pattern families decode one batch at "
-                                      "one shared position")
         new_cache = {}
         for part, pat, stack, depth in _stages(cfg, params):
             stacked = cache[part]
@@ -452,7 +473,7 @@ def lm_decode_step(cfg, params, cache, tokens, pos, row_blocks: int = 1):
             for g in range(depth):
                 x, new = _group_decode(cfg, _slice(stack, g),
                                        _slice(stacked, g), x, sin, cos, pos,
-                                       pat)
+                                       pat, row_blocks)
                 news.append(new)
             new_cache[part] = {
                 name: (_stack([n[name] for n in news])
@@ -464,7 +485,7 @@ def lm_decode_step(cfg, params, cache, tokens, pos, row_blocks: int = 1):
             lp = layer_params(params, i)
             x = _attn_decode(cfg, lp["ln1"], lp["attn"], x, cache["k"][i],
                              cache["v"][i], sin, cos, pos, row_blocks)
-            x, _ = _mlp_sub(cfg, lp, x)
+            x, _ = _mlp_sub(cfg, lp, x, groups)
     x = nn.rms_norm(x, params["final_ln"], cfg.norm_eps)
     logits = nn.logits_from_hidden(cfg, params["embed"], x)[:, 0, :]
     return logits, cache

@@ -24,6 +24,14 @@ through top-k): causal attention keeps pad columns out of every real
 position, the last hidden state is gathered at
 each row's true end (`lm_prefill(lengths=...)`), and decode overwrites
 cache slot `pos` before attending it.
+
+Packing is kept apart from padding. A moe prompt may be PACKED but not
+padded: its packs hold prompts of one exact length (`group_packs(exact=
+True)`) and no dummy rows, so every token a pack routes is a real one, the
+pack's tokens one dispatch group per replica copy, and the prompt is
+prefilled at its own length. Where the reference's pack has no pad (every
+prompt at a ladder length, a pack of 1, 2 or 4 prompts) the two route the
+same tokens together.
 """
 from __future__ import annotations
 
@@ -33,6 +41,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch import tree as tree_util
 from repro_torch.abft.executor import pack_checksum_guard
 from repro_torch.core.fingerprint import lane_fingerprints
 from repro_torch.core.injection import (InjectionSpec, inject_row,
@@ -80,12 +89,13 @@ def pack_for(n: int, max_pack: int) -> int:
 
 
 def group_packs(items: Sequence[Any], lengths: Sequence[int],
-                buckets: Sequence[int], max_pack: int
+                buckets: Sequence[int], max_pack: int, exact: bool = False
                 ) -> Tuple[List[Tuple[int, List[Any]]], List[Any]]:
-    """Group `items` by length bucket and chunk each group to at most
-    `max_pack`. Returns (packs, overflow): packs is [(bucket, [items...])]
-    in first-come order within a bucket; overflow holds items longer than
-    the largest bucket (exact-shape path)."""
+    """Group `items` by length bucket (`exact`: by length itself, for
+    prompts that must not be padded) and chunk each group to at most
+    `max_pack`. Returns (packs, overflow): packs is [(bucket or length,
+    [items...])] in first-come order within a group; overflow holds items
+    longer than the largest bucket (exact-shape path)."""
     by_bucket: Dict[int, List[Any]] = {}
     overflow: List[Any] = []
     for it, ln in zip(items, lengths):
@@ -93,7 +103,7 @@ def group_packs(items: Sequence[Any], lengths: Sequence[int],
         if b is None:
             overflow.append(it)
         else:
-            by_bucket.setdefault(b, []).append(it)
+            by_bucket.setdefault(int(ln) if exact else b, []).append(it)
     packs: List[Tuple[int, List[Any]]] = []
     cap = max(int(max_pack), 1)
     for b in sorted(by_bucket):
@@ -109,9 +119,10 @@ class BucketedPrefill:
 
     `protected_pack` returns device tensors:
       tok     (K, 1) int64  — each row's first (argmax) token
-      rows    {k, v}        — cache rows in INSERT layout (K, L, 1, T, KV,
-                              hd): a view of the model-layout cache, so row
-                              i is a slot slice (L, 1, T, KV, hd)
+      rows    the cache tree — each leaf in INSERT layout, the pack row out
+                              front ((K, L, 1, T, KV, hd) for a layer
+                              stack's k/v): a view of the model-layout
+                              cache, so row i is a slot slice
       lengths (K,)          — each row's prompt length (its first decode
                               position)
       verdict (K,)          — `VERDICT_*` per row
@@ -148,6 +159,14 @@ class BucketedPrefill:
         return (not cfg.block_pattern and not cfg.window_size
                 and not cfg.frontend and cfg.family not in ("audio", "moe"))
 
+    @property
+    def may_pack(self) -> bool:
+        """Whether continuous serving admits through `protected_pack`: the
+        padded families, and moe in exact-length packs (the reference
+        packs moe too, padded)."""
+        return self.supported or (self.model.cfg.family == "moe"
+                                  and not self.model.cfg.frontend)
+
     def usable_buckets(self, max_len: int) -> Tuple[int, ...]:
         """Buckets the cache can hold (prefill writes `bucket` positions
         into a max_len-deep cache)."""
@@ -177,13 +196,17 @@ class BucketedPrefill:
         """One packed prefill: first tokens, insert-layout rows, per-row
         lanes (replica backends) and the guard's verdict (abft/hybrid).
         `replica_id=None` runs both replicas' copies of the pack as one
-        prefill of 2K rows (the fused backend)."""
+        prefill of 2K rows (the fused backend), each copy its own MoE
+        dispatch group. `lengths=None`: an exact pack, unpadded."""
         spec = self.inj_spec
+        batch = {"tokens": toks}
+        if lengths is not None:
+            batch["lengths"] = lengths
         if replica_id is None:
-            toks, lengths = torch.cat([toks, toks]), torch.cat([lengths,
-                                                                lengths])
+            batch = {k: torch.cat([t, t]) for k, t in batch.items()}
         logits, cache = self.model.prefill(
-            params, {"tokens": toks, "lengths": lengths}, max_len)
+            params, batch, max_len, row_blocks=1 if replica_id is not None
+            else 2)
         if replica_id is None:
             logits = inject_row_halves(logits, spec, target="prefill",
                                        tick=tick, armed=armed)
@@ -194,10 +217,11 @@ class BucketedPrefill:
         if self.guarded:
             logits, verdict, _report = pack_checksum_guard(logits, spec,
                                                            tick, armed)
-        # model-layout leaves are (L, K, T, KV, hd): pack row out front and
-        # the B=1 axis restored, as views
-        rows = {name: c.transpose(0, 1).unsqueeze(2)
-                for name, c in cache.items()}
+        # each leaf's pack rows out front and its batch axis restored at
+        # size 1, as views: row i is a slot slice
+        rows = tree_util.tree_map(
+            lambda c, ax: c.movedim(ax, 0).unsqueeze(ax + 1), cache,
+            self.model.slot_axes())
         return {"tok": torch.argmax(logits, dim=-1)[:, None], "rows": rows,
                 "lanes": lane_fingerprints(logits, rows) if self.dual
                 else None, "verdict": verdict}
@@ -210,13 +234,22 @@ class BucketedPrefill:
         runs the same pack twice (replica 0 and 1), the fused backend once
         over both replicas' copies, and the lanes are compared per row; DMR
         cannot say WHICH replica corrupted a row, so the verdict only says
-        "do not admit". abft/hybrid take the checksum guard's verdict."""
+        "do not admit". abft/hybrid take the checksum guard's verdict.
+
+        A family that may not pad (moe) takes prompts of one length, with
+        no dummy rows: K = n rows of that length, prefilled exactly."""
         n = len(prompts)
         bucket = bucket_for(max(len(p) for p in prompts),
                             self.usable_buckets(max_len))
         if bucket is None:
             raise ValueError("prompt overflows the bucket ladder")
-        k = pack_for(n, self.max_pack)
+        pad = self.supported
+        if not pad:
+            bucket = len(prompts[0])
+            if any(len(p) != bucket for p in prompts):
+                raise ValueError("an unpadded pack takes prompts of one "
+                                 "length")
+        k = pack_for(n, self.max_pack) if pad else n
         toks = np.zeros((k, bucket), np.int64)
         lens = np.ones((k,), np.int64)
         for i, p in enumerate(prompts):
@@ -224,18 +257,19 @@ class BucketedPrefill:
             lens[i] = len(p)
         dev = self.model.device
         toks_d, lens_d = upload(toks, dev), upload(lens, dev)
+        lengths = lens_d if pad else None
         armed = self._armed()
         if self.fused:
-            both = self._packed(params, toks_d, lens_d, max_len, None, armed,
+            both = self._packed(params, toks_d, lengths, max_len, None, armed,
                                 tick)
             r0 = {"tok": both["tok"][:k],
-                  "rows": {name: r[:k] for name, r in both["rows"].items()}}
+                  "rows": tree_util.tree_map(lambda r: r[:k], both["rows"])}
             verdict = _lane_verdict(both["lanes"][:k], both["lanes"][k:])
         else:
-            r0 = self._packed(params, toks_d, lens_d, max_len, 0, armed,
+            r0 = self._packed(params, toks_d, lengths, max_len, 0, armed,
                               tick)
             if self.dual:
-                r1 = self._packed(params, toks_d, lens_d, max_len, 1, armed,
+                r1 = self._packed(params, toks_d, lengths, max_len, 1, armed,
                                   tick)
                 verdict = _lane_verdict(r0["lanes"], r1["lanes"])
             elif self.guarded:

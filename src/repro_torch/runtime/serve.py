@@ -78,15 +78,28 @@ The mesh backends ("pod", "vote"), live autotuning and the telemetry calls
 are not ported.
 
 Model families: `generate()` serves all six families the port builds
-(dense, moe, hybrid, vlm, ssm, audio) under none, sequential and abft. A
-vlm prompt passes its frontend's `frontend_embeds` (B, P, D) and decode
-starts at position S + P; an audio prompt passes the encoder's frames as
+(dense, moe, hybrid, vlm, ssm, audio) under every backend. A vlm prompt
+passes its frontend's `frontend_embeds` (B, P, D) and decode starts at
+position S + P; an audio prompt passes the encoder's frames as
 `frontend_embeds` and decode starts at S (the frames are not decoder
-positions). `fused` and `hybrid`, and `serve()`, take the dense family
-only for now: fused's row-block stacking doubles the tokens a MoE layer
-routes (its capacity and cumsum positions then differ from a replica
-alone), and hybrid's resident baseline and serve()'s slot surgery assume
-a dense KV cache.
+positions). `serve()` takes the token-prompt families (dense, moe, hybrid,
+ssm), as the reference does. What the non-dense state needs:
+
+  * the fused backend decodes both replicas' rows together, the
+    attention per replica half, except in the families whose stacked
+    decode lost a replica's bits on the card (moe, vlm, ssm:
+    `models/model.py::BLOCKWISE_FAMILIES`), which decode each half on its
+    own; a fused MoE pack prefills each copy on its own, and a MoE layer
+    routes each replica, and each `serve()` slot, as its own dispatch
+    group (the reference's vmaps, `models/moe.py`);
+  * the state is a tree: dense or ring KV caches written in place,
+    recurrent states replaced each step, a cross cache written once.
+    Slot surgery finds each leaf's slot axis in `Model.slot_axes`, and
+    hybrid's resident baseline takes each leaf by its `Model.cache_roles`
+    role (`_fp_tree`, `slot_rows_fingerprint`);
+  * admission: a moe prompt is packed, never padded (exact-length packs,
+    `BucketedPrefill.may_pack`); hybrid and ssm prompts take the exact
+    B=1 prefill (`_admit_slot`), as in the reference.
 """
 from __future__ import annotations
 
@@ -98,6 +111,7 @@ import numpy as np
 import torch
 
 from repro_torch import obs
+from repro_torch import tree as tree_util
 from repro_torch.abft.executor import logits_checksum_guard
 from repro_torch.checkpoint.tiers import SlotRing
 from repro_torch.configs.base import RunConfig
@@ -121,8 +135,6 @@ from repro_torch.runtime.scheduler import (DRAINING, RUNNING, RequestQueue,
                                            SlotScheduler)
 
 BACKENDS = ("none", "sequential", "fused", "abft", "hybrid")
-# backends generate() runs for the families other than dense
-FAMILY_BACKENDS = ("none", "sequential", "abft")
 # targets a decode step's parameter injection leaves to another stage
 _NOT_PARAMS = ("kernel", "prefill", "prefill_kernel")
 
@@ -195,11 +207,6 @@ class SedarServer:
         if backend not in BACKENDS:
             raise NotImplementedError(f"backend {backend!r} is not ported "
                                       f"yet (ported: {BACKENDS})")
-        if run_cfg.model.family != "dense" and backend not in FAMILY_BACKENDS:
-            raise NotImplementedError(
-                f"backend {backend!r} serves the dense family only; the "
-                f"{run_cfg.model.family} family runs {FAMILY_BACKENDS} (fused "
-                f"and hybrid for it come in slice 9)")
         self.device = resolve_device(device)
         make_deterministic(self.device)
         self.cfg = run_cfg
@@ -237,17 +244,32 @@ class SedarServer:
 
     def _fp_tree(self, s) -> Dict[str, Any]:
         """What a state fingerprint covers. Replica backends: the token.
-        abft/hybrid: the resident state a decode step consumes, the cache
-        rows [0, pos) and the token. A step writes its own cache row `pos`
-        in place before anything can fail (models/layers.py::cache_update),
-        where the reference's cache is functional; leaving that row out of
-        the baseline keeps a failed step's write from showing as at-rest
-        corruption at the retry's entry check. Rows >= pos are never read
-        before the step that owns them overwrites them."""
+        abft/hybrid: the resident state a decode step consumes and the
+        token, each cache leaf by its role (`Model.cache_roles`): a KV
+        cache's rows [0, pos), a ring's live rows but pos % W, a recurrent
+        state or cross cache whole. A step writes its own cache row (ring
+        slot) in place before anything can fail (models/layers.py::
+        cache_update), where the reference's cache is functional; leaving
+        that row out of the baseline keeps a failed step's write from
+        showing as at-rest corruption at the retry's entry check. Rows >=
+        pos are never read before the step that owns them overwrites them;
+        recurrent states come back as new tensors each step."""
         if self.backend not in ("abft", "hybrid"):
             return {"tok": s["tok"]}
-        pos = s["pos"]
-        return {"cache": {name: c[:, :, :pos] for name, c in s["cache"].items()},
+        pos, W = s["pos"], self.cfg.model.window_size
+
+        def live(c, role, ax):
+            if role == "whole":
+                return c
+            rows = c.narrow(ax + 1, 0, min(pos, c.shape[ax + 1]))
+            if role == "rows" or pos < c.shape[ax + 1]:
+                return rows
+            e = pos % W                 # the ring slot this step writes
+            return {"a": c.narrow(ax + 1, 0, e),
+                    "b": c.narrow(ax + 1, e + 1, c.shape[ax + 1] - e - 1)}
+        return {"cache": tree_util.tree_map(live, s["cache"],
+                                            self.model.cache_roles(),
+                                            self.model.slot_axes()),
                 "tok": s["tok"]}
 
     def _decode_fn(self, state, params, replica_id: int, armed: bool):
@@ -296,12 +318,16 @@ class SedarServer:
         if bad is params:
             return decode(params)
         n, r = tok.shape[0] // 2, spec.replica
-        logits_bad, _ = decode(bad)
-        kept = {name: c.narrow(1, r * n, n).clone()
-                for name, c in cache.items()}
+        axes = self.model.slot_axes()
+        logits_bad, cache_bad = decode(bad)
+        # the corrupted replica's rows of every leaf as its launch left
+        # them (KV caches in place, recurrent states new)
+        kept = tree_util.tree_map(lambda c, ax: c.narrow(ax, r * n, n).clone(),
+                                  cache_bad, axes)
+        del cache_bad
         logits, cache = decode(params)
-        for name, c in cache.items():
-            c.narrow(1, r * n, n).copy_(kept[name])
+        tree_util.tree_map(lambda c, k, ax: c.narrow(ax, r * n, n).copy_(k),
+                           cache, kept, axes)
         halves = [logits[:n], logits[n:]]
         halves[r] = logits_bad[r * n:(r + 1) * n]
         return torch.cat(halves), cache
@@ -345,7 +371,7 @@ class SedarServer:
              if fe is not None and self.cfg.model.family == "vlm" else 0)
         max_len = max_len or (S + P + steps + 8)
         pre = None
-        if self.prefiller.supported and fe is None:
+        if self.prefiller.supported and fe is None:    # may pad
             pre = self.prefiller.prefill_padded(params, tokens, max_len)
         if pre is None:
             pre = self.model.prefill(params, batch, max_len)
@@ -465,9 +491,13 @@ class SedarServer:
             ring = SlotRing(slots_per_key=4)
             recovery = SlotRecovery(ring, max_retries=self.max_retries)
             if self.backend in ("abft", "hybrid"):
+                roles, axes = self.model.cache_roles(), self.model.slot_axes()
+                W = self.cfg.model.window_size
+
                 def state_fp(s):
                     return slot_rows_fingerprint(s["cache"], s["pos"],
-                                                 s["tok"])
+                                                 s["tok"], roles=roles,
+                                                 axes=axes, window=W)
             else:
                 def state_fp(s):
                     return pytree_fingerprint_fused({"tok": s["tok"]})
@@ -494,12 +524,15 @@ class SedarServer:
     # -- packed-state surgery (device side; no host reads) -------------------
 
     def _write_slot(self, eng, dual, slot: int, sl, active: bool = True):
-        """Write one slot slice {cache (L, 1, T, KV, hd) per leaf, tok, pos}
-        into EVERY replica image (admission, rollback merge): the cache rows
-        in place, tok/pos/active as new tensors."""
+        """Write one slot slice {cache (each leaf's slot axis at size 1),
+        tok, pos} into EVERY replica image (admission, rollback merge): the
+        cache leaves in place, tok/pos/active as new tensors."""
+        axes = self.model.slot_axes()
+
         def write(st):
-            for name, c in st["cache"].items():
-                c[:, slot:slot + 1].copy_(sl["cache"][name])
+            tree_util.tree_map(
+                lambda c, s, ax: c.narrow(ax, slot, 1).copy_(s),
+                st["cache"], sl["cache"], axes)
             return {**st, "tok": _put(st["tok"], slot, sl["tok"]),
                     "pos": _put(st["pos"], slot, sl["pos"]),
                     "active": _put_flag(st["active"], slot, active)}
@@ -518,8 +551,9 @@ class SedarServer:
         """Views of replica 0's slot image {cache rows, tok, pos}, for
         `SlotRing.save`, which clones them."""
         cache = eng.executor.peek(dual, "cache")
-        return {"cache": {name: c[:, slot:slot + 1]
-                          for name, c in cache.items()},
+        return {"cache": tree_util.tree_map(
+                    lambda c, ax: c.narrow(ax, slot, 1), cache,
+                    self.model.slot_axes()),
                 "tok": eng.executor.peek(dual, "tok")[slot],
                 "pos": eng.executor.peek(dual, "pos")[slot]}
 
@@ -563,13 +597,15 @@ class SedarServer:
         """Write pack rows into slots ([(row, slot)]) of every replica
         image: cache rows in place, tok/pos/active as new tensors."""
         rows, toks, lens = res["rows"], res["tok"], res["lengths"]
+        axes = self.model.slot_axes()
 
         def write(st):
             tok, pos = st["tok"].clone(), st["pos"].clone()
             act = st["active"].clone()
             for i, slot in placed:
-                for name, c in st["cache"].items():
-                    c[:, slot:slot + 1].copy_(rows[name][i])
+                tree_util.tree_map(
+                    lambda c, r, ax: c.narrow(ax, slot, 1).copy_(r[i]),
+                    st["cache"], rows, axes)
                 tok[slot].copy_(toks[i])
                 pos[slot].copy_(lens[i])
                 act[slot].fill_(True)
@@ -616,8 +652,8 @@ class SedarServer:
                 if ring_on:
                     ring.save_many(t, {
                         pairs[i][0]: {
-                            "cache": {name: r[i]
-                                      for name, r in res["rows"].items()},
+                            "cache": tree_util.tree_map(
+                                lambda r, j=i: r[j], res["rows"]),
                             "tok": res["tok"][i], "pos": res["lengths"][i]}
                         for i in good})
                 now_wall = time.time()
@@ -773,10 +809,6 @@ class SedarServer:
             raise NotImplementedError(
                 "continuous batching serves token-prompt families; frontend "
                 "(VLM/audio) prompts need per-request embed plumbing")
-        if self.cfg.model.family != "dense":
-            raise NotImplementedError(
-                f"serve() takes the dense family only; the "
-                f"{self.cfg.model.family} family comes in slice 9")
         rep = BatchServeReport()
         t0 = time.time()
         for r in requests:
@@ -824,7 +856,8 @@ class SedarServer:
                  "t": 0}
         dual = eng.executor.init_dual(state)
 
-        use_packed = packed_prefill and self.prefiller.supported
+        use_packed = packed_prefill and self.prefiller.may_pack
+        exact = not self.prefiller.supported   # packed, never padded
         prefill_events: List[DetectionEvent] = []
         t = 0
         cap = max_steps or (sum(r.max_new_tokens for r in requests)
@@ -843,7 +876,7 @@ class SedarServer:
                     packs, overflow = group_packs(
                         pairs, [req.prompt_len for _, req in pairs],
                         self.prefiller.usable_buckets(max_len),
-                        self.prefiller.max_pack)
+                        self.prefiller.max_pack, exact=exact)
                     for _bucket, chunk in packs:
                         dual = self._admit_pack(eng, dual, params, chunk, t,
                                                 ring, ring_on, max_len, rep,

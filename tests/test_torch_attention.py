@@ -73,3 +73,19 @@ def test_cpu_path_does_not_count_launches():
     kfa.flash_attention_fwd(q, k, v)
     assert kfa.launch_count.n == before
 
+
+def test_cpu_path_counts_no_shape():
+    """The plain CPU path leaves the counts by shape alone too; a count by
+    shape adds to the total and resets with it."""
+    from repro_torch.kernels._build import LaunchCount
+    q, k, v = (torch.from_numpy(x) for x in _qkv(1, 2, 1, 8, 8, 16))
+    before = dict(kfa.launch_count.shapes)
+    kfa.flash_attention_fwd(q, k, v)
+    assert dict(kfa.launch_count.shapes) == before
+    c = LaunchCount("k")
+    c.add((1, 8))
+    c.add((1, 8))
+    c.add()
+    assert c.n == 3 and dict(c.shapes) == {(1, 8): 2}
+    c.reset()
+    assert c.n == 0 and not c.shapes

@@ -246,6 +246,24 @@ def test_k2_bf16_wide_head_dims_vs_plain(card, B, H, KV, Sq, Sk, hd, causal,
     assert torch.equal(got, again)
 
 
+def test_k2_counts_each_launch_by_its_shape(card):
+    """K2's wrapper counts a launch under (B, H, KV, Sq, Sk, hd, causal,
+    window, dtype): chip_smoke holds K2 against its plain version at every
+    shape a path launched it at."""
+    q = torch.zeros((1, 10, 40, 256), device=card, dtype=torch.bfloat16)
+    k = torch.zeros((1, 1, 40, 256), device=card, dtype=torch.bfloat16)
+    kfa.launch_count.reset()
+    for _ in range(2):
+        kfa.flash_attention_fwd(q, k, k, causal=True, window=32)
+    kfa.flash_attention_fwd(q[:, :2], k, k, causal=False)
+    assert kfa.launch_count.n == 3
+    assert dict(kfa.launch_count.shapes) == {
+        (1, 10, 1, 40, 40, 256, 1, 32, torch.bfloat16): 2,
+        (1, 2, 1, 40, 40, 256, 0, 0, torch.bfloat16): 1}
+    kfa.launch_count.reset()
+    assert kfa.launch_count.n == 0 and not kfa.launch_count.shapes
+
+
 @pytest.mark.parametrize("hd", [128, 256])
 def test_k2_f32_and_k4_refuse_wide_head_dims_without_launch(card, hd):
     q = torch.zeros(1, 2, 64, hd, device=card)
@@ -613,6 +631,79 @@ def test_k1_row_limit_leaves_bitwise_vs_plain(card, n_slots, dtype):
         assert torch.equal(got, slot_rows_fingerprint(cache, p, tok))
     calls, names = _launches(lambda: slot_rows_fingerprint(cache, pos, tok))
     assert calls == 1 and len(names) <= 1
+
+
+@pytest.mark.parametrize("dtype,kv,hd", [(torch.bfloat16, 1, 12),
+                                          (torch.bfloat16, 2, 64),
+                                          (torch.float32, 1, 7)])
+def test_k1_ring_rows_bitwise_vs_plain(card, dtype, kv, hd):
+    """Hybrid serve's baseline of a ring cache (W = 8 rows): one K1 launch
+    over each slot's live rows but pos[i] % W, beside a whole recurrent
+    state, bitwise equal (h1, h2, absmax) to the plain version and to a
+    masked copy; rows of 12 and 7 elements put the skipped row across the
+    kernel's 16-byte chunks."""
+    from repro_torch.core.fingerprint import (pack_tree_u32,
+                                              slot_rows_fingerprint)
+    W, n_slots = 8, 4
+    gen = torch.Generator(device=card).manual_seed(hd)
+    ring = torch.randn(2, n_slots, W, kv, hd, generator=gen,
+                       device=card).to(dtype)
+    state = torch.randn(2, n_slots, 5, generator=gen, device=card)
+    cache = {"a": {"k": ring}, "b": {"h": state}}
+    kw = {"roles": {"a": {"k": "ring"}, "b": {"h": "whole"}},
+          "axes": {"a": {"k": 1}, "b": {"h": 1}}, "window": W}
+    pos = torch.tensor([0, 5, W, 2 * W + 3], device=card)
+    tok = torch.arange(n_slots, device=card)[:, None]
+    for p in (pos, pos.to(torch.int32)):
+        before = kfp.launch_count.n
+        got = slot_rows_fingerprint(cache, p, tok, **kw)
+        assert kfp.launch_count.n == before + 1
+        want = slot_rows_fingerprint(
+            tree_util.tree_map(lambda t: t.cpu(), cache), p.cpu(), tok.cpu(),
+            **kw)
+        g = got.cpu().numpy().view(np.uint32)
+        np.testing.assert_array_equal(g[[0, 1, 3]],
+                                      want.numpy().view(np.uint32)[[0, 1, 3]])
+        masked = ring.float().cpu().clone()
+        for i, q in enumerate(p.tolist()):
+            for r in range(W):
+                if r >= q or r == q % W:
+                    masked[:, i, r] = 0
+        m = kfp.fingerprint_plain(pack_tree_u32(
+            [[masked[:, i] for i in range(n_slots)], state.cpu(), tok.cpu()]))
+        np.testing.assert_array_equal(g[:2], m.numpy().view(np.uint32)[:2])
+
+
+@pytest.mark.parametrize("arch", ["phi3.5-moe-42b-a6.6b", "recurrentgemma-2b",
+                                  "xlstm-125m"])
+def test_small_family_serve_on_the_card_equals_the_cpu_port(card, arch):
+    """Continuous serving of a reduced f32 moe, hybrid or ssm model on the
+    card under sequential, fused and hybrid, at lag 1 under sync-debug
+    "error", emits the CPU port's sequential streams."""
+    from repro_torch.runtime.scheduler import synthetic_requests
+    from repro_torch.runtime.serve import SedarServer
+    cfg = dataclasses.replace(reduce_for_smoke(get_config(arch)),
+                              attention_impl="pallas")
+    rc = RunConfig(model=cfg)
+
+    def reqs():
+        return synthetic_requests(5, arrival_rate=2.0, prompt_lengths=(8, 16),
+                                  max_new_choices=(4, 8), seed=1)
+
+    cpu = SedarServer(rc, dual=True, device="cpu")
+    params = cpu.model.init(seed=0)
+    want = {r.rid: list(r.tokens) for r in cpu.serve(params, reqs(),
+                                                     slots=3)[0]}
+    gparams = tree_util.tree_map(lambda t: t.to(card), params)
+    for backend in ("sequential", "fused", "hybrid"):
+        srv = SedarServer(rc, backend=backend, device=card)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out, rep = srv.serve(gparams, reqs(), slots=3, validate_lag=1)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        assert {r.rid: list(r.tokens) for r in out} == want, backend
+        assert not rep.detections
 
 
 def test_fused_step_rows_agree_bitwise_on_the_card(card):

@@ -293,7 +293,7 @@ def test_hybrid_baseline_covers_rows_below_pos_only(shared, monkeypatch):
     assert run(0) == []
     monkeypatch.setattr(
         tserve, "slot_rows_fingerprint",
-        lambda cache, pos, tok: pytree_fingerprint_fused(
+        lambda cache, pos, tok, **layout: pytree_fingerprint_fused(
             {"cache": cache, "tok": tok}))
     assert run(0)[:1] == [(tick, "validate", "FSC")]
 
@@ -396,8 +396,8 @@ def test_continuous_launcher_protects_by_default(monkeypatch, capsys,
     kernel-domain fault in the slot's row of the checksummed block and
     correct it forward."""
     from repro_torch.launch import serve as launcher
-    argv = ["serve", "--continuous", "--requests", "4", "--fault-slot", "1",
-            "--fault-step", "3", "--device", "cpu"]
+    argv = ["serve", "--continuous", "--arch", "qwen2-0.5b", "--requests",
+            "4", "--fault-slot", "1", "--fault-step", "3", "--device", "cpu"]
     if backend:
         argv += ["--backend", backend]
     monkeypatch.setattr("sys.argv", argv)

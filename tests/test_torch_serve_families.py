@@ -13,7 +13,8 @@ the same `InjectionSpec` (a bit-30 flip of `final_ln` on replica 1, or of
 one element of the abft logits checksum block) the (step, boundary,
 effect) stream of detections, the retries and the recoveries; the counted
 host reads per step. Also: a MoE prompt off the bucket ladder is
-prefilled exactly, never padded (F2)."""
+prefilled exactly, never padded (F2); serve() raises for the frontend
+families, as the reference's does."""
 import dataclasses
 
 import numpy as np
@@ -26,6 +27,7 @@ from repro.configs import RunConfig as JRunConfig
 from repro.configs import get_config as jget_config
 from repro.configs import reduce_for_smoke as jreduce
 from repro.core.injection import InjectionSpec as JSpec
+from repro.runtime.scheduler import Request as JRequest
 from repro.runtime.serve import SedarServer as JServer
 
 from repro_torch import tree as tree_util
@@ -170,15 +172,18 @@ def test_decode_starts_after_the_prompt_and_a_vlm_frontend(fam):
     np.testing.assert_array_equal(toks, fam["clean"][:, :3])
 
 
-def test_backends_and_serve_not_yet_ported_for_the_families_raise(fam):
-    for backend in ("fused", "hybrid"):
-        with pytest.raises(NotImplementedError, match="slice 9"):
-            _port(fam, backend)
-    srv = _port(fam, "none")
-    reqs = [Request(rid=0, prompt=np.arange(4), max_new_tokens=2)]
-    match = "frontend" if fam["name"] in ("vlm", "audio") else "slice 9"
-    with pytest.raises(NotImplementedError, match=match):
-        srv.serve(fam["tparams"], reqs, slots=2)
+@pytest.mark.parametrize("name", ["vlm", "audio"])
+def test_serve_raises_for_the_frontend_families_as_the_reference(name):
+    """Continuous batching serves token prompts in both packages: a vlm or
+    audio server's serve() raises the reference's NotImplementedError."""
+    jcfg, tcfg = _cfgs(FAMILIES[name])
+    prompt = np.arange(4, dtype=np.int32)
+    with pytest.raises(NotImplementedError, match="token-prompt families"):
+        JServer(JRunConfig(model=jcfg)).serve(
+            None, [JRequest(rid=0, prompt=prompt, max_new_tokens=2)], slots=2)
+    with pytest.raises(NotImplementedError, match="token-prompt families"):
+        _port({"tcfg": tcfg}, "none").serve(
+            None, [Request(rid=0, prompt=prompt, max_new_tokens=2)], slots=2)
 
 
 def test_launcher_runs_the_family_on_the_cpu(fam, monkeypatch, capsys):
