@@ -57,7 +57,7 @@ counts set to 0 just before it and read just after:
     recurrentgemma-2b (hybrid: RG-LRU blocks and local attention, B=2 ×
     4,096 prompt tokens, K2 at hd 256 with its 2,048 window), internvl2-2b
     (vlm: 256 stub patch embeddings + 256 tokens, hd 128), phi3.5-moe
-    (moe, 8 of its 32 layers, hd 128), xlstm-125m (ssm) and
+    (moe, 8 of its 32 layers, hd 128), xlstm-125m (ssm, 2 of 12 blocks) and
     seamless-m4t-medium (audio) at full width under none, sequential,
     abft, fused and hybrid in turns (equal streams, replica faults
     retried, checksum-block faults corrected forward, hybrid's retry at an
@@ -67,6 +67,14 @@ counts set to 0 just before it and read just after:
     family_serve): phi3.5-moe (8 layers), xlstm-125m and recurrentgemma-2b
     at full width, every backend under sync-debug "error", slot and
     admission faults, and K1's ring rows against their plain version;
+  * protected training of the moe, hybrid, vlm, ssm and audio families
+    (phase family_train): phi3.5-moe, recurrentgemma-2b, internvl2-2b,
+    xlstm-125m and seamless-m4t-medium at full width (depth cut to fit
+    beside a dual run), 4 steps of 4 x 256 tokens under L3 on the device
+    tier with every backend, grads faults under sequential and fused and
+    an at-rest flip under hybrid recovered bitwise, peaks, K1's launches
+    against the code's count, and K1 on each family's grads and state
+    against its plain version;
   * a small f32 model on the card against the plain CPU path.
 
 Any failed check exits non-zero. The last two lines are a JSON object of
@@ -2077,26 +2085,30 @@ def _reversed(batch: dict) -> dict:
     return {k: v.flip(0) for k, v in batch.items()}
 
 
-def _l3_k1_launches(backend: str, n_fp: int, sedar) -> int:
-    """K1's launches in a clean 6-step L3 run on the device tier, as the
-    code gives them: per checkpoint one per state leaf (the validated
-    state's per-leaf fingerprint; the device ring stores no digests) and
-    one per state leaf for the final fingerprint. fused: 2 per step on its
-    two grads views and 2 per FSC compare (one per replica's view).
-    hybrid: 1 per commit (the resident baseline), 1 per entry check (steps
-    2 and 4), 1 per checkpoint (its "equal") and 1 for the final
-    validation. abft: nothing more (its training step is uninstrumented)."""
-    ckpts = TRAIN_STEPS // sedar.checkpoint_interval
+def _l3_k1_launches(backend: str, n_fp: int, sedar,
+                    steps: int = TRAIN_STEPS) -> int:
+    """K1's launches in a clean L3 run of `steps` steps on the device tier,
+    as the code gives them: per checkpoint one per state leaf (the
+    validated state's per-leaf fingerprint; the device ring stores no
+    digests) and one per state leaf for the final fingerprint. sequential
+    and fused: 2 per step on the two replicas' grads and 2 per FSC compare
+    (one per replica). none: 1 per step on its grads. hybrid: 1 per commit
+    (the resident baseline), 1 per entry check (every
+    `param_validate_interval` steps but step 0), 1 per checkpoint (its
+    "equal") and 1 for the final validation. abft: nothing more (its
+    training step is uninstrumented)."""
+    ckpts = steps // sedar.checkpoint_interval
     per_ckpt = n_fp
-    if backend == "fused":
-        return (2 * TRAIN_STEPS
-                + 2 * (TRAIN_STEPS // sedar.param_validate_interval)
+    if backend in ("sequential", "fused"):
+        return (2 * steps + 2 * (steps // sedar.param_validate_interval)
                 + ckpts * per_ckpt + n_fp)
+    if backend == "none":
+        return steps + ckpts * per_ckpt + n_fp
     if backend == "abft":
         return ckpts * per_ckpt + n_fp
-    entries = len([s for s in range(1, TRAIN_STEPS)
+    entries = len([s for s in range(1, steps)
                    if s % sedar.param_validate_interval == 0])
-    return TRAIN_STEPS + entries + ckpts * (per_ckpt + 1) + 1 + n_fp
+    return steps + entries + ckpts * (per_ckpt + 1) + 1 + n_fp
 
 
 def phase_train_backends(kfp, trainer, make_state, clean, l3) -> int:
@@ -2883,11 +2895,16 @@ FAMILY_BACKENDS = ("none", "sequential", "abft", "fused", "hybrid")
 # (arch, batch, prompt tokens, layers kept of the config's or None): full
 # width, seeded weights; phi3.5-moe's 32 layers would need ~167 GB of f32
 # weights, its depth is cut to 8 (~42 GB). xlstm-125m's prompt is 4 mLSTM
-# chunks; seamless-m4t-medium's encoder takes 1,024 stub frames.
+# chunks; its depth is cut to 2 of 12 blocks (one (mLSTM, sLSTM) group) for
+# the script's time: its sLSTM token loop took 98.6% of a 12-block prefill
+# (3.5-7.5 s each, ~17 per run of this phase), and the script with the
+# training phase of the families ran 1,163.9 s at 12 blocks on an NVIDIA
+# H100 80GB HBM3 (700 W), against its 1,200 s limit.
+# seamless-m4t-medium's encoder takes 1,024 stub frames.
 FAMILY_CASES = (("recurrentgemma-2b", 2, 4096, None),
                 ("internvl2-2b", 4, 256, None),
                 ("phi3.5-moe-42b-a6.6b", 4, 256, 8),
-                ("xlstm-125m", 4, 1024, None),
+                ("xlstm-125m", 4, 1024, 2),
                 ("seamless-m4t-medium", 4, 256, None))
 
 
@@ -3476,9 +3493,10 @@ def phase_families(kfp, kfa):
 # (arch, layers kept or None, prompt lengths): full width, seeded weights.
 # recurrentgemma's prompts straddle its 2,048 window: a 2,040-token prompt
 # wraps the ring during decode, 2,100 and 4,096 start wrapped at other
-# phases.
+# phases. xlstm-125m keeps 2 of its 12 blocks, for the script's time (as in
+# FAMILY_CASES: its B=1 admissions are the sLSTM token loop).
 FAMILY_SERVE_CASES = (("phi3.5-moe-42b-a6.6b", 8, (96, 200, 256)),
-                      ("xlstm-125m", None, (96, 200, 256)),
+                      ("xlstm-125m", 2, (96, 200, 256)),
                       ("recurrentgemma-2b", None, (2040, 2100, 4096)))
 
 
@@ -3779,6 +3797,330 @@ def ring_rows_check(kfp, model, max_len: int) -> None:
           f"read once)", flush=True)
 
 
+FAMILY_TRAIN_STEPS = 4
+# (arch, layers kept or None, optimizer): full width, seeded weights, f32
+# masters and bf16 compute, B=4 x 256 tokens (internvl2 behind 256 stub patch
+# embeddings, seamless's encoder over 1,024 stub frames). Each family keeps
+# one depth and one optimizer under all five backends. Sequential and fused
+# hold the old and the candidate {params, opt} of two replicas and their
+# grads (~56 B per parameter under adamw, ~40 under sgdm), so depth is cut,
+# never a width, and only as far as fused's peak needs; sgdm where even the
+# shallowest depth would not fit under adamw (PERF.md §4).
+FAMILY_TRAIN_CASES = (("phi3.5-moe-42b-a6.6b", 1, "sgdm"),
+                      ("recurrentgemma-2b", 3, "sgdm"),
+                      ("internvl2-2b", 8, "adamw"),
+                      ("xlstm-125m", 2, "adamw"),
+                      ("seamless-m4t-medium", None, "adamw"))
+FAMILY_TRAIN_ABFT_MISS = ("phi3.5-moe-42b-a6.6b",)   # pure abft's miss shown
+FAMILY_TRAIN_BACKENDS = ("none", "sequential", "fused", "abft", "hybrid")
+
+
+def family_train_k1(kfp, tree, what: str) -> dict:
+    """K1 in place on one family training tree against its plain versions
+    (`k1_tree_values`), one host launch call per call, its device time
+    (profiler) and its time per call by CUDA events (which includes the
+    host's build of the leaf table), the plain leaf walk's, and the byte
+    bound."""
+    from repro_torch.core.fingerprint import pytree_fingerprint_fused
+    from repro_torch.tree import leaves
+    ds, rows, n = k1_tree_values(kfp, tree, what)
+    calls, ran, _ = device_launches(lambda: pytree_fingerprint_fused(tree),
+                                    iters=5)
+    check(calls == 1 and ran <= 1, f"K1 on {what}: {calls} launch calls and "
+          f"{ran} device kernels per call")
+    table = kfp.leaf_table(leaves(tree))
+    dev_ms = device_ms(lambda: pytree_fingerprint_fused(tree), 10)
+    ms = cuda_ms(lambda: pytree_fingerprint_fused(tree), 10)
+    plain_ms = cuda_ms(lambda: kfp.fingerprint_leaves_plain(table), 1,
+                       warmup=1)
+    b_ms, b_by = bound(4 * n + 16, 0)
+    print(f"  K1 in place on {what}: {rows} leaves, {n} words, one launch "
+          f"call per call, h1/h2/absmax bitwise equal to pack + plain and to "
+          f"the plain leaf walk, |ds|={ds:.3e}; device {dev_ms:.4f} ms "
+          f"({4 * n / dev_ms / 1e9:.3f} TB/s), per call {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})", flush=True)
+    return {"rows": rows, "words": n, "ms": dev_ms, "call_ms": ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms}
+
+
+def phase_family_train(kfp) -> int:
+    """Slice 10: protected training of the moe, hybrid, vlm, ssm and audio
+    families (FAMILY_TRAIN_CASES) at full width, 4 steps of 4 x 256 tokens
+    each, L3 with FSC and a validated checkpoint every 2 on the device tier,
+    `attention_impl="xla"` (K2 has no backward, in either package). Per
+    family: clean runs under none, sequential, fused, abft and hybrid (0
+    detections; abft's, hybrid's and sequential's losses and final per-leaf
+    fingerprints bitwise equal to none's; fused within FUSED_LOSS_RTOL of
+    sequential and its step-0 grads within FUSED_GRAD_GAP of the unbatched
+    step's; K1's launches equal to the code's count; peak memory under the
+    card's), a grads fault (leaf 0 element 5 bit 20, replica 1, step 3)
+    under sequential and under fused, detected at the commit, restored from
+    step 2 and ending bitwise equal to the same backend's clean run, and a
+    resident parameter bit (params leaf 0 element 5 bit 20) flipped in
+    place after step 2's commit, which hybrid's entry check at step 2
+    catches and restores, ending bitwise equal to hybrid's clean run (and,
+    for FAMILY_TRAIN_ABFT_MISS, which pure abft misses). Printed per family
+    and backend: ms/step (wall / steps of the L3 run), peak memory, K1
+    launches, host launch calls of one profiled protected step, seconds
+    per device-tier save and per restore. K1 on the family's grads and
+    {params, opt} trees against its plain version, timed, with its byte
+    bound. Returns K1's launches in the clean L3 runs."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    from repro_torch.configs import (RunConfig, SedarConfig, TrainConfig,
+                                     get_config)
+    from repro_torch.core.engine import replica_view
+    from repro_torch.core.injection import InjectionSpec
+    from repro_torch.core.policy import make_trainer
+    from repro_torch.tree import leaves
+
+    t_phase = time.time()
+    dev = torch.device("cuda")
+    total = torch.cuda.get_device_properties(dev).total_memory / 2 ** 30
+    steps = FAMILY_TRAIN_STEPS
+    l3 = SedarConfig(level=3, replication="sequential", validate_interval=1,
+                     param_validate_interval=2, checkpoint_interval=2,
+                     ckpt_tiers="device")
+    grads_spec = InjectionSpec(target="grads", leaf_idx=0, flat_idx=5,
+                               bit=20, step=3, replica=1)
+    launches = 0
+    root = tempfile.mkdtemp(prefix="sedar_family_train_")
+    try:
+        for arch, depth, opt in FAMILY_TRAIN_CASES:
+            t_fam = time.time()
+            cfg = dataclasses.replace(get_config(arch), attention_impl="xla")
+            if depth:
+                cfg = dataclasses.replace(cfg, num_layers=depth)
+            tcfg = TrainConfig(global_batch=BATCH, seq_len=TRAIN_SEQ,
+                               steps=steps, warmup_steps=2, optimizer=opt)
+
+            def trainer(name, backend, spec=None):
+                rc = RunConfig(model=cfg, train=tcfg, sedar=dataclasses.replace(
+                    l3, replication=backend))
+                return make_trainer(rc, os.path.join(root, arch, name),
+                                    inj_spec=spec, notify=lambda e: None,
+                                    device=dev)
+
+            init = trainer("init", "none")
+            t0 = time.time()
+            state = init.init_state(seed=0)
+            torch.cuda.synchronize()
+            n_params = sum(p.numel() for p in leaves(state["params"]))
+            n_fp = len(leaves({"params": state["params"],
+                               "opt": state["opt"]}))
+            del state
+
+            def make_state():
+                return init.init_state(seed=0)
+
+            front = (f" behind {cfg.frontend_seq} {cfg.frontend} embeddings"
+                     if cfg.frontend else "")
+            print(f"family train: {arch} [{cfg.family}] {cfg.num_layers}L"
+                  f"{f' + {cfg.encoder_layers} encoder' if cfg.encoder_layers else ''}"
+                  f" d={cfg.d_model} V={cfg.vocab_size}, {n_params} f32 "
+                  f"params (seeded init {time.time() - t0:.2f} s), {opt}, "
+                  f"{n_fp} {{params, opt}} leaves, batch {BATCH} x "
+                  f"{TRAIN_SEQ} tokens{front}, {steps} steps, L3 (FSC and "
+                  f"checkpoint every 2, device tier)", flush=True)
+
+            def run(tr, state=None, n=steps):
+                """(dual, report, peak GiB, K1 launches, ms/step)."""
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                before = kfp.launch_count.n
+                d, r = tr.run(n, dual=state if state is not None else
+                              tr.engine.executor.init_dual(make_state()))
+                torch.cuda.synchronize()
+                return (d, r, torch.cuda.max_memory_allocated() / 2 ** 30,
+                        kfp.launch_count.n - before,
+                        r.wall_s * 1e3 / max(r.steps_completed, 1))
+
+            # warm-up: one unprotected step, so the first timed run does
+            # not carry cuBLAS's and the allocator's first calls
+            run(trainer("warm", "none"), n=1)
+            _free()
+            clean, row = {}, {}
+            for backend in FAMILY_TRAIN_BACKENDS:
+                tr = trainer(f"{backend}_clean", backend)
+                saves: list = []
+                _timed_sync(tr.recovery.tiers.device, "save", saves)
+                d, r, peak, n, ms = run(tr)
+                want = _l3_k1_launches(backend, n_fp, l3, steps)
+                print(f"  {backend} clean: {r.summary()}; losses "
+                      f"{r.losses}; {ms:.2f} ms/step; peak {peak:.2f} GiB "
+                      f"of {total:.2f}; K1 launches {n} (the code's count "
+                      f"{want}); device-tier saves (s) "
+                      f"{[round(x, 4) for x in saves]}", flush=True)
+                check(not r.detections and not r.stopped
+                      and r.steps_completed == steps
+                      and r.checkpoints == [2, 4]
+                      and len(r.losses) == steps
+                      and all(np.isfinite(r.losses)),
+                      f"{arch}: clean {backend} training run: {r.summary()}")
+                check(n == want, f"{arch}: {backend} K1 launched {n} times, "
+                      f"not {want}")
+                check(peak < total, f"{arch}: {backend} peak {peak:.2f} GiB")
+                launches += n
+                clean[backend] = r
+                row[backend] = {"ms": ms, "peak": peak, "saves": saves}
+                if backend == "none":
+                    # K1 on the state after 4 steps and on the grads of the
+                    # next step's batch at that state
+                    st = tr.engine.executor.primary(d)
+                    k1_state = family_train_k1(
+                        kfp, {"params": st["params"], "opt": st["opt"]},
+                        f"{arch}'s params + {opt} state after {steps} steps")
+                    _, grads = tr.loss_and_grads(st["params"],
+                                                 tr.batch(steps))
+                    k1_grads = family_train_k1(kfp, grads,
+                                               f"{arch}'s grads")
+                    del st, grads
+                del d, tr
+                _free()
+            none = clean["none"]
+            for backend in ("sequential", "abft", "hybrid"):
+                r = clean[backend]
+                check(r.losses == none.losses and np.array_equal(
+                          r.final_state_fp[:, :2], none.final_state_fp[:, :2]),
+                      f"{arch}: {backend}'s losses or final state are not "
+                      f"bitwise equal to none's: {r.losses} vs {none.losses}")
+            seq, fus = clean["sequential"], clean["fused"]
+            rl = max(abs(a - b) / abs(b) for a, b in
+                     zip(fus.losses, seq.losses))
+            print(f"  abft, hybrid and sequential losses and final per-leaf "
+                  f"fingerprints bitwise equal to none's; fused's losses "
+                  f"{rl:.3e} relative from sequential's (limit "
+                  f"{FUSED_LOSS_RTOL:g}), bitwise equal: {rl == 0 and np.array_equal(fus.final_state_fp[:, :2], seq.final_state_fp[:, :2])}",
+                  flush=True)
+            check(rl <= FUSED_LOSS_RTOL, f"{arch}: fused losses {rl:.3e} "
+                  f"(relative) from sequential's")
+
+            # fused's step-0 grads against the unbatched step's
+            fz = trainer("fused_grads", "fused")
+            dz = fz.engine.executor.init_dual(make_state())
+            batch = fz.batch(0)
+            _, sg = fz.loss_and_grads_stacked(dz["s"]["params"], batch)
+            del dz
+            g0 = replica_view(sg, 0)
+            eq = all(torch.equal(a, b) for a, b in zip(
+                leaves(g0), leaves(replica_view(sg, 1))))
+            params = make_state()["params"]
+            _, single = fz.loss_and_grads(params, batch)
+            del params
+            rel = [float((a - b).abs().max())
+                   / max(float(b.abs().max()), 1e-30)
+                   for a, b in zip(leaves(g0), leaves(single))]
+            wi = int(np.argmax(rel))
+            print(f"  fused step-0 grads: the replicas' slices bitwise equal "
+                  f"{eq}; against the unbatched step: "
+                  f"{sum(x == 0 for x in rel)} of {len(rel)} leaves bitwise "
+                  f"equal, largest |diff| / max|g| {rel[wi]:.3e} (leaf {wi};"
+                  f" limit {FUSED_GRAD_GAP:g})", flush=True)
+            check(eq and rel[wi] <= FUSED_GRAD_GAP,
+                  f"{arch}: fused grads off the unbatched step's")
+            del sg, g0, single, fz
+            _free()
+
+            # a grads fault under sequential and under fused
+            for backend in ("sequential", "fused"):
+                tr = trainer(f"{backend}_fault", backend, grads_spec)
+                rest_s: list = []
+                _timed_sync(tr.recovery, "restore", rest_s)
+                _, r, _, _, ms = run(tr)
+                events = [(e.step, e.boundary, e.effect)
+                          for e in r.detections]
+                recs = [(x["kind"], x["step"], x["rollbacks"])
+                        for x in r.recoveries]
+                c = clean[backend]
+                same = (np.array_equal(r.final_state_fp[:, :2],
+                                       c.final_state_fp[:, :2])
+                        and r.losses == c.losses)
+                print(f"  {backend} grads fault (leaf 0 element 5 bit 20, "
+                      f"replica 1, step 3): events {events}, recoveries "
+                      f"{recs}, restore {[round(x, 4) for x in rest_s]} s, "
+                      f"{ms:.2f} ms/step; losses and final per-leaf "
+                      f"fingerprints bitwise equal to {backend}'s clean run: "
+                      f"{same}", flush=True)
+                check(events == [(3, "commit", "TDC")]
+                      and recs == [("restore", 2, 1)] and same
+                      and r.steps_completed == steps,
+                      f"{arch}: {backend} grads fault not recovered to the "
+                      f"clean run")
+                row[backend]["restore"] = rest_s
+                del tr
+                _free()
+
+            # a resident parameter bit flipped in place after step 2
+            for backend in ("hybrid",) + (
+                    ("abft",) if arch in FAMILY_TRAIN_ABFT_MISS else ()):
+                tr = trainer(f"{backend}_rest", backend)
+                rest_s = []
+                _timed_sync(tr.recovery, "restore", rest_s)
+                d, r1, _, _, _ = run(tr, n=2)
+                leaf = leaves(tr.engine.executor.primary(d)["params"])[0]
+                leaf.view(-1)[5:6].view(torch.int32).bitwise_xor_(1 << 20)
+                _, r2, _, _, _ = run(tr, state=d)
+                del d, leaf
+                c = clean[backend]
+                events = [(e.step, e.boundary, e.effect)
+                          for e in r2.detections]
+                recs = [(x["kind"], x["step"], x["rollbacks"])
+                        for x in r2.recoveries]
+                same = (np.array_equal(r2.final_state_fp[:, :2],
+                                       c.final_state_fp[:, :2])
+                        and r1.losses + r2.losses == c.losses)
+                print(f"  {backend}, params leaf 0 element 5 bit 20 flipped "
+                      f"at rest after step 2: events {events}, recoveries "
+                      f"{recs}, restore {[round(x, 4) for x in rest_s]} s; "
+                      f"final state and losses bitwise equal to {backend}'s "
+                      f"clean run: {same}", flush=True)
+                if backend == "hybrid":
+                    check(events == [(2, "validate", "FSC")]
+                          and recs == [("restore", 2, 1)] and same,
+                          f"{arch}: hybrid did not catch and recover the "
+                          f"at-rest fault")
+                    row[backend]["restore"] = rest_s
+                else:
+                    check(not r2.detections and not same,
+                          f"{arch}: pure abft should miss the at-rest fault")
+                del tr
+                _free()
+
+            # one protected step (no boundary) per backend, profiled
+            for backend in FAMILY_TRAIN_BACKENDS:
+                tr = trainer(f"{backend}_profile", backend)
+                d = tr.engine.executor.init_dual(make_state())
+                b3 = (3, tr.batch(3))
+                tr.engine.run_protected_step(d, b3, 3)       # warm
+                wall_ms, busy_ms, ran, _, calls = device_profile(
+                    lambda: tr.engine.run_protected_step(d, b3, 3))
+                row[backend]["calls"] = calls
+                row[backend]["busy"] = busy_ms / wall_ms
+                del d, tr
+                _free()
+            print(f"  {arch} per backend (ms/step of the clean L3 run, one "
+                  f"turn; peak GiB; host launch calls of one protected step, "
+                  f"profiler on; device busy share there): " + "; ".join(
+                      f"{b} {v['ms']:.2f} ms, {v['peak']:.2f} GiB, "
+                      f"{v.get('calls', 'not profiled')} calls, "
+                      f"{100 * v.get('busy', float('nan')):.1f}% busy"
+                      for b, v in row.items()), flush=True)
+            del init, clean
+            _free()
+            torch.cuda.empty_cache()
+            print(f"family train: {arch} took {time.time() - t_fam:.1f} s; "
+                  f"K1 {k1_grads['ms']:.4f} ms on the grads ({k1_grads['rows']}"
+                  f" leaves), {k1_state['ms']:.4f} ms on params + opt "
+                  f"({k1_state['rows']} leaves)", flush=True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"family train phase took {time.time() - t_phase:.1f} s",
+          flush=True)
+    return launches
+
+
 def phase_reference():
     """Small f32 model: the card's path (kernels) against the plain CPU path
     (which the CPU tests hold to the JAX package)."""
@@ -3862,11 +4204,14 @@ def main() -> None:
     kfp.launch_count.reset()
     train_k1 = phase_train(kfp)
     check(train_k1 > 0, "K1 never launched by the trainer")
+    _free()
+    family_train_k1 = phase_family_train(kfp)
+    check(family_train_k1 > 0, "K1 never launched by the family trainers")
     phase_reference()
     # the main path's K1 launches, the training paths' and the replica
     # campaign's, each counted from 0 just before its run
     k1["launches"] = (counts["fingerprint"] + train_k1 + campaign_k1
-                      + families_k1
+                      + families_k1 + family_train_k1
                       + sum(c["fingerprint"] for c in family_serve.values()))
     k2["launches"] = counts["flash_attention"]
     print("K2 launches: " + ", ".join(

@@ -27,9 +27,13 @@
 // limit % W is then hashed as zero words too, so a ring's live rows but
 // the one the next step overwrites count. Limits without a ring hash as
 // they did before rings existed, bit for bit. The table travels by value in the
-// kernel's parameters (__grid_constant__, at most MAX_LEAVES rows and
-// MAX_LIMITS row limits, under the 4 KB parameter limit), so no
-// host-to-device copy precedes the launch.
+// kernel's parameters (__grid_constant__), so no host-to-device copy
+// precedes the launch. It comes in two sizes: SMALL_LEAVES rows (3,344
+// bytes, under the classic 4 KB parameter limit: every serving call) and
+// MAX_LEAVES rows (24,848 bytes, under the 32,764-byte limit that CUDA 12.1
+// and later give sm_90), which a training state's {params, m, v} of more
+// than 64 leaves takes; both have MAX_LIMITS row limits. The two are one
+// kernel body, so a tree hashes to the same words in either.
 //
 // Bound on the H100: memory. It reads each element once (esize * n bytes
 // at 3.35 TB/s) and does a handful of integer operations per word, far
@@ -59,7 +63,8 @@ constexpr uint32_t C1 = 2654435761u;
 constexpr uint32_t C2 = 2246822519u;
 constexpr uint32_t C3 = 3266489917u;
 constexpr int THREADS = 256;
-constexpr int MAX_LEAVES = 64;   // kernels/fingerprint.py MAX_LEAVES
+constexpr int SMALL_LEAVES = 64;  // the table of every call of <= 64 leaves
+constexpr int MAX_LEAVES = 512;  // kernels/fingerprint.py MAX_LEAVES
 constexpr int MAX_LIMITS = 16;   // kernels/fingerprint.py MAX_LIMITS
 
 struct Acc {
@@ -85,8 +90,9 @@ struct Limit {                  // 16 bytes
                                 // bits 1..31: ring rows W (0: no ring)
 };
 
+template <int N>
 struct Table {
-  Leaf leaf[MAX_LEAVES];
+  Leaf leaf[N];
   Limit lim[MAX_LIMITS];
   unsigned long long nchunks;
   int nleaves;
@@ -141,7 +147,8 @@ struct Chunk {
 // elements of a chunk at column `col` of its run that lie below the leaf's
 // row limit (`live`), and those of the ring row limit % W (`skip_lo` to
 // `skip_hi`, an empty range without a ring): both are hashed as zero words
-__device__ __forceinline__ void live_range(const Table& t, const Leaf& L,
+template <class T>
+__device__ __forceinline__ void live_range(const T& t, const Leaf& L,
                                            uint32_t col, Chunk& c) {
   c.live = c.cnt;
   c.skip_lo = c.skip_hi = 0u;
@@ -170,7 +177,8 @@ __device__ __forceinline__ void live_range(const Table& t, const Leaf& L,
   }
 }
 
-__device__ __forceinline__ Chunk locate(const Table& t, int& li,
+template <class T>
+__device__ __forceinline__ Chunk locate(const T& t, int& li,
                                         unsigned long long g) {
   while (g >= t.leaf[li].chunk_end) ++li;  // g only grows
   const Leaf& L = t.leaf[li];
@@ -238,8 +246,9 @@ __device__ __forceinline__ void mix_chunk(Acc& acc, const Leaf& L,
 
 constexpr int BATCH = 4;  // grid-stride steps whose loads go out together
 
+template <int N>
 __global__ void __launch_bounds__(THREADS)
-fp_leaves(const __grid_constant__ Table t, Acc* __restrict__ partials,
+fp_leaves(const __grid_constant__ Table<N> t, Acc* __restrict__ partials,
           unsigned int* __restrict__ ticket, uint32_t* __restrict__ out) {
   Acc acc{0u, 0u, 0.f, 0.f};
   const unsigned long long stride = (unsigned long long)gridDim.x * THREADS;
@@ -300,27 +309,13 @@ fp_leaves(const __grid_constant__ Table t, Acc* __restrict__ partials,
   }
 }
 
-}  // namespace
-
-// leaves: nleaves rows of 7 values (pointer, kind, rows, run, row stride in
-// elements, first global word index, row limit index + 1 or 0); rows and
-// run >= 1, rows * run < 2^32 words per leaf, nleaves <= MAX_LEAVES.
-// limits: nlimits rows of 3 values (pointer to the int32/int64 limit
-// element, (1 if int64 else 0) | ring rows W << 1, elements per row),
-// nlimits <= MAX_LIMITS.
-// partials: nblocks * 16 bytes and ticket: one unsigned int (0 on entry,
-// 0 again after the launch) of the caller's per-stream workspace; out: 4
-// words. Returns cudaGetLastError()
-// after the one launch.
-extern "C" int sedar_fingerprint_leaves(const long long* leaves, int nleaves,
-                                        const long long* limits, int nlimits,
-                                        int nblocks, void* partials,
-                                        void* ticket, void* out,
-                                        void* stream) {
-  if (nleaves < 0 || nleaves > MAX_LEAVES || nlimits < 0 ||
-      nlimits > MAX_LIMITS)
-    return (int)cudaErrorInvalidValue;
-  Table t{};
+// fills a table of N rows from the launcher's rows and launches the kernel
+// on it: cudaErrorInvalidValue on a bad row, else cudaGetLastError()
+template <int N>
+int fill_and_launch(const long long* leaves, int nleaves,
+                    const long long* limits, int nlimits, int nblocks,
+                    void* partials, void* ticket, void* out, void* stream) {
+  Table<N> t{};
   for (int j = 0; j < nlimits; ++j) {
     const long long* r = limits + 3 * j;
     if (r[0] == 0 || r[1] < 0 || r[1] >= (1ll << 32) || r[2] < 1 ||
@@ -353,8 +348,37 @@ extern "C" int sedar_fingerprint_leaves(const long long* leaves, int nleaves,
   }
   t.nleaves = nleaves;
   t.nchunks = chunks;
-  fp_leaves<<<nblocks, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+  fp_leaves<N><<<nblocks, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       t, static_cast<Acc*>(partials), static_cast<unsigned int*>(ticket),
       static_cast<uint32_t*>(out));
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// leaves: nleaves rows of 7 values (pointer, kind, rows, run, row stride in
+// elements, first global word index, row limit index + 1 or 0); rows and
+// run >= 1, rows * run < 2^32 words per leaf, nleaves <= MAX_LEAVES.
+// limits: nlimits rows of 3 values (pointer to the int32/int64 limit
+// element, (1 if int64 else 0) | ring rows W << 1, elements per row),
+// nlimits <= MAX_LIMITS.
+// partials: nblocks * 16 bytes and ticket: one unsigned int (0 on entry,
+// 0 again after the launch) of the caller's per-stream workspace; out: 4
+// words. Returns cudaGetLastError()
+// after the one launch.
+extern "C" int sedar_fingerprint_leaves(const long long* leaves, int nleaves,
+                                        const long long* limits, int nlimits,
+                                        int nblocks, void* partials,
+                                        void* ticket, void* out,
+                                        void* stream) {
+  if (nleaves < 0 || nleaves > MAX_LEAVES || nlimits < 0 ||
+      nlimits > MAX_LIMITS)
+    return (int)cudaErrorInvalidValue;
+  return nleaves <= SMALL_LEAVES
+             ? fill_and_launch<SMALL_LEAVES>(leaves, nleaves, limits, nlimits,
+                                             nblocks, partials, ticket, out,
+                                             stream)
+             : fill_and_launch<MAX_LEAVES>(leaves, nleaves, limits, nlimits,
+                                           nblocks, partials, ticket, out,
+                                           stream);
 }

@@ -28,7 +28,9 @@ by the kernel, below which rows are hashed as they are and from which on
 every word of each run is hashed as zero at its fixed index, as if the
 packed buffer held zeros there. A limit may name a ring of W rows (a
 local-attention cache): row `limit % W`, the one the next decode step
-overwrites, is then hashed as zero words too.
+overwrites, is then hashed as zero words too. The table holds up to
+MAX_LEAVES leaves (a training state's {params, m, v} has up to 126); it
+travels in the launch's parameters, a 64-row table where it fits.
 
 Two wrappers, each with no fallback: a CPU tensor takes the plain version, a
 CUDA tensor launches the kernel (one launch per call) or raises.
@@ -51,7 +53,7 @@ C3 = 3266489917
 MASK32 = 0xFFFFFFFF
 THREADS = 256            # csrc/fingerprint.cu THREADS
 MAX_BLOCKS = 1024
-MAX_LEAVES = 64          # csrc/fingerprint.cu MAX_LEAVES
+MAX_LEAVES = 512         # csrc/fingerprint.cu MAX_LEAVES
 MAX_LIMITS = 16          # csrc/fingerprint.cu MAX_LIMITS
 _PLAIN_CHUNK = 1 << 24   # words per int64 working chunk of the plain version
 # element kind of each dtype the kernel reads in place (csrc/fingerprint.cu)

@@ -104,8 +104,11 @@ def moe_mlp(cfg, p, x, groups: int = 1):
     # E * G * Cg, which is cut off
     slot = torch.where(keep, (flat_e * G + group) * Cg + pos,
                        torch.full_like(pos, E * G * Cg))
-    buf = torch.zeros((E * G * Cg + 1, D), dtype=dt, device=x.device)
-    buf.index_put_((slot,), src.to(dt))
+    # the buffer is made from `src`, so under torch.vmap (fused training)
+    # it is batched as the rows written into it are
+    src = src.to(dt)
+    buf = src.new_zeros((E * G * Cg + 1, D))
+    buf.index_put_((slot,), src)
     buf = buf[:E * G * Cg].reshape(E, G * Cg, D)
 
     # ---- expert compute --------------------------------------------------

@@ -8,11 +8,16 @@ is in `core/engine.py`; this module supplies the training pieces:
 
   * the replica step: loss and grads (autograd) -> [inject] -> the grads'
     fingerprint (K1, one launch over every gradient leaf in place, with
-    `fused_fingerprint`) -> the optimizer's out-of-place update -> [inject];
+    `fused_fingerprint`) -> the optimizer's out-of-place step
+    (`Optimizer.apply`, which frees each gradient leaf as it goes) ->
+    [inject];
   * the fused step (`fused`): both replicas' states stacked on a leading
     axis of 2 and stepped together — the forward through `torch.vmap` over
-    the stacked params with autograd's backward through it, the optimizer
-    through `torch.vmap` over the stacked leaves; K1 (a ctypes kernel,
+    the stacked params with autograd's backward through it (each replica
+    on its own for `PER_REPLICA_FAMILIES`), the optimizer
+    over the stacked leaves with each replica's own global norm and
+    schedule (`apply(replicas=True)`, what a `torch.vmap` of the update
+    computes); K1 (a ctypes kernel,
     which vmap cannot enter) runs outside, one launch per replica's view of
     the stacked grads; a fault lands on replica 1's slice;
   * the single-instance step of `abft`/`hybrid`: the same replica step
@@ -59,7 +64,14 @@ from repro_torch.core.recovery import make_recovery
 from repro_torch.data import make_pipeline
 from repro_torch.device import make_deterministic, resolve_device, upload
 from repro_torch.models import build_model
-from repro_torch.optim import apply_updates, make_optimizer
+from repro_torch.optim import make_optimizer
+
+# Families whose fused backend runs each replica's loss and backward on its
+# own (the optimizer and K1 still take the stacked leaves): on the card the
+# xLSTM's loss under `torch.vmap` drifted 2.0e-3 (relative) from the
+# sequential backend's in 4 adamw steps on an NVIDIA H100 80GB HBM3, 13x
+# the fused gate that the other five families meet (PERF.md §6).
+PER_REPLICA_FAMILIES = ("ssm",)
 
 # backends the reference trains with that the port does not, and where
 # ROADMAP.md queues them
@@ -94,7 +106,8 @@ class TrainReport:
 
 
 class SedarTrainer:
-    """Drives SEDAR-protected training of a dense architecture."""
+    """Drives SEDAR-protected training of any family the port runs (dense,
+    moe, hybrid, vlm, ssm, audio)."""
 
     def __init__(self, run_cfg: RunConfig, workdir: str,
                  inj_spec: Optional[InjectionSpec] = None,
@@ -181,8 +194,26 @@ class SedarTrainer:
         """`loss_and_grads` of both replicas at once: `params` stacks them
         on a leading axis of 2. The forward is one `torch.vmap` over the
         stacked leaves; autograd's backward of the summed losses gives each
-        replica its own gradient (d sum / d loss_r = 1 exactly). Returns
-        (losses (2,), stacked grads, each contiguous)."""
+        replica its own gradient (d sum / d loss_r = 1 exactly). A family
+        in `PER_REPLICA_FAMILIES` runs each replica's `loss_and_grads` on
+        its view instead, its grads written into the stacked leaves.
+        Returns (losses (2,), stacked grads, each contiguous)."""
+        if self.cfg.model.family in PER_REPLICA_FAMILIES:
+            losses, stacked = [], None
+            for r in range(2):
+                loss, grads = self.loss_and_grads(replica_view(params, r),
+                                                  batch)
+                flat = tree_util.leaves(grads)
+                del grads
+                if stacked is None:
+                    stacked = [g.new_empty((2,) + tuple(g.shape))
+                               for g in flat]
+                for buf, g in zip(stacked, flat):
+                    buf[r].copy_(g)
+                del flat
+                losses.append(loss)
+            return torch.stack(losses), tree_util.unflatten_like(params,
+                                                                 stacked)
         leaves = [p.detach().requires_grad_(True)
                   for p in tree_util.leaves(params)]
         with torch.enable_grad():
@@ -221,9 +252,11 @@ class SedarTrainer:
         grads = self._inject_stacked(grads, "grads", step, armed)
         fps = torch.stack([self._grad_fp(replica_view(grads, r))
                            for r in range(2)])
-        updates, new_opt = torch.vmap(self.opt.update)(
-            grads, stacked["opt"], params, stacked["step"])
-        new_params = apply_updates(params, updates)
+        # the optimizer drops each stacked gradient leaf once it is stepped
+        g = tree_util.leaves(grads)
+        del grads
+        new_params, new_opt = self.opt.apply(
+            g, stacked["opt"], params, stacked["step"], replicas=True)
         new_params = self._inject_stacked(new_params, "params", step, armed)
         new_opt = self._inject_stacked(new_opt, "opt_state", step, armed)
         cand = {"params": new_params, "opt": new_opt,
@@ -231,9 +264,16 @@ class SedarTrainer:
         return cand, fps, losses[0]
 
     def batch(self, step: int):
-        """The batch of `step` on the trainer's device."""
-        return {k: upload(np.asarray(v, np.int64), self.device)
-                for k, v in self.data.batch(step).items()}
+        """The batch of `step` on the trainer's device: integer leaves
+        (tokens, targets) as int64, float leaves (a frontend's stub
+        embeddings) at their own dtype and values."""
+        out = {}
+        for k, v in self.data.batch(step).items():
+            v = np.asarray(v)
+            if np.issubdtype(v.dtype, np.integer):
+                v = v.astype(np.int64)
+            out[k] = upload(v, self.device)
+        return out
 
     def _replica_step(self, state, step_batch, replica_id: int, armed: bool):
         """(state, (host step, batch), replica, armed) -> (candidate, grads
@@ -249,9 +289,11 @@ class SedarTrainer:
         # abft/hybrid have no second replica to compare the grads with
         fp = self._grad_fp(grads) if self.backend != "abft" and \
             self.backend != "hybrid" else None
-        updates, new_opt = self.opt.update(grads, state["opt"], params,
-                                           state["step"])
-        new_params = apply_updates(params, updates)
+        # the optimizer drops each gradient leaf once it is stepped
+        g = tree_util.leaves(grads)
+        del grads
+        new_params, new_opt = self.opt.apply(g, state["opt"], params,
+                                             state["step"])
         if spec is not None and spec.target == "params":
             new_params = inject_tree(new_params, spec, step=step,
                                      replica_id=replica_id, armed=armed)

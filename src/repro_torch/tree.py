@@ -11,6 +11,11 @@ from __future__ import annotations
 
 from typing import Any, Callable, List, Tuple
 
+# The walks below recurse through module-level functions. A nested function
+# that calls itself is a reference cycle (function -> closure cell ->
+# function), which would keep every leaf it saw, a training step's states
+# and grads among them, alive until the cyclic garbage collector runs.
+
 
 def _children(node) -> List[Tuple[str, Any]]:
     if isinstance(node, dict):
@@ -22,21 +27,21 @@ def _is_container(node) -> bool:
     return isinstance(node, (dict, list, tuple))
 
 
+def _walk_paths(node, path: str, out: List[Tuple[str, Any]]) -> None:
+    if node is None:
+        return
+    if _is_container(node):
+        for k, c in _children(node):
+            _walk_paths(c, path + k, out)
+    else:
+        out.append((path, node))
+
+
 def flatten_with_path(tree) -> List[Tuple[str, Any]]:
     """[(keystr path, leaf)] in JAX flatten order (path spelled like
     `jax.tree_util.keystr`, e.g. "['layers']['attn']['bk']")."""
     out: List[Tuple[str, Any]] = []
-
-    def walk(node, path):
-        if node is None:
-            return
-        if _is_container(node):
-            for k, c in _children(node):
-                walk(c, path + k)
-        else:
-            out.append((path, node))
-
-    walk(tree, "")
+    _walk_paths(tree, "", out)
     return out
 
 
@@ -59,26 +64,33 @@ def tree_map(fn: Callable[..., Any], tree, *rest):
     return fn(tree, *rest)
 
 
+def _rebuild(node, fn: Callable[[Any], Any]):
+    """`node`'s structure with each leaf replaced by fn(leaf), in flatten
+    order."""
+    if node is None:
+        return None
+    if isinstance(node, dict):
+        new = dict(node)
+        for k in sorted(node):
+            new[k] = _rebuild(node[k], fn)
+        return new
+    if _is_container(node):
+        return type(node)(_rebuild(c, fn) for c in node)
+    return fn(node)
+
+
 def unflatten_like(template, new_leaves):
     """A tree of `template`'s structure whose leaves, in flatten order, are
     `new_leaves` (the counterpart of `jax.tree_util.tree_unflatten`)."""
     new_leaves = list(new_leaves)
     used = [0]
 
-    def walk(node):
-        if node is None:
-            return None
-        if isinstance(node, dict):
-            new = dict(node)
-            for k in sorted(node):
-                new[k] = walk(node[k])
-            return new
-        if _is_container(node):
-            return type(node)(walk(c) for c in node)
+    def take(_):
         used[0] += 1
-        return new_leaves[used[0] - 1]
+        return new_leaves[used[0] - 1] if used[0] <= len(new_leaves) \
+            else None
 
-    out = walk(template)
+    out = _rebuild(template, take)
     if used[0] != len(new_leaves):
         raise ValueError(f"{len(new_leaves)} leaves for a template of "
                          f"{used[0]}")
@@ -91,21 +103,11 @@ def replace_leaf(tree, leaf_idx: int, new_leaf):
     same object as before."""
     counter = [0]
 
-    def walk(node):
-        if node is None:
-            return None
-        if _is_container(node):
-            if isinstance(node, dict):
-                new = dict(node)
-                for k in sorted(node):
-                    new[k] = walk(node[k])
-                return new
-            return type(node)(walk(c) for c in node)
-        i = counter[0]
+    def pick(leaf):
         counter[0] += 1
-        return new_leaf if i == leaf_idx else node
+        return new_leaf if counter[0] - 1 == leaf_idx else leaf
 
-    out = walk(tree)
+    out = _rebuild(tree, pick)
     if leaf_idx >= counter[0]:
         raise IndexError(f"leaf_idx {leaf_idx} out of range "
                          f"({counter[0]} leaves)")

@@ -189,6 +189,36 @@ def test_k1_leaves_bitwise_vs_pack_and_plain(card, tree):
     assert calls == 1 and len(names) == 1 and "fp_leaves" in names.pop()
 
 
+def test_k1_takes_a_126_leaf_training_state_in_one_launch(card):
+    """recurrentgemma's {params, adamw m, v} (126 leaves, reduced widths):
+    more leaves than a 64-row table holds, so K1 takes its 512-row table.
+    One launch, read in place (no packed copy: the one launch call is
+    K1's), hash words and absmax equal to the packed plain version's, and
+    bitwise repeatable."""
+    from repro_torch.configs import TrainConfig
+    from repro_torch.models import build_model
+    from repro_torch.optim import make_optimizer
+    cfg = reduce_for_smoke(get_config("recurrentgemma-2b"))
+    params = build_model(cfg, card).init(seed=0)
+    opt = make_optimizer(TrainConfig(optimizer="adamw")).init(params)
+    gen = torch.Generator(device=card).manual_seed(5)
+    opt = tree_util.tree_map(lambda t: torch.randn(
+        t.shape, generator=gen, device=card), opt)     # not all zeros
+    t = {"params": params, "opt": opt}
+    table = kfp.leaf_table(tree_util.leaves(t))
+    assert table is not None and len(table) == 126 > 64
+    before = kfp.launch_count.n
+    got = tfp.pytree_fingerprint_fused(t)
+    assert kfp.launch_count.n == before + 1
+    want = kfp.fingerprint_plain(tfp.pack_tree_u32(t))
+    assert torch.equal(got[[0, 1, 3]], want[[0, 1, 3]])
+    assert torch.equal(got[[0, 1, 3]], kfp.fingerprint_leaves_plain(table)
+                       [[0, 1, 3]])
+    assert torch.equal(got, tfp.pytree_fingerprint_fused(t))
+    calls, names = _launches(lambda: tfp.pytree_fingerprint_fused(t))
+    assert calls == 1 and len(names) == 1 and "fp_leaves" in names.pop()
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,H,KV,Sq,Sk,hd,causal,window", ATTN_CASES)
 def test_k2_kernel_vs_plain(card, dtype, B, H, KV, Sq, Sk, hd, causal,
