@@ -54,18 +54,20 @@ counts set to 0 just before it and read just after:
     bitwise equal to the run with telemetry off; the calibrated temporal
     model and `advise()` on it;
   * the model families (phase families): protected `generate()` of
-    recurrentgemma-2b (hybrid: RG-LRU blocks and local attention, B=2 ×
-    4,096 prompt tokens, K2 at hd 256 with its 2,048 window), internvl2-2b
-    (vlm: 256 stub patch embeddings + 256 tokens, hd 128), phi3.5-moe
-    (moe, 8 of its 32 layers, hd 128), xlstm-125m (ssm, 2 of 12 blocks) and
+    recurrentgemma-2b (hybrid: RG-LRU blocks and local attention,
+    B=2 × 4,096 prompt tokens, K2 at hd 256 with its 2,048 window),
+    internvl2-2b (vlm: 256 stub patch embeddings + 256 tokens, hd 128),
+    phi3.5-moe (moe, 8 of its 32 layers, hd 128),
+    xlstm-125m (ssm, 2 of 12 blocks) and
     seamless-m4t-medium (audio) at full width under none, sequential,
     abft, fused and hybrid in turns (equal streams, replica faults
     retried, checksum-block faults corrected forward, hybrid's retry at an
     entry check with no false FSC and its catch of an at-rest flip), and
     K2 at each family's prefill shape against its plain version and SDPA;
   * continuous `serve()` of the moe, ssm and hybrid families (phase
-    family_serve): phi3.5-moe (8 layers), xlstm-125m and recurrentgemma-2b
-    at full width, every backend under sync-debug "error", slot and
+    family_serve): phi3.5-moe (4 layers), xlstm-125m (2 blocks) and
+    recurrentgemma-2b (8 layers) at full width, every backend under
+    sync-debug "error", slot and
     admission faults, and K1's ring rows against their plain version;
   * protected training of the moe, hybrid, vlm, ssm and audio families
     (phase family_train): phi3.5-moe, recurrentgemma-2b, internvl2-2b,
@@ -75,6 +77,20 @@ counts set to 0 just before it and read just after:
     an at-rest flip under hybrid recovered bitwise, peaks, K1's launches
     against the code's count, and K1 on each family's grads and state
     against its plain version;
+  * the f32 body of K2 and K4 at hd 128 and 256 (phase f32_wide: the
+    internvl2-2b and recurrentgemma-2b prefill shapes against the plain
+    versions, K4's bit-23 verdict, SDPA f32 on the MATH backend beside
+    them) and protected f32 `generate()` of both models with
+    `attention_impl="pallas"` (phase f32_generate: none and sequential,
+    equal streams, the first token's logits against the xla attention);
+  * the mesh backends (phase pod_train, after phase train): qwen2-0.5b at
+    full width trained by `pod` (2 ranks) and `vote` (3 ranks), each
+    replica a process of its own over gloo on this one card, under
+    sync-debug "error" in every rank: clean runs bitwise equal to the
+    sequential trainer's, a pod grads fault localized to its lane and
+    restored from the device tier, a vote params fault repaired forward,
+    both bitwise equal to the clean run; K1's lanes (L = 1, 2, 8) on the
+    full grads against their plain version in phase train;
   * a small f32 model on the card against the plain CPU path.
 
 Any failed check exits non-zero. The last two lines are a JSON object of
@@ -1818,8 +1834,10 @@ def phase_train(kfp):
     restore from step 2 and end bitwise equal to the clean run, runs under
     none and under sequential without checkpoints for ms/step, the host
     launch calls of one protected step, and K1 on the full grads and
-    params+opt trees against its plain version. Returns K1's launches in
-    the clean run."""
+    params+opt trees against its plain version (and its lanes on the
+    grads, `k1_lanes_entry`). Returns (K1's launches in the clean run, the
+    K1 lanes entry, the clean L3 run's losses and final per-leaf
+    fingerprint: phase_pod_train's oracle)."""
     import dataclasses
     import shutil
     import tempfile
@@ -1978,6 +1996,7 @@ def phase_train(kfp):
                   f"{ms:.4f} ms ({4 * n / ms / 1e9:.3f} TB/s), plain "
                   f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})",
                   flush=True)
+        lanes_entry = k1_lanes_entry(kfp, grads, "the full-width grads")
         # the L3 run's dual state goes before the fused runs (~59 GiB)
         del dual, grads, opt_tree, tr, ftr
         _free()
@@ -2036,7 +2055,7 @@ def phase_train(kfp):
         phase_train_app()
         phase_tiers_app()
         print(f"train phase took {time.time() - t_phase:.1f} s", flush=True)
-        return k1_launches
+        return k1_launches, lanes_entry, rep.losses, rep.final_state_fp
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -3324,6 +3343,7 @@ def phase_families(kfp, kfa):
     dev = torch.device("cuda")
     k1_total, entries = 0, []
     for arch, B, S, depth in FAMILY_CASES:
+        t_model = time.time()
         cfg = dataclasses.replace(get_config(arch), attention_impl="pallas")
         if depth:
             cfg = dataclasses.replace(cfg, num_layers=depth)
@@ -3486,6 +3506,8 @@ def phase_families(kfp, kfa):
             entry["launches"] = k2_launches
             entries.append(entry)
         torch.cuda.empty_cache()
+        print(f"families: {arch} at {cfg.num_layers} layers took "
+              f"{time.time() - t_model:.1f} s", flush=True)
     print(f"families phase took {time.time() - t_phase:.1f} s", flush=True)
     return k1_total, entries
 
@@ -3494,14 +3516,20 @@ def phase_families(kfp, kfa):
 # recurrentgemma's prompts straddle its 2,048 window: a 2,040-token prompt
 # wraps the ring during decode, 2,100 and 4,096 start wrapped at other
 # phases. xlstm-125m keeps 2 of its 12 blocks, for the script's time (as in
-# FAMILY_CASES: its B=1 admissions are the sLSTM token loop).
-FAMILY_SERVE_CASES = (("phi3.5-moe-42b-a6.6b", 8, (96, 200, 256)),
+# FAMILY_CASES: its B=1 admissions are the sLSTM token loop). For the same
+# reason, once the f32 and mesh phases came, phi3.5-moe keeps 4 of 32 layers
+# (8 in FAMILY_CASES) and recurrentgemma-2b 8 of 26 (two (rec, rec, attn)
+# groups and the (rec, rec) tail, the full model's structure): this phase
+# took 190.0 s at 8 and 26 layers and 100.3 s at 4 and 8, the rest of the
+# script ~750 s, against a 1,050 s target within the 1,200 s limit
+# (NVIDIA H100 80GB HBM3, 700 W; PERF.md §4).
+FAMILY_SERVE_CASES = (("phi3.5-moe-42b-a6.6b", 4, (96, 200, 256)),
                       ("xlstm-125m", 2, (96, 200, 256)),
-                      ("recurrentgemma-2b", None, (2040, 2100, 4096)))
+                      ("recurrentgemma-2b", 8, (2040, 2100, 4096)))
 
 
 def phase_family_serve(kfp, kfa) -> dict:
-    """Slice 9: continuous serve() of the moe (phi3.5-moe, 8 of 32 layers),
+    """Slice 9: continuous serve() of the moe (phi3.5-moe, 4 of 32 layers),
     ssm (xlstm-125m) and hybrid (recurrentgemma-2b) families at full width,
     8 requests in 4 slots (arrivals 0.5 per tick, budgets 16 or 32),
     every run under sync-debug "error": none, sequential at lag 1 and 8,
@@ -3548,6 +3576,7 @@ def phase_family_serve(kfp, kfa) -> dict:
             torch.cuda.set_sync_debug_mode(0)
 
     for arch, depth, lengths in FAMILY_SERVE_CASES:
+        t_model = time.time()
         cfg = dataclasses.replace(get_config(arch), attention_impl="pallas")
         if depth:
             cfg = dataclasses.replace(cfg, num_layers=depth)
@@ -3749,6 +3778,8 @@ def phase_family_serve(kfp, kfa) -> dict:
         check(sum(k2_shapes.values()) == totals[arch]["flash_attention"],
               f"{arch}: K2 shapes {k2_shapes} miss launches")
         entries += k2_entries(kfa, cfg, k2_shapes, f"{arch}_serve")
+        print(f"family serve: {arch} at {cfg.num_layers} layers took "
+              f"{time.time() - t_model:.1f} s", flush=True)
     print(f"family serve phase took {time.time() - t_phase:.1f} s",
           flush=True)
     return totals, entries
@@ -4121,6 +4152,501 @@ def phase_family_train(kfp) -> int:
     return launches
 
 
+# (arch, B, H, KV, S, hd, window): the f32 body's wide head dims at the
+# families' prefill shapes (internvl2-2b: 256 patches + 256 tokens)
+F32_WIDE_CASES = (("internvl2-2b", 4, 16, 8, 512, 128, 0),
+                  ("recurrentgemma-2b", 2, 10, 1, 4096, 256, 2048))
+F32_TOL = 1e-5      # atol and rtol of the f32 body against its plain version
+
+
+def _f32_check(what: str, got, again, want) -> float:
+    diff = (got - want).abs()
+    err = float(diff.max())
+    over = float((diff - F32_TOL * want.abs()).max())
+    check(bool(torch.isfinite(got).all()), f"{what} non-finite")
+    check(over <= F32_TOL, f"{what} off plain beyond atol {F32_TOL} + rtol "
+          f"{F32_TOL} (max abs err {err})")
+    check(torch.equal(got, again), f"{what} not bitwise repeatable")
+    return err
+
+
+def phase_f32_wide(kab, kfa, report) -> tuple:
+    """K2 f32 and K4 (one true-f32 body) at hd 128 (internvl2-2b's prefill,
+    B=4 H=16/8 S=512 causal) and hd 256 (recurrentgemma-2b's, B=2 H=10/1
+    S=4096, window 2048) against their plain versions within atol/rtol
+    1e-5, two launches bitwise equal, K4's verdict clean and on a bit-23
+    flip of its largest output; each timed beside its plain version and
+    SDPA f32 on the MATH backend (with the window as a boolean mask), with
+    its bound at the f32 rate and ptxas's registers and spills. K4 has no
+    model path in either package: its launches are `abft_flash_attention`
+    API calls, one per attention layer of the family. Returns (the K2 f32
+    entries by head dim, the K4 entries)."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from repro_torch.abft.ref import attention_checksum_encode, attention_verify
+    from repro_torch.core.injection import InjectionSpec, make_kernel_fault
+    dev = torch.device("cuda")
+    k2, k4 = {}, []
+    for arch, B, H, KV, S, hd, W in F32_WIDE_CASES:
+        gen = torch.Generator(device=dev).manual_seed(S + hd)
+        # model layout (B, S, heads, hd) viewed as (B, heads, S, hd)
+        q, k, v = (torch.randn(B, S, n, hd, generator=gen, device=dev
+                               ).transpose(1, 2) for n in (H, KV, KV))
+        v_aug = attention_checksum_encode(v)
+        pos = torch.arange(S, device=dev)
+        mask = ((pos[:, None] >= pos[None, :])
+                & (pos[:, None] - pos[None, :] < (W or S)))
+        pairs = _window_pairs(S, W)
+        tag = f"hd{hd}_{arch}"
+        for name, fn, plain, vv, width in (
+                ("K2 f32", lambda: kfa.flash_attention_fwd(
+                    q, k, v, causal=True, window=W),
+                 lambda: kfa.flash_attention_plain(q, k, v, causal=True,
+                                                   window=W), v, hd),
+                ("K4", lambda: kab.flash_attention_ck(
+                    q, k, v_aug, causal=True, window=W),
+                 lambda: kfa.flash_attention_plain(q, k, v_aug, causal=True,
+                                                   window=W), v_aug, hd + 1)):
+            got, again, want = fn(), fn(), plain()
+            err = _f32_check(f"{name} {tag}", got, again, want)
+            ms = device_ms(fn, 10)
+            plain_ms = device_ms(plain, 3)
+            # the same by CUDA events, which no missing profiler record
+            # can shorten (the host's gaps included)
+            plain_ev = cuda_ms(plain, 3)
+            with sdpa_kernel(SDPBackend.MATH):
+                lib_ms = device_ms(lambda: F.scaled_dot_product_attention(
+                    q, k, vv, attn_mask=mask, enable_gqa=True), 3)
+            flops = 2.0 * B * H * pairs * (hd + width)     # QK^T and PV
+            nbytes = 4.0 * B * S * (H * hd + KV * hd + KV * width
+                                    + H * width)
+            b_ms, b_by = bound(nbytes, flops, F32_FLOPS_PER_S)
+            key = f"flash_fwd_f32<{hd},{int(name == 'K4')}>"
+            regs, spill, _ = report.get(key, (None, None, None))
+            smem = ((5 if hd <= 128 else 3) * 64 * (hd + 4) + 64 * 68) * 4
+            verdict = ""
+            if name == "K4":
+                _, rep = attention_verify(got, S)
+                flat = int(got[..., :hd].abs().argmax())
+                spec = InjectionSpec(leaf_idx=0, flat_idx=flat // hd * (hd + 1)
+                                     + flat % hd, bit=23, step=0,
+                                     target="kernel")
+                _, frep = attention_verify(
+                    make_kernel_fault(spec, step=0, armed=True)(got), S)
+                check(not bool(rep.detected), f"clean K4 detected at {tag}")
+                check(bool(frep.detected) and bool(frep.uncorrectable),
+                      f"K4's bit-23 fault not flagged at {tag}")
+                verdict = (", clean verify detected False, bit-23 flip of "
+                           "the largest output detected True, "
+                           "uncorrectable True")
+            print(f"{name} {tag} (B={B} H={H}/{KV} S={S} window={W}): max abs "
+                  f"err {err:.3e} vs plain (f32), two launches bitwise "
+                  f"equal{verdict}; device {ms:.4f} ms, plain {plain_ms:.4f} "
+                  f"ms (by CUDA events {plain_ev:.4f} ms), sdpa f32 MATH "
+                  f"{lib_ms:.4f} ms; bound {b_ms:.5f} ms "
+                  f"({b_by}, f32 rate), {flops / ms / 1e9:.2f} TFLOP/s; "
+                  f"{key}: {regs} registers, {spill} bytes spilled, {smem} "
+                  f"bytes of dynamic shared memory per block", flush=True)
+            entry = {"route": "cuda",
+                     "source": "src/repro_torch/csrc/flash_attention.cu",
+                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
+            if name == "K2 f32":
+                k2[hd] = dict(entry, name=f"flash_attention_f32_{tag}",
+                              replaces="src/repro/kernels/flash_attention.py:33")
+                continue
+            # the API once per attention layer of the family
+            layers = 24 if hd == 128 else 8
+            kab.flash_ck_launch_count.reset()
+            for _ in range(layers):
+                _, rep = kab.abft_flash_attention(q, k, v, causal=True,
+                                                  window=W)
+                check(not bool(rep.detected), f"K4 API detected at {tag}")
+            k4.append(dict(entry, name=f"abft_flash_attention_{tag}",
+                           replaces="src/repro/abft/kernels.py:122",
+                           launches=kab.flash_ck_launch_count.n))
+        del q, k, v, v_aug, mask
+        torch.cuda.empty_cache()
+    return k2, k4
+
+
+# (arch, batch, prompt tokens): the f32 generate() path through the f32 K2
+# body at hd 128 (internvl2-2b, with 256 stub patch embeddings) and hd 256
+# (recurrentgemma-2b, window 2048); full width, seeded f32 weights
+F32_GENERATE_CASES = (("internvl2-2b", 4, 256), ("recurrentgemma-2b", 2, 4096))
+F32_GENERATE_STEPS = 8
+F32_LOGITS_RTOL = 1e-4   # first-token logits, pallas vs xla f32, of max |x|
+
+
+def phase_f32_generate(kfp, kfa) -> dict:
+    """Protected generate() in f32 compute (`dtype="float32"`) with
+    `attention_impl="pallas"`, so the prefill runs K2's f32 body at hd 128
+    and 256: 8 greedy tokens under none and sequential (equal streams, no
+    detection on the clean runs, K2's f32 launches counted by shape), and
+    the first token's logits against the same model with
+    `attention_impl="xla"` in f32 (both compute the same f32 attention):
+    max |difference| within F32_LOGITS_RTOL of the logits' max |value|,
+    the same greedy token. Returns {head dim: K2 f32 launches}."""
+    import dataclasses
+
+    from repro_torch.configs import RunConfig, get_config
+    from repro_torch.core.policy import make_server
+    from repro_torch.models import build_model, transformer as tfm
+    from repro_torch.tree import leaves
+
+    t_phase = time.time()
+    dev = torch.device("cuda")
+    launches = {}
+    for arch, B, S in F32_GENERATE_CASES:
+        cfg = dataclasses.replace(get_config(arch), attention_impl="pallas",
+                                  dtype="float32")
+        rng = np.random.RandomState(7)
+        prompt = {"tokens": torch.from_numpy(
+            rng.randint(0, cfg.vocab_size, (B, S))).to(dev)}
+        if cfg.frontend:
+            prompt["frontend_embeds"] = 0.1 * torch.from_numpy(
+                rng.standard_normal((B, cfg.frontend_seq, cfg.frontend_dim)
+                                    ).astype(np.float32)).to(dev)
+        P = cfg.frontend_seq if cfg.family == "vlm" else 0
+        attn_layers = (sum(k == "attention" for k in cfg.block_pattern)
+                       * (cfg.num_layers // len(cfg.block_pattern))
+                       + sum(k == "attention" for k in tfm.pattern_tail(cfg))
+                       if cfg.block_pattern else cfg.num_layers)
+        servers = {b: make_server(RunConfig(model=cfg), backend=b, device=dev)
+                   for b in ("none", "sequential")}
+        params = servers["none"].model.init(seed=0)
+        n_params = sum(p.numel() for p in leaves(params))
+        print(f"f32 generate: {cfg.name} {cfg.num_layers}L d={cfg.d_model} "
+              f"H={cfg.num_heads}/{cfg.num_kv_heads} hd={cfg.head_dim} "
+              f"window={cfg.window_size}, {n_params / 1e9:.2f}B f32 params, "
+              f"f32 compute, B={B} prompt={S}"
+              f"{f' + {P} patches' if P else ''}, {F32_GENERATE_STEPS} "
+              f"tokens", flush=True)
+        servers["none"].generate(params, prompt, steps=2)      # warm-up
+        runs = {b: _family_run(kfp, kfa, srv, params, prompt, f"{b} f32",
+                               steps=F32_GENERATE_STEPS)
+                for b, srv in servers.items()}
+        shapes = dict(kfa.launch_count.shapes)
+        key = (B, cfg.num_heads, cfg.num_kv_heads, S + P, S + P,
+               cfg.head_dim, 1, cfg.window_size, torch.float32)
+        toks = runs["none"][0]
+        for b, (t, rep, counts, _) in runs.items():
+            check(np.array_equal(t, toks), f"f32 {arch}: {b} tokens differ "
+                  f"from the unprotected run")
+            check(not rep.detections and not rep.stopped,
+                  f"f32 {arch}: clean {b} run detected "
+                  f"{[str(e) for e in rep.detections]}")
+            check(counts["flash_attention"] == attn_layers,
+                  f"f32 {arch}: K2 launched {counts['flash_attention']} != "
+                  f"{attn_layers} times under {b}")
+        # the counts by shape are the last run's (each run resets them)
+        check(shapes == {key: attn_layers},
+              f"f32 {arch}: K2 launches by shape {shapes}, not "
+              f"{attn_layers} f32 launches at {key}")
+        launches[cfg.head_dim] = (runs["none"][2]["flash_attention"]
+                                  + runs["sequential"][2]["flash_attention"])
+        xla = build_model(dataclasses.replace(cfg, attention_impl="xla"), dev)
+        with torch.no_grad():
+            got, _ = servers["none"].model.prefill(params, prompt, S + P + 8)
+            want, _ = xla.prefill(params, prompt, S + P + 8)
+        got, want = got.float(), want.float()
+        err = float((got - want).abs().max())
+        scale = float(want.abs().max())
+        same = torch.equal(got.argmax(-1), want.argmax(-1))
+        print(f"  f32 {arch}: K2 f32 launches {launches[cfg.head_dim]} "
+              f"(by shape {shapes}); first-token logits pallas vs xla: max "
+              f"abs diff {err:.3e} of max |logit| {scale:.3e} "
+              f"({err / scale:.3e}), greedy tokens equal {same}", flush=True)
+        check(err <= F32_LOGITS_RTOL * scale and same,
+              f"f32 {arch}: pallas logits off xla by {err} (max {scale})")
+        del servers, params, xla, got, want, runs
+        _free()
+    print(f"f32 generate phase took {time.time() - t_phase:.1f} s",
+          flush=True)
+    return launches
+
+
+K1_LANES = (1, 2, 8)
+
+
+def k1_lanes_entry(kfp, tree, what: str) -> dict:
+    """K1's lanes (`pytree_fingerprint_lanes`, one launch over the leaves in
+    place) at L = 1, 2 and 8 against the plain lanes of the packed words:
+    h1, h2 and absmax of every lane bitwise equal; per call by CUDA events
+    against the byte bound, the plain version over the lane table beside
+    it. Returns the kernels-line entry at L = 1, the pod path's lanes on
+    one card (one data shard)."""
+    from repro_torch.core.fingerprint import (pack_tree_u32,
+                                              pytree_fingerprint_lanes)
+    from repro_torch.tree import leaves
+    u = pack_tree_u32(tree)
+    n = u.numel()
+    entry = None
+    for L in K1_LANES:
+        got = pytree_fingerprint_lanes(tree, L)
+        width = -(-n // L)
+        want = torch.stack([kfp.fingerprint_plain(torch.cat([
+            u[i * width:min((i + 1) * width, n)],
+            u.new_zeros(max(0, (i + 1) * width - max(n, i * width)))]))
+            for i in range(L)])
+        check(torch.equal(got[:, [0, 1, 3]], want[:, [0, 1, 3]]),
+              f"K1 lanes L={L} on {what}: h1/h2/absmax differ from plain")
+        table = kfp.lane_table(leaves(tree), L)
+        ms = cuda_ms(lambda: pytree_fingerprint_lanes(tree, L), 20)
+        plain_ms = cuda_ms(lambda: kfp.fingerprint_lanes_plain(table, L), 1,
+                           warmup=1)
+        b_ms, b_by = bound(4.0 * n + 16 * L, 0)
+        print(f"K1 lanes L={L} on {what}: {len(table)} table rows, {n} "
+              f"words, h1/h2/absmax of every lane bitwise equal to plain; "
+              f"per call {ms:.4f} ms ({4 * n / ms / 1e9:.3f} TB/s), plain "
+              f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})", flush=True)
+        if L == 1:
+            entry = {"name": "fingerprint_lanes", "route": "cuda",
+                     "source": "src/repro_torch/csrc/fingerprint.cu",
+                     "replaces": "src/repro/kernels/fingerprint.py:51",
+                     "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+    del u
+    return entry
+
+
+POD_STEPS = TRAIN_STEPS
+POD_TIMEOUT_S = 600
+
+
+def pod_rank(rank: int, backend: str, mesh_cfg, runs: list,
+             root: str) -> dict:
+    """One rank of phase_pod_train (spawned by `launch/mesh.py::spawn`):
+    the training launcher's rank, `launch/train.py::mesh_rank`, on
+    qwen2-0.5b at full width (seeded init and data), once per run of
+    `runs` = [(name, sedar kwargs, injection kwargs or None)], each under
+    sync-debug "error" (a device read outside `hostsync` fails it).
+    mesh_rank's report gives ms/step, peak memory, K1 launches, host reads
+    and collectives; around it this rank counts the -0.0 the state holds
+    when a vote repair's broadcast lands and the broadcast's seconds.
+    Then the gloo probes."""
+    import gc
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import RunConfig, SedarConfig, TrainConfig, get_config
+    from repro_torch.core import hostsync
+    from repro_torch.core.injection import InjectionSpec
+    from repro_torch.launch.mesh import make_process_mesh
+    from repro_torch.launch.train import mesh_rank
+    from repro_torch.runtime import train as rtrain
+    from repro_torch.tree import leaves
+
+    # the -0.0 the state holds when the majority's broadcast lands (the
+    # reference's masked psum would make each +0.0), and the broadcast's
+    # host seconds (the gloo calls wait for each leaf's staging through
+    # host memory): the vote trainer's broadcaster, wrapped in this process
+    at_repair = []
+    make_broadcaster = rtrain.make_pod_broadcaster
+
+    def counting_broadcaster(mesh):
+        bcast = make_broadcaster(mesh)
+
+        def from_src(src):
+            def run(tree):
+                n = sum(hostsync.read_int(
+                    ((x == 0) & torch.signbit(x)).sum(),
+                    label="negative_zeros")
+                    for x in leaves(tree) if x.is_floating_point())
+                t0 = time.perf_counter()
+                out = bcast(src)(tree)
+                at_repair.append((n, time.perf_counter() - t0))
+                return out
+            return run
+        return from_src
+
+    rtrain.make_pod_broadcaster = counting_broadcaster
+    cfg = get_config("qwen2-0.5b")
+    out = {}
+    for name, sedar_kw, spec_kw in runs:
+        rc = RunConfig(model=cfg,
+                       train=TrainConfig(global_batch=BATCH, seq_len=TRAIN_SEQ,
+                                         steps=POD_STEPS, warmup_steps=2),
+                       sedar=SedarConfig(level=3, replication=backend,
+                                         **sedar_kw))
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            rep = mesh_rank(rank, rc, mesh_cfg, os.path.join(root, name),
+                            spec_kw and InjectionSpec(**spec_kw), "cuda")
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        out[name] = dict(rep, negative_zeros_at_repair=list(at_repair))
+        at_repair.clear()
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["pod"], out["data"] = rep["pod"], rep["data"]
+    mesh = make_process_mesh(mesh_cfg)
+    # gloo on CUDA tensors: the cost of one small all_reduce over the pod
+    # group, whether the call returns before the device work queued ahead
+    # of it has run, and whether gloo takes an all_gather
+    x = torch.zeros(8, dtype=torch.int64, device="cuda")
+    big = torch.randn(4096, 4096, device="cuda")
+    for _ in range(3):
+        with hostsync.collective("probe"):
+            dist.all_reduce(x, group=mesh.pod_group)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        with hostsync.collective("probe"):
+            dist.all_reduce(x, group=mesh.pod_group)
+    out["allreduce_ms"] = (time.perf_counter() - t0) * 1e3 / 20
+    queued = cuda_ms(lambda: big @ big, 10, warmup=1) * 20
+    for _ in range(20):
+        big @ big
+    t0 = time.perf_counter()
+    with hostsync.collective("probe"):
+        dist.all_reduce(x, group=mesh.pod_group)
+    out["call_ms"] = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    out["queued_ms"] = queued
+    gathered = [torch.zeros_like(x) for _ in range(mesh.n_pods)]
+    try:
+        with hostsync.collective("probe"):
+            dist.all_gather(gathered, x, group=mesh.pod_group)
+        out["all_gather"] = "taken"
+    except RuntimeError as e:
+        out["all_gather"] = f"refused: {str(e).splitlines()[0][:160]}"
+    return out
+
+
+def phase_pod_train(kfp, seq_losses, seq_final) -> int:
+    """Slice 11, the mesh backends on one card: qwen2-0.5b at full width
+    (the training cell: batch 4 x 256 tokens, adamw, 6 steps, L3), each
+    replica a process of its own over gloo (`launch/mesh.py`), every rank
+    on this card and under sync-debug "error".
+    pod, 2 ranks x 1 data shard, L3 every 2 on the device tier: a clean
+    run at validate lag 4 (no `commit_compare` read) and a grads fault
+    (leaf 0 element 5 bit 20, pod 1, step 3) at lag 1: one commit TDC at
+    step 3 in lane 0 (host 0), restored from the device tier, ending
+    bitwise equal to the clean run.
+    vote, 3 ranks, FSC every 2, no checkpoint: a clean run, and a params
+    fault (leaf 2 element 3 bit 30, pod 1, step 3) repaired forward by the
+    majority's broadcast with 0 rollbacks, ending bitwise equal to the
+    clean run.
+    Every rank of a run ends on the same bits; the clean pod and vote runs
+    end on the single-process sequential trainer's losses and state
+    (`seq_losses`, `seq_final`: phase train's clean L3 run), bitwise.
+    Prints ms/step, peak memory, K1 launches and host reads per rank, and
+    the gloo probes. Returns K1's launches over the pod runs' ranks (the
+    lane fingerprint of the grads is one of them every step)."""
+    import shutil
+    import tempfile
+
+    from repro_torch.configs import MeshConfig
+    from repro_torch.launch.mesh import spawn
+
+    t_phase = time.time()
+    _free()
+    # the ranks are other processes: this one's cached blocks (phase
+    # train's peak) must go back to the card first
+    torch.cuda.empty_cache()
+    print(f"pod phase: this process keeps "
+          f"{torch.cuda.memory_reserved() / 2 ** 30:.2f} GiB reserved while "
+          f"the ranks run", flush=True)
+    root = tempfile.mkdtemp(prefix="sedar_pod_")
+    l3 = dict(validate_interval=1, param_validate_interval=2,
+              checkpoint_interval=2, ckpt_tiers="device", device_ring_slots=2)
+    vote_kw = dict(validate_interval=1, param_validate_interval=2,
+                   checkpoint_interval=100)
+    grads_fault = dict(target="grads", leaf_idx=0, flat_idx=5, bit=20,
+                       step=3, replica=1)
+    params_fault = dict(target="params", leaf_idx=2, flat_idx=3, bit=30,
+                        step=3, replica=1)
+    try:
+        t0 = time.time()
+        pod = spawn(pod_rank, 2, "pod", MeshConfig(shape=(2, 1)),
+                    [("clean", dict(l3, validate_lag=4), None),
+                     ("fault", dict(l3, validate_lag=1), grads_fault)],
+                    os.path.join(root, "pod"), timeout_s=POD_TIMEOUT_S)
+        t_pod = time.time() - t0
+        t0 = time.time()
+        vote = spawn(pod_rank, 3, "vote", MeshConfig(shape=(3, 1)),
+                     [("clean", vote_kw, None), ("fault", vote_kw,
+                                                params_fault)],
+                     os.path.join(root, "vote"), timeout_s=POD_TIMEOUT_S)
+        t_vote = time.time() - t0
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    for backend, reps, secs in (("pod", pod, t_pod), ("vote", vote, t_vote)):
+        print(f"{backend}: {len(reps)} ranks on one card took {secs:.1f} s "
+              f"(spawn, init and both runs)", flush=True)
+        for r, rep in enumerate(reps):
+            for name in ("clean", "fault"):
+                x = rep[name]
+                print(f"  {backend} rank {r} (pod {rep['pod']}) {name}: "
+                      f"{x['summary']}; events {x['detections']}; "
+                      f"recoveries {x['recoveries']}; (-0.0 in the state, "
+                      f"broadcast seconds) at a vote repair "
+                      f"{x['negative_zeros_at_repair']}; "
+                      f"{x['ms_step']:.2f} "
+                      f"ms/step, peak {x['peak_gib']:.2f} GiB, K1 launches "
+                      f"{x['k1']}, host reads "
+                      f"{x['reads']}, collectives {x['collectives']}",
+                      flush=True)
+            print(f"  {backend} rank {r} gloo: all_reduce of 8 int64 words "
+                  f"over the pod group {rep['allreduce_ms']:.3f} ms per "
+                  f"call; with {rep['queued_ms']:.1f} ms of device work "
+                  f"queued ahead the call took {rep['call_ms']:.1f} ms; "
+                  f"all_gather on CUDA tensors {rep['all_gather']}",
+                  flush=True)
+        for name in ("clean", "fault"):
+            finals = [rep[name]["final_state_fp"] for rep in reps]
+            check(all(np.array_equal(f, finals[0]) for f in finals),
+                  f"{backend} {name}: the ranks' final states differ")
+            check(all(rep[name]["losses"] == reps[0][name]["losses"]
+                      for rep in reps),
+                  f"{backend} {name}: the ranks' losses differ")
+    for backend, reps in (("pod", pod), ("vote", vote)):
+        clean = reps[0]["clean"]
+        check(all(not rep["clean"]["detections"]
+                  and rep["clean"]["steps"] == POD_STEPS for rep in reps),
+              f"clean {backend} run: {clean['summary']}")
+        check(np.array_equal(clean["final_state_fp"][:, :2],
+                             np.asarray(seq_final)[:, :2])
+              and clean["losses"] == list(seq_losses),
+              f"clean {backend}: losses {clean['losses']} or state differ "
+              f"from the sequential trainer's ({list(seq_losses)})")
+        for rep in reps:
+            f = rep["fault"]
+            check(np.array_equal(f["final_state_fp"],
+                                 rep["clean"]["final_state_fp"])
+                  and f["losses"] == rep["clean"]["losses"]
+                  and f["steps"] == POD_STEPS,
+                  f"{backend}: the fault run does not end bitwise on the "
+                  f"clean run: {f['summary']}")
+    for rep in pod:
+        check("commit_compare" not in rep["clean"]["reads"],
+              f"clean lag-4 pod read commit_compare: {rep['clean']['reads']}")
+        f = rep["fault"]
+        check([(d["step"], d["boundary"], d["effect"], d["lanes"], d["hosts"])
+               for d in f["detections"]] == [(3, "commit", "TDC", [0], [0])],
+              f"pod fault events {f['detections']}")
+        check([(r["kind"], r["step"], r["rollbacks"], r.get("tier"))
+               for r in f["recoveries"]] == [("restore", 2, 1, "device")],
+              f"pod fault recoveries {f['recoveries']}")
+    for rep in vote:
+        f = rep["fault"]
+        check([(d["step"], d["boundary"], d["effect"])
+               for d in f["detections"]] == [(4, "validate", "FSC")]
+              and [(r["kind"], r["rollbacks"]) for r in f["recoveries"]]
+              == [("vote_repair", 0)],
+              f"vote fault: events {f['detections']}, recoveries "
+              f"{f['recoveries']}")
+    print(f"pod and vote: clean runs 0 detections, losses and final state "
+          f"bitwise equal to the sequential trainer's; the pod grads fault "
+          f"restored from the device tier and the vote params fault repaired "
+          f"forward, both bitwise equal to the clean runs; pod phase took "
+          f"{time.time() - t_phase:.1f} s", flush=True)
+    return sum(rep[name]["k1"] for rep in pod for name in ("clean", "fault"))
+
+
 def phase_reference():
     """Small f32 model: the card's path (kernels) against the plain CPU path
     (which the CPU tests hold to the JAX package)."""
@@ -4192,6 +4718,7 @@ def main() -> None:
     campaign_k1 = phase_scenarios(kfp)
     k3["launches"] = phase_engine(kab)
     k4 = phase_k4(kab, kfa, report)
+    k2_f32, k4_wide = phase_f32_wide(kab, kfa, report)
     counts, main_run = phase_main(kfp, kfa, get_config("qwen2-0.5b"))
     phase_abft_serve(kfp, kfa, main_run)
     serve_counts, served = phase_serve(kfp, kfa, main_run)
@@ -4200,10 +4727,15 @@ def main() -> None:
     _free()
     families_k1, wide_k2 = phase_families(kfp, kfa)
     _free()
+    for hd, n in phase_f32_generate(kfp, kfa).items():
+        k2_f32[hd]["launches"] = n
+    _free()
     family_serve, serve_k2 = phase_family_serve(kfp, kfa)
     kfp.launch_count.reset()
-    train_k1 = phase_train(kfp)
+    train_k1, lanes, seq_losses, seq_final = phase_train(kfp)
     check(train_k1 > 0, "K1 never launched by the trainer")
+    _free()
+    lanes["launches"] = phase_pod_train(kfp, seq_losses, seq_final)
     _free()
     family_train_k1 = phase_family_train(kfp)
     check(family_train_k1 > 0, "K1 never launched by the family trainers")
@@ -4215,9 +4747,10 @@ def main() -> None:
                       + sum(c["fingerprint"] for c in family_serve.values()))
     k2["launches"] = counts["flash_attention"]
     print("K2 launches: " + ", ".join(
-        f"{e['name']} {e['launches']}" for e in (k2, *wide_k2, *serve_k2)),
-        flush=True)
-    kernels = [k1, k2, *wide_k2, *serve_k2, k3, k4]
+        f"{e['name']} {e['launches']}"
+        for e in (k2, *wide_k2, *serve_k2, *k2_f32.values())), flush=True)
+    kernels = [k1, lanes, k2, *wide_k2, *serve_k2, *k2_f32.values(), k3,
+               k4, *k4_wide]
     for k in kernels:
         check(k["launches"] > 0, f"kernel {k['name']} never launched")
     for k, n in serve_counts.items():

@@ -1,4 +1,5 @@
 from repro_torch.configs.base import (
+    MeshConfig,
     ModelConfig,
     RunConfig,
     SedarConfig,
@@ -9,6 +10,7 @@ from repro_torch.configs.base import (
 from repro_torch.configs.registry import get_config, list_archs
 
 __all__ = [
+    "MeshConfig",
     "ModelConfig",
     "RunConfig",
     "SedarConfig",

@@ -3,14 +3,17 @@
 Copies of the reference package's dataclasses (`repro/configs/base.py`),
 kept field-for-field so that one configuration means the same run in both
 packages. The port keeps its own copy: it imports nothing of `repro`.
+One field differs: `RunConfig` carries no mesh. The mesh backends' trainer
+takes its process mesh as `mesh=` (a `launch/mesh.py::ProcessMesh`, made
+from a `MeshConfig`), the one place its shape comes from.
 
 Every run is described by a `RunConfig`, which composes:
   * `ModelConfig`   -- architecture hyper-parameters.
   * `TrainConfig`   -- optimizer / schedule / batching.
   * `ServeConfig`   -- serving batch / context.
+  * `MeshConfig`    -- the process mesh of the `pod`/`vote` backends
+                       (given to `launch/mesh.py::make_process_mesh`).
   * `SedarConfig`   -- the paper's fault-tolerance knobs.
-
-The mesh configuration waits for the port of the mesh backends.
 """
 from __future__ import annotations
 
@@ -85,6 +88,16 @@ class ModelConfig:
     @property
     def kv_dim(self) -> int:
         return self.num_kv_heads * self.head_dim
+
+
+@dataclass(frozen=True)
+class MeshConfig:
+    """The mesh's shape and axis names ("pod", "data" and "model"). The
+    port runs the mesh as processes (`launch/mesh.py`): one rank per
+    (pod, data) index; a model axis larger than 1 is not ported."""
+
+    shape: Tuple[int, ...] = (2, 1)
+    axis_names: Tuple[str, ...] = ("pod", "data")
 
 
 @dataclass(frozen=True)

@@ -21,10 +21,13 @@ fingerprints, localized mismatches, partial commit), the single-launch
 `FusedSequentialExecutor` and `SlottedFusedExecutor` (both replicas stacked
 as 2N rows of ONE state and stepped by one decode), the training state's
 `StackedFusedExecutor` (both replicas on a leading axis of every leaf,
-stepped by one vmapped step, with the deferred window) and, in
-`abft/executor.py`, the replica-free `AbftExecutor` ("abft"/"hybrid"),
-whose `repair()` commits a checksum-corrected step forward before the
-recovery policy is asked.
+stepped by one vmapped step, with the deferred window), the mesh backends'
+`PodExecutor` (space redundancy: each replica a process of its own, the
+compare and the gated commit inside the step, per-lane localization) and
+`VoteExecutor` (>= 3 replicas, a state divergence repaired forward by the
+majority's broadcast) and, in `abft/executor.py`, the replica-free
+`AbftExecutor` ("abft"/"hybrid"), whose `repair()` commits a
+checksum-corrected step forward before the recovery policy is asked.
 
 Deferred validation: with `BoundarySchedule.validate_lag=D > 1`, executors
 that `supports_deferred` commit optimistically and hand back the ON-DEVICE
@@ -54,7 +57,7 @@ from repro_torch import obs
 from repro_torch import tree as tree_util
 from repro_torch.core import hostsync
 from repro_torch.core.detection import (DetectionEvent, SedarSafeStop,
-                                        Watchdog)
+                                        Watchdog, majority_replica)
 from repro_torch.core.fingerprint import (fingerprints_equal,
                                           leaf_fingerprints, mismatch_report)
 from repro_torch.core.recovery import (MultiCheckpointRecovery,
@@ -735,6 +738,141 @@ class StackedFusedExecutor(ReplicaExecutor):
         return self.state_fp_fn(self.primary(dual))
 
 
+class PodExecutor(ReplicaExecutor):
+    """Space redundancy: each replica is a process of the mesh
+    (`launch/mesh.py`), and one step runs the compare and the gated commit
+    on every rank.
+
+    `pod_step(state, batch, armed) -> (new_state, eq, fp_all, aux)` commits
+    the candidate only where eq (the gate is inside the step, so a deferred
+    mismatch freezes the state); `pod_validate(state) -> (eq, fp_all)`
+    compares full-state fingerprints over the pod group. `eq` is a 0-d
+    bool (a whole-state compare) or a per-lane vector (`make_lane_
+    comparator`): the hot path reads only its `all`; the lane vector is
+    read on the fault path alone, where `lane_hosts` (lanes -> host ids)
+    localizes the event to hosts. Every rank reads the same values (they
+    come out of collectives), so every rank takes the same branch."""
+
+    name = "pod"
+    n_replicas = 2
+    supports_deferred = True
+
+    def __init__(self, pod_step: Callable, pod_validate: Callable,
+                 state_fp_fn: Callable, *,
+                 lane_hosts: Optional[Callable] = None):
+        self.pod_step = pod_step
+        self.pod_validate = pod_validate
+        self.state_fp_fn = state_fp_fn
+        self.lane_hosts = lane_hosts
+        # the last pod_validate verdict: validate() and validated_fp() land
+        # on the same committed state in one engine iteration, and the
+        # gather must not run twice
+        self._val = _StateMemo()
+
+    def _hosts(self, lanes) -> Dict[str, Any]:
+        if self.lane_hosts is None or not lanes:
+            return {}
+        return {"hosts": sorted({int(h) for h in self.lane_hosts(lanes)})}
+
+    def _lane_detail(self, eq) -> Dict[str, Any]:
+        """Fault path only: read the per-lane predicate back and name the
+        lanes that disagree (and their hosts)."""
+        if eq.dim() == 0:
+            return {}
+        vec = np.asarray(hostsync.batched_get([eq],
+                                              label="commit_lanes")[0])
+        lanes = [int(i) for i in np.nonzero(~vec)[0]]
+        return {"lanes": lanes, **self._hosts(lanes)}
+
+    def annotate_event(self, event: DetectionEvent) -> None:
+        """A deferred flush localizes per ring slot; here a slot IS a
+        fingerprint lane."""
+        slots = event.detail.get("slots")
+        if slots and "lanes" not in event.detail:
+            event.detail["lanes"] = list(slots)
+            event.detail.update(self._hosts(slots))
+
+    def execute(self, dual, batch, step: int, armed, compare: bool):
+        new_state, eq, _fp_all, aux = self.pod_step(dual["r0"], batch, armed)
+        self._val.clear()
+        if compare and not hostsync.read_bool(torch.all(eq),
+                                              label="commit_compare"):
+            return dual, aux, DetectionEvent(step=step, boundary="commit",
+                                             effect="TDC",
+                                             detail=self._lane_detail(eq))
+        return {"r0": new_state}, aux, None
+
+    def execute_deferred(self, dual, batch, step: int, armed,
+                         compare: bool = True):
+        """The gate is inside the step: a deferred mismatch freezes the
+        state, the flush localizes the step, a rollback repairs the
+        (batch-skewed) replay."""
+        new_state, eq, _fp_all, aux = self.pod_step(dual["r0"], batch, armed)
+        self._val.clear()
+        return {"r0": new_state}, aux, eq
+
+    def _state_eq(self, dual):
+        hit = self._val.get(dual["r0"])
+        if hit is not None:
+            return hit
+        eq, fp_all = self.pod_validate(dual["r0"])
+        equal = hostsync.read_bool(torch.all(eq), label="state_validate")
+        return self._val.put(dual["r0"], (equal, fp_all, eq))
+
+    def validate(self, dual, step: int) -> Optional[DetectionEvent]:
+        equal, fp_all, eq = self._state_eq(dual)
+        if equal:
+            return None
+        detail: Dict[str, Any] = {"fp_all": np.asarray(hostsync.read_scalar(
+            fp_all, label="fp_all")).view(np.uint32)}
+        detail.update(self._lane_detail(eq))
+        return DetectionEvent(step=step, boundary="validate", effect="FSC",
+                              detail=detail)
+
+    def validated_fp(self, dual):
+        equal = self._state_eq(dual)[0]
+        return (hostsync.read_scalar(self.state_fp_fn(dual["r0"]),
+                                     label="validated_fp"), equal)
+
+    def state_fp(self, dual):
+        return self.state_fp_fn(dual["r0"])
+
+
+class VoteExecutor(PodExecutor):
+    """N-modular redundancy: >= 3 replicas. A state divergence is repaired
+    FORWARD by broadcasting the majority replica's state (no rollback, no
+    recomputation); a commit mismatch re-executes the step. With no strict
+    majority the engine's recovery policy takes over. No deferred window:
+    the repair consumes the predicate (and fp_all) at once."""
+
+    name = "vote"
+    supports_deferred = False
+
+    def __init__(self, pod_step: Callable, pod_validate: Callable,
+                 state_fp_fn: Callable, broadcaster: Callable,
+                 n_replicas: int = 3):
+        super().__init__(pod_step, pod_validate, state_fp_fn)
+        self.broadcaster = broadcaster
+        self.n_replicas = n_replicas
+
+    def repair(self, event: DetectionEvent, dual):
+        if event.boundary in ("validate", "final") and \
+                "fp_all" in event.detail:
+            src, ok = majority_replica(event.detail["fp_all"])
+            if ok:
+                repaired = self.broadcaster(src)(dual["r0"])
+                # the broadcast wrote the leaves in place: the memoized
+                # verdict of these tensors is stale
+                self._val.clear()
+                return {"r0": repaired}, {"kind": "vote_repair", "step": None,
+                                          "rollbacks": 0, "src_replica": src}
+            return None
+        if event.boundary == "commit":
+            # transient update fault: re-execute, no rollback
+            return dual, {"kind": "vote_retry", "step": None, "rollbacks": 0}
+        return None
+
+
 class SedarEngine:
     """Composes executor × schedule × recovery × injection behind
     `run_protected_step()` + `on_detection()`. Owns the run's `detections`,
@@ -1013,6 +1151,11 @@ class SedarEngine:
         # predicates parked for steps at or after the detection are stale:
         # the recovery target predates them and the steps re-run
         self._ring.clear()
+        annotate = getattr(self.executor, "annotate_event", None)
+        if annotate is not None:
+            # lane -> host localization, attached before the event is
+            # journaled or handed to the callbacks
+            annotate(event)
         self.detections.append(event)
         obs.note_detection(event)
         self.notify(event)

@@ -31,8 +31,12 @@ Two granularities, as in the reference:
     ONE word buffer in one launch of kernel K1. On the card, f32, int32,
     uint32, bf16 and int64 leaves laid out as rows of one contiguous run
     are read where they lie (no cast, copy or concatenation); other leaves
-    are packed first. On the CPU the leaves are packed and hashed by K1's
-    plain version. This is the commit-compare hot path.
+    are packed first. On the CPU K1's plain version walks the same table.
+    This is the commit-compare hot path: the lanes below at L = 1.
+  * lanes    -- `pytree_fingerprint_lanes` -> (L, 4): the packed words cut
+    into L equal lanes (zero-padded tail), each hashed on its own index
+    stream, in one K1 launch on the card (the mesh backends' per-shard
+    compare; `lane_of_leaf_index` names the lane of an element).
 Leaf order is the reference's (sorted dict keys, `repro_torch.tree`).
 """
 from __future__ import annotations
@@ -45,7 +49,6 @@ import torch
 from repro_torch import tree as tree_util
 from repro_torch.core import hostsync
 from repro_torch.kernels import fingerprint as kfp
-from repro_torch.kernels import ops
 from repro_torch.kernels.fingerprint import fingerprint_plain
 
 
@@ -153,20 +156,42 @@ def packed_fingerprint(u) -> torch.Tensor:
 
 
 def pytree_fingerprint_fused(tree) -> torch.Tensor:
-    """Whole-state fingerprint -> (4,) in ONE launch of kernel K1 (CUDA
-    tensors: the leaves read in place where `kfp.leaf_table` takes them,
-    else packed once into one word buffer) or its plain version on the
-    packed buffer (CPU tensors). Hash words equal the reference's fused
-    fingerprint; the fused hash is not comparable with per-leaf hashes."""
+    """Whole-state fingerprint -> (4,): the one lane of
+    `pytree_fingerprint_lanes` (ONE launch of kernel K1 for CUDA tensors,
+    K1's plain version for CPU tensors). Hash words equal the reference's
+    fused fingerprint; the fused hash is not comparable with per-leaf
+    hashes."""
+    return pytree_fingerprint_lanes(tree, 1)[0]
+
+
+def pytree_fingerprint_lanes(tree, n_lanes: int) -> torch.Tensor:
+    """Per-shard fingerprint lanes -> (n_lanes, 4) int32 carrier. Lane i
+    covers packed words [i W, (i + 1) W), W = ceil(N / n_lanes), the tail
+    zero-padded, each lane's index stream starting at 0 (the reference's
+    `pytree_fingerprint_lanes`, bit for bit on h1/h2). One K1 call over
+    K1's lane table of the leaves read in place (`kfp.lane_table`), or of
+    their packed words where K1 cannot read a leaf in place; K1's plain
+    version for CPU tensors."""
+    L = max(int(n_lanes), 1)
     leaves = _leaf_tensors(tree)
-    if leaves and all(l.is_cuda for l in leaves):
-        table = kfp.leaf_table(leaves)
-        if table:
-            return kfp.fingerprint_leaves(table)
-    u = pack_tree_u32(tree)
-    if u.numel() == 0:
-        return torch.zeros((4,), dtype=torch.int32, device=u.device)
-    return ops.fingerprint_packed(u)
+    if not sum(l.numel() for l in leaves):
+        dev = leaves[0].device if leaves else torch.device("cpu")
+        return torch.zeros((L, 4), dtype=torch.int32, device=dev)
+    table = kfp.lane_table(leaves, L)
+    if table is None:
+        table = kfp.lane_table([pack_tree_u32(tree)], L)
+    return kfp.fingerprint_lanes(table, L)
+
+
+def lane_of_leaf_index(tree, leaf_idx: int, flat_idx: int,
+                       n_lanes: int) -> int:
+    """Host-side: the lane of `pytree_fingerprint_lanes` that covers element
+    `flat_idx` of leaf `leaf_idx` (flatten order); one word per element."""
+    sizes = [int(np.prod(l.shape)) if hasattr(l, "shape") else 1
+             for l in tree_util.leaves(tree)]
+    off = sum(sizes[:leaf_idx]) + int(flat_idx)
+    width = -(-sum(sizes) // max(int(n_lanes), 1))
+    return off // width
 
 
 def fingerprints_equal(fp_a, fp_b) -> torch.Tensor:

@@ -12,6 +12,13 @@ The counted reads also lift PyTorch's sync debug mode for their own copy,
 so a run under `torch.cuda.set_sync_debug_mode("warn"|"error")` flags
 exactly the reads that did NOT go through this module.
 
+The mesh backends' collectives (gloo over localhost, `launch/mesh.py`) go
+through `collective(label)`: gloo stages a CUDA tensor through host memory
+and waits for its copy, so the call lifts the sync debug mode as a counted
+read does, and counts the call in `TransferStats.collectives`, apart from
+the device reads (`transfers`, `by_label`): a collective reads nothing
+back into Python.
+
 Counting is thread-local by default: a region counts the reads of the
 thread that opened it. `count_transfers(cross_thread=True)` registers the
 region on a process-wide, lock-protected list that every thread's reads
@@ -40,6 +47,7 @@ class TransferStats:
     transfers: int = 0          # individual tensors read back
     batches: int = 0            # read batches issued (1 per counted call)
     by_label: Dict[str, int] = field(default_factory=dict)
+    collectives: Dict[str, int] = field(default_factory=dict)  # by label
 
     def note(self, label: str, items: int = 1) -> None:
         self.transfers += items
@@ -107,6 +115,21 @@ def _sanctioned():
     finally:
         if mode:
             torch.cuda.set_sync_debug_mode(mode)
+
+
+@contextlib.contextmanager
+def collective(label: str) -> Iterator[None]:
+    """One collective of the mesh backends (a `torch.distributed` call over
+    gloo): counted under `label` in every open region's `collectives`, with
+    the sync debug mode lifted for its host staging."""
+    for st in _active.stack:
+        st.collectives[label] = st.collectives.get(label, 0) + 1
+    if _shared:
+        with _shared_lock:
+            for st in _shared:
+                st.collectives[label] = st.collectives.get(label, 0) + 1
+    with _sanctioned():
+        yield
 
 
 def _to_numpy(x) -> np.ndarray:

@@ -10,7 +10,7 @@ Three parts:
   * `make_engine()` / `make_trainer()` / `make_server()`: the composition
     point that turns a SedarConfig + workload step functions into a
     `SedarEngine` for the `none`/`sequential`/`fused`/`abft`/`hybrid`
-    backends. The mesh backends `pod` and `vote` are not ported.
+    backends and the mesh backends `pod`/`vote` (training).
   * `Autotuner` / `autotune()`: the closed loop — the obs estimator
     calibrates the temporal model online, drift detectors and SLO burn
     windows raise alerts, and safe knob changes (validate_lag, tier
@@ -263,11 +263,17 @@ def choose_degraded_mode(p: tm.SedarParams, mtbe_hours: float,
 # Engine factory — the one place engines are assembled
 # ---------------------------------------------------------------------------
 
-def make_engine(sedar_cfg, *, step_fn: Callable, recovery: Any = None,
+def make_engine(sedar_cfg, *, step_fn: Optional[Callable] = None,
+                recovery: Any = None,
                 workdir: Optional[str] = None,
                 backend: Optional[str] = None,
                 state_fp_fn: Optional[Callable] = None,
                 fast_state_fp_fn: Optional[Callable] = None,
+                pod_step: Optional[Callable] = None,
+                pod_validate: Optional[Callable] = None,
+                pod_broadcaster: Optional[Callable] = None,
+                n_replicas: int = 2,
+                lane_hosts: Optional[Callable] = None,
                 schedule: Any = None, watchdog: Any = None,
                 inj_spec: Any = None, inj_flag: Any = None,
                 init_fn: Optional[Callable] = None,
@@ -277,8 +283,11 @@ def make_engine(sedar_cfg, *, step_fn: Callable, recovery: Any = None,
                 stack: str = "rows"):
     """Assemble a `SedarEngine` for one workload.
 
-    backend: "none" | "sequential" | "fused" | "abft" | "hybrid" (defaults
-    to sedar_cfg.replication); all but "none" also need `state_fp_fn`.
+    backend: "none" | "sequential" | "fused" | "pod" | "vote" | "abft" |
+    "hybrid" (defaults to sedar_cfg.replication); all but "none" also need
+    `state_fp_fn`. "pod"/"vote" take the mesh step instead of `step_fn`:
+    `pod_step` and `pod_validate` (and `pod_broadcaster` for vote), with
+    `n_replicas` pods and `lane_hosts` (lanes -> hosts, pod).
     "fused" steps both replicas in one launch over a state that stacks
     them: as row blocks (`stack="rows"`, serving's decode state,
     `core/engine.py::FusedSequentialExecutor`) or on a leading replica
@@ -302,17 +311,31 @@ def make_engine(sedar_cfg, *, step_fn: Callable, recovery: Any = None,
     from repro_torch.core.recovery import make_recovery
     from repro_torch.core.engine import (BoundarySchedule,
                                          FusedSequentialExecutor,
-                                         PlainExecutor, SedarEngine,
-                                         SequentialExecutor,
+                                         PlainExecutor, PodExecutor,
+                                         SedarEngine, SequentialExecutor,
                                          SlottedFusedExecutor,
                                          StackedFusedExecutor,
-                                         SlottedSequentialExecutor)
+                                         SlottedSequentialExecutor,
+                                         VoteExecutor)
 
     backend = backend or sedar_cfg.replication
     schedule = schedule or BoundarySchedule.from_config(sedar_cfg)
     if recovery is None:
         recovery = make_recovery(sedar_cfg, workdir)
-    if backend == "none":
+    if backend in ("pod", "vote"):
+        if pod_step is None or pod_validate is None:
+            raise ValueError(f"backend {backend!r} needs pod_step and "
+                             "pod_validate")
+        if backend == "vote":
+            if pod_broadcaster is None:
+                raise ValueError("vote backend needs pod_broadcaster")
+            executor = VoteExecutor(pod_step, pod_validate, state_fp_fn,
+                                    pod_broadcaster,
+                                    n_replicas=max(n_replicas, 3))
+        else:
+            executor = PodExecutor(pod_step, pod_validate, state_fp_fn,
+                                   lane_hosts=lane_hosts)
+    elif backend == "none":
         executor = PlainExecutor(step_fn, state_fp_fn)
     elif backend == "sequential":
         if state_fp_fn is None:

@@ -48,14 +48,24 @@
 // threshold on clean data, so this body runs in true f32 on the FFMA units
 // and is bound by the f32 rate (67 TFLOP/s): the design is K3's register
 // blocking applied to both products. One block of 256 threads (8 warps)
-// per (b, h, 64-row q tile), heaviest causal tiles first, two blocks per SM
-// (at most 128 registers a thread). Thread (ty, tx) = (tid / 16, tid % 16)
-// owns rows ty + 16 i (i < 4). The q tile is staged once; 64-key K and V
-// tiles come through a two-stage cp.async ring (zero-filled past Sq/Sk,
-// one __syncthreads before the tile's products and one between them), so
-// tile t + 1's copy overlaps tile t's products. Q, K and V tiles are
-// [row][hd + 4] (16-byte rows; the pad puts the 16 rows that a half-warp
-// reads at one d on distinct banks).
+// per (b, h, 64-row q tile), heaviest causal tiles first. Thread (ty, tx) =
+// (tid / 16, tid % 16) owns rows ty + 16 i (i < 4). The q tile is staged
+// once; 64-key K and V tiles come through cp.async (zero-filled past
+// Sq/Sk). Q, K and V tiles are [row][hd + 4] (16-byte rows; the pad puts
+// the 16 rows that a half-warp reads at one d on distinct banks).
+//   Head dims 16, 64, 128 and 256. Shared memory (f32_smem_bytes) decides
+//   the K/V ring. At hd <= 128 two K/V stages (Q, K0, V0, K1, V1 and P:
+//   (5 64 (hd + 4) + 64 68) 4 bytes): tile t + 1's copy overlaps all of
+//   tile t's products; at hd 16 and 64 (21 and 89 KB) two blocks share an
+//   SM (at most 128 registers a thread), at hd 128 (186,368 B) one does
+//   (at most 255). At hd 256 two stages would take 350,208 B of the 227 KB
+//   a block may have, so the body keeps ONE K and ONE V tile and refills
+//   them apart (217,088 B): K of tile t + 1 is copied while P V of tile t
+//   runs (K is free once S is in registers), and V of tile t + 1 while
+//   Q K^T of tile t + 1 runs, so every copy still overlaps a product, at
+//   the cost of two more __syncthreads per tile. Halving the head dim or
+//   32-row q tiles would keep the ring but read K (or Q) twice, or double
+//   the blocks; the split refill reads each tile once.
 //   S = Q K^T: each thread a 4 x 4 block, keys tx + 16 j (j < 4), from
 //   float4 fragments of Q and K: 8 shared loads per 64 FFMA, every score
 //   one fmaf chain in ascending d. The scale 1/sqrt(hd) multiplies the f32
@@ -67,10 +77,12 @@
 //   the same tree.
 //   O += P V: P goes to shared memory ([64][68]); each thread accumulates
 //   4 rows x hd / 16 adjacent data columns (tx * hd / 16 ...), one fmaf
-//   chain per output in ascending key order.
+//   chain per output in ascending key order (at hd 256: 64 accumulators a
+//   thread).
 // No split-KV, no atomics: two launches give the same bits. The output is
-// staged through shared memory and written row by row, consecutive threads
-// on consecutive elements, whatever the output's strides.
+// staged through the Q tile (free after the last S) and written row by
+// row, consecutive threads on consecutive elements, whatever the output's
+// strides.
 //
 // K4 (CK = true) is the f32 body with a checksum lane, and replaces the TPU
 // kernel src/repro/abft/kernels.py::abft_flash_attention (its pl.pallas_call
@@ -133,12 +145,21 @@ __device__ __forceinline__ void cp_async_wait() {
 constexpr int FT = 256;   // threads per block
 constexpr int FQ = 64;    // q rows per block
 constexpr int FK = 64;    // keys per K/V tile
-constexpr int PP = FK + 4;  // pitch of the P tile (and the output stage)
+constexpr int PP = FK + 4;  // pitch of the P tile
+
+// two K/V stages up to hd 128; at hd 256 one K and one V tile
+template <int HD>
+__host__ __device__ constexpr bool f32_ring() { return HD <= 128; }
 
 template <int HD>
-constexpr int f32_smem_bytes() {  // Q, two K/V stages, P
-  return (5 * FK * (HD + 4) + FQ * PP) * 4;
+constexpr int f32_smem_bytes() {  // Q, the K/V stages, P
+  return ((f32_ring<HD>() ? 5 : 3) * FK * (HD + 4) + FQ * PP) * 4;
 }
+
+// blocks per SM the register budget is set for: two while two fit in
+// shared memory (hd 16, 64), else one (255 registers a thread)
+template <int HD>
+__host__ __device__ constexpr int f32_min_blocks() { return HD <= 64 ? 2 : 1; }
 
 // rows [pos0, pos0 + 64) of a matrix with row stride rs (elements) into a
 // [64][HD + 4] tile: W floats per row, 16-byte copies (W = HD, rows 16-byte
@@ -162,11 +183,16 @@ __device__ __forceinline__ void f32_load_tile(float* sdst, const float* g,
   }
 }
 
+// N floats from p: float4 loads when N is a multiple of 4 (p then 16-byte
+// aligned), else scalar loads
 template <int N>
 __device__ __forceinline__ void ld_frag(float (&x)[N], const float* p) {
-  if constexpr (N == 4) {
-    const float4 v = *reinterpret_cast<const float4*>(p);
-    x[0] = v.x; x[1] = v.y; x[2] = v.z; x[3] = v.w;
+  if constexpr (N % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < N; i += 4) {
+      const float4 v = *reinterpret_cast<const float4*>(p + i);
+      x[i] = v.x; x[i + 1] = v.y; x[i + 2] = v.z; x[i + 3] = v.w;
+    }
   } else {
 #pragma unroll
     for (int i = 0; i < N; ++i) x[i] = p[i];
@@ -174,19 +200,21 @@ __device__ __forceinline__ void ld_frag(float (&x)[N], const float* p) {
 }
 
 template <int HD, bool CK>
-__global__ void __launch_bounds__(FT, 2)
+__global__ void __launch_bounds__(FT, f32_min_blocks<HD>())
 flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ v, float* __restrict__ o, Strides qs,
               Strides ks, Strides vs, Strides os, int H, int KV, int Sq,
               int Sk, int causal, int window, float scale) {
+  constexpr bool RING = f32_ring<HD>();
   constexpr int P = HD + 4;
   constexpr int TILE = FK * P;      // floats of one Q, K or V tile
   constexpr int DPT = HD / 16;      // data columns per thread in O
   constexpr int W = CK ? HD + 1 : HD;
   extern __shared__ float4 fsm4[];
   float* const Qs = reinterpret_cast<float*>(fsm4);
-  float* const KV0 = Qs + TILE;     // stage s: K at KV0 + 2 s TILE, V after
-  float* const Ps = Qs + 5 * TILE;
+  // ring stage s: K at KV0 + 2 s TILE, V after it; one stage: K, then V
+  float* const KV0 = Qs + TILE;
+  float* const Ps = Qs + (RING ? 5 : 3) * TILE;
 
   const int tid = threadIdx.x;
   const int tx = tid & 15;
@@ -205,11 +233,12 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
   k_lo = (k_lo / FK) * FK;
   const int ntiles = k_hi > k_lo ? (k_hi - k_lo + FK - 1) / FK : 0;
 
+  // copy groups: ring, one per tile ({Q, K0, V0}, {K1, V1}, ...); one
+  // stage, K and V apart ({Q, K0}, {V0}, {K1}, {V1}, ...)
   f32_load_tile<HD, HD, true>(Qs, q + b * qs.b + h * qs.h, qs.s, q0, Sq, tid);
-  if (ntiles > 0) {
-    f32_load_tile<HD, HD, true>(KV0, kb, ks.s, k_lo, Sk, tid);
-    f32_load_tile<HD, W, !CK>(KV0 + TILE, vb, vs.s, k_lo, Sk, tid);
-  }
+  if (ntiles > 0) f32_load_tile<HD, HD, true>(KV0, kb, ks.s, k_lo, Sk, tid);
+  if constexpr (!RING) cp_async_commit();
+  if (ntiles > 0) f32_load_tile<HD, W, !CK>(KV0 + TILE, vb, vs.s, k_lo, Sk, tid);
   cp_async_commit();
 
   float acc[4][DPT];
@@ -226,16 +255,21 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
 
   for (int t = 0; t < ntiles; ++t) {
     const int k0 = k_lo + t * FK;
-    const float* Ks = KV0 + 2 * TILE * (t & 1);
-    const float* Vs = Ks + TILE;
-    cp_async_wait<0>();   // this tile (and Q) has landed
-    __syncthreads();      // ... for every thread; stage t + 1 and P are free
-    if (t + 1 < ntiles) {
-      float* nk = KV0 + 2 * TILE * ((t + 1) & 1);
-      f32_load_tile<HD, HD, true>(nk, kb, ks.s, k0 + FK, Sk, tid);
-      f32_load_tile<HD, W, !CK>(nk + TILE, vb, vs.s, k0 + FK, Sk, tid);
+    float* const Ks = RING ? KV0 + 2 * TILE * (t & 1) : KV0;
+    float* const Vs = Ks + TILE;
+    if constexpr (RING) {
+      cp_async_wait<0>();   // this tile (and Q) has landed
+      __syncthreads();      // ... for every thread; stage t + 1 and P are free
+      if (t + 1 < ntiles) {
+        float* nk = KV0 + 2 * TILE * ((t + 1) & 1);
+        f32_load_tile<HD, HD, true>(nk, kb, ks.s, k0 + FK, Sk, tid);
+        f32_load_tile<HD, W, !CK>(nk + TILE, vb, vs.s, k0 + FK, Sk, tid);
+      }
+      cp_async_commit();
+    } else {
+      cp_async_wait<1>();   // this tile's K (and Q) has landed; V may not
+      __syncthreads();      // ... for every thread; P is free
     }
-    cp_async_commit();
 
     // S = Q K^T: rows ty + 16 i, keys tx + 16 j
     float s[4][4];
@@ -295,11 +329,28 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
       for (int j = 0; j < 4; ++j) {
         const float p = expf(s[i][j] - m[i]);   // 0 for a masked key
         l[i] += p;
-        if constexpr (CK) acc_c[i] = fmaf(p, Vs[(tx + 16 * j) * P + HD], acc_c[i]);
+        s[i][j] = p;
         Ps[(ty + 16 * i) * PP + tx + 16 * j] = p;
       }
     }
-    __syncthreads();      // P is complete
+    __syncthreads();      // P is complete; every thread is done with K
+    if constexpr (!RING) {
+      if (t + 1 < ntiles)
+        f32_load_tile<HD, HD, true>(Ks, kb, ks.s, k0 + FK, Sk, tid);
+      cp_async_commit();
+      cp_async_wait<1>();   // this tile's V has landed
+      __syncthreads();      // ... for every thread
+    }
+
+    // K4's lane: this thread's own 4 x 4 scores, in the order the data
+    // lanes take them
+    if constexpr (CK) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          acc_c[i] = fmaf(s[i][j], Vs[(tx + 16 * j) * P + HD], acc_c[i]);
+    }
 
     // O += P V: rows ty + 16 i, data columns tx * DPT + jj
 #pragma unroll 4
@@ -318,6 +369,12 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
             acc[i][jj] = fmaf(pf[i][e], vf[jj], acc[i][jj]);
       }
     }
+    if constexpr (!RING) {
+      __syncthreads();      // every thread is done with V
+      if (t + 1 < ntiles)
+        f32_load_tile<HD, W, !CK>(Vs, vb, vs.s, k0 + FK, Sk, tid);
+      cp_async_commit();
+    }
   }
   cp_async_wait<0>();
 
@@ -332,10 +389,10 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
     }
     inv[i] = l[i] > 0.f ? 1.f / l[i] : 0.f;
   }
-  __syncthreads();        // every thread is done with P and the last V
+  __syncthreads();        // every thread is done with Q, P and the last V
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    float* row = Ps + (ty + 16 * i) * PP;
+    float* row = Qs + (ty + 16 * i) * P;
 #pragma unroll
     for (int jj = 0; jj < DPT; ++jj) row[tx * DPT + jj] = acc[i][jj] * inv[i];
     if (CK && tx == 0) row[HD] = acc_c[i] * inv[i];
@@ -345,7 +402,7 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
   for (int i = tid; i < FQ * W; i += FT) {
     const int r = i / W;
     const int c = i - r * W;
-    if (q0 + r < Sq) ob[(long long)(q0 + r) * os.s + c] = Ps[r * PP + c];
+    if (q0 + r < Sq) ob[(long long)(q0 + r) * os.s + c] = Qs[r * P + c];
   }
 }
 
@@ -746,8 +803,8 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o,
 
 }  // namespace
 
-// dtype: 0 = float32 (flash_fwd_f32, head_dim 16 or 64), 1 = bfloat16
-// (wgmma body, head_dim 16, 64, 128 or 256). q, k, v 16-byte aligned with
+// dtype: 0 = float32 (flash_fwd_f32), 1 = bfloat16 (wgmma body), each at
+// head_dim 16, 64, 128 or 256. q, k, v 16-byte aligned with
 // strides that are multiples of 16 bytes (8 bf16 or 4 f32 elements), which
 // the wrapper checks. strides: 12 element strides (b, h, s) of q, k, v, o.
 // Returns the launch's error code.
@@ -765,15 +822,18 @@ extern "C" int sedar_flash_fwd(int dtype, int head_dim, const void* q,
       case 128: return launch_wgmma<128>(q, k, v, o, strides, B, H, KV, Sq, Sk, causal, window, scale, st);
       case 256: return launch_wgmma<256>(q, k, v, o, strides, B, H, KV, Sq, Sk, causal, window, scale, st);
     }
-  } else if (dtype == 0 && head_dim == 64) {
-    return launch_f32<64, false>(q, k, v, o, strides, B, H, KV, Sq, Sk, causal, window, scale, st);
-  } else if (dtype == 0 && head_dim == 16) {
-    return launch_f32<16, false>(q, k, v, o, strides, B, H, KV, Sq, Sk, causal, window, scale, st);
+  } else if (dtype == 0) {
+    switch (head_dim) {
+      case 16: return launch_f32<16, false>(q, k, v, o, strides, B, H, KV, Sq, Sk, causal, window, scale, st);
+      case 64: return launch_f32<64, false>(q, k, v, o, strides, B, H, KV, Sq, Sk, causal, window, scale, st);
+      case 128: return launch_f32<128, false>(q, k, v, o, strides, B, H, KV, Sq, Sk, causal, window, scale, st);
+      case 256: return launch_f32<256, false>(q, k, v, o, strides, B, H, KV, Sq, Sk, causal, window, scale, st);
+    }
   }
   return (int)cudaErrorInvalidValue;
 }
 
-// K4: head_dim 16 or 64, float32 only; v is v_aug (row length head_dim + 1,
+// K4: head_dim 16, 64, 128 or 256, float32 only; v is v_aug (row length head_dim + 1,
 // any 4-byte aligned view) and o is out_full (row length head_dim + 1); q
 // and k as for sedar_flash_fwd. strides: 12 element strides (b, h, s) of q,
 // k, v_aug, out_full. Returns the launch's error code.
@@ -784,9 +844,11 @@ extern "C" int sedar_abft_flash_fwd(int head_dim, const void* q, const void* k,
                                     int window, float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (Sq <= 0 || B <= 0 || H <= 0) return (int)cudaGetLastError();
-  if (head_dim == 64)
-    return launch_f32<64, true>(q, k, v_aug, o, strides, B, H, KV, Sq, Sk, causal, window, scale, st);
-  if (head_dim == 16)
-    return launch_f32<16, true>(q, k, v_aug, o, strides, B, H, KV, Sq, Sk, causal, window, scale, st);
+  switch (head_dim) {
+    case 16: return launch_f32<16, true>(q, k, v_aug, o, strides, B, H, KV, Sq, Sk, causal, window, scale, st);
+    case 64: return launch_f32<64, true>(q, k, v_aug, o, strides, B, H, KV, Sq, Sk, causal, window, scale, st);
+    case 128: return launch_f32<128, true>(q, k, v_aug, o, strides, B, H, KV, Sq, Sk, causal, window, scale, st);
+    case 256: return launch_f32<256, true>(q, k, v_aug, o, strides, B, H, KV, Sq, Sk, causal, window, scale, st);
+  }
   return (int)cudaErrorInvalidValue;
 }

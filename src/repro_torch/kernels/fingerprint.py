@@ -32,10 +32,18 @@ overwrites, is then hashed as zero words too. The table holds up to
 MAX_LEAVES leaves (a training state's {params, m, v} has up to 126); it
 travels in the launch's parameters, a 64-row table where it fits.
 
-Two wrappers, each with no fallback: a CPU tensor takes the plain version, a
-CUDA tensor launches the kernel (one launch per call) or raises.
-`fingerprint_u32` hashes one packed word buffer; `fingerprint_leaves`
-hashes a table of leaves in place.
+Lanes (`lane_table`, `fingerprint_lanes`): the packed words cut into L lanes
+of W = ceil(N / L) words, each hashed with its own index stream from 0, the
+last lane's tail zero-padded (the reference's `pytree_fingerprint_lanes`).
+A leaf that crosses a lane boundary becomes one table row per lane, each
+row's `base` its offset within its lane, and the padding comes as rows of
+zero words (kind 3); one launch returns (L, 4).
+
+Three wrappers, each with no fallback: a CPU tensor takes the plain
+version, a CUDA tensor launches the kernel (one launch per call, counted
+in `launch_count`) or raises. `fingerprint_u32` hashes one packed word
+buffer; `fingerprint_lanes` hashes a lane table, and `fingerprint_leaves`
+a table of leaves in place as its one lane.
 """
 from __future__ import annotations
 
@@ -55,6 +63,8 @@ THREADS = 256            # csrc/fingerprint.cu THREADS
 MAX_BLOCKS = 1024
 MAX_LEAVES = 512         # csrc/fingerprint.cu MAX_LEAVES
 MAX_LIMITS = 16          # csrc/fingerprint.cu MAX_LIMITS
+MAX_LANES = 16           # csrc/fingerprint.cu MAX_LANES
+ZEROS = 3                # the kind of a row of zero words (a lane's padding)
 _PLAIN_CHUNK = 1 << 24   # words per int64 working chunk of the plain version
 # element kind of each dtype the kernel reads in place (csrc/fingerprint.cu)
 KINDS = {torch.float32: 0, torch.int32: 0, torch.uint32: 0,
@@ -64,14 +74,16 @@ launch_count = _build.LaunchCount("fingerprint")
 
 
 class Leaf(NamedTuple):
-    """One row of the kernel's table: `tensor`'s elements in row-major order
-    are `rows` runs of `run` contiguous elements, `stride` elements apart;
-    its first word has global index `base`. With a row `limit` (a 0-d
-    int32/int64 tensor on the leaf's device), the elements of each run at
-    or past `limit * per_row` count as zero words; with a `ring` of W rows
-    also those of row `limit % W`."""
+    """One row of the kernel's table: `tensor`'s elements from element
+    `offset` on, in row-major order, are `rows` runs of `run` contiguous
+    elements, `stride` elements apart; its first word has index `base`
+    within its `lane` (the global index without lanes). With a row `limit`
+    (a 0-d int32/int64 tensor on the leaf's device), the elements of each
+    run at or past `limit * per_row` count as zero words; with a `ring` of
+    W rows also those of row `limit % W`. A row of kind `ZEROS` has no
+    tensor: `run` zero words."""
 
-    tensor: torch.Tensor
+    tensor: Optional[torch.Tensor]
     kind: int
     rows: int
     run: int
@@ -80,6 +92,8 @@ class Leaf(NamedTuple):
     limit: Optional[torch.Tensor] = None
     per_row: int = 0
     ring: int = 0
+    lane: int = 0
+    offset: int = 0
 
 
 def _mulmod32(a: torch.Tensor, c: int) -> torch.Tensor:
@@ -210,12 +224,74 @@ def leaf_table(leaves: Sequence[torch.Tensor],
     return table
 
 
+def _pieces(leaf: Leaf, lo: int, hi: int) -> List[Leaf]:
+    """Rows of the table for elements [lo, hi) of `leaf` (its own row-major
+    order): a partial first row, the whole rows, a partial last row."""
+    run, stride = leaf.run, leaf.stride
+
+    def row(r0: int, c0: int, rows: int, n: int) -> Leaf:
+        return leaf._replace(rows=rows, run=n, stride=stride if rows > 1
+                             else n, offset=leaf.offset + r0 * stride + c0)
+
+    out = []
+    r0, c0 = divmod(lo, run)
+    r1, c1 = divmod(hi, run)
+    if r0 == r1:
+        return [row(r0, c0, 1, c1 - c0)] if c1 > c0 else []
+    if c0:
+        out.append(row(r0, c0, 1, run - c0))
+        r0 += 1
+    if r1 > r0:
+        out.append(row(r0, 0, r1 - r0, run))
+    if c1:
+        out.append(row(r1, 0, 1, c1))
+    return out
+
+
+def lane_table(leaves: Sequence[torch.Tensor],
+               n_lanes: int) -> Optional[List[Leaf]]:
+    """The kernel's table for the fingerprint lanes of `leaves`: their N
+    packed words cut into `n_lanes` lanes of W = ceil(N / n_lanes) words.
+    A leaf's words in lane l become a row (or, off a row boundary of a
+    strided leaf, up to three) with `lane` l and `base` their offset in it;
+    lane l's words past N are `ZEROS` rows. None where `leaf_table` is None
+    or the table would exceed MAX_LEAVES rows; ValueError for more than
+    MAX_LANES lanes or no words at all."""
+    L = max(int(n_lanes), 1)
+    if L > MAX_LANES:
+        raise ValueError(f"{L} lanes: K1 takes at most {MAX_LANES}")
+    base = leaf_table(leaves)
+    if base is None:
+        return None
+    n = sum(leaf.rows * leaf.run for leaf in base)
+    if n == 0:
+        raise ValueError("no words to hash into lanes")
+    width = -(-n // L)
+    table = []
+    for leaf in base:
+        g0, g1 = leaf.base, leaf.base + leaf.rows * leaf.run
+        for lane in range(g0 // width, (g1 - 1) // width + 1):
+            lo, hi = max(g0, lane * width), min(g1, (lane + 1) * width)
+            off = lo - lane * width          # the first word's index in lane
+            for piece in _pieces(leaf, lo - g0, hi - g0):
+                table.append(piece._replace(lane=lane, base=off))
+                off += piece.rows * piece.run
+    for lane in range(n // width, L):
+        lo = max(n, lane * width) - lane * width
+        if lo < width:
+            table.append(Leaf(None, ZEROS, 1, width - lo, width - lo, lo,
+                              lane=lane))
+    if len(table) > MAX_LEAVES:
+        return None
+    return table
+
+
 def _leaf_words(leaf: Leaf) -> torch.Tensor:
     """The leaf's words in order, read through the table's own layout (an
     as_strided view), converted as `core.fingerprint._to_u32` converts."""
     t = leaf.tensor
     v = t.as_strided((leaf.rows, leaf.run), (leaf.stride, 1),
-                     t.storage_offset())
+                     t.storage_offset() + leaf.offset)
     if leaf.kind == 1:
         v = v.to(torch.float32)          # exact: the bf16 bits << 16
     elif leaf.kind == 2:
@@ -223,10 +299,12 @@ def _leaf_words(leaf: Leaf) -> torch.Tensor:
     return v.reshape(-1).view(torch.int32)
 
 
-def _live_words(leaf: Leaf) -> torch.Tensor:
+def _live_words(leaf: Leaf, device: torch.device) -> torch.Tensor:
     """The leaf's words with those at or past its row limit (and a ring's
     row limit % W) zeroed, the limit compared on its own device (no host
     read)."""
+    if leaf.kind == ZEROS:
+        return torch.zeros(leaf.run, dtype=torch.int32, device=device)
     words = _leaf_words(leaf)
     if leaf.limit is None:
         return words
@@ -238,20 +316,38 @@ def _live_words(leaf: Leaf) -> torch.Tensor:
     return torch.where(keep, words.view(leaf.rows, leaf.run), 0).reshape(-1)
 
 
+def _table_device(table: Sequence[Leaf]) -> torch.device:
+    devs = {t.device for leaf in table
+            for t in (leaf.tensor, leaf.limit) if t is not None}
+    if len(devs) > 1:
+        raise ValueError(
+            f"leaves on several devices: {sorted(map(str, devs))}")
+    return devs.pop() if devs else torch.device("cpu")
+
+
+def fingerprint_lanes_plain(table: Sequence[Leaf],
+                            n_lanes: int) -> torch.Tensor:
+    """Plain PyTorch K1 over a (lane) table -> (n_lanes, 4) int32 carrier,
+    lane by lane: each lane's hash words and absmax equal
+    `fingerprint_plain` of its packed words (with the words past a row
+    limit zeroed); the sum is taken row by row."""
+    dev = _table_device(table)
+    zero = torch.zeros((), dtype=torch.int64, device=dev)
+    fzero = torch.zeros((), dtype=torch.float32, device=dev)
+    acc = [[zero, zero, fzero, fzero] for _ in range(n_lanes)]
+    for leaf in table:
+        p1, p2, ps, pa = _plain_parts(_live_words(leaf, dev), leaf.base)
+        h1, h2, s, a = acc[leaf.lane]
+        acc[leaf.lane] = [(h1 + p1) & MASK32, (h2 + p2) & MASK32, s + ps,
+                          torch.maximum(a, pa)]
+    return torch.stack([_carrier(*parts) for parts in acc])
+
+
 def fingerprint_leaves_plain(table: Sequence[Leaf]) -> torch.Tensor:
     """Plain PyTorch K1 over a leaf table -> (4,) int32 carrier. The hash
     words and absmax equal `fingerprint_plain` of the packed leaves (with
     the words past a row limit zeroed); the sum is taken leaf by leaf."""
-    dev = table[0].tensor.device if table else torch.device("cpu")
-    h1 = torch.zeros((), dtype=torch.int64, device=dev)
-    h2 = torch.zeros((), dtype=torch.int64, device=dev)
-    s = torch.zeros((), dtype=torch.float32, device=dev)
-    a = torch.zeros((), dtype=torch.float32, device=dev)
-    for leaf in table:
-        p1, p2, ps, pa = _plain_parts(_live_words(leaf), leaf.base)
-        h1, h2 = (h1 + p1) & MASK32, (h2 + p2) & MASK32
-        s, a = s + ps, torch.maximum(a, pa)
-    return _carrier(h1, h2, s, a)
+    return fingerprint_lanes_plain(table, 1)[0]
 
 
 @functools.lru_cache(maxsize=None)
@@ -259,16 +355,18 @@ def _launcher():
     fn = _build.load("fingerprint").sedar_fingerprint_leaves
     fn.argtypes = [ctypes.POINTER(ctypes.c_longlong), ctypes.c_int,
                    ctypes.POINTER(ctypes.c_longlong), ctypes.c_int,
-                   ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_void_p]
+                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def _blocks_for(n: int) -> int:
-    """The grid: a function of the word count alone, so the float reduction
-    tree (and with it the diagnostic `s`) is the same on every run."""
-    return max(1, min(MAX_BLOCKS, -(-n // (THREADS * 16))))
+def _blocks_for(n: int, n_lanes: int = 1) -> int:
+    """Blocks per lane: a function of the word count and the lanes alone, so
+    the float reduction tree (and with it the diagnostic `s`) is the same
+    on every run; all lanes' blocks fit the MAX_BLOCKS partials."""
+    width = -(-n // n_lanes)
+    return max(1, min(MAX_BLOCKS // n_lanes, -(-width // (THREADS * 16))))
 
 
 # (device index, stream) -> (partials, ticket): allocated once, so a call
@@ -287,14 +385,14 @@ def _workspace(dev: torch.device, stream: int):
     return ws
 
 
-def _empty_result(dev: torch.device) -> torch.Tensor:
-    """The (4,) output, without deterministic mode's fill of fresh memory
-    (a launch of its own): the kernel writes all four words."""
+def _empty_result(dev: torch.device, n_lanes: int) -> torch.Tensor:
+    """The (n_lanes, 4) output, without deterministic mode's fill of fresh
+    memory (a launch of its own): the kernel writes every word."""
     det = torch.utils.deterministic
     fill = det.fill_uninitialized_memory
     det.fill_uninitialized_memory = False
     try:
-        return torch.empty((4,), dtype=torch.int32, device=dev)
+        return torch.empty((n_lanes, 4), dtype=torch.int32, device=dev)
     finally:
         det.fill_uninitialized_memory = fill
 
@@ -318,20 +416,24 @@ def _limit_rows(table: Sequence[Leaf]):
     return rows, refs
 
 
-def _launch(table: Sequence[Leaf], dev: torch.device) -> torch.Tensor:
+def _launch(table: Sequence[Leaf], dev: torch.device,
+            n_lanes: int = 1) -> torch.Tensor:
     limits, refs = _limit_rows(table)
     rows = [v for leaf, ref in zip(table, refs) for v in (
-        leaf.tensor.data_ptr(), leaf.kind, leaf.rows, leaf.run, leaf.stride,
-        leaf.base, ref)]
+        0 if leaf.tensor is None else
+        leaf.tensor.data_ptr() + leaf.offset * leaf.tensor.element_size(),
+        leaf.kind, leaf.rows, leaf.run, leaf.stride, leaf.base, ref,
+        leaf.lane)]
     n = sum(leaf.rows * leaf.run for leaf in table)
+    bpl = _blocks_for(n, n_lanes)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         partials, ticket = _workspace(dev, stream)
-        out = _empty_result(dev)
+        out = _empty_result(dev, n_lanes)
         rc = _launcher()((ctypes.c_longlong * max(1, len(rows)))(*rows),
                          len(table),
                          (ctypes.c_longlong * max(1, len(limits)))(*limits),
-                         len(limits) // 3, _blocks_for(n),
+                         len(limits) // 3, n_lanes, bpl,
                          partials.data_ptr(), ticket.data_ptr(),
                          out.data_ptr(), stream)
     _build.check(rc, "fingerprint")
@@ -339,20 +441,23 @@ def _launch(table: Sequence[Leaf], dev: torch.device) -> torch.Tensor:
     return out
 
 
-def fingerprint_leaves(table: Sequence[Leaf]) -> torch.Tensor:
-    """K1 wrapper over a leaf table (`leaf_table`) -> (4,) int32 carrier:
-    the leaves hashed where they lie, in one launch."""
-    devs = {t.device for leaf in table
-            for t in (leaf.tensor, leaf.limit) if t is not None}
-    if len(devs) > 1:
-        raise ValueError(
-            f"leaves on several devices: {sorted(map(str, devs))}")
-    dev = devs.pop() if devs else torch.device("cpu")
+def fingerprint_lanes(table: Sequence[Leaf], n_lanes: int) -> torch.Tensor:
+    """K1 wrapper over a lane table (`lane_table`, or a leaf table with
+    n_lanes 1) -> (n_lanes, 4) int32 carrier, in one launch."""
+    if not 1 <= n_lanes <= MAX_LANES:
+        raise ValueError(f"{n_lanes} lanes: K1 takes 1 to {MAX_LANES}")
+    dev = _table_device(table)
     if dev.type == "cpu":
-        return fingerprint_leaves_plain(table)
+        return fingerprint_lanes_plain(table, n_lanes)
     if dev.type != "cuda":
         raise RuntimeError(f"no K1 kernel for device {dev}")
-    return _launch(table, dev)
+    return _launch(table, dev, n_lanes)
+
+
+def fingerprint_leaves(table: Sequence[Leaf]) -> torch.Tensor:
+    """K1 wrapper over a leaf table (`leaf_table`) -> (4,) int32 carrier:
+    the leaves hashed where they lie, in one launch (one lane)."""
+    return fingerprint_lanes(table, 1)[0]
 
 
 def fingerprint_u32(u: torch.Tensor) -> torch.Tensor:
@@ -372,4 +477,4 @@ def fingerprint_u32(u: torch.Tensor) -> torch.Tensor:
     n = u.numel()
     if n >= 2 ** 32:
         raise ValueError(f"{n} words: K1 takes fewer than 2^32")
-    return _launch([Leaf(u, 0, 1, n, n, 0)] if n else [], u.device)
+    return _launch([Leaf(u, 0, 1, n, n, 0)] if n else [], u.device)[0]

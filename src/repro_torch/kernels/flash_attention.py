@@ -12,9 +12,9 @@ contiguous), so the model's (B, S, H, hd) tensors are passed as transposed
 views without a copy, and it writes its output in (B, Sq, H, hd) memory
 order: `kernels.ops.flash_attention` hands the model a contiguous result.
 
-Each input type has one kernel: bf16 runs on the tensor cores (`wgmma`)
-at head dims 16, 64, 128 and 256, f32 in true f32 on the FFMA units (the
-body K4 shares) at 16 and 64 (`HEAD_DIMS`). Both copy q, k and
+Each input type has one kernel: bf16 runs on the tensor cores (`wgmma`),
+f32 in true f32 on the FFMA units (the body K4 shares), each at head dims
+16, 64, 128 and 256 (`HEAD_DIMS`). Both copy q, k and
 v into shared memory 16 bytes at a time, so they need them 16-byte aligned
 with strides that are multiples of 16 bytes (8 bf16 or 4 f32 elements; the
 model's tensors are).
@@ -33,10 +33,10 @@ import torch
 
 from repro_torch.kernels import _build
 
-# head dims each body is built for: the bf16 wgmma body takes the model
-# families' 128 and 256 too; the f32 body (K4's as well) keeps 16 and 64,
-# its shared memory at hd 256 would exceed the SM's 227 KB
-HEAD_DIMS = {torch.float32: (16, 64), torch.bfloat16: (16, 64, 128, 256)}
+# head dims each body is built for (the f32 body is K4's as well; at hd 256
+# it keeps one K/V stage to fit the SM's 227 KB, csrc/flash_attention.cu)
+HEAD_DIMS = {torch.float32: (16, 64, 128, 256),
+             torch.bfloat16: (16, 64, 128, 256)}
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 launch_count = _build.LaunchCount("flash_attention")

@@ -1,0 +1,180 @@
+"""The process mesh of the `pod` and `vote` backends (the counterpart of the
+reference's `launch/mesh.py::make_test_mesh`).
+
+The reference runs a replica per pod of a device mesh and compares inside
+`shard_map`. The port runs one process per (pod, data) rank over
+`torch.distributed`: rank r holds pod r // D's replica of the state on its
+device, and trains on data shard r % D of the global batch. Collectives go
+through gloo on localhost, on the CPU and on the card alike: NCCL refuses
+two ranks on one GPU ("Duplicate GPU detected"), and gloo takes CUDA
+tensors in `all_reduce` and `broadcast`, staging them through host memory.
+
+Groups (`dist.new_group`, made by every rank in the same order):
+  * the pod group of data index d: the ranks that hold shard d in every
+    pod, ordered by pod. Replica compares, the fingerprint gather and the
+    vote broadcast run over it.
+  * the data group of pod p: that pod's ranks, ordered by data index. The
+    gradient average runs over it.
+
+A `model` axis larger than 1 (tensor sharding) raises NotImplementedError:
+it waits for the port of the sharding tools (ROADMAP Queue 1 item 4).
+
+`spawn(fn, nprocs, *args)` starts the ranks (`torch.multiprocessing`, the
+spawn method), each with its process group initialized, and returns each
+rank's return value: the tests, the training launcher and `chip_smoke.py`
+share it.
+"""
+from __future__ import annotations
+
+import datetime
+import os
+import queue
+import socket
+import time
+from dataclasses import dataclass
+from typing import Any, Callable, Dict, List, Tuple
+
+import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+
+from repro_torch.configs import MeshConfig
+
+
+@dataclass
+class ProcessMesh:
+    """This rank's place in a (pod, data) process mesh and its groups."""
+
+    shape: Tuple[int, ...]
+    axis_names: Tuple[str, ...]
+    rank: int
+    pod: int
+    data: int
+    pod_group: Any            # this rank's data index across every pod
+    data_group: Any           # this rank's pod
+    pod_ranks: List[int]      # the pod group's global ranks, by pod
+
+    @property
+    def sizes(self) -> Dict[str, int]:
+        return dict(zip(self.axis_names, self.shape))
+
+    @property
+    def n_pods(self) -> int:
+        return self.sizes.get("pod", 1)
+
+    @property
+    def n_data(self) -> int:
+        return self.sizes.get("data", 1)
+
+    def pod_rank(self, pod: int) -> int:
+        """Global rank of pod `pod`'s copy of this rank's data shard."""
+        return self.pod_ranks[pod]
+
+
+def make_process_mesh(cfg: MeshConfig) -> ProcessMesh:
+    """The mesh of `cfg` over the initialized default process group, whose
+    world size must be pods x data. Every rank must call it (it makes the
+    groups)."""
+    shape, axis_names = tuple(cfg.shape), tuple(cfg.axis_names)
+    sizes = dict(zip(axis_names, shape))
+    if set(sizes) - {"pod", "data", "model"}:
+        raise ValueError(f"unknown mesh axes {axis_names}")
+    if sizes.get("model", 1) != 1:
+        raise NotImplementedError(
+            "a model axis larger than 1 shards the state across ranks: it "
+            "waits for the port of the sharding tools (ROADMAP Queue 1 "
+            "item 4)")
+    P, D = sizes.get("pod", 1), sizes.get("data", 1)
+    if not dist.is_initialized():
+        raise RuntimeError("the process mesh needs an initialized process "
+                           "group (launch/mesh.py::spawn)")
+    world, rank = dist.get_world_size(), dist.get_rank()
+    if world != P * D:
+        raise ValueError(f"mesh {shape} needs {P * D} ranks, the "
+                         f"process group has {world}")
+    pod, data = divmod(rank, D)
+    pod_group = data_group = None
+    pod_ranks: List[int] = []
+    for d in range(D):
+        ranks = [p * D + d for p in range(P)]
+        g = dist.new_group(ranks)
+        if d == data:
+            pod_group, pod_ranks = g, ranks
+    for p in range(P):
+        g = dist.new_group([p * D + d for d in range(D)])
+        if p == pod:
+            data_group = g
+    return ProcessMesh(tuple(int(s) for s in shape), axis_names, rank, pod,
+                       data, pod_group, data_group, pod_ranks)
+
+
+def _free_port() -> int:
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _entry(rank: int, fn: Callable, world: int, port: int, results,
+           args: tuple, threads: int, timeout_s: float) -> None:
+    if threads:
+        torch.set_num_threads(threads)
+    dist.init_process_group(
+        "gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+        world_size=world, timeout=datetime.timedelta(seconds=timeout_s))
+    try:
+        results.put((rank, fn(rank, *args)))
+    finally:
+        dist.destroy_process_group()
+
+
+def spawn(fn: Callable, nprocs: int, *args, threads: int = 0,
+          timeout_s: float = 600.0) -> List[Any]:
+    """Run `fn(rank, *args)` in `nprocs` spawned processes, each with a gloo
+    process group on localhost, and return their results by rank. `fn` and
+    `args` must pickle (a module-level function). `threads` > 0 sets each
+    rank's torch threads. A rank that raises, or a run longer than
+    `timeout_s`, kills every rank and raises here. The ranks inherit the
+    environment, with the cuBLAS workspace that deterministic replicas on
+    the card need set first, and gloo held to the loopback interface."""
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    port = _free_port()
+    procs = mp.start_processes(
+        _entry, args=(fn, nprocs, port, results, args, threads, timeout_s),
+        nprocs=nprocs, join=False, start_method="spawn")
+    out: Dict[int, Any] = {}
+    deadline = time.monotonic() + timeout_s
+    try:
+        while len(out) < nprocs:
+            try:
+                rank, value = results.get(timeout=1.0)
+                out[rank] = value
+                continue
+            except queue.Empty:
+                pass
+            if procs.join(timeout=0) and len(out) < nprocs:
+                # every rank exited: read what was left in the queue
+                while not results.empty():
+                    rank, value = results.get()
+                    out[rank] = value
+                missing = sorted(set(range(nprocs)) - set(out))
+                if missing:
+                    raise RuntimeError(f"ranks {missing} exited without a "
+                                       "result")
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"mesh ranks still running after "
+                                   f"{timeout_s} s")
+        while not procs.join(timeout=max(1.0, deadline - time.monotonic())):
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"mesh ranks still running after "
+                                   f"{timeout_s} s")
+    finally:
+        for p in procs.processes:
+            if p.is_alive():
+                p.kill()
+        for p in procs.processes:
+            p.join()
+    return [out[r] for r in range(nprocs)]
+

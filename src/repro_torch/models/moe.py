@@ -1,6 +1,6 @@
 """Mixture-of-Experts layer: top-k routing with capacity-based dispatch, the
 mesh-free `moe_mlp` of the reference's `models/moe.py` (the expert-parallel
-form waits for the mesh backends).
+form, `moe_mlp_ep`, is not ported: ROADMAP Queue 1 item 3).
 
 Dispatch groups: the reference routes every call's tokens as ONE group,
 and where it serves several independent decodes at once it vmaps them (the

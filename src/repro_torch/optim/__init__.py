@@ -1,5 +1,5 @@
 """Optimizers and schedules of the port (the reference's `optim/`; its
-gradient compression serves the pod backend, which is not ported)."""
+int8 gradient compression of the pod backend is not ported)."""
 from repro_torch.optim.optimizers import (
     Optimizer,
     adamw,

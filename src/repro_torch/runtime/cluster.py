@@ -4,8 +4,9 @@ heartbeat half).
 The paper's TOE detector generalizes to the host level: every host writes a
 heartbeat file per step; a monitor flags hosts whose beat is stale (hang,
 crash, TOE) and hosts whose step count lags the median (stragglers), and
-publishes both into the telemetry stream (`repro_torch.obs`). The elastic
-re-mesh half of the reference's module (`ElasticPlan`,
+publishes both into the telemetry stream (`repro_torch.obs`). `lanes_to_hosts`
+names the hosts behind a fingerprint lane of the `pod` backend. The
+elastic re-mesh half of the reference's module (`ElasticPlan`,
 `plan_elastic_remesh`, the mesh rebuild, `elastic_restart`) is not ported.
 Host-side Python only.
 """
@@ -170,3 +171,13 @@ class ClusterMonitor:
         for h in strag:
             obs.note_heartbeat_anomaly(h, 0.0, kind="straggler")
         return {"seen": sorted(seen), "stale": stale, "stragglers": strag}
+
+
+def lanes_to_hosts(lane_ids, hosts_per_data_shard: int = 1) -> List[int]:
+    """Fingerprint lane -> hosts: lane i covers data shard i, and shard i
+    is owned by hosts [i H, (i + 1) H)."""
+    H = max(int(hosts_per_data_shard), 1)
+    out: List[int] = []
+    for lane in lane_ids:
+        out.extend(range(int(lane) * H, (int(lane) + 1) * H))
+    return out

@@ -74,8 +74,8 @@ The port's decode state is `{cache, tok (N, 1), pos (N,), active (N,),
 t}`. Only the cache is written in place; `tok`, `pos` and `active` are
 replaced by new tensors at every step and state surgery (the emission ring
 parks them), and `t`, the decode tick that gates injection, is a host int.
-The mesh backends ("pod", "vote"), live autotuning and the telemetry calls
-are not ported.
+The mesh backends ("pod", "vote") serve in neither package and train only;
+live autotuning and the telemetry calls are not ported.
 
 Model families: `generate()` serves all six families the port builds
 (dense, moe, hybrid, vlm, ssm, audio) under every backend. A vlm prompt

@@ -1,6 +1,6 @@
 """SEDAR-protected training (the reference's `runtime/train.py`), a thin
 layer over the engine for the single-card backends `none`, `sequential`,
-`fused`, `abft` and `hybrid`.
+`fused`, `abft` and `hybrid` and the mesh backends `pod` and `vote`.
 
 Everything about the protocol (replica compare, TDC commit gate, FSC
 validation, TOE watchdog, the L1/L2/L3 checkpoint boundaries and recovery)
@@ -28,6 +28,17 @@ is in `core/engine.py`; this module supplies the training pieces:
   * the state fingerprints: per leaf (`state_fp`: reports, L2 manifests, L3
     validation) and whole-state (`state_fp_fast`: the FSC compare and
     hybrid's commit and entry fingerprints), both through K1 on the card;
+  * the mesh step of `pod`/`vote` (`mesh=`, a `launch/mesh.py::
+    ProcessMesh`; one trainer per rank): the rank's rows of the global
+    batch -> loss and grads, averaged over the pod's data group -> [the
+    grads fault, on pod `spec.replica`'s ranks] -> pod: the grads' lanes
+    (one per data shard, K1 in one launch) and the lane compare over the
+    pod group; vote: the whole-state fingerprint and its gather -> the
+    optimizer -> [the params fault] -> the commit gated on the compare,
+    leaf by leaf into the candidate's own tensors. `pod_validate` compares
+    {params, opt} the same way. Each rank keeps its checkpoints under
+    `workdir/rank{r}`; every rank decides alike (its reads come out of
+    collectives), so every rank restores the same version;
   * the outer loop: the step counter tracked on the host (a recovery
     re-reads it once), per-step losses kept on the device and drained in
     batches, `truncate_to` keeping the loss record on the delivered
@@ -36,8 +47,7 @@ is in `core/engine.py`; this module supplies the training pieces:
 
 The engine's "batch" is the pair (host step, batch): injection decides on
 the host from the step, as the port's injection does everywhere. Runs on
-the card unless `device="cpu"` is given. `pod` and `vote` training are not
-ported and raise.
+the card unless `device="cpu"` is given.
 """
 from __future__ import annotations
 
@@ -49,15 +59,22 @@ from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import obs
 from repro_torch import tree as tree_util
 from repro_torch.configs.base import RunConfig
 from repro_torch.core import hostsync
-from repro_torch.core.detection import DetectionEvent, SedarSafeStop, Watchdog
+from repro_torch.core.detection import (DetectionEvent, SedarSafeStop,
+                                        Watchdog, lanes_equal,
+                                        make_lane_comparator,
+                                        make_pod_broadcaster,
+                                        make_pod_comparator,
+                                        make_pod_injector)
 from repro_torch.core.engine import replica_view
 from repro_torch.core.fingerprint import (leaf_fingerprints,
-                                          pytree_fingerprint_fused)
+                                          pytree_fingerprint_fused,
+                                          pytree_fingerprint_lanes)
 from repro_torch.core.injection import InjectionFlag, InjectionSpec, inject_tree
 from repro_torch.core.policy import make_engine
 from repro_torch.core.recovery import make_recovery
@@ -73,12 +90,7 @@ from repro_torch.optim import make_optimizer
 # the fused gate that the other five families meet (PERF.md §6).
 PER_REPLICA_FAMILIES = ("ssm",)
 
-# backends the reference trains with that the port does not, and where
-# ROADMAP.md queues them
-_NOT_PORTED = {
-    "pod": "Queue 1 (the mesh backends)",
-    "vote": "Queue 1 (the mesh backends)",
-}
+MESH_BACKENDS = ("pod", "vote")
 
 
 @dataclass
@@ -113,19 +125,29 @@ class SedarTrainer:
                  inj_spec: Optional[InjectionSpec] = None,
                  toe_delay: Optional[Dict[Any, float]] = None,
                  data=None, notify: Optional[Callable] = None,
-                 device=None, autotune=None):
+                 device=None, autotune=None, mesh=None,
+                 hosts_per_data_shard: int = 1):
         self.cfg = run_cfg
-        self.workdir = workdir
         # closed-loop knob tuning: a `core/policy.py::Autotuner` whose
         # maybe_tune() ticks after every protected step
         self.autotune = autotune
         self.backend = run_cfg.sedar.replication
         if self.backend == "dual":          # the reference's alias
             self.backend = "sequential"
-        if self.backend in _NOT_PORTED:
-            raise NotImplementedError(
-                f"{self.backend!r} training is not ported yet (ROADMAP "
-                f"{_NOT_PORTED[self.backend]})")
+        self.mesh = mesh
+        if self.backend in MESH_BACKENDS:
+            if mesh is None:
+                raise ValueError(
+                    f"{self.backend!r} training needs mesh= (a "
+                    "launch/mesh.py::ProcessMesh, one trainer per rank)")
+            if run_cfg.train.global_batch % mesh.n_data:
+                raise ValueError(
+                    f"global batch {run_cfg.train.global_batch} does not "
+                    f"split over {mesh.n_data} data shards")
+            # ranks must not write the same files
+            workdir = os.path.join(workdir, f"rank{mesh.rank}")
+        self.workdir = workdir
+        self.hosts_per_data_shard = max(int(hosts_per_data_shard), 1)
         self.device = resolve_device(device)
         make_deterministic(self.device)
         os.makedirs(workdir, exist_ok=True)
@@ -144,6 +166,7 @@ class SedarTrainer:
         self.watchdog = Watchdog(self.sedar.toe_timeout_s)
         self.notify = notify or (lambda e: print(str(e), flush=True))
         fused = self.backend == "fused"
+        pod_kw = self._mesh_fns() if self.backend in MESH_BACKENDS else {}
         self.engine = make_engine(
             self.sedar, backend=self.backend,
             step_fn=self._fused_step if fused else self._replica_step,
@@ -153,7 +176,7 @@ class SedarTrainer:
             inj_spec=inj_spec, inj_flag=self.inj_flag,
             init_fn=self.init_dual, notify=self.notify,
             delay_source=lambda: self.toe_delay,
-            stack="leading" if fused else "rows")
+            stack="leading" if fused else "rows", **pod_kw)
 
     # -- state ----------------------------------------------------------------
 
@@ -266,14 +289,105 @@ class SedarTrainer:
     def batch(self, step: int):
         """The batch of `step` on the trainer's device: integer leaves
         (tokens, targets) as int64, float leaves (a frontend's stub
-        embeddings) at their own dtype and values."""
+        embeddings) at their own dtype and values. A mesh rank takes its
+        data shard's rows of the global batch."""
         out = {}
         for k, v in self.data.batch(step).items():
             v = np.asarray(v)
+            if self.mesh is not None:
+                rows = v.shape[0] // self.mesh.n_data
+                v = v[self.mesh.data * rows:(self.mesh.data + 1) * rows]
             if np.issubdtype(v.dtype, np.integer):
                 v = v.astype(np.int64)
             out[k] = upload(v, self.device)
         return out
+
+    # -- the mesh step (pod, vote) ----------------------------------------------
+
+    def _mesh_fns(self) -> Dict[str, Any]:
+        """The pod step, its validation and (vote) the broadcaster, for
+        `make_engine`."""
+        mesh, spec = self.mesh, self.inj_spec
+        self._pod_cmp = make_pod_comparator(mesh)
+        self._pod_inject = (make_pod_injector(mesh, spec)
+                            if spec is not None else None)
+        # pod: one fingerprint lane per data shard, compared by reductions
+        # (a divergence localizes to a shard and its hosts); vote: the
+        # whole-state fingerprint and its gather, which the vote consumes
+        self._n_lanes = mesh.n_data if self.backend == "pod" else 0
+        kw: Dict[str, Any] = dict(
+            pod_step=self._pod_step, pod_validate=self._pod_validate,
+            n_replicas=mesh.n_pods)
+        if self._n_lanes:
+            from repro_torch.runtime.cluster import lanes_to_hosts
+            self._lane_cmp = make_lane_comparator(mesh)
+            hpds = self.hosts_per_data_shard
+            kw["lane_hosts"] = lambda lanes: lanes_to_hosts(
+                lanes, hosts_per_data_shard=hpds)
+        if self.backend == "vote":
+            kw["pod_broadcaster"] = make_pod_broadcaster(mesh)
+        return kw
+
+    def _data_mean(self, loss, grads):
+        """The global batch's loss and grads from this rank's shard: the
+        mean of the data group's shard means (equal shards), every grads
+        leaf summed in place over the group and scaled by 1 / D."""
+        D = self.mesh.n_data
+        if D == 1:
+            return loss, grads
+        group = self.mesh.data_group
+        for g in tree_util.leaves(grads):
+            with hostsync.collective("grad_allreduce"):
+                dist.all_reduce(g, group=group)
+            g.div_(D)
+        loss = loss.clone()
+        with hostsync.collective("grad_allreduce"):
+            dist.all_reduce(loss, group=group)
+        return loss / D, grads
+
+    def _pod_inject_tree(self, tree, target: str, step: int, armed):
+        if self._pod_inject is None or self.inj_spec.target != target:
+            return tree
+        return self._pod_inject(tree, step, armed)
+
+    def _pod_step(self, state, step_batch, armed):
+        """(state, (host step, batch shard), armed) -> (new state, eq,
+        fp_all or None, loss): the compare, then the commit gated on it."""
+        step, batch = step_batch
+        params = state["params"]
+        loss, grads = self._data_mean(*self.loss_and_grads(params, batch))
+        grads = self._pod_inject_tree(grads, "grads", step, armed)
+        if self._n_lanes:
+            eq = self._lane_cmp(pytree_fingerprint_lanes(grads,
+                                                         self._n_lanes))
+            ok, fp_all = torch.all(eq), None
+        else:
+            eq, fp_all = self._pod_cmp(self._grad_fp(grads))
+            ok = eq
+        # the optimizer drops each gradient leaf once it is stepped
+        g = tree_util.leaves(grads)
+        del grads
+        new_params, new_opt = self.opt.apply(g, state["opt"], params,
+                                             state["step"])
+        new_params = self._pod_inject_tree(new_params, "params", step, armed)
+        cand = {"params": new_params, "opt": new_opt,
+                "step": state["step"] + 1}
+        # where(ok, candidate, state) into the candidate's own (fresh)
+        # tensors: no second state lives beside the two
+        tree_util.tree_map(
+            lambda c, p: torch.where(ok, c, p, out=c)
+            if isinstance(c, torch.Tensor) else c, cand, state)
+        return cand, eq, fp_all, loss
+
+    def _pod_validate(self, state):
+        """(eq, fp_all) of {params, opt} over the pod group: per-lane eq
+        from the gathered lanes (pod), or the whole-state compare (vote)."""
+        if self._n_lanes:
+            _, fp_all = self._pod_cmp(pytree_fingerprint_lanes(
+                {"params": state["params"], "opt": state["opt"]},
+                self._n_lanes))
+            return lanes_equal(fp_all), fp_all
+        return self._pod_cmp(self._state_fp_fast(state))
 
     def _replica_step(self, state, step_batch, replica_id: int, armed: bool):
         """(state, (host step, batch), replica, armed) -> (candidate, grads

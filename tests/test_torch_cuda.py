@@ -152,8 +152,8 @@ def _odd_tree(card):
     f = torch.randn(1001, generator=g, device=card)
     return {"a": f[3:],                                     # 12 bytes off
             "b": torch.randn(7, 5, generator=g, device=card).bfloat16(),
-            # words below 0x7F800000 are finite as f32, so absmax is
-            # defined (the kernel's fmaxf skips NaN, torch.max keeps it)
+            # words below 0x7F800000 are finite as f32, so absmax is a
+            # number, compared bit for bit (of a NaN only the kind is)
             "c": torch.randint(0, 0x7F800000, (13,), generator=g,
                                device=card, dtype=torch.int32),
             "d": torch.randint(0, 2 ** 20, (3, 3), generator=g, device=card)
@@ -294,15 +294,88 @@ def test_k2_counts_each_launch_by_its_shape(card):
     assert kfa.launch_count.n == 0 and not kfa.launch_count.shapes
 
 
-@pytest.mark.parametrize("hd", [128, 256])
-def test_k2_f32_and_k4_refuse_wide_head_dims_without_launch(card, hd):
-    q = torch.zeros(1, 2, 64, hd, device=card)
+# (B, H, KV, Sq, Sk, hd, causal, window): the f32 body's wide head dims
+# (hd 128: two K/V stages, one block per SM; hd 256: one K and one V tile)
+ATTN_F32_WIDE_CASES = [
+    (1, 4, 2, 130, 130, 128, True, 0),
+    (1, 4, 2, 100, 190, 128, False, 0),
+    (2, 4, 2, 200, 200, 128, True, 70),
+    (1, 4, 1, 257, 257, 256, True, 0),     # a last KV tile of 1 key
+    (1, 2, 1, 333, 333, 256, True, 77),
+    (1, 4, 2, 70, 150, 256, False, 0),
+]
+
+
+@pytest.mark.parametrize("B,H,KV,Sq,Sk,hd,causal,window",
+                         ATTN_F32_WIDE_CASES)
+def test_k2_f32_and_k4_wide_head_dims_vs_plain(card, B, H, KV, Sq, Sk, hd,
+                                               causal, window):
+    """K2 f32 and K4 (one f32 body) at hd 128 and 256 against their plain
+    versions within atol/rtol 1e-5, one launch each, bitwise repeatable; a
+    bit-23 flip of K4's largest output is flagged uncorrectable by the
+    checksum verdict, the clean output is not."""
+    r = np.random.RandomState(Sq + hd)
+    q, k, v = (torch.from_numpy(r.standard_normal(s).astype(np.float32)
+                                ).to(card)
+               for s in ((B, H, Sq, hd), (B, KV, Sk, hd), (B, KV, Sk, hd)))
     before = (kfa.launch_count.n, kab.flash_ck_launch_count.n)
-    with pytest.raises(ValueError, match="built for head_dim"):
-        kfa.flash_attention_fwd(q, q, q)
-    with pytest.raises(ValueError, match="built for head_dim"):
-        kab.flash_attention_ck(q, q, attention_checksum_encode(q))
-    assert (kfa.launch_count.n, kab.flash_ck_launch_count.n) == before
+    got = kfa.flash_attention_fwd(q, k, v, causal=causal, window=window)
+    v_aug = attention_checksum_encode(v)
+    full = kab.flash_attention_ck(q, k, v_aug, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert (kfa.launch_count.n, kab.flash_ck_launch_count.n) == (
+        before[0] + 1, before[1] + 1)
+    torch.testing.assert_close(got, kfa.flash_attention_plain(
+        q, k, v, causal=causal, window=window), atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(full, kfa.flash_attention_plain(
+        q, k, v_aug, causal=causal, window=window), atol=1e-5, rtol=1e-5)
+    assert torch.equal(got, kfa.flash_attention_fwd(q, k, v, causal=causal,
+                                                    window=window))
+    assert torch.equal(full, kab.flash_attention_ck(q, k, v_aug,
+                                                    causal=causal,
+                                                    window=window))
+    _, clean = attention_verify(full, Sk)
+    flat = int(full[..., :hd].abs().argmax())
+    spec = InjectionSpec(leaf_idx=0, flat_idx=flat // hd * (hd + 1)
+                         + flat % hd, bit=23, step=0, target="kernel")
+    _, rep = attention_verify(make_kernel_fault(spec, step=0, armed=True)(
+        full), Sk)
+    assert not bool(clean.detected)
+    assert bool(rep.detected) and bool(rep.uncorrectable)
+
+
+@pytest.mark.parametrize("L", [1, 2, 3, 8, 16])
+def test_k1_lanes_vs_plain(card, L):
+    """K1's lanes in one launch over leaves read in place (f32, bf16,
+    int64, a strided view; leaves split at lane boundaries, a zero-padded
+    tail): h1 and h2 of every lane bitwise equal to the plain lanes over
+    the packed words; absmax a NaN in the same lanes as the plain one (an
+    int64 word read as a float can be a NaN pattern, which both return, as
+    the reference's max does) and bitwise equal in the others; L = 1
+    equals the fused fingerprint."""
+    g = torch.Generator(device=card).manual_seed(L)
+    wide = torch.randn(300, 70, generator=g, device=card)
+    tree = {"a": torch.randn(1000, 37, generator=g, device=card),
+            "b": torch.randn(513, generator=g, device=card).to(
+                torch.bfloat16),
+            "c": torch.randint(-2 ** 40, 2 ** 40, (77,), generator=g,
+                               device=card),
+            "d": wide[:, 3:64]}
+    before = kfp.launch_count.n
+    got = tfp.pytree_fingerprint_lanes(tree, L)
+    torch.cuda.synchronize()
+    assert kfp.launch_count.n == before + 1 and got.shape == (L, 4)
+    u = tfp.pack_tree_u32(tree)
+    width = -(-u.numel() // L)
+    u = torch.cat([u, u.new_zeros(L * width - u.numel())])
+    want = torch.stack([kfp.fingerprint_plain(w) for w in u.view(L, width)])
+    assert torch.equal(got[:, :2], want[:, :2])
+    nan = torch.isnan(want[:, 3].view(torch.float32))
+    assert torch.equal(torch.isnan(got[:, 3].view(torch.float32)), nan)
+    assert torch.equal(got[~nan, 3], want[~nan, 3])
+    assert torch.equal(got, tfp.pytree_fingerprint_lanes(tree, L))
+    if L == 1:
+        assert torch.equal(got[0], tfp.pytree_fingerprint_fused(tree))
 
 
 def test_k2_bf16_unaligned_view_raises_without_launch(card):

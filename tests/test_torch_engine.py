@@ -148,11 +148,18 @@ def test_plain_backend_never_compares():
 
 
 def test_unported_backend_raises():
+    """The mesh backends take the mesh step (`pod_step`, `pod_validate`),
+    not a replica step: without it make_engine raises, as the reference's
+    does; an unknown backend is not ported."""
     for backend in ("pod", "vote"):
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(ValueError, match="needs pod_step"):
             make_engine(SedarConfig(), backend=backend, step_fn=_tstep,
                         state_fp_fn=tfp.pytree_fingerprint_fused,
                         recovery=RetryRecovery())
+    with pytest.raises(NotImplementedError):
+        make_engine(SedarConfig(), backend="elastic", step_fn=_tstep,
+                    state_fp_fn=tfp.pytree_fingerprint_fused,
+                    recovery=RetryRecovery())
 
 
 def test_recovery_policies():

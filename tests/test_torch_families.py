@@ -300,14 +300,16 @@ def test_plain_flash_at_wide_head_dims_matches_pallas(B_, H, KV, Sq, Sk, hd,
 
 @pytest.mark.parametrize("hd", [128, 256])
 def test_k2_f32_and_k4_keep_refusing_wide_head_dims(hd):
-    """The bf16 wgmma body takes hd 128 and 256; the f32 body (K2 f32 and
-    K4, one CUDA body) stays built for 16 and 64 and raises before any
-    launch."""
+    """Both bodies take hd 128 and 256 (the f32 body, K2 f32 and K4, since
+    its hd 256 keeps one K/V stage); a head dim neither is built for, twice
+    the widest, still raises before any launch."""
     kfa.check_head_dim("K2", torch.bfloat16, hd)
+    kfa.check_head_dim("K2", torch.float32, hd)
+    kfa.check_head_dim("K4", torch.float32, hd)
     with pytest.raises(ValueError, match="built for head_dim"):
-        kfa.check_head_dim("K2", torch.float32, hd)
+        kfa.check_head_dim("K2", torch.float32, 2 * hd + 256)
     with pytest.raises(ValueError, match="K4 .* built for head_dim"):
-        kfa.check_head_dim("K4", torch.float32, hd)
+        kfa.check_head_dim("K4", torch.float32, 2 * hd + 256)
     assert kab.check_head_dim is kfa.check_head_dim
 
 
