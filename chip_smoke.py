@@ -54,12 +54,13 @@ counts set to 0 just before it and read just after:
     bitwise equal to the run with telemetry off; the calibrated temporal
     model and `advise()` on it;
   * the model families (phase families): protected `generate()` of
-    recurrentgemma-2b (hybrid: RG-LRU blocks and local attention,
-    B=2 × 4,096 prompt tokens, K2 at hd 256 with its 2,048 window),
-    internvl2-2b (vlm: 256 stub patch embeddings + 256 tokens, hd 128),
-    phi3.5-moe (moe, 8 of its 32 layers, hd 128),
+    recurrentgemma-2b (hybrid: RG-LRU blocks and local attention, 8 of
+    26 layers, B=2 × 4,096 prompt tokens, K2 at hd 256 with its 2,048
+    window), internvl2-2b (vlm: 8 of 24 layers, 256 stub patch embeddings
+    + 256 tokens, hd 128), phi3.5-moe (moe, 4 of its 32 layers, hd 128),
     xlstm-125m (ssm, 2 of 12 blocks) and
-    seamless-m4t-medium (audio) at full width under none, sequential,
+    seamless-m4t-medium (audio, 6 + 6 of 12 + 12 layers) at full width
+    under none, sequential,
     abft, fused and hybrid in turns (equal streams, replica faults
     retried, checksum-block faults corrected forward, hybrid's retry at an
     entry check with no false FSC and its catch of an at-rest flip), and
@@ -91,6 +92,14 @@ counts set to 0 just before it and read just after:
     restored from the device tier, a vote params fault repaired forward,
     both bitwise equal to the clean run; K1's lanes (L = 1, 2, 8) on the
     full grads against their plain version in phase train;
+  * elastic fail-in-place training (phases elastic_train and pod_elastic,
+    after pod_train): the training cell under an `ElasticTrainer` whose
+    simulated host 1 goes dark at step 2 and returns at 4, in one process
+    (full depth, the flat disk: shrink onto data 1, regrow, the full-width
+    losses and state bitwise equal to phase train's clean run) and on 4
+    pod ranks of a (2, 2) process mesh at 2 of 24 layers (the shrink
+    restored from the partner tier onto ranks 0 and 2, every rank bitwise
+    equal to its uninterrupted run, no commit_compare read);
   * a small f32 model on the card against the plain CPU path.
 
 Any failed check exits non-zero. The last two lines are a JSON object of
@@ -111,6 +120,7 @@ Imports nothing of JAX or of the JAX package.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -2907,6 +2917,17 @@ def phase_telemetry_train(kfp, trainer, make_state, l3) -> int:
     return off["k1"]
 
 
+def cut_depth(cfg, depth):
+    """`cfg` with `depth` layers (None: as configured); an encoder-decoder
+    keeps `depth` layers in each stack."""
+    import dataclasses
+    if not depth:
+        return cfg
+    if cfg.encoder_layers:
+        cfg = dataclasses.replace(cfg, encoder_layers=depth)
+    return dataclasses.replace(cfg, num_layers=depth)
+
+
 FAMILY_STEPS = 32
 FAMILY_FAULT_STEPS = 12   # the fused and hybrid fault runs' tokens
 FAMILY_INTERVAL = 4       # hybrid's entry check at positions divisible by 4
@@ -2919,12 +2940,16 @@ FAMILY_BACKENDS = ("none", "sequential", "abft", "fused", "hybrid")
 # (3.5-7.5 s each, ~17 per run of this phase), and the script with the
 # training phase of the families ran 1,163.9 s at 12 blocks on an NVIDIA
 # H100 80GB HBM3 (700 W), against its 1,200 s limit.
-# seamless-m4t-medium's encoder takes 1,024 stub frames.
-FAMILY_CASES = (("recurrentgemma-2b", 2, 4096, None),
-                ("internvl2-2b", 4, 256, None),
-                ("phi3.5-moe-42b-a6.6b", 4, 256, 8),
+# seamless-m4t-medium's encoder takes 1,024 stub frames. Since the elastic
+# phases came, for the script's time (PERF.md section 4): recurrentgemma-2b
+# keeps 8 of its 26 layers (two (rec, rec, attn) groups and the (rec, rec)
+# tail, as in FAMILY_SERVE_CASES), internvl2-2b 8 of 24, phi3.5-moe 4 of
+# 32 and seamless-m4t-medium 6 + 6 of its 12 + 12.
+FAMILY_CASES = (("recurrentgemma-2b", 2, 4096, 8),
+                ("internvl2-2b", 4, 256, 8),
+                ("phi3.5-moe-42b-a6.6b", 4, 256, 4),
                 ("xlstm-125m", 4, 1024, 2),
-                ("seamless-m4t-medium", 4, 256, None))
+                ("seamless-m4t-medium", 4, 256, 6))
 
 
 def _window_pairs(S: int, W: int) -> int:
@@ -3313,7 +3338,7 @@ def family_faults(kfp, kfa, cfg, params, prompt, toks, pos: int, step: int,
 
 def phase_families(kfp, kfa):
     """Slices 7 to 9: protected generate() of the hybrid
-    (recurrentgemma-2b), vlm (internvl2-2b), moe (phi3.5-moe, 8 of 32
+    (recurrentgemma-2b), vlm (internvl2-2b), moe (phi3.5-moe, 4 of 32
     layers), ssm (xlstm-125m) and audio (seamless-m4t-medium) families at
     full width with seeded weights and K2 prefill, under none, sequential,
     abft, fused and hybrid in turns: equal streams, no detection on a clean
@@ -3345,8 +3370,7 @@ def phase_families(kfp, kfa):
     for arch, B, S, depth in FAMILY_CASES:
         t_model = time.time()
         cfg = dataclasses.replace(get_config(arch), attention_impl="pallas")
-        if depth:
-            cfg = dataclasses.replace(cfg, num_layers=depth)
+        cfg = cut_depth(cfg, depth)
         rng = np.random.RandomState(7)
         prompt = {"tokens": torch.from_numpy(
             rng.randint(0, cfg.vocab_size, (B, S))).to(dev)}
@@ -3518,10 +3542,11 @@ def phase_families(kfp, kfa):
 # phases. xlstm-125m keeps 2 of its 12 blocks, for the script's time (as in
 # FAMILY_CASES: its B=1 admissions are the sLSTM token loop). For the same
 # reason, once the f32 and mesh phases came, phi3.5-moe keeps 4 of 32 layers
-# (8 in FAMILY_CASES) and recurrentgemma-2b 8 of 26 (two (rec, rec, attn)
-# groups and the (rec, rec) tail, the full model's structure): this phase
-# took 190.0 s at 8 and 26 layers and 100.3 s at 4 and 8, the rest of the
-# script ~750 s, against a 1,050 s target within the 1,200 s limit
+# (cut to 2, its abft admission fault went uncorrected on an NVIDIA H100
+# 80GB HBM3; not examined) and recurrentgemma-2b 8 of 26 (two (rec, rec,
+# attn) groups and the (rec, rec) tail, the full model's structure): this
+# phase took 190.0 s at 8 and 26 layers and 100.3 s at 4 and 8, the rest of
+# the script ~750 s, against a 1,050 s target within the 1,200 s limit
 # (NVIDIA H100 80GB HBM3, 700 W; PERF.md §4).
 FAMILY_SERVE_CASES = (("phi3.5-moe-42b-a6.6b", 4, (96, 200, 256)),
                       ("xlstm-125m", 2, (96, 200, 256)),
@@ -3578,8 +3603,7 @@ def phase_family_serve(kfp, kfa) -> dict:
     for arch, depth, lengths in FAMILY_SERVE_CASES:
         t_model = time.time()
         cfg = dataclasses.replace(get_config(arch), attention_impl="pallas")
-        if depth:
-            cfg = dataclasses.replace(cfg, num_layers=depth)
+        cfg = cut_depth(cfg, depth)
         max_len = max(lengths) + 32 + 8
         totals[arch] = {"fingerprint": 0, "flash_attention": 0}
         k2_shapes = collections.Counter()
@@ -3837,11 +3861,14 @@ FAMILY_TRAIN_STEPS = 4
 # grads (~56 B per parameter under adamw, ~40 under sgdm), so depth is cut,
 # never a width, and only as far as fused's peak needs; sgdm where even the
 # shallowest depth would not fit under adamw (PERF.md §4).
+# depths cut to fit beside a dual run (PERF.md section 4); since the
+# elastic phases, for the script's time, internvl2-2b 4 (was 8) and
+# seamless-m4t-medium 6 + 6 (was 12 + 12)
 FAMILY_TRAIN_CASES = (("phi3.5-moe-42b-a6.6b", 1, "sgdm"),
                       ("recurrentgemma-2b", 3, "sgdm"),
-                      ("internvl2-2b", 8, "adamw"),
+                      ("internvl2-2b", 4, "adamw"),
                       ("xlstm-125m", 2, "adamw"),
-                      ("seamless-m4t-medium", None, "adamw"))
+                      ("seamless-m4t-medium", 6, "adamw"))
 FAMILY_TRAIN_ABFT_MISS = ("phi3.5-moe-42b-a6.6b",)   # pure abft's miss shown
 FAMILY_TRAIN_BACKENDS = ("none", "sequential", "fused", "abft", "hybrid")
 
@@ -3922,8 +3949,7 @@ def phase_family_train(kfp) -> int:
         for arch, depth, opt in FAMILY_TRAIN_CASES:
             t_fam = time.time()
             cfg = dataclasses.replace(get_config(arch), attention_impl="xla")
-            if depth:
-                cfg = dataclasses.replace(cfg, num_layers=depth)
+            cfg = cut_depth(cfg, depth)
             tcfg = TrainConfig(global_batch=BATCH, seq_len=TRAIN_SEQ,
                                steps=steps, warmup_steps=2, optimizer=opt)
 
@@ -4647,6 +4673,274 @@ def phase_pod_train(kfp, seq_losses, seq_final) -> int:
     return sum(rep[name]["k1"] for rep in pod for name in ("clean", "fault"))
 
 
+ELASTIC_SCHEDULE = dict(n_hosts=2, dark_host=1, dark_from=150.0,
+                        dark_to=250.0)
+ELASTIC_SCAN = 2
+POD_ELASTIC_TIMEOUT_S = 600
+# phase pod_elastic keeps 2 of qwen2-0.5b's 24 layers (full width). Memory
+# forced a cut: at a checkpoint boundary a rank holds the step's input
+# state, its output, the ring's older slot and the new slot's clone, 4 x
+# 5.93 GB at full depth, and the four ranks share the card's 80 GB (they
+# ran out of memory there on an NVIDIA H100 80GB HBM3). Time forced the
+# rest: at 12 layers (3.78 GB a state) the phase took 151.1 s, most of it
+# the 14 partner versions the ranks write, and the script 1,195.7 s against
+# its 1,200 s limit; at 2 layers a state is 2.00 GB
+POD_ELASTIC_LAYERS = 2
+
+
+def _full_width_losses(rep) -> list:
+    """The losses of an elastic run's full-width trajectory: the segments
+    before the shrink, then those replayed from the regrow's anchor (the
+    degraded segments in between are discarded)."""
+    shrink, regrow = rep["remeshes"]
+    segs = rep["segments"]
+    pre = []
+    for seg in segs:
+        pre.append(seg)
+        if seg["steps"] == shrink["trigger_step"]:
+            break
+    post = []
+    for seg in reversed(segs):
+        post.insert(0, seg)
+        if seg["steps"] - len(seg["losses"]) == regrow["restore_step"]:
+            break
+    return [x for seg in pre + post for x in seg["losses"]]
+
+
+def _check_elastic_records(rep, what: str, tier: str, steps: int,
+                           shrink_tier="same") -> None:
+    """Phases, the shrink at step 2 onto data 1 and batch 2, the regrow at
+    4, both from anchor 2 in `tier` (the shrink from `shrink_tier` where it
+    differs: a dark rank restores nothing there), `steps` steps, not
+    stopped."""
+    recs = rep["remeshes"]
+    got = [(r["phase"], r["trigger_step"], r["restore_step"],
+            r["restore_tier"], r["hosts"], r["old_data"], r["new_data"],
+            r["old_batch"], r["new_batch"]) for r in recs]
+    first = tier if shrink_tier == "same" else shrink_tier
+    want = [("shrink", 2, 2, first, [1], 2, 1, BATCH, BATCH // 2),
+            ("regrow", 4, 2, tier, [1], 1, 2, BATCH, BATCH)]
+    check(got == want, f"{what}: remesh records {got}, not {want}")
+    check(rep["decisions"] == ["fail_in_place"],
+          f"{what}: decisions {rep['decisions']}")
+    check(rep["steps"] == steps and not rep["stopped"]
+          and not rep["completed_degraded"], f"{what}: {rep['summary']}")
+
+
+def _remesh_line(r) -> str:
+    return (f"remesh[{r['phase']}]: trigger step {r['trigger_step']}, "
+            f"restored step {r['restore_step']} from tier "
+            f"{r['restore_tier']}, hosts {r['hosts']}, data "
+            f"{r['old_data']}->{r['new_data']}, batch "
+            f"{r['old_batch']}->{r['new_batch']}, downtime "
+            f"{r['downtime_s']:.3f} s")
+
+
+def phase_elastic_train(kfp, seq_losses, seq_final, cfg=None,
+                        dev=None) -> int:
+    """Slice 12, elastic fail-in-place training in one process: qwen2-0.5b
+    at full width and depth, the training cell (batch 4 x 256, adamw, 6
+    steps) under L3 sequential (FSC and validated checkpoint every 2 on
+    the flat disk) with a data axis of 2 hosts (`MeshConfig((2, 1))`), an
+    `ElasticTrainer` scanning every 2 steps under a simulated cluster whose
+    clock moves 100 s a scan and where host 1 is dark over [150, 250): a
+    shrink at step 2 (anchor 2 from the disk, data 2 -> 1, batch 4 -> 2),
+    2 degraded steps, a regrow at 4 that replays 2 -> 6. The full-width
+    losses and the final per-leaf fingerprint must equal phase train's
+    clean L3 run (`seq_losses`, `seq_final`) bit for bit. Prints the remesh
+    records with their downtime, ms per executed step, the seconds of each
+    checkpoint save and restore, peak memory and K1's launches (returned).
+    """
+    import shutil
+    import tempfile
+
+    from repro_torch.configs import (MeshConfig, RunConfig, SedarConfig,
+                                     TrainConfig, get_config)
+    from repro_torch.launch.train import SimCluster
+    from repro_torch.runtime.elastic import ElasticTrainer
+
+    t_phase = time.time()
+    _free()
+    dev = dev or torch.device("cuda")
+    cuda = dev.type == "cuda"
+    cfg = cfg or get_config("qwen2-0.5b")
+    rc = RunConfig(
+        model=cfg,
+        train=TrainConfig(global_batch=BATCH, seq_len=TRAIN_SEQ,
+                          steps=TRAIN_STEPS, warmup_steps=2),
+        sedar=SedarConfig(level=3, replication="sequential",
+                          validate_interval=1, param_validate_interval=2,
+                          checkpoint_interval=2),
+        mesh=MeshConfig(shape=(2, 1), axis_names=("data", "model")))
+    root = tempfile.mkdtemp(prefix="sedar_elastic_")
+    try:
+        sim = SimCluster(os.path.join(root, "heartbeats"),
+                         **ELASTIC_SCHEDULE)
+        et = ElasticTrainer(rc, root, n_hosts=sim.n_hosts,
+                            scan_interval=ELASTIC_SCAN, clock=sim.clock,
+                            tick=sim.tick, device=dev,
+                            notify=lambda e: None)
+        saves: list = []
+        restores: list = []
+        _timed(et.trainer.recovery.store, "save", saves)
+        _timed(et.trainer.recovery.store, "restore", restores)
+        if cuda:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        kfp.launch_count.reset()
+        t0 = time.time()
+        rep = et.run(TRAIN_STEPS)
+        wall = time.time() - t0
+        k1 = kfp.launch_count.n
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30 if cuda else 0.0
+        out = {"remeshes": [dataclasses.asdict(r) for r in rep.remeshes],
+               "decisions": [d.mode for d in rep.decisions],
+               "segments": [dict(steps=g.steps_completed,
+                                 losses=list(g.losses))
+                            for g in rep.segments],
+               "steps": rep.steps_completed, "stopped": rep.stopped,
+               "completed_degraded": rep.completed_degraded,
+               "summary": rep.summary()}
+        executed = sum(len(g["losses"]) for g in out["segments"])
+        print(f"elastic train: {rep.summary()}; {executed} steps executed "
+              f"in {len(rep.segments)} segments, {wall:.1f} s "
+              f"({wall * 1e3 / executed:.2f} ms per executed step, "
+              f"transitions and checkpoints included); disk saves (async "
+              f"submit) {[round(x, 3) for x in saves]} s of the original "
+              f"trainer, restores {[round(x, 3) for x in restores]} s; "
+              f"peak {peak:.2f} GiB; K1 launches {k1}", flush=True)
+        for r in out["remeshes"]:
+            print(f"  {_remesh_line(r)}", flush=True)
+        for d in rep.decisions:
+            print(f"  decision: {d.mode} (fail_in_place "
+                  f"{d.fail_in_place_hours:.3f} h vs restart "
+                  f"{d.restart_hours:.3f} h)", flush=True)
+        _check_elastic_records(out, "elastic train", "disk", TRAIN_STEPS)
+        full = _full_width_losses(out)
+        check(full == list(seq_losses),
+              f"elastic train: full-width losses {full} differ from the "
+              f"clean L3 run's {list(seq_losses)}")
+        check(np.array_equal(np.asarray(rep.final_state_fp)[:, :2],
+                             np.asarray(seq_final)[:, :2]),
+              "elastic train: the final state differs from the clean L3 "
+              "run's")
+        check(k1 > 0, "elastic train: K1 never launched")
+        print(f"elastic train: full-width losses and final per-leaf "
+              f"fingerprints bitwise equal to phase train's clean L3 run; "
+              f"degraded losses "
+              f"{[g['losses'] for g in out['segments'][1:-2]]}; phase took "
+              f"{time.time() - t_phase:.1f} s", flush=True)
+        del et, rep
+        return k1
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def phase_pod_elastic(kfp, cfg=None, device: str = "cuda") -> int:
+    """Slice 12, elastic fail-in-place training on the pod backend's process
+    mesh: qwen2-0.5b at full width and 2 of its 24 layers
+    (POD_ELASTIC_LAYERS), the training cell (batch 4 x 256,
+    adamw, 6 steps), 4 ranks of `MeshConfig((2, 2))` (2 pods x 2 data
+    shards, batch 2 per rank) on this card over gloo, each the launcher's
+    `launch/train.py::elastic_mesh_rank`: an uninterrupted run (L1, lag 4:
+    no checkpoint, which fixes no bit), then the
+    elastic run on `ckpt_tiers="device,partner"`, 1 ring slot, lag 4, on
+    phase elastic_train's schedule. As the reference's acceptance scenario:
+    phases shrink and regrow, the shrink restored from `partner` onto data
+    1 (ranks 0 and 2) and batch 2, 6 steps, not stopped, no
+    `commit_compare` read, and every rank's final state bitwise equal to
+    its uninterrupted run's. Prints the remesh records with downtime per
+    rank, each run's ms/step, peak per rank, K1 launches; returns K1's
+    launches over the ranks."""
+    import shutil
+    import tempfile
+
+    from repro_torch.configs import (MeshConfig, RunConfig, SedarConfig,
+                                     TrainConfig, get_config)
+    from repro_torch.launch.mesh import spawn
+    from repro_torch.launch.train import elastic_mesh_rank
+
+    t_phase = time.time()
+    _free()
+    if device == "cuda":
+        # the ranks are other processes: this one's cached blocks must go
+        # back to the card first
+        torch.cuda.empty_cache()
+        print(f"pod elastic: this process keeps "
+              f"{torch.cuda.memory_reserved() / 2 ** 30:.2f} GiB reserved "
+              f"while the ranks run", flush=True)
+    cfg = cfg or dataclasses.replace(get_config("qwen2-0.5b"),
+                                     num_layers=POD_ELASTIC_LAYERS)
+    mesh = MeshConfig(shape=(2, 2), axis_names=("pod", "data"))
+    sedar = SedarConfig(level=3, replication="pod", validate_interval=1,
+                        validate_lag=4, param_validate_interval=2,
+                        checkpoint_interval=2, ckpt_tiers="device,partner",
+                        device_ring_slots=1)
+    train = TrainConfig(global_batch=BATCH, seq_len=TRAIN_SEQ,
+                        steps=TRAIN_STEPS, warmup_steps=2)
+    rc = RunConfig(model=cfg, train=train, sedar=sedar, mesh=mesh)
+    # the uninterrupted run keeps no checkpoint (L1): none fixes a bit, and
+    # a ring slot would hold 5.93 GB more on each rank
+    ref_rc = dataclasses.replace(rc, sedar=dataclasses.replace(
+        sedar, level=1))
+    root = tempfile.mkdtemp(prefix="sedar_pod_elastic_")
+    try:
+        t0 = time.time()
+        reps = spawn(elastic_mesh_rank, 4, rc, mesh, root, ELASTIC_SCHEDULE,
+                     device, None, ref_rc, dict(scan_interval=ELASTIC_SCAN),
+                     threads=1 if device == "cpu" else 0,
+                     timeout_s=POD_ELASTIC_TIMEOUT_S)
+        t_ranks = time.time() - t0
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"pod elastic: 4 ranks (2 pods x 2 data shards) on one card took "
+          f"{t_ranks:.1f} s (spawn, init, both runs)", flush=True)
+    def gib(x) -> str:
+        return "n/a" if x is None else f"{x:.2f} GiB"
+
+    for rep in reps:
+        e, r = rep["elastic"], rep["ref"]
+        print(f"  rank {rep['rank']} (pod {rep['pod']}, data {rep['data']}): "
+              f"uninterrupted {r['summary']}, {r['ms_step']:.2f} ms/step, "
+              f"peak {gib(r['peak_gib'])}, K1 {r['k1']}; elastic "
+              f"{e['summary']}, {e['ms_step']:.2f} ms per run step, peak "
+              f"{gib(e['peak_gib'])}, K1 {e['k1']}, host reads {e['reads']}, "
+              f"collectives {e['collectives']}", flush=True)
+        for m in e["remeshes"]:
+            print(f"    {_remesh_line(m)}", flush=True)
+    survivors = [rep for rep in reps
+                 if rep["elastic"]["remeshes"][0]["restore_tier"]]
+    check([rep["rank"] for rep in survivors] == [0, 2],
+          f"pod elastic: survivors {[rep['rank'] for rep in survivors]}")
+    for rep in reps:
+        e = rep["elastic"]
+        _check_elastic_records(
+            e, f"pod elastic rank {rep['rank']}", "partner", TRAIN_STEPS,
+            shrink_tier="same" if rep in survivors else None)
+        check("commit_compare" not in e["reads"],
+              f"pod elastic rank {rep['rank']} read commit_compare: "
+              f"{e['reads']}")
+        check(not e["detections"] and not rep["ref"]["detections"],
+              f"pod elastic rank {rep['rank']}: detections")
+        check(np.array_equal(e["final_state_fp"],
+                             rep["ref"]["final_state_fp"]),
+              f"pod elastic rank {rep['rank']}: the elastic run does not end "
+              f"bitwise on its uninterrupted run")
+        check(np.array_equal(e["final_state_fp"],
+                             reps[0]["elastic"]["final_state_fp"]),
+              f"pod elastic rank {rep['rank']}: the ranks' states differ")
+        full = _full_width_losses(e)
+        check(full == rep["ref"]["losses"],
+              f"pod elastic rank {rep['rank']}: full-width losses {full} "
+              f"differ from the uninterrupted run's {rep['ref']['losses']}")
+    k1 = sum(rep[k]["k1"] for rep in reps for k in ("ref", "elastic"))
+    print(f"pod elastic: shrink from partner and regrow on every rank, every "
+          f"rank bitwise equal to its uninterrupted run, no commit_compare "
+          f"read; K1 launches {k1} over the ranks; phase took "
+          f"{time.time() - t_phase:.1f} s", flush=True)
+    return k1
+
+
 def phase_reference():
     """Small f32 model: the card's path (kernels) against the plain CPU path
     (which the CPU tests hold to the JAX package)."""
@@ -4711,6 +5005,16 @@ def main() -> None:
     print(f"kernels built in {time.time() - t0:.1f} s "
           f"({', '.join(logs) or 'cached'})", flush=True)
 
+    t_last = [time.time()]
+
+    def mark(what: str) -> None:
+        """One line per phase group: its seconds and the script's so far
+        (the depth cuts of PERF.md section 4 are budgeted from these)."""
+        now = time.time()
+        print(f"[phase time] {what}: {now - t_last[0]:.1f} s (script "
+              f"{now - t_start:.1f} s)", flush=True)
+        t_last[0] = now
+
     k1 = phase_k1(kfp)
     k2 = phase_k2(kfa)
     k3 = phase_k3(kab)
@@ -4719,31 +5023,47 @@ def main() -> None:
     k3["launches"] = phase_engine(kab)
     k4 = phase_k4(kab, kfa, report)
     k2_f32, k4_wide = phase_f32_wide(kab, kfa, report)
+    mark("K1, K2, K3, campaign, scenarios, engine, K4, f32_wide")
     counts, main_run = phase_main(kfp, kfa, get_config("qwen2-0.5b"))
     phase_abft_serve(kfp, kfa, main_run)
+    mark("main, abft serving")
     serve_counts, served = phase_serve(kfp, kfa, main_run)
+    mark("serve")
     telemetry_counts = phase_telemetry_serve(kfp, kfa, main_run, served)
     del main_run, served
     _free()
+    mark("telemetry (serving)")
     families_k1, wide_k2 = phase_families(kfp, kfa)
     _free()
+    mark("families")
     for hd, n in phase_f32_generate(kfp, kfa).items():
         k2_f32[hd]["launches"] = n
     _free()
+    mark("f32_generate")
     family_serve, serve_k2 = phase_family_serve(kfp, kfa)
+    mark("family_serve")
     kfp.launch_count.reset()
     train_k1, lanes, seq_losses, seq_final = phase_train(kfp)
     check(train_k1 > 0, "K1 never launched by the trainer")
     _free()
+    mark("train (its tiers and telemetry included)")
     lanes["launches"] = phase_pod_train(kfp, seq_losses, seq_final)
     _free()
+    mark("pod_train")
+    elastic_k1 = phase_elastic_train(kfp, seq_losses, seq_final)
+    _free()
+    mark("elastic_train")
+    lanes["launches"] += phase_pod_elastic(kfp)
+    _free()
+    mark("pod_elastic")
     family_train_k1 = phase_family_train(kfp)
     check(family_train_k1 > 0, "K1 never launched by the family trainers")
+    mark("family_train")
     phase_reference()
     # the main path's K1 launches, the training paths' and the replica
     # campaign's, each counted from 0 just before its run
     k1["launches"] = (counts["fingerprint"] + train_k1 + campaign_k1
-                      + families_k1 + family_train_k1
+                      + families_k1 + family_train_k1 + elastic_k1
                       + sum(c["fingerprint"] for c in family_serve.values()))
     k2["launches"] = counts["flash_attention"]
     print("K2 launches: " + ", ".join(

@@ -165,6 +165,9 @@ class RunConfig:
     train: TrainConfig = field(default_factory=TrainConfig)
     serve: ServeConfig = field(default_factory=ServeConfig)
     sedar: SedarConfig = field(default_factory=SedarConfig)
+    # the data axis the elastic trainer shrinks (`runtime/elastic.py`); the
+    # mesh backends take their process mesh from the caller
+    mesh: MeshConfig = field(default_factory=MeshConfig)
 
     def replace(self, **kw) -> "RunConfig":
         return dataclasses.replace(self, **kw)

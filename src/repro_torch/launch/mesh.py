@@ -16,6 +16,10 @@ Groups (`dist.new_group`, made by every rank in the same order):
   * the data group of pod p: that pod's ranks, ordered by data index. The
     gradient average runs over it.
 
+A mesh may span a subset of the ranks (`make_process_mesh(cfg, ranks)`):
+the elastic trainer's survivors (`runtime/elastic.py`). Every rank makes
+every group all the same, and a rank outside the subset gets None.
+
 A `model` axis larger than 1 (tensor sharding) raises NotImplementedError:
 it waits for the port of the sharding tools (ROADMAP Queue 1 item 4).
 
@@ -32,7 +36,7 @@ import queue
 import socket
 import time
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, List, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -53,6 +57,7 @@ class ProcessMesh:
     pod_group: Any            # this rank's data index across every pod
     data_group: Any           # this rank's pod
     pod_ranks: List[int]      # the pod group's global ranks, by pod
+    ranks: List[int]          # the mesh's global ranks, in (pod, data) order
 
     @property
     def sizes(self) -> Dict[str, int]:
@@ -71,10 +76,16 @@ class ProcessMesh:
         return self.pod_ranks[pod]
 
 
-def make_process_mesh(cfg: MeshConfig) -> ProcessMesh:
-    """The mesh of `cfg` over the initialized default process group, whose
-    world size must be pods x data. Every rank must call it (it makes the
-    groups)."""
+def make_process_mesh(cfg: MeshConfig,
+                      ranks: Optional[Sequence[int]] = None
+                      ) -> Optional[ProcessMesh]:
+    """The mesh of `cfg` over `ranks` of the initialized default process
+    group (default: every rank), pods x data of them, in (pod, data) order.
+    Every rank of the default group must call it (`dist.new_group` is
+    collective over it, even for a group the caller is not in); a rank
+    outside `ranks` gets None. A rank's pod and data index come from its
+    place in `ranks`; the groups' members (`pod_ranks`) stay global ranks,
+    which `broadcast(src=)` takes."""
     shape, axis_names = tuple(cfg.shape), tuple(cfg.axis_names)
     sizes = dict(zip(axis_names, shape))
     if set(sizes) - {"pod", "data", "model"}:
@@ -89,23 +100,36 @@ def make_process_mesh(cfg: MeshConfig) -> ProcessMesh:
         raise RuntimeError("the process mesh needs an initialized process "
                            "group (launch/mesh.py::spawn)")
     world, rank = dist.get_world_size(), dist.get_rank()
-    if world != P * D:
-        raise ValueError(f"mesh {shape} needs {P * D} ranks, the "
-                         f"process group has {world}")
-    pod, data = divmod(rank, D)
+    if ranks is None:
+        ranks = list(range(world))
+        if world != P * D:
+            raise ValueError(f"mesh {shape} needs {P * D} ranks, the "
+                             f"process group has {world}")
+    ranks = [int(r) for r in ranks]
+    if len(ranks) != P * D:
+        raise ValueError(f"mesh {shape} needs {P * D} ranks, given "
+                         f"{len(ranks)}")
+    if len(set(ranks)) != len(ranks) or not all(0 <= r < world
+                                                for r in ranks):
+        raise ValueError(f"mesh ranks {ranks} are not distinct ranks of "
+                         f"the {world}-rank process group")
+    member = rank in ranks
+    pod, data = divmod(ranks.index(rank), D) if member else (-1, -1)
     pod_group = data_group = None
     pod_ranks: List[int] = []
     for d in range(D):
-        ranks = [p * D + d for p in range(P)]
-        g = dist.new_group(ranks)
+        members = [ranks[p * D + d] for p in range(P)]
+        g = dist.new_group(members)
         if d == data:
-            pod_group, pod_ranks = g, ranks
+            pod_group, pod_ranks = g, members
     for p in range(P):
-        g = dist.new_group([p * D + d for d in range(D)])
+        g = dist.new_group([ranks[p * D + d] for d in range(D)])
         if p == pod:
             data_group = g
+    if not member:
+        return None
     return ProcessMesh(tuple(int(s) for s in shape), axis_names, rank, pod,
-                       data, pod_group, data_group, pod_ranks)
+                       data, pod_group, data_group, pod_ranks, ranks)
 
 
 def _free_port() -> int:

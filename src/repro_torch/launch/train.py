@@ -6,7 +6,8 @@
         [--pods N --data D] [--manual-vote] \
         [--inject-step N] [--validate-lag D] [--ckpt-delta] \
         [--ckpt-compress] [--ckpt-tiers device,host,disk,partner] \
-        [--device cpu]
+        [--elastic --n-hosts H --scan-interval S --lose-host h \
+         --lose-at T0 --return-at T1] [--device cpu]
 
 As in the reference, `--smoke` is a store_true flag that defaults to True,
 so the launcher always trains the reduced configuration; the full-width run
@@ -34,13 +35,30 @@ spawns itself (`launch/mesh.py::spawn`, gloo on localhost): each rank runs
 `mesh_rank`, keeps its checkpoints under `<workdir>/rank{r}`, and rank 0's
 report is printed. `--manual-vote` runs the paper's baseline
 (`manual_vote_baseline`): two unprotected instances compared at the end,
-and on a mismatch a third and a majority vote. The elastic flags are not
-ported.
+and on a mismatch a third and a majority vote.
+
+`--elastic` drives the fail-in-place loop (`runtime/elastic.py`) in one
+process, as the reference's does: an `ElasticTrainer` over a data axis of
+`--n-hosts` shards (`MeshConfig((n_hosts, 1), ("data", "model"))`, L3
+only), under a simulated cluster (`SimCluster`) whose clock advances 100 s
+per scan (every `--scan-interval` steps) and where host `--lose-host` is
+dark over [`--lose-at`, `--return-at`) of that clock. The run shrinks onto
+the survivors from the last validated checkpoint, regrows when the host
+returns and ends on the uninterrupted run's state; it prints the summary,
+one `remesh[...]` line per transition and one `decision:` line per shrink:
+
+    PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
+        --steps 12 --level 3 --elastic --n-hosts 2 --lose-host 1 \
+        --lose-at 300 --return-at 700
+
+`elastic_mesh_rank` runs the same loop on the pod backend's process mesh
+(one rank per (pod, data) index); the tests and `chip_smoke.py` spawn it.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
 import os
 import shutil
 import tempfile
@@ -101,6 +119,158 @@ def mesh_rank(rank: int, rc, mesh_cfg, workdir: str, inj_spec=None,
                      if cuda else None),
         "final_state_fp": np.asarray(rep.final_state_fp),
     }
+
+
+class SimCluster:
+    """Deterministic heartbeats for the elastic loop: `tick` advances the
+    clock 100 s and writes every host's beat but host `dark_host`'s over
+    [dark_from, dark_to) of that clock; `clock` reads it. The monitor then
+    sees a real stale host. Picklable, so a mesh rank can take one."""
+
+    def __init__(self, hb_dir: str, n_hosts: int = 2,
+                 dark_host: Optional[int] = 1, dark_from: float = 300.0,
+                 dark_to: float = 700.0):
+        self.dir = hb_dir
+        self.n_hosts = n_hosts
+        self.dark_host = dark_host
+        self.dark_from = dark_from
+        self.dark_to = dark_to
+        self.now = 0.0
+
+    def clock(self) -> float:
+        return self.now
+
+    def tick(self, step) -> None:
+        self.now += 100.0
+        os.makedirs(self.dir, exist_ok=True)
+        for h in range(self.n_hosts):
+            if h == self.dark_host and \
+                    self.dark_from <= self.now < self.dark_to:
+                continue
+            with open(os.path.join(self.dir, f"host_{h:05d}.json"),
+                      "w") as f:
+                json.dump({"host": h, "step": int(step or 0),
+                           "t": self.now}, f)
+
+
+def elastic_mesh_rank(rank: int, rc, mesh_cfg, workdir: str,
+                      cluster: Dict[str, Any], device: str = "cuda",
+                      init_state=None, ref_rc=None,
+                      elastic_kw: Optional[Dict[str, Any]] = None
+                      ) -> Dict[str, Any]:
+    """One rank of elastic pod training (run under `launch/mesh.py::
+    spawn`): builds the process mesh of `mesh_cfg`, then trains
+    `rc.train.steps` steps twice from the same state: uninterrupted (a
+    plain `make_trainer` run under `ref_rc`, default `rc`) and under an
+    `ElasticTrainer` whose rank 0 plays the cluster
+    (`SimCluster(**cluster)` in `workdir/run/heartbeats`).
+    `init_state` (numpy, `bridge.train_state_from_numpy`) replaces the
+    seeded init; `elastic_kw` goes to the ElasticTrainer (replica_hosts,
+    mtbe_hours, ...). Returns host values: each run's summary, losses,
+    ms/step, final per-leaf fingerprint (uint32), K1 launches and peak
+    device memory (GiB, None on the CPU); the elastic run's remesh records
+    and decisions, its events and recoveries, its device reads by label
+    and collectives."""
+    import gc
+    import time
+
+    import torch
+
+    from repro_torch import bridge
+    from repro_torch.core import hostsync
+    from repro_torch.core.policy import make_trainer
+    from repro_torch.kernels import fingerprint as kfp
+    from repro_torch.launch.mesh import make_process_mesh
+    from repro_torch.runtime.elastic import ElasticTrainer
+
+    mesh = make_process_mesh(mesh_cfg)
+    steps = rc.train.steps
+    out: Dict[str, Any] = {"rank": rank, "pod": mesh.pod, "data": mesh.data}
+
+    def start(tr):
+        if init_state is None:
+            return None
+        return tr.engine.executor.init_dual(
+            bridge.train_state_from_numpy(init_state, tr.device))
+
+    def measure(tr, run):
+        """run(steps, dual=the starting state) under the counters; the
+        state is handed over, not kept here."""
+        cuda = tr.device.type == "cuda"
+        # a dropped trainer and its engine refer to each other: collect
+        # them, so the run before leaves no state on the card
+        gc.collect()
+        if cuda:
+            torch.cuda.synchronize(tr.device)
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(tr.device)
+        kfp.launch_count.reset()
+        t0 = time.time()
+        with hostsync.count_transfers() as st:
+            rep = run(steps, dual=start(tr))
+        wall = time.time() - t0
+        rep = rep[1] if isinstance(rep, tuple) else rep
+        return rep, st, {
+            "ms_step": wall * 1e3 / max(steps, 1),
+            "k1": kfp.launch_count.n,
+            "peak_gib": (torch.cuda.max_memory_allocated(tr.device) / 2 ** 30
+                         if cuda else None)}
+
+    tr = make_trainer(ref_rc or rc, os.path.join(workdir, "ref"),
+                      device=device, mesh=mesh, notify=lambda e: None)
+    rep, _, m = measure(tr, tr.run)
+    out["ref"] = dict(m, summary=rep.summary(), losses=list(rep.losses),
+                      steps=rep.steps_completed,
+                      detections=[str(e) for e in rep.detections],
+                      final_state_fp=np.asarray(rep.final_state_fp))
+    del tr, rep
+    wd = os.path.join(workdir, "run")
+    sim = SimCluster(os.path.join(wd, "heartbeats"), **cluster)
+    et = ElasticTrainer(rc, wd, mesh=mesh, n_hosts=sim.n_hosts,
+                        clock=sim.clock, tick=sim.tick, device=device,
+                        notify=lambda e: None, **(elastic_kw or {}))
+    rep, st, m = measure(et.trainer, et.run)
+    out["elastic"] = dict(
+        m, summary=rep.summary(),
+        remeshes=[dataclasses.asdict(r) for r in rep.remeshes],
+        decisions=[d.mode for d in rep.decisions],
+        steps=rep.steps_completed, stopped=rep.stopped,
+        completed_degraded=rep.completed_degraded,
+        segments=[dict(steps=seg.steps_completed, losses=list(seg.losses))
+                  for seg in rep.segments],
+        detections=[str(e) for e in rep.detections],
+        recoveries=[dict(r) for r in rep.recoveries],
+        reads=dict(st.by_label), collectives=dict(st.collectives),
+        final_state_fp=(None if rep.final_state_fp is None
+                        else np.asarray(rep.final_state_fp)))
+    return out
+
+
+def run_elastic(rc, args) -> None:
+    """The fail-in-place loop in one process: this process plays every
+    host's heartbeat writer (`SimCluster`), so the `ClusterMonitor` sees a
+    real stale host and the `ElasticTrainer` shrinks and regrows as it
+    would under a real node loss."""
+    from repro_torch.runtime.elastic import ElasticTrainer
+
+    sim = SimCluster(os.path.join(args.workdir, "heartbeats"),
+                     n_hosts=args.n_hosts, dark_host=args.lose_host,
+                     dark_from=args.lose_at, dark_to=args.return_at)
+    et = ElasticTrainer(rc, args.workdir, n_hosts=args.n_hosts,
+                        scan_interval=args.scan_interval, clock=sim.clock,
+                        tick=sim.tick, device=args.device)
+    rep = et.run(args.steps)
+    print(rep.summary())
+    for r in rep.remeshes:
+        print(f"  remesh[{r.phase}]: trigger step {r.trigger_step}, "
+              f"restored step {r.restore_step} from tier "
+              f"{r.restore_tier}, hosts {sorted(r.hosts)}, data "
+              f"{r.old_data}->{r.new_data}, batch "
+              f"{r.old_batch}->{r.new_batch}")
+    for d in rep.decisions:
+        print(f"  decision: {d.mode} (fail_in_place "
+              f"{d.fail_in_place_hours:.3f} h vs restart "
+              f"{d.restart_hours:.3f} h) — {d.notes}")
 
 
 def manual_vote_baseline(rc, workdir: str, steps: int, inj_spec=None,
@@ -205,6 +375,22 @@ def main() -> None:
                     help="record per-stage trace spans to a Chrome-trace "
                          "JSON (host clock: a span over work that reads "
                          "nothing back times its dispatch)")
+    ap.add_argument("--elastic", action="store_true",
+                    help="run under an ElasticTrainer: monitor heartbeats, "
+                         "shrink onto survivors on node loss, regrow on "
+                         "return (requires --level 3)")
+    ap.add_argument("--n-hosts", type=int, default=2,
+                    help="cluster width; the data axis gets one shard per "
+                         "host")
+    ap.add_argument("--scan-interval", type=int, default=2,
+                    help="steps per training segment between cluster scans")
+    ap.add_argument("--lose-host", type=int, default=None,
+                    help="simulate this host going dark (heartbeats stop)")
+    ap.add_argument("--lose-at", type=float, default=300.0,
+                    help="simulated-clock second the host goes dark (the "
+                         "clock advances 100 s per segment)")
+    ap.add_argument("--return-at", type=float, default=700.0,
+                    help="simulated-clock second the host comes back")
     args = ap.parse_args()
     if args.autotune and not args.metrics_dir:
         ap.error("--autotune needs --metrics-dir (the estimator reads "
@@ -214,6 +400,17 @@ def main() -> None:
     pods = args.pods or (3 if args.replication == "vote" else 2)
     if mesh_run and (args.autotune or args.metrics_dir or args.trace):
         ap.error("the mesh backends run without the telemetry flags")
+    mesh_cfg = MeshConfig()
+    if args.elastic:
+        if args.level < 3:
+            ap.error("--elastic requires --level 3 (a validated checkpoint "
+                     "anchor is what makes shrink/regrow exact)")
+        if args.global_batch % args.n_hosts:
+            ap.error("--global-batch must divide evenly across --n-hosts")
+        if mesh_run or args.manual_vote:
+            ap.error("--elastic runs one process of a single-card backend")
+        mesh_cfg = MeshConfig(shape=(args.n_hosts, 1),
+                              axis_names=("data", "model"))
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = reduce_for_smoke(cfg)
@@ -222,6 +419,7 @@ def main() -> None:
         train=TrainConfig(global_batch=args.global_batch,
                           seq_len=args.seq_len, steps=args.steps,
                           warmup_steps=max(args.steps // 10, 1), lr=1e-3),
+        mesh=mesh_cfg,
         sedar=SedarConfig(level=args.level, replication=args.replication,
                           validate_lag=args.validate_lag,
                           checkpoint_interval=args.ckpt_interval,
@@ -263,6 +461,17 @@ def main() -> None:
         print(f"workdir: {args.workdir}")
         return
     ob = obs.configure(metrics_dir=args.metrics_dir, trace=args.trace)
+    if args.elastic:
+        run_elastic(rc, args)
+        if args.metrics_dir:
+            print(f"[obs] kpis: {ob.kpis(steps=args.steps)}")
+        snap = ob.finalize()
+        if snap:
+            print(f"[obs] metrics snapshot ({args.metrics_dir}/"
+                  f"metrics.prom):")
+            print(snap, end="")
+        print(f"workdir: {args.workdir}")
+        return
     tuner = None
     if args.autotune:
         tuner = Autotuner(

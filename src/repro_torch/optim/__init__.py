@@ -1,5 +1,6 @@
-"""Optimizers and schedules of the port (the reference's `optim/`; its
-int8 gradient compression of the pod backend is not ported)."""
+"""Optimizers, schedules and the int8 error-feedback gradient compression
+of the port (the reference's `optim/`)."""
+from repro_torch.optim.compression import int8_error_feedback
 from repro_torch.optim.optimizers import (
     Optimizer,
     adamw,
@@ -14,4 +15,5 @@ from repro_torch.optim.schedules import make_schedule
 __all__ = [
     "Optimizer", "adamw", "sgdm", "make_optimizer", "apply_updates",
     "clip_by_global_norm", "global_norm", "make_schedule",
+    "int8_error_feedback",
 ]

@@ -1,22 +1,29 @@
-"""Cluster heartbeats (the reference's `runtime/cluster.py`, its
-heartbeat half).
+"""Cluster heartbeats and the elastic re-mesh planner (the reference's
+`runtime/cluster.py`).
 
 The paper's TOE detector generalizes to the host level: every host writes a
 heartbeat file per step; a monitor flags hosts whose beat is stale (hang,
 crash, TOE) and hosts whose step count lags the median (stragglers), and
 publishes both into the telemetry stream (`repro_torch.obs`). `lanes_to_hosts`
-names the hosts behind a fingerprint lane of the `pod` backend. The
-elastic re-mesh half of the reference's module (`ElasticPlan`,
-`plan_elastic_remesh`, the mesh rebuild, `elastic_restart`) is not ported.
-Host-side Python only.
+names the hosts behind a fingerprint lane of the `pod` backend.
+
+The planner shrinks the data axis past lost hosts (`plan_elastic_remesh`,
+`elastic_restart`). Where the reference drops device planes from a device
+mesh, the port drops ranks from a process mesh (`launch/mesh.py`):
+`surviving_devices` returns the survivors' global ranks and `rebuild_mesh`
+makes a `ProcessMesh` over them (a collective over the default group: every
+rank calls it, and ranks outside the survivors get None). Host-side Python.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import time
 from dataclasses import dataclass
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
 
 from repro_torch import obs
 
@@ -181,3 +188,106 @@ def lanes_to_hosts(lane_ids, hosts_per_data_shard: int = 1) -> List[int]:
     for lane in lane_ids:
         out.extend(range(int(lane) * H, (int(lane) + 1) * H))
     return out
+
+
+@dataclass
+class ElasticPlan:
+    old_data: int
+    new_data: int
+    new_global_batch: int
+    dropped_hosts: List[int]
+    note: str
+
+
+def plan_elastic_remesh(data_axis: int, global_batch: int,
+                        lost_hosts: List[int], hosts_per_data_shard: int = 1
+                        ) -> ElasticPlan:
+    """Shrink the data axis past lost hosts, keeping the per-shard batch.
+
+    Whole data shards that hold a lost host are dropped and the global batch
+    shrinks with them, so every per-rank shape (activations, the compiled
+    or cached kernels' shapes) stays as it was. A `global_batch` that does
+    not divide `data_axis` is refused up front: flooring would change the
+    per-shard batch the restart relies on."""
+    if global_batch % data_axis:
+        raise ValueError(
+            f"global_batch {global_batch} is not divisible by data_axis "
+            f"{data_axis}: the per-shard batch is undefined, so an elastic "
+            f"re-mesh cannot preserve it (compile-cache reuse)")
+    per_shard = global_batch // data_axis
+    lost_shards = sorted({h // hosts_per_data_shard for h in lost_hosts})
+    new_data = data_axis - len(lost_shards)
+    if new_data < 1:
+        raise RuntimeError("all data shards lost")
+    return ElasticPlan(
+        old_data=data_axis, new_data=new_data,
+        new_global_batch=per_shard * new_data, dropped_hosts=lost_hosts,
+        note=("per-shard batch preserved; data-axis collectives shrink; "
+              "restore from last VALID checkpoint (L3) then continue"))
+
+
+def data_axis_index(mesh_cfg, name: str = "data") -> int:
+    """Position of the data axis in a MeshConfig, found BY NAME: on a
+    ("pod", "data", ...) mesh the data axis is index 1, so `shape[0]` would
+    shrink the replica axis."""
+    try:
+        return list(mesh_cfg.axis_names).index(name)
+    except ValueError:
+        raise ValueError(
+            f"mesh axes {tuple(mesh_cfg.axis_names)} have no {name!r} axis "
+            f"to shrink") from None
+
+
+def surviving_devices(mesh, lost_shards: Sequence[int],
+                      data_axis: str = "data") -> Tuple[tuple, List[int]]:
+    """The survivors of a process mesh: its global ranks (in the mesh's
+    (pod, data, ...) order) with the lost data shards dropped from every
+    pod -> (new shape, survivor ranks), ready for `rebuild_mesh` with the
+    same axis names. The order is kept, so shard i of the shrunken mesh is
+    survivor i in the old order."""
+    ranks = np.asarray(mesh.ranks).reshape(mesh.shape)
+    ax = list(mesh.axis_names).index(data_axis)
+    lost = set(int(s) for s in lost_shards)
+    keep = [i for i in range(ranks.shape[ax]) if i not in lost]
+    kept = np.take(ranks, keep, axis=ax)
+    return tuple(int(s) for s in kept.shape), [int(r) for r in
+                                               kept.reshape(-1)]
+
+
+def rebuild_mesh(shape, axes, ranks: Optional[Sequence[int]] = None):
+    """A `ProcessMesh` of `shape` over `ranks` (default: every rank). Every
+    rank of the default group must call it; ranks outside `ranks` get
+    None."""
+    from repro_torch.configs import MeshConfig
+    from repro_torch.launch.mesh import make_process_mesh
+    return make_process_mesh(MeshConfig(shape=tuple(shape),
+                                        axis_names=tuple(axes)),
+                             ranks=ranks)
+
+
+def elastic_restart(run_cfg, workdir: str, lost_hosts: List[int], *,
+                    hosts_per_data_shard: int = 1, mesh=None, **trainer_kw):
+    """Host-loss recovery: shrink the data axis past the lost hosts and
+    build a trainer for the survivors (`core/policy.py::make_trainer`).
+
+    Returns (plan, trainer). The trainer starts uninitialized: the caller
+    restores the anchor (the last valid L3 checkpoint, typically from the
+    partner tier) and adopts it through
+    `trainer.engine.executor.adopt_single`; `runtime/elastic.py::
+    ElasticTrainer` drives the whole shrink/regrow cycle. The config
+    shrinks both the mesh shape and the global batch, so the per-shard
+    batch is kept. `mesh` is the survivors' `ProcessMesh` on a mesh run."""
+    from repro_torch.core.policy import make_trainer
+
+    mesh_cfg = run_cfg.mesh
+    ax = data_axis_index(mesh_cfg)
+    plan = plan_elastic_remesh(mesh_cfg.shape[ax],
+                               run_cfg.train.global_batch, lost_hosts,
+                               hosts_per_data_shard=hosts_per_data_shard)
+    new_shape = tuple(plan.new_data if i == ax else s
+                      for i, s in enumerate(mesh_cfg.shape))
+    new_cfg = dataclasses.replace(
+        run_cfg, mesh=dataclasses.replace(mesh_cfg, shape=new_shape),
+        train=dataclasses.replace(run_cfg.train,
+                                  global_batch=plan.new_global_batch))
+    return plan, make_trainer(new_cfg, workdir, mesh=mesh, **trainer_kw)

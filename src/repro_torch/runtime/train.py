@@ -29,7 +29,9 @@ is in `core/engine.py`; this module supplies the training pieces:
     validation) and whole-state (`state_fp_fast`: the FSC compare and
     hybrid's commit and entry fingerprints), both through K1 on the card;
   * the mesh step of `pod`/`vote` (`mesh=`, a `launch/mesh.py::
-    ProcessMesh`; one trainer per rank): the rank's rows of the global
+    ProcessMesh`; one trainer per rank; `none` takes a mesh too, its
+    grads averaged over the data group: the elastic trainer's survivors
+    of a lost replica pod): the rank's rows of the global
     batch -> loss and grads, averaged over the pod's data group -> [the
     grads fault, on pod `spec.replica`'s ranks] -> pod: the grads' lanes
     (one per data shard, K1 in one launch) and the lane compare over the
@@ -135,11 +137,16 @@ class SedarTrainer:
         if self.backend == "dual":          # the reference's alias
             self.backend = "sequential"
         self.mesh = mesh
-        if self.backend in MESH_BACKENDS:
-            if mesh is None:
-                raise ValueError(
-                    f"{self.backend!r} training needs mesh= (a "
-                    "launch/mesh.py::ProcessMesh, one trainer per rank)")
+        if self.backend in MESH_BACKENDS and mesh is None:
+            raise ValueError(
+                f"{self.backend!r} training needs mesh= (a "
+                "launch/mesh.py::ProcessMesh, one trainer per rank)")
+        if mesh is not None and self.backend not in MESH_BACKENDS + ("none",):
+            raise ValueError(
+                f"{self.backend!r} runs on one card: a process mesh takes "
+                f"{MESH_BACKENDS} or 'none' (the elastic trainer's "
+                "survivors of a lost replica pod)")
+        if mesh is not None:
             if run_cfg.train.global_batch % mesh.n_data:
                 raise ValueError(
                     f"global batch {run_cfg.train.global_batch} does not "
@@ -397,6 +404,8 @@ class SedarTrainer:
         spec = self.inj_spec
         params = state["params"]
         loss, grads = self.loss_and_grads(params, batch)
+        if self.mesh is not None:       # `none` over a data group
+            loss, grads = self._data_mean(loss, grads)
         if spec is not None and spec.target == "grads":
             grads = inject_tree(grads, spec, step=step,
                                 replica_id=replica_id, armed=armed)
