@@ -24,7 +24,7 @@ counts set to 0 just before it and read just after:
     the unprotected tokens; a kernel fault is corrected forward), with K1
     in place on the hybrid backend's fingerprint tree of a real state and
     a profile (launches per decode step) of dual, abft and hybrid;
-  * continuous-batching `SedarServer.serve` of the same model at 8 of its
+  * continuous-batching `SedarServer.serve` of the same model at 4 of its
     24 layers (8 requests in 4 slots, under sync-debug "error"):
     unprotected, dual and fused at
     lag 1 and lag 8, abft and hybrid, slot, kernel-domain and admission
@@ -54,20 +54,20 @@ counts set to 0 just before it and read just after:
     bitwise equal to the run with telemetry off; the calibrated temporal
     model and `advise()` on it;
   * the model families (phase families): protected `generate()` of
-    recurrentgemma-2b (hybrid: RG-LRU blocks and local attention, 8 of
+    recurrentgemma-2b (hybrid: RG-LRU blocks and local attention, 5 of
     26 layers, B=2 × 4,096 prompt tokens, K2 at hd 256 with its 2,048
-    window), internvl2-2b (vlm: 8 of 24 layers, 256 stub patch embeddings
+    window), internvl2-2b (vlm: 4 of 24 layers, 256 stub patch embeddings
     + 256 tokens, hd 128), phi3.5-moe (moe, 4 of its 32 layers, hd 128),
     xlstm-125m (ssm, 2 of 12 blocks) and
-    seamless-m4t-medium (audio, 6 + 6 of 12 + 12 layers) at full width
+    seamless-m4t-medium (audio, 3 + 3 of 12 + 12 layers) at full width
     under none, sequential,
     abft, fused and hybrid in turns (equal streams, replica faults
     retried, checksum-block faults corrected forward, hybrid's retry at an
     entry check with no false FSC and its catch of an at-rest flip), and
     K2 at each family's prefill shape against its plain version and SDPA;
   * continuous `serve()` of the moe, ssm and hybrid families (phase
-    family_serve): phi3.5-moe (4 layers), xlstm-125m (2 blocks) and
-    recurrentgemma-2b (8 layers) at full width, every backend under
+    family_serve): phi3.5-moe (2 layers), xlstm-125m (2 blocks) and
+    recurrentgemma-2b (5 layers) at full width, every backend under
     sync-debug "error", slot and
     admission faults, and K1's ring rows against their plain version;
   * protected training of the moe, hybrid, vlm, ssm and audio families
@@ -100,6 +100,17 @@ counts set to 0 just before it and read just after:
     pod ranks of a (2, 2) process mesh at 2 of 24 layers (the shrink
     restored from the partner tier onto ranks 0 and 2, every rank bitwise
     equal to its uninterrupted run, no commit_compare read);
+  * the chunked attentions (phase chunked, after family_train): one
+    qwen2-0.5b layer's attention at S = 4,096 plain against chunked (ms,
+    peak, agreement), then one `none` and one `sequential` training step
+    of qwen2-0.5b at full width and depth at B = 1, S = 4,096 (the
+    reference's train_4k length; peak, ms, K1 on the grads, no detection)
+    and one xla prefill at that length;
+  * expert parallelism (phase ep): 2 ranks of a (data 1, model 2) process
+    mesh on this card over gloo, one phi3.5-moe layer at full width through
+    `Model.loss(ctx=)` (8 experts a rank): loss, aux, drop fraction and
+    every grad against the one-process oracle with the tokens in the same
+    2 dispatch groups, ms, peak per rank, collectives by label;
   * a small f32 model on the card against the plain CPU path.
 
 Any failed check exits non-zero. The last two lines are a JSON object of
@@ -1281,7 +1292,10 @@ SERVE_LAG = 8
 SERVE_FAULT_TICK = 5
 SERVE_MAX_LEN = 256 + 32 + 8
 SERVE_TURN_STEPS = 16
-SERVE_LAYERS = 8    # the serve phase's depth: 8 of qwen2-0.5b's 24 layers
+# the serve phase's depth: 4 of qwen2-0.5b's 24 layers (8 before the
+# chunked, ep and f3 phases came; cut for the script's time: PERF.md
+# section 4)
+SERVE_LAYERS = 4
 SERVE_PROFILE_STEPS = 8
 BF16_EXP_BIT = 14   # the top exponent bit of a bf16, bit 30 of an f32
 
@@ -2942,14 +2956,15 @@ FAMILY_BACKENDS = ("none", "sequential", "abft", "fused", "hybrid")
 # H100 80GB HBM3 (700 W), against its 1,200 s limit.
 # seamless-m4t-medium's encoder takes 1,024 stub frames. Since the elastic
 # phases came, for the script's time (PERF.md section 4): recurrentgemma-2b
-# keeps 8 of its 26 layers (two (rec, rec, attn) groups and the (rec, rec)
-# tail, as in FAMILY_SERVE_CASES), internvl2-2b 8 of 24, phi3.5-moe 4 of
-# 32 and seamless-m4t-medium 6 + 6 of its 12 + 12.
-FAMILY_CASES = (("recurrentgemma-2b", 2, 4096, 8),
-                ("internvl2-2b", 4, 256, 8),
+# keeps 5 of its 26 layers (one (rec, rec, attn) group and the (rec, rec)
+# tail, as in FAMILY_SERVE_CASES), internvl2-2b 4 of 24, phi3.5-moe 4 of 32
+# and seamless-m4t-medium 3 + 3 of its 12 + 12 (8, 8 and 6 + 6 before the
+# chunked, ep and f3 phases came).
+FAMILY_CASES = (("recurrentgemma-2b", 2, 4096, 5),
+                ("internvl2-2b", 4, 256, 4),
                 ("phi3.5-moe-42b-a6.6b", 4, 256, 4),
                 ("xlstm-125m", 4, 1024, 2),
-                ("seamless-m4t-medium", 4, 256, 6))
+                ("seamless-m4t-medium", 4, 256, 3))
 
 
 def _window_pairs(S: int, W: int) -> int:
@@ -3182,9 +3197,10 @@ def abft_fault_column(srv, params, prompt, toks, pos: int, step: int,
     of the logits block at decode position `step` is 5, or the first
     column after it whose clean logit lies in (-1, 1), where a flip of bit
     30 scales the value by 2**128, far above the checksum threshold. At
-    |v| in [1, 2) the flip makes a NaN, which the guard misses in both
-    packages (ROADMAP Queue 3, F3); at |v| >= 2 it shrinks the value by
-    2**-128, a change below the threshold. Fails if no column qualifies.
+    |v| in [1, 2) the flip makes a NaN, which the reference's guard misses
+    and the port's flags uncorrectable (F3); at |v| >= 2 it shrinks the
+    value by 2**-128, a change below the threshold. Fails if no column
+    qualifies.
     The clean logits come from the unprotected model fed the clean
     tokens."""
     row = clean_logits(srv, params, prompt, toks, pos, step)[1]
@@ -3194,7 +3210,7 @@ def abft_fault_column(srv, params, prompt, toks, pos: int, step: int,
     col = 5 + int(np.argmax(small))
     v = float(row[5])
     case = ("bit 30 scales it by 2**128" if abs(v) < 1 else
-            "bit 30 makes a NaN (F3)" if abs(v) < 2 else
+            "bit 30 makes a NaN, uncorrectable (F3)" if abs(v) < 2 else
             "bit 30 shrinks it below the checksum threshold")
     print(f"  {what}: clean logit (1, 5) at position {step} is {v!r}: "
           f"{case}; the abft fault goes to (1, {col}), clean logit "
@@ -3480,29 +3496,38 @@ def phase_families(kfp, kfa):
                      leaf_idx=0, flat_idx=1 * (cfg.vocab_size + 1) + col,
                      bit=30, step=step, replica=0, target="kernel")}
         if col != 5:
-            # the protocol's own element, (1, 5), where the flip is no fault
-            # the guard can see: its outcome is checked. A NaN (F3) escapes
-            # and row 1's greedy argmax takes its index, as on the CPU
+            # the protocol's own element, (1, 5), where the flip is no
+            # fault the guard corrects: its outcome is checked. A NaN (F3)
+            # fails its row and column: uncorrectable, the step retried, the
+            # clean tokens (the reference lets it through); a shrunk value
+            # is below the threshold and the guard cannot see it
             fsrv = make_server(RunConfig(model=cfg), backend="abft",
                                device=dev, inj_spec=dataclasses.replace(
                                    specs["abft"], flat_idx=cfg.vocab_size + 6))
             ftoks, frep, _, _ = _family_run(kfp, kfa, fsrv, params, prompt,
                                             "abft fault at (1, 5)")
             t = step - (S + P) + 1          # the token decoded at `step`
-            print(f"  abft fault at (1, 5): tokens equal the clean run "
+            events = [(e.step, e.boundary, e.effect,
+                       bool(e.detail.get("abft_corrected")))
+                      for e in frep.detections]
+            print(f"  abft fault at (1, 5): events {events}, retries "
+                  f"{frep.retries}, tokens equal the clean run "
                   f"{np.array_equal(ftoks, toks)}; row 1 emits "
                   f"{int(ftoks[1, t])} at position {step} (clean "
                   f"{int(toks[1, t])})", flush=True)
-            check(not frep.detections and frep.retries == 0
-                  and not frep.stopped,
-                  f"{arch}: abft fault at (1, 5) (clean logit {v5!r}): "
-                  f"detections {[str(e) for e in frep.detections]}, "
-                  f"retries {frep.retries}, the guard cannot see it")
             if abs(v5) < 2:
-                check(int(ftoks[1, t]) == 5 and int(toks[1, t]) != 5,
-                      f"{arch}: F3's NaN at (1, 5): row 1 emits "
-                      f"{int(ftoks[1, t])} at position {step} (clean "
-                      f"{int(toks[1, t])}), not the NaN's index 5")
+                check(events == [(step, "commit", "TDC", False)]
+                      and frep.retries == 1 and not frep.stopped
+                      and np.array_equal(ftoks, toks),
+                      f"{arch}: F3's NaN at (1, 5) (clean logit {v5!r}): "
+                      f"events {events}, retries {frep.retries}, or the "
+                      f"tokens differ from the clean run")
+            else:
+                check(not frep.detections and frep.retries == 0
+                      and not frep.stopped,
+                      f"{arch}: abft fault at (1, 5) (clean logit {v5!r}): "
+                      f"detections {[str(e) for e in frep.detections]}, "
+                      f"retries {frep.retries}, the guard cannot see it")
             del fsrv
         for b, spec in specs.items():
             fsrv = make_server(RunConfig(model=cfg), backend=b, device=dev,
@@ -3541,20 +3566,22 @@ def phase_families(kfp, kfa):
 # wraps the ring during decode, 2,100 and 4,096 start wrapped at other
 # phases. xlstm-125m keeps 2 of its 12 blocks, for the script's time (as in
 # FAMILY_CASES: its B=1 admissions are the sLSTM token loop). For the same
-# reason, once the f32 and mesh phases came, phi3.5-moe keeps 4 of 32 layers
-# (cut to 2, its abft admission fault went uncorrected on an NVIDIA H100
-# 80GB HBM3; not examined) and recurrentgemma-2b 8 of 26 (two (rec, rec,
-# attn) groups and the (rec, rec) tail, the full model's structure): this
+# reason, once the f32 and mesh phases came, phi3.5-moe keeps 2 of 32 layers
+# (its abft admission target, logit (0, 5), lies in [1, 2) there: bit 30
+# makes a NaN, which the guard flags uncorrectable since F3's repair, and
+# the admission is retried) and recurrentgemma-2b 5 of 26 (one (rec, rec,
+# attn) group and the (rec, rec) tail, the full model's structure; 8 before
+# the chunked, ep and f3 phases came): this
 # phase took 190.0 s at 8 and 26 layers and 100.3 s at 4 and 8, the rest of
 # the script ~750 s, against a 1,050 s target within the 1,200 s limit
 # (NVIDIA H100 80GB HBM3, 700 W; PERF.md §4).
-FAMILY_SERVE_CASES = (("phi3.5-moe-42b-a6.6b", 4, (96, 200, 256)),
+FAMILY_SERVE_CASES = (("phi3.5-moe-42b-a6.6b", 2, (96, 200, 256)),
                       ("xlstm-125m", 2, (96, 200, 256)),
-                      ("recurrentgemma-2b", 8, (2040, 2100, 4096)))
+                      ("recurrentgemma-2b", 5, (2040, 2100, 4096)))
 
 
 def phase_family_serve(kfp, kfa) -> dict:
-    """Slice 9: continuous serve() of the moe (phi3.5-moe, 4 of 32 layers),
+    """Slice 9: continuous serve() of the moe (phi3.5-moe, 2 of 32 layers),
     ssm (xlstm-125m) and hybrid (recurrentgemma-2b) families at full width,
     8 requests in 4 slots (arrivals 0.5 per tick, budgets 16 or 32),
     every run under sync-debug "error": none, sequential at lag 1 and 8,
@@ -3566,8 +3593,8 @@ def phase_family_serve(kfp, kfa) -> dict:
     prompts together, so with others in its pack a stream would hang on
     admission timing, which the lag and a rollback move), its decode drops
     no token (one dispatch group of one token per slot, capacity 4), and
-    an admission fault at tick 0 is caught (sequential) or corrected
-    (abft) in the pack; then at the server's default `max_pack` (packs of
+    an admission fault at tick 0 is caught (sequential; abft where bit 30
+    makes the target a NaN, F3) or corrected (abft) in the pack; then at the server's default `max_pack` (packs of
     up to 4 prompts of one exact length, no pad) the traffic at lag 8 and
     a burst of 8 prompts at tick 0 at lag 1 and 8 fill packs of two, 0
     detections, fused equal to sequential at the same lag. ms/step, tokens/s,
@@ -3676,8 +3703,8 @@ def phase_family_serve(kfp, kfa) -> dict:
             # every decode MoE call's drop fraction, kept on the device
             mlp = moe.moe_mlp
 
-            def spy(cfg_, p, x, groups=1):
-                out = mlp(cfg_, p, x, groups)
+            def spy(cfg_, p, x, groups=1, ctx=None):
+                out = mlp(cfg_, p, x, groups, ctx=ctx)
                 if x.shape[1] == 1:
                     drops.append(out[1]["moe_drop_frac"])
                 return out
@@ -3759,6 +3786,21 @@ def phase_family_serve(kfp, kfa) -> dict:
                       f"{rep.rollbacks}, or a stream differs")
                 del srv
         if is_moe:
+            # the abft fault's target: element 5 of the first admission's
+            # checksum block, logit (0, 5) of the first prompt (packs of one)
+            first = min(requests(), key=lambda r: (r.arrival, r.rid))
+            lg, _ = servers["abft"].model.prefill(params, {
+                "tokens": torch.from_numpy(first.prompt[None]).to(dev)},
+                max_len)
+            v5 = float(lg.float()[0, 5].cpu())
+            del lg
+            nan_case = 1.0 <= abs(v5) < 2.0
+            print(f"  abft admission target: clean logit (0, 5) of request "
+                  f"{first.rid} = {v5!r}: bit 30 makes "
+                  f"{'a NaN, uncorrectable (F3)' if nan_case else 'an outlier the guard corrects'}",
+                  flush=True)
+            abft_want = ([(0, "prefill", "TDC", [0])] if nan_case
+                         else [(0, "prefill", "abft_corrected", [0])])
             for b, spec, want in (
                     ("sequential", dict(leaf_idx=0, flat_idx=7,
                                         bit=BF16_EXP_BIT, step=0, replica=1,
@@ -3766,12 +3808,13 @@ def phase_family_serve(kfp, kfa) -> dict:
                      [(0, "prefill", "TDC", [0])]),
                     ("abft", dict(leaf_idx=0, flat_idx=5, bit=30, step=0,
                                   replica=0, target="prefill_kernel"),
-                     [(0, "prefill", "abft_corrected", [0])])):
+                     abft_want)):
                 srv = make_server(rc, backend=b, device=dev,
                                   inj_spec=InjectionSpec(**spec), **kw)
                 out, rep, _, _, events = serve(srv, 1, f"{b} admission fault")
+                retried = b == "sequential" or nan_case
                 check(events == want and len(rep.completed) == 8
-                      and rep.prefill_retries == (b == "sequential")
+                      and rep.prefill_retries == retried
                       and all(list(r.tokens) == clean[1][r.rid] for r in out),
                       f"{arch}: {b} admission fault: events {events}, "
                       f"prefill retries {rep.prefill_retries}")
@@ -3862,13 +3905,13 @@ FAMILY_TRAIN_STEPS = 4
 # never a width, and only as far as fused's peak needs; sgdm where even the
 # shallowest depth would not fit under adamw (PERF.md §4).
 # depths cut to fit beside a dual run (PERF.md section 4); since the
-# elastic phases, for the script's time, internvl2-2b 4 (was 8) and
-# seamless-m4t-medium 6 + 6 (was 12 + 12)
+# elastic phases, for the script's time, internvl2-2b 2 (8, then 4) and
+# seamless-m4t-medium 3 + 3 (12 + 12, then 6 + 6)
 FAMILY_TRAIN_CASES = (("phi3.5-moe-42b-a6.6b", 1, "sgdm"),
                       ("recurrentgemma-2b", 3, "sgdm"),
-                      ("internvl2-2b", 4, "adamw"),
+                      ("internvl2-2b", 2, "adamw"),
                       ("xlstm-125m", 2, "adamw"),
-                      ("seamless-m4t-medium", 6, "adamw"))
+                      ("seamless-m4t-medium", 3, "adamw"))
 FAMILY_TRAIN_ABFT_MISS = ("phi3.5-moe-42b-a6.6b",)   # pure abft's miss shown
 FAMILY_TRAIN_BACKENDS = ("none", "sequential", "fused", "abft", "hybrid")
 
@@ -4491,7 +4534,7 @@ def pod_rank(rank: int, backend: str, mesh_cfg, runs: list,
     cfg = get_config("qwen2-0.5b")
     out = {}
     for name, sedar_kw, spec_kw in runs:
-        rc = RunConfig(model=cfg,
+        rc = RunConfig(model=cfg, mesh=mesh_cfg,
                        train=TrainConfig(global_batch=BATCH, seq_len=TRAIN_SEQ,
                                          steps=POD_STEPS, warmup_steps=2),
                        sedar=SedarConfig(level=3, replication=backend,
@@ -4941,6 +4984,380 @@ def phase_pod_elastic(kfp, cfg=None, device: str = "cuda") -> int:
     return k1
 
 
+# F3 on the card, run AS's case: xlstm-125m at full depth (12 blocks), the
+# families cell's prompt (B = 4 x 1,024), params and protocol.
+F3_XLSTM = ("xlstm-125m", 4, 1024)
+F3_STEPS = 8        # tokens per run: the fault's at the 7th
+
+
+def phase_f3_xlstm(kfp, kfa) -> None:
+    """F3's repair on the card: xlstm-125m's clean logit (1, 5) at position
+    S + 5 lies in [1, 2) (1.25 in run AS), so the abft fault there (bit 30
+    of checksum-block element (1, 5)) makes a NaN, which the reference's
+    guard lets through (row 1 emitted token 5). The port's guard must flag
+    it uncorrectable: one TDC, one retry, the clean run's tokens."""
+    from repro_torch.configs import RunConfig, get_config
+    from repro_torch.core.injection import InjectionSpec
+    from repro_torch.core.policy import make_server
+
+    t_phase = time.time()
+    arch, B, S = F3_XLSTM
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(get_config(arch), attention_impl="pallas")
+    rng = np.random.RandomState(7)
+    prompt = {"tokens": torch.from_numpy(
+        rng.randint(0, cfg.vocab_size, (B, S))).to(dev)}
+    none = make_server(RunConfig(model=cfg), backend="none", device=dev)
+    params = none.model.init(seed=0)
+    toks, rep, _, _ = _family_run(kfp, kfa, none, params, prompt,
+                                  f"F3 {arch} {cfg.num_layers} blocks clean",
+                                  steps=F3_STEPS)
+    step = S + 5
+    v5 = float(clean_logits(none, params, prompt, toks, S, step)[1][5])
+    print(f"  F3: {arch}'s clean logit (1, 5) at position {step} is {v5!r}",
+          flush=True)
+    check(1.0 <= abs(v5) < 2.0, f"F3: {arch}'s clean logit (1, 5) {v5!r} "
+          f"is not in [1, 2): bit 30 would make no NaN there")
+    fsrv = make_server(RunConfig(model=cfg), backend="abft", device=dev,
+                       inj_spec=InjectionSpec(
+                           leaf_idx=0, flat_idx=cfg.vocab_size + 6, bit=30,
+                           step=step, replica=0, target="kernel"))
+    ftoks, frep, _, _ = _family_run(kfp, kfa, fsrv, params, prompt,
+                                    "F3 abft fault at (1, 5)", steps=F3_STEPS)
+    events = [(e.step, e.boundary, e.effect,
+               bool(e.detail.get("abft_corrected"))) for e in frep.detections]
+    print(f"  F3: events {events}, retries {frep.retries}, tokens equal the "
+          f"clean run {np.array_equal(ftoks, toks)}", flush=True)
+    check(events == [(step, "commit", "TDC", False)] and frep.retries == 1
+          and not frep.stopped and np.array_equal(ftoks, toks),
+          f"F3: {arch}'s NaN at (1, 5): events {events}, retries "
+          f"{frep.retries}, or the tokens differ from the clean run")
+    print(f"f3 phase took {time.time() - t_phase:.1f} s", flush=True)
+
+
+# Slice 13, phase chunked: the reference's train_4k length (S = 4096) on
+# qwen2-0.5b at full width and depth, one sequence on one card (the
+# reference's train_4k has batch 256 over a pod: PERF.md section 4).
+CHUNKED_SEQ = 4096
+CHUNKED_TOL = 1e-2      # bf16 chunked vs plain attention: of max |x|
+
+
+def _peak_gib(base: int) -> float:
+    return (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+
+
+def chunked_attention_check() -> dict:
+    """One qwen2-0.5b layer's attention at B = 1, S = 4096 (H 14, KV 2, hd
+    64, bf16 from seeded normals), forward + backward: the plain (S, S)
+    scores (`layers.causal_attention`) against the chunked causal form, ms
+    and the peak above the inputs for each; outputs and grads within
+    CHUNKED_TOL of the largest |value|."""
+    from repro_torch.models import layers as nn
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    B, S, H, KV, hd = 1, CHUNKED_SEQ, 14, 2, 64
+    q, k, v, ct = (torch.randn((B, S, n, hd), generator=gen, device="cuda")
+                   .to(torch.bfloat16) for n in (H, KV, KV, H))
+    out = {}
+    for name, fn in (("plain", nn.causal_attention),
+                     ("chunked", nn.chunked_causal_attention)):
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+
+        def step():
+            o = fn(*leaves)
+            g = torch.autograd.grad((o.float() * ct.float()).sum(), leaves)
+            return o, g
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        o, g = step()
+        torch.cuda.synchronize()
+        peak = _peak_gib(base)
+        ms = cuda_ms(step, 5, warmup=1)
+        out[name] = (o.detach(), [x.detach() for x in g], ms, peak)
+        print(f"chunked: one layer's attention fwd+bwd, {name}: {ms:.3f} ms, "
+              f"peak {peak:.3f} GiB above the inputs", flush=True)
+    errs = {}
+    for i, what in enumerate(("out", "dq", "dk", "dv")):
+        a = out["plain"][0] if i == 0 else out["plain"][1][i - 1]
+        b = out["chunked"][0] if i == 0 else out["chunked"][1][i - 1]
+        errs[what] = float((a.float() - b.float()).abs().max()
+                           / a.float().abs().max())
+    print(f"chunked: chunked vs plain, max abs err / max |plain|: "
+          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()), flush=True)
+    check(max(errs.values()) <= CHUNKED_TOL,
+          f"chunked attention off the plain form beyond {CHUNKED_TOL}: {errs}")
+    return {"plain_ms": out["plain"][2], "plain_gib": out["plain"][3],
+            "chunked_ms": out["chunked"][2],
+            "chunked_gib": out["chunked"][3], "errs": errs}
+
+
+def chunked_train_steps(kfp, backends=("none", "sequential"),
+                        allow_oom: bool = False) -> int:
+    """One training step of qwen2-0.5b at full width and depth at S = 4096
+    per backend (TrainConfig(global_batch=1, seq_len=4096), SyntheticLM
+    (151936, 1, 4096, seed=0), adamw, L1: no checkpoint), then one xla
+    prefill at B = 1, S = 4096: peak, ms, K1's launches, detections (none
+    allowed; sequential's replicas must agree bitwise). `allow_oom`, for a
+    tree without the chunked forms: an out-of-memory step is reported and
+    the next one runs. Returns K1's launches in the sequential step."""
+    from repro_torch.configs import (RunConfig, SedarConfig, TrainConfig,
+                                     get_config)
+    from repro_torch.core.policy import make_trainer
+    from repro_torch.data import SyntheticLM
+    import tempfile
+
+    cfg = get_config("qwen2-0.5b")
+    dev = torch.device("cuda")
+    data = SyntheticLM(cfg.vocab_size, 1, CHUNKED_SEQ, seed=0)
+    root = tempfile.mkdtemp(prefix="sedar_chunked_")
+    k1 = 0
+    try:
+        for b in backends:
+            _free()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            rc = RunConfig(model=cfg, train=TrainConfig(
+                global_batch=1, seq_len=CHUNKED_SEQ, steps=1, warmup_steps=1),
+                sedar=SedarConfig(level=1, replication=b))
+            tr = make_trainer(rc, os.path.join(root, b), data=data,
+                              notify=lambda e: None, device=dev)
+            try:
+                dual = tr.init_dual(seed=0)
+                torch.cuda.synchronize()
+                kfp.launch_count.reset()
+                t0 = time.time()
+                dual, rep = tr.run(1, dual=dual)
+                torch.cuda.synchronize()
+                ms = (time.time() - t0) * 1e3
+            except torch.cuda.OutOfMemoryError as e:
+                if not allow_oom:
+                    raise
+                print(f"chunked: {b} step at S = {CHUNKED_SEQ}: out of "
+                      f"memory ({str(e).splitlines()[0][:200]}); peak "
+                      f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} "
+                      f"GiB", flush=True)
+                del tr
+                continue
+            n = kfp.launch_count.n
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            print(f"chunked: {b} training step at B = 1, S = {CHUNKED_SEQ}: "
+                  f"{ms:.1f} ms (first step, its warm-up included), peak "
+                  f"{peak:.2f} GiB, loss {rep.losses[0]!r}, K1 {n} launches, "
+                  f"detections {[str(e) for e in rep.detections]}",
+                  flush=True)
+            check(not rep.detections and rep.steps_completed == 1,
+                  f"chunked: {b} step detected {rep.detections} or did not "
+                  f"complete")
+            if b == "sequential":
+                check(n > 0, "chunked: K1 never launched on the grads")
+                k1 = n
+            del tr, dual, rep
+        _free()
+        torch.cuda.empty_cache()
+        from repro_torch.models import build_model
+        model = build_model(cfg, dev)
+        params = model.init(seed=0)
+        toks = torch.from_numpy(data.batch(0)["tokens"]).to(dev)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        with torch.no_grad():
+            try:
+                t0 = time.time()
+                logits, cache = model.prefill(params, {"tokens": toks},
+                                              CHUNKED_SEQ + 8)
+                torch.cuda.synchronize()
+                ms = (time.time() - t0) * 1e3
+                print(f"chunked: xla prefill at B = 1, S = {CHUNKED_SEQ}: "
+                      f"{ms:.1f} ms (first call), peak {_peak_gib(base):.2f} "
+                      f"GiB above the params, logits finite "
+                      f"{bool(torch.isfinite(logits).all())}", flush=True)
+                check(bool(torch.isfinite(logits).all()),
+                      "chunked: prefill logits not finite")
+                del logits, cache
+            except torch.cuda.OutOfMemoryError:
+                if not allow_oom:
+                    raise
+                print("chunked: xla prefill out of memory", flush=True)
+        del params, model
+    finally:
+        import shutil
+        shutil.rmtree(root, ignore_errors=True)
+    return k1
+
+
+def phase_chunked(kfp) -> int:
+    """Slice 13: the chunked attentions at the reference's train_4k
+    length. One layer's attention plain vs chunked (ms, peak, agreement),
+    then one `none` and one `sequential` training step and one xla
+    prefill of qwen2-0.5b at B = 1, S = 4096 (`chunked_train_steps`).
+    Returns K1's launches in the sequential step."""
+    t_phase = time.time()
+    _free()
+    torch.cuda.empty_cache()
+    chunked_attention_check()
+    k1 = chunked_train_steps(kfp)
+    print(f"chunked phase took {time.time() - t_phase:.1f} s", flush=True)
+    return k1
+
+
+# Slice 13, phase ep: expert parallelism over a model axis of 2 ranks on
+# this card, one phi3.5-moe layer at full width.
+EP_SHAPE = (1, 2)           # (data, model)
+EP_BATCH, EP_SEQ = 4, 256
+EP_TIMING_ITERS = 3
+EP_TOL = 1e-2               # bf16: of the oracle's max |value|
+EP_TIMEOUT_S = 300
+
+
+def _ep_loss(model, params, batch, ctx=None, groups: int = 1):
+    """(loss, metrics) of `model` with its MoE layers routing `groups`
+    dispatch groups (the one-process oracle) or over `ctx`'s model group."""
+    from repro_torch.models import moe
+    if groups == 1:
+        return model.loss(params, batch, ctx)
+    real = moe.moe_mlp
+    moe.moe_mlp = lambda cfg, p, x, g=1, ctx=None: real(cfg, p, x, groups)
+    try:
+        return model.loss(params, batch)
+    finally:
+        moe.moe_mlp = real
+
+
+def ep_rank(rank: int, root: str) -> dict:
+    """One rank of phase ep (spawned by `launch/mesh.py::spawn`): a
+    1-layer phi3.5-moe at full width (seeded f32 params, bf16 compute), B
+    = 4 x 256 tokens of SyntheticLM(seed 0). First the one-process oracle
+    on the full experts with the tokens in tp x D dispatch groups (its
+    grads moved to the host), then `Model.loss` with a `ShardCtx` over
+    MeshConfig((1, 2), ("data", "model")), this rank's experts cut by
+    `bridge.expert_shard`: loss, aux, drop fraction and every grad against
+    the oracle's, ms per forward + backward, the peak and the collectives
+    by label."""
+    from repro_torch import bridge
+    from repro_torch.configs import MeshConfig, get_config
+    from repro_torch.core import hostsync
+    from repro_torch.data import SyntheticLM
+    from repro_torch.device import make_deterministic
+    from repro_torch.launch.mesh import make_process_mesh
+    from repro_torch.models import build_model
+    from repro_torch.models.transformer import ShardCtx
+    from repro_torch.sharding import Resolver
+    from repro_torch.tree import flatten_with_path, tree_map
+
+    dev = torch.device("cuda")
+    make_deterministic(dev)
+    mesh = make_process_mesh(MeshConfig(shape=EP_SHAPE,
+                                        axis_names=("data", "model")))
+    D, tp = EP_SHAPE
+    cfg = cut_depth(get_config("phi3.5-moe-42b-a6.6b"), 1)
+    model = build_model(cfg, dev)
+    full = model.init(seed=0)
+    batch = {k: torch.from_numpy(np.asarray(v, np.int64)).to(dev)
+             for k, v in SyntheticLM(cfg.vocab_size, EP_BATCH, EP_SEQ,
+                                     seed=0).batch(0).items()}
+
+    def grads_of(params, fn):
+        names = [n for n, _ in flatten_with_path(params)]
+        leaves = [t.detach().requires_grad_(True)
+                  for _, t in flatten_with_path(params)]
+        from repro_torch.tree import unflatten_like
+        loss, metrics = fn(unflatten_like(params, leaves))
+        gs = torch.autograd.grad(loss, leaves)
+        return loss.detach(), metrics, dict(zip(names, gs))
+
+    # the oracle: one process, full experts, tp x D dispatch groups
+    loss_o, met_o, g_o = grads_of(full, lambda p: _ep_loss(
+        model, p, batch, groups=tp * D))
+    n_exp = cfg.num_experts // tp
+    sl = slice(mesh.model * n_exp, (mesh.model + 1) * n_exp)
+    oracle = {k: (g[:, sl] if any(w in k for w in ("w_gate", "w_up",
+                                                      "w_down"))
+                  else g).float().cpu() for k, g in g_o.items()}
+    oracle_stats = tuple(float(t.detach()) for t in (
+        loss_o, met_o["moe_aux"], met_o["moe_drop_frac"]))
+    del g_o, loss_o, met_o
+    params = tree_map(lambda t: t.clone(),
+                      bridge.expert_shard(full, tp, mesh.model))
+    del full
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    ctx = ShardCtx(mesh, Resolver(mesh))
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    # the backward runs on autograd's device thread: count across threads
+    with hostsync.count_transfers(cross_thread=True) as st:
+        loss, met, g = grads_of(params, lambda p: model.loss(p, batch, ctx))
+        torch.cuda.synchronize()
+    peak_above = _peak_gib(base)
+    held = base / 2 ** 30
+    stats = tuple(float(t.detach()) for t in (
+        loss, met["moe_aux"], met["moe_drop_frac"]))
+    errs, bitwise = {}, True
+    for k, v in g.items():
+        want = oracle[k].to(dev)
+        diff = float((v.float() - want).abs().max())
+        errs[k] = diff / max(float(want.abs().max()), 1e-30)
+        bitwise = bitwise and diff == 0.0
+    del g
+    times = []
+    for _ in range(EP_TIMING_ITERS):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        grads_of(params, lambda p: model.loss(p, batch, ctx))
+        torch.cuda.synchronize()
+        times.append((time.time() - t0) * 1e3)
+    return dict(rank=rank, model=mesh.model, stats=stats,
+                oracle_stats=oracle_stats, errs=errs, bitwise=bitwise,
+                held_gib=held, peak_gib=held + peak_above,
+                collectives=dict(st.collectives), ms=times)
+
+
+def phase_ep() -> dict:
+    """Slice 13: expert parallelism (`models/moe.py::moe_mlp_ep`) over a
+    model axis of 2 ranks, each a process on this one card over gloo: one
+    phi3.5-moe layer at full width (d 4096, 16 experts top-2, d_ff 6400, 8
+    experts per rank), B = 4 x 256 tokens, a forward and a loss backward
+    through `Model.loss(ctx=)` against the one-process oracle with the
+    tokens in the same 2 dispatch groups: loss and aux within EP_TOL
+    relative, the drop fraction equal, every grad within EP_TOL of the
+    oracle's largest |value| (bitwise printed); ms per forward + backward,
+    peak per rank and the collectives by label."""
+    import tempfile
+    from repro_torch.launch.mesh import spawn
+
+    t_phase = time.time()
+    _free()
+    torch.cuda.empty_cache()
+    root = tempfile.mkdtemp(prefix="sedar_ep_")
+    reps = spawn(ep_rank, EP_SHAPE[0] * EP_SHAPE[1], root,
+                 timeout_s=EP_TIMEOUT_S)
+    for r in reps:
+        (loss, aux, drop), (lo, ao, do) = r["stats"], r["oracle_stats"]
+        worst = max(r["errs"], key=r["errs"].get)
+        print(f"ep: rank {r['rank']} (model {r['model']}): loss {loss!r} "
+              f"(oracle {lo!r}), aux {aux!r} ({ao!r}), drop fraction "
+              f"{drop!r} ({do!r}); grads bitwise equal to the oracle "
+              f"{r['bitwise']}, worst {worst} {r['errs'][worst]:.3e} of max "
+              f"|g|; fwd+bwd {', '.join(f'{t:.1f}' for t in r['ms'])} ms; "
+              f"params {r['held_gib']:.2f} GiB, peak {r['peak_gib']:.2f} "
+              f"GiB; collectives {r['collectives']}", flush=True)
+        check(drop == do and abs(loss - lo) <= EP_TOL * abs(lo)
+              and abs(aux - ao) <= EP_TOL * abs(ao)
+              and r["errs"][worst] <= EP_TOL,
+              f"ep: rank {r['rank']} off the one-process oracle: loss "
+              f"{loss} vs {lo}, aux {aux} vs {ao}, drop {drop} vs {do}, "
+              f"{worst} {r['errs'][worst]}")
+        # forward: one exchange each way, the output's all_gather, the two
+        # means; backward: the exchanges again, the token slice's
+        # all_gather and the router's sum (both labelled ep_gather)
+        check(r["collectives"] == {"ep_dispatch": 2, "ep_combine": 2,
+                                   "ep_gather": 3, "ep_stats": 2},
+              f"ep: collectives {r['collectives']}")
+    print(f"ep phase took {time.time() - t_phase:.1f} s", flush=True)
+    return {r["rank"]: r for r in reps}
+
+
 def phase_reference():
     """Small f32 model: the card's path (kernels) against the plain CPU path
     (which the CPU tests hold to the JAX package)."""
@@ -5059,11 +5476,20 @@ def main() -> None:
     family_train_k1 = phase_family_train(kfp)
     check(family_train_k1 > 0, "K1 never launched by the family trainers")
     mark("family_train")
+    chunked_k1 = phase_chunked(kfp)
+    _free()
+    mark("chunked")
+    phase_ep()
+    mark("ep")
+    phase_f3_xlstm(kfp, kfa)
+    _free()
+    mark("f3_xlstm")
     phase_reference()
     # the main path's K1 launches, the training paths' and the replica
     # campaign's, each counted from 0 just before its run
     k1["launches"] = (counts["fingerprint"] + train_k1 + campaign_k1
                       + families_k1 + family_train_k1 + elastic_k1
+                      + chunked_k1
                       + sum(c["fingerprint"] for c in family_serve.values()))
     k2["launches"] = counts["flash_attention"]
     print("K2 launches: " + ", ".join(

@@ -95,7 +95,8 @@ def pack_checksum_guard(logits, spec, tick: int, armed: bool):
 
     Returns (verified logits, verdict (K,) int64, AbftReport) with the
     `runtime/prefill.py` VERDICT_* encoding."""
-    from repro_torch.abft.ref import residual_threshold, verify_and_correct
+    from repro_torch.abft.ref import (residual_threshold, verify_and_correct,
+                                      violated)
     from repro_torch.runtime.prefill import (VERDICT_BAD, VERDICT_CLEAN,
                                              VERDICT_CORRECTED)
     lg = logits.float()
@@ -108,7 +109,7 @@ def pack_checksum_guard(logits, spec, tick: int, armed: bool):
     c = c_full[:K, :V]
     row_res = c.sum(dim=1) - c_full[:K, V]
     row_tau = residual_threshold(c.abs().sum(dim=1), V + max(K, V))
-    row_bad = row_res.abs() > row_tau
+    row_bad = violated(row_res, row_tau)
     bad = torch.full((K,), VERDICT_BAD, dtype=torch.int64,
                      device=lg.device)
     clean = torch.full_like(bad, VERDICT_CLEAN)

@@ -75,6 +75,16 @@ def residual_threshold(abs_sums: torch.Tensor, n_terms: int,
     return factor * (abs_sums + 1.0)
 
 
+def violated(res: torch.Tensor, tau: torch.Tensor) -> torch.Tensor:
+    """Where a checksum residual breaks its bound. A non-finite residual
+    counts as violated: a bit flip that makes a NaN or an inf compares
+    False against any bound, and the reference's `|res| > tau` lets it
+    through (a deliberate divergence, ROADMAP F3). The NaN then fails its
+    row and its column, the two deltas cannot agree, and the fault is
+    uncorrectable: the caller retries or rolls back."""
+    return ~(torch.isfinite(res) & (res.abs() <= tau))
+
+
 def _pick(v: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """v[idx] for a 0-d index tensor, as a device gather (no host read)."""
     return v.index_select(0, idx.reshape(1)).reshape(())
@@ -101,8 +111,8 @@ def verify_and_correct(c_full: torch.Tensor, inner_dim: int,
     row_tau = residual_threshold(c_abs.sum(dim=1), n_terms, tau_factor)
     col_tau = residual_threshold(c_abs.sum(dim=0), n_terms, tau_factor)
 
-    row_bad = row_res.abs() > row_tau
-    col_bad = col_res.abs() > col_tau
+    row_bad = violated(row_res, row_tau)
+    col_bad = violated(col_res, col_tau)
     n_row = row_bad.sum().to(torch.int32)
     n_col = col_bad.sum().to(torch.int32)
     detected = (n_row + n_col) > 0
@@ -176,7 +186,7 @@ def attention_verify(out_full: torch.Tensor, seq_k: int,
     res = out.sum(dim=-1) - out_full[..., -1]
     hd = out.shape[-1]
     tau = residual_threshold(out.abs().sum(dim=-1), hd + seq_k, tau_factor)
-    n_bad = (res.abs() > tau).sum().to(torch.int32)
+    n_bad = violated(res, tau).sum().to(torch.int32)
     detected = n_bad > 0
     report = AbftReport(
         detected=detected,

@@ -3,16 +3,18 @@
 Copies of the reference package's dataclasses (`repro/configs/base.py`),
 kept field-for-field so that one configuration means the same run in both
 packages. The port keeps its own copy: it imports nothing of `repro`.
-One field differs: `RunConfig` carries no mesh. The mesh backends' trainer
-takes its process mesh as `mesh=` (a `launch/mesh.py::ProcessMesh`, made
-from a `MeshConfig`), the one place its shape comes from.
+`RunConfig.mesh` is the one place a run's mesh shape comes from: the
+mesh backends' trainer takes only the process groups as `mesh=` (a
+`launch/mesh.py::ProcessMesh`, made from the same `MeshConfig`) and raises
+if their shape disagrees.
 
 Every run is described by a `RunConfig`, which composes:
   * `ModelConfig`   -- architecture hyper-parameters.
   * `TrainConfig`   -- optimizer / schedule / batching.
   * `ServeConfig`   -- serving batch / context.
-  * `MeshConfig`    -- the process mesh of the `pod`/`vote` backends
-                       (given to `launch/mesh.py::make_process_mesh`).
+  * `MeshConfig`    -- the process mesh of the `pod`/`vote` backends, of
+                       the elastic trainer's data axis and of expert
+                       parallelism (`launch/mesh.py::make_process_mesh`).
   * `SedarConfig`   -- the paper's fault-tolerance knobs.
 """
 from __future__ import annotations
@@ -94,7 +96,8 @@ class ModelConfig:
 class MeshConfig:
     """The mesh's shape and axis names ("pod", "data" and "model"). The
     port runs the mesh as processes (`launch/mesh.py`): one rank per
-    (pod, data) index; a model axis larger than 1 is not ported."""
+    (pod, data, model) index; a model axis larger than 1 carries expert
+    parallelism (`models/moe.py::moe_mlp_ep`), which no trainer runs."""
 
     shape: Tuple[int, ...] = (2, 1)
     axis_names: Tuple[str, ...] = ("pod", "data")
@@ -162,12 +165,10 @@ class SedarConfig:
 @dataclass(frozen=True)
 class RunConfig:
     model: ModelConfig
+    mesh: MeshConfig = field(default_factory=MeshConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
     serve: ServeConfig = field(default_factory=ServeConfig)
     sedar: SedarConfig = field(default_factory=SedarConfig)
-    # the data axis the elastic trainer shrinks (`runtime/elastic.py`); the
-    # mesh backends take their process mesh from the caller
-    mesh: MeshConfig = field(default_factory=MeshConfig)
 
     def replace(self, **kw) -> "RunConfig":
         return dataclasses.replace(self, **kw)

@@ -1,27 +1,30 @@
-"""The process mesh of the `pod` and `vote` backends (the counterpart of the
-reference's `launch/mesh.py::make_test_mesh`).
+"""The process mesh of the `pod` and `vote` backends and of expert
+parallelism (the counterpart of the reference's `launch/mesh.py::
+make_test_mesh`).
 
 The reference runs a replica per pod of a device mesh and compares inside
-`shard_map`. The port runs one process per (pod, data) rank over
-`torch.distributed`: rank r holds pod r // D's replica of the state on its
-device, and trains on data shard r % D of the global batch. Collectives go
-through gloo on localhost, on the CPU and on the card alike: NCCL refuses
-two ranks on one GPU ("Duplicate GPU detected"), and gloo takes CUDA
-tensors in `all_reduce` and `broadcast`, staging them through host memory.
+`shard_map`. The port runs one process per (pod, data, model) rank over
+`torch.distributed`: rank r holds pod p's replica of the state on its
+device, and trains on data shard d of the global batch, with r = (p * D +
+d) * M + m, the reference's device order. Collectives go through gloo on
+localhost, on the CPU and on the card alike: NCCL refuses two ranks on one
+GPU ("Duplicate GPU detected"), and gloo takes CUDA tensors in
+`all_reduce` and `broadcast`, staging them through host memory.
 
 Groups (`dist.new_group`, made by every rank in the same order):
-  * the pod group of data index d: the ranks that hold shard d in every
-    pod, ordered by pod. Replica compares, the fingerprint gather and the
-    vote broadcast run over it.
-  * the data group of pod p: that pod's ranks, ordered by data index. The
-    gradient average runs over it.
+  * the pod group of (d, m): the ranks that hold shard d in every pod,
+    ordered by pod. Replica compares, the fingerprint gather and the vote
+    broadcast run over it.
+  * the data group of (p, m): that pod's ranks of model index m, ordered by
+    data index. The gradient average runs over it.
+  * the model group of (p, d), made only when M > 1: the ranks that share
+    pod and data shard, ordered by model index. Expert parallelism's
+    exchanges run over it (`models/moe.py::moe_mlp_ep`); the trainers
+    shard no state over it, and refuse a mesh with M > 1.
 
 A mesh may span a subset of the ranks (`make_process_mesh(cfg, ranks)`):
 the elastic trainer's survivors (`runtime/elastic.py`). Every rank makes
 every group all the same, and a rank outside the subset gets None.
-
-A `model` axis larger than 1 (tensor sharding) raises NotImplementedError:
-it waits for the port of the sharding tools (ROADMAP Queue 1 item 4).
 
 `spawn(fn, nprocs, *args)` starts the ranks (`torch.multiprocessing`, the
 spawn method), each with its process group initialized, and returns each
@@ -45,19 +48,29 @@ import torch.multiprocessing as mp
 from repro_torch.configs import MeshConfig
 
 
+def axis_sizes(cfg) -> Dict[str, int]:
+    """The axes of a `MeshConfig` or `ProcessMesh` larger than 1, by name:
+    the shape two meshes must agree on ((2, 2, 1) over pod, data, model is
+    (2, 2) over pod, data)."""
+    return {n: int(s) for n, s in zip(cfg.axis_names, cfg.shape) if s != 1}
+
+
 @dataclass
 class ProcessMesh:
-    """This rank's place in a (pod, data) process mesh and its groups."""
+    """This rank's place in a (pod, data, model) process mesh and its
+    groups."""
 
     shape: Tuple[int, ...]
     axis_names: Tuple[str, ...]
     rank: int
     pod: int
     data: int
-    pod_group: Any            # this rank's data index across every pod
-    data_group: Any           # this rank's pod
+    pod_group: Any            # this rank's (data, model) index in every pod
+    data_group: Any           # this rank's pod, at its model index
     pod_ranks: List[int]      # the pod group's global ranks, by pod
-    ranks: List[int]          # the mesh's global ranks, in (pod, data) order
+    ranks: List[int]          # the mesh's ranks, in (pod, data, model) order
+    model: int = 0
+    model_group: Any = None   # this rank's (pod, data); None when M == 1
 
     @property
     def sizes(self) -> Dict[str, int]:
@@ -80,56 +93,69 @@ def make_process_mesh(cfg: MeshConfig,
                       ranks: Optional[Sequence[int]] = None
                       ) -> Optional[ProcessMesh]:
     """The mesh of `cfg` over `ranks` of the initialized default process
-    group (default: every rank), pods x data of them, in (pod, data) order.
-    Every rank of the default group must call it (`dist.new_group` is
-    collective over it, even for a group the caller is not in); a rank
-    outside `ranks` gets None. A rank's pod and data index come from its
-    place in `ranks`; the groups' members (`pod_ranks`) stay global ranks,
-    which `broadcast(src=)` takes."""
+    group (default: every rank), pods x data x model of them, in (pod,
+    data, model) order. Every rank of the default group must call it
+    (`dist.new_group` is collective over it, even for a group the caller is
+    not in); a rank outside `ranks` gets None. A rank's indices come from
+    its place in `ranks`; the pod group's members (`pod_ranks`) stay global
+    ranks, which `broadcast(src=)` takes."""
     shape, axis_names = tuple(cfg.shape), tuple(cfg.axis_names)
     sizes = dict(zip(axis_names, shape))
     if set(sizes) - {"pod", "data", "model"}:
         raise ValueError(f"unknown mesh axes {axis_names}")
-    if sizes.get("model", 1) != 1:
-        raise NotImplementedError(
-            "a model axis larger than 1 shards the state across ranks: it "
-            "waits for the port of the sharding tools (ROADMAP Queue 1 "
-            "item 4)")
     P, D = sizes.get("pod", 1), sizes.get("data", 1)
+    M = sizes.get("model", 1)
     if not dist.is_initialized():
         raise RuntimeError("the process mesh needs an initialized process "
                            "group (launch/mesh.py::spawn)")
     world, rank = dist.get_world_size(), dist.get_rank()
+    n = P * D * M
     if ranks is None:
         ranks = list(range(world))
-        if world != P * D:
-            raise ValueError(f"mesh {shape} needs {P * D} ranks, the "
+        if world != n:
+            raise ValueError(f"mesh {shape} needs {n} ranks, the "
                              f"process group has {world}")
     ranks = [int(r) for r in ranks]
-    if len(ranks) != P * D:
-        raise ValueError(f"mesh {shape} needs {P * D} ranks, given "
+    if len(ranks) != n:
+        raise ValueError(f"mesh {shape} needs {n} ranks, given "
                          f"{len(ranks)}")
     if len(set(ranks)) != len(ranks) or not all(0 <= r < world
                                                 for r in ranks):
         raise ValueError(f"mesh ranks {ranks} are not distinct ranks of "
                          f"the {world}-rank process group")
+
+    def at(p: int, d: int, m: int) -> int:
+        return ranks[(p * D + d) * M + m]
+
     member = rank in ranks
-    pod, data = divmod(ranks.index(rank), D) if member else (-1, -1)
-    pod_group = data_group = None
+    pod = data = model = -1
+    if member:
+        pd, model = divmod(ranks.index(rank), M)
+        pod, data = divmod(pd, D)
+    pod_group = data_group = model_group = None
     pod_ranks: List[int] = []
     for d in range(D):
-        members = [ranks[p * D + d] for p in range(P)]
-        g = dist.new_group(members)
-        if d == data:
-            pod_group, pod_ranks = g, members
+        for m in range(M):
+            members = [at(p, d, m) for p in range(P)]
+            g = dist.new_group(members)
+            if (d, m) == (data, model):
+                pod_group, pod_ranks = g, members
     for p in range(P):
-        g = dist.new_group([ranks[p * D + d] for d in range(D)])
-        if p == pod:
-            data_group = g
+        for m in range(M):
+            g = dist.new_group([at(p, d, m) for d in range(D)])
+            if (p, m) == (pod, model):
+                data_group = g
+    if M > 1:
+        for p in range(P):
+            for d in range(D):
+                g = dist.new_group([at(p, d, m) for m in range(M)])
+                if (p, d) == (pod, data):
+                    model_group = g
     if not member:
         return None
     return ProcessMesh(tuple(int(s) for s in shape), axis_names, rank, pod,
-                       data, pod_group, data_group, pod_ranks, ranks)
+                       data, pod_group, data_group, pod_ranks, ranks,
+                       model=model, model_group=model_group)
 
 
 def _free_port() -> int:

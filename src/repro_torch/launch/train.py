@@ -442,11 +442,11 @@ def main() -> None:
         return
     if mesh_run:
         from repro_torch.launch.mesh import spawn
+        mesh_cfg = MeshConfig(shape=(pods, args.data),
+                              axis_names=("pod", "data"))
         # CPU ranks share the host's cores: one torch thread each
-        reps = spawn(mesh_rank, pods * args.data, rc,
-                     MeshConfig(shape=(pods, args.data),
-                                axis_names=("pod", "data")),
-                     args.workdir, inj, args.device,
+        reps = spawn(mesh_rank, pods * args.data, rc.replace(mesh=mesh_cfg),
+                     mesh_cfg, args.workdir, inj, args.device,
                      threads=1 if args.device == "cpu" else 0)
         rep = reps[0]
         print(f"{args.replication}: {pods} pods x {args.data} data shards, "

@@ -1,5 +1,7 @@
-"""Layer library (the reference's `models/layers.py` without its chunked
-XLA attention forms), plain functions on tensors.
+"""Layer library (the reference's `models/layers.py`), plain functions on
+tensors, with its chunked causal and windowed attention forms
+(`chunked_causal_attention`, `chunked_window_attention`) as one
+`torch.autograd.Function` that recomputes each tile in the backward.
 
 Conventions, as in the reference:
   * params are nested dicts of tensors; a stacked layer dict has a leading
@@ -180,6 +182,184 @@ def causal_attention(q, k, v, window: int = 0, *, causal: bool = True):
     return _gqa_out(w, v, q.dtype)
 
 
+_CHUNK_Q = 512           # the reference's q chunk of the chunked forms
+_CHUNK_K = 1024
+CHUNKED_THRESHOLD = 2048  # chunked causal attention when S exceeds this
+_PAD_POS = 2 ** 30        # a padded key's position: after every query
+_NEG = -1e30              # the reference's mask value
+
+
+def _key_ranges(i: int, qc: int, kc: int, S: int, Sk: int, window: int):
+    """The key ranges [k0, k1) q chunk i visits, in order. Windowed: the
+    one live slice [i qc - window, i qc + qc) cut to [0, S), so the
+    softmax runs over the keys a query can see and no left padding.
+    Causal: the padded keys' blocks of kc, skipping those wholly above
+    the diagonal (a masked block adds p = 0 with a correction of 1: the
+    value is the same as the reference's scan over every block)."""
+    if window:
+        return [(max(0, i * qc - window), min(S, i * qc + qc))]
+    last_q = i * qc + qc - 1
+    return [(j * kc, (j + 1) * kc) for j in range(Sk // kc)
+            if j * kc <= last_q]
+
+
+def _tile_scores(qb, kb, qpos, kpos, window: int, scale: float):
+    """Masked f32 scores of one tile: qb (B,KV,G,qc,hd), kb (B,KV,c,hd)."""
+    s = torch.einsum("bkgqd,bkcd->bkgqc", qb, kb) * scale
+    mask = qpos[:, None] >= kpos[None, :]
+    if window:
+        mask = mask & (qpos[:, None] - kpos[None, :] < window)
+    return torch.where(mask, s, torch.full_like(s, _NEG))
+
+
+class _ChunkedAttention(torch.autograd.Function):
+    """Flash attention in plain PyTorch over (q chunk, key range) tiles
+    with the reference's online-softmax carry in f32 (`_flash_kv_body`).
+    The forward saves q, k, v, the f32 output and each row's log-sum-exp;
+    the backward recomputes every tile's probabilities from them and sums
+    dq, dk and dv in a fixed order, no atomics. So under autograd no
+    (S, S) tensor lives past one tile of (qc, kc): the reference's
+    `jax.checkpoint(nothing_saveable)` made explicit. `setup_context` and
+    `generate_vmap_rule` let the fused trainer's `torch.vmap` run it (the
+    loops depend on shapes alone).
+
+    q (B,S,H,hd), k/v (B,S,KV,hd) -> (out (B,S,H,hd) f32, lse (B,KV,G,Sq)).
+    q is padded to a multiple of qc and, causal, k/v to one of kc, a
+    padded key at position 2**30, after every query, as the reference
+    pads."""
+
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(q, k, v, window: int, qc: int, kc: int):
+        B, S, H, hd = q.shape
+        KV = k.shape[2]
+        G = H // KV
+        scale = 1.0 / math.sqrt(hd)
+        qt, kt, vt, kpos, Sq, Sk = _chunk_layout(q, k, v, window, qc, kc)
+        outs, lses = [], []
+        for i in range(Sq // qc):
+            qb = qt[:, :, :, i * qc:(i + 1) * qc].float()
+            qpos = torch.arange(i * qc, (i + 1) * qc, device=q.device)
+            m = l = acc = None
+            for k0, k1 in _key_ranges(i, qc, kc, S, Sk, window):
+                s = _tile_scores(qb, kt[:, :, k0:k1].float(), qpos,
+                                 kpos[k0:k1], window, scale)
+                vb = vt[:, :, k0:k1].float()
+                if m is None:
+                    m = s.amax(dim=-1)
+                    p = torch.exp(s - m[..., None])
+                    l = p.sum(dim=-1)
+                    acc = torch.einsum("bkgqc,bkcd->bkgqd", p, vb)
+                    continue
+                m_new = torch.maximum(m, s.amax(dim=-1))
+                p = torch.exp(s - m_new[..., None])
+                corr = torch.exp(m - m_new)
+                l = l * corr + p.sum(dim=-1)
+                acc = acc * corr[..., None] + torch.einsum(
+                    "bkgqc,bkcd->bkgqd", p, vb)
+                m = m_new
+            outs.append(acc / torch.clamp_min(l, 1e-30)[..., None])
+            lses.append(m + torch.log(l))
+        out = torch.cat(outs, dim=3)[:, :, :, :S]          # (B,KV,G,S,hd)
+        out = out.permute(0, 3, 1, 2, 4).reshape(B, S, H, hd)
+        return out, torch.cat(lses, dim=3)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        q, k, v, window, qc, kc = inputs
+        out, lse = output
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.cfg = (window, qc, kc)
+        ctx.mark_non_differentiable(lse)
+
+    @staticmethod
+    def backward(ctx, dout, _dlse):
+        q, k, v, out, lse = ctx.saved_tensors
+        window, qc, kc = ctx.cfg
+        B, S, H, hd = q.shape
+        KV = k.shape[2]
+        G = H // KV
+        scale = 1.0 / math.sqrt(hd)
+        qt, kt, vt, kpos, Sq, Sk = _chunk_layout(q, k, v, window, qc, kc)
+        pS = Sq - S
+        # (B,S,H,hd) -> (B,KV,G,Sq,hd), padded rows zero
+        dot = F.pad(dout.float().reshape(B, S, KV, G, hd)
+                    .permute(0, 2, 3, 1, 4), (0, 0, 0, pS))
+        ot = F.pad(out.reshape(B, S, KV, G, hd).permute(0, 2, 3, 1, 4),
+                   (0, 0, 0, pS))
+        delta = (dot * ot).sum(dim=-1)                     # (B,KV,G,Sq)
+        dqs = []
+        dk = dv = None
+        for i in range(Sq // qc):
+            sl = slice(i * qc, (i + 1) * qc)
+            qb, do_i = qt[:, :, :, sl].float(), dot[:, :, :, sl]
+            qpos = torch.arange(i * qc, (i + 1) * qc, device=q.device)
+            dq_i = None
+            for k0, k1 in _key_ranges(i, qc, kc, S, Sk, window):
+                kb, vb = kt[:, :, k0:k1].float(), vt[:, :, k0:k1].float()
+                s = _tile_scores(qb, kb, qpos, kpos[k0:k1], window, scale)
+                p = torch.exp(s - lse[:, :, :, sl, None])
+                dp = torch.einsum("bkgqd,bkcd->bkgqc", do_i, vb)
+                ds = p * (dp - delta[:, :, :, sl, None])
+                dq_t = torch.einsum("bkgqc,bkcd->bkgqd", ds, kb) * scale
+                dq_i = dq_t if dq_i is None else dq_i + dq_t
+                pad = (0, 0, k0, Sk - k1)
+                dk_t = F.pad(torch.einsum("bkgqc,bkgqd->bkcd", ds, qb)
+                             * scale, pad)
+                dv_t = F.pad(torch.einsum("bkgqc,bkgqd->bkcd", p, do_i),
+                             pad)
+                dk = dk_t if dk is None else dk + dk_t
+                dv = dv_t if dv is None else dv + dv_t
+            dqs.append(dq_i)
+        dq = torch.cat(dqs, dim=3)[:, :, :, :S]
+        dq = dq.permute(0, 3, 1, 2, 4).reshape(B, S, H, hd).to(q.dtype)
+        dk = dk[:, :, :S].permute(0, 2, 1, 3).to(k.dtype)
+        dv = dv[:, :, :S].permute(0, 2, 1, 3).to(v.dtype)
+        return dq, dk, dv, None, None, None
+
+
+def _chunk_layout(q, k, v, window: int, qc: int, kc: int):
+    """Head-major padded operands of `_ChunkedAttention`: qt (B,KV,G,Sq,hd),
+    kt/vt (B,KV,Sk,hd) in their own dtype, the keys' positions (Sk,),
+    padded keys at 2**30; Sq, Sk."""
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    pS = (-S) % qc
+    pK = 0 if window else (-S) % kc
+    qt = F.pad(q.reshape(B, S, KV, H // KV, hd).permute(0, 2, 3, 1, 4),
+               (0, 0, 0, pS))
+    kt = F.pad(k.permute(0, 2, 1, 3), (0, 0, 0, pK))
+    vt = F.pad(v.permute(0, 2, 1, 3), (0, 0, 0, pK))
+    Sk = S + pK
+    kpos = torch.arange(Sk, device=q.device)
+    kpos = torch.where(kpos < S, kpos, torch.full_like(kpos, _PAD_POS))
+    return qt, kt, vt, kpos, S + pS, Sk
+
+
+def chunked_causal_attention(q, k, v, *, q_chunk: int = _CHUNK_Q,
+                             k_chunk: int = _CHUNK_K):
+    """Causal flash attention over q chunks of `q_chunk` and key blocks of
+    `k_chunk` (the reference's, in XLA scans): memory O(q_chunk * k_chunk)
+    per tile instead of O(S^2), forward and backward. q: (B,S,H,hd);
+    k/v: (B,S,KV,hd) -> (B,S,H,hd) in q's dtype."""
+    S = q.shape[1]
+    out, _ = _ChunkedAttention.apply(q, k, v, 0, min(q_chunk, S),
+                                     min(k_chunk, S))
+    return out.to(q.dtype)
+
+
+def chunked_window_attention(q, k, v, window: int, *,
+                             q_chunk: int = _CHUNK_Q):
+    """Exact sliding-window attention, linear in S: each q chunk attends to
+    its live key slice [chunk_start - window, chunk_end) (the reference's,
+    whose slice runs over keys left-padded by `window`)."""
+    S = q.shape[1]
+    qc = min(q_chunk, S)
+    out, _ = _ChunkedAttention.apply(q, k, v, window, qc, qc)
+    return out.to(q.dtype)
+
+
 class RowPositions(NamedTuple):
     """Per-row decode positions as the masks a decode step uses, built once
     per step by `row_positions`: `hit` (B, T, 1, 1) marks each row's cache
@@ -326,35 +506,85 @@ def ce_chunk_body(carry, xs, w_or_emb, tied: bool):
             z_sum + torch.sum(lse * lse * m)), None
 
 
+class _StreamedCE(torch.autograd.Function):
+    """The streamed head + CE over seq chunks of `chunk`: (nll_sum, z_sum)
+    of h (B, Sp, D) against targets and the valid mask (B, Sp). The
+    forward keeps no chunk's logits; the backward recomputes each chunk's
+    (`ce_chunk_body`'s arithmetic) and forms its gradient from the softmax:
+    d nll = p - onehot(gold), d z = 2 lse p, masked by `valid`. The
+    weight's gradient is each chunk's product in the compute dtype, summed
+    in f32 in chunk order, as autograd through the weight's cast sums it.
+    A Function rather than `torch.utils.checkpoint`, which fails under
+    `torch.vmap` (the fused trainer's forward); `generate_vmap_rule` lets
+    vmap run it."""
+
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(h, w, targets, valid, tied: bool, chunk: int):
+        zero = torch.zeros((), dtype=torch.float32, device=h.device)
+        carry = (zero, zero)
+        for i in range(h.shape[1] // chunk):
+            sl = slice(i * chunk, (i + 1) * chunk)
+            carry, _ = ce_chunk_body(carry, (h[:, sl], targets[:, sl],
+                                             valid[:, sl]), w, tied)
+        return carry
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        h, w, targets, valid, tied, chunk = inputs
+        ctx.save_for_backward(h, w, targets, valid)
+        ctx.cfg = (tied, chunk)
+
+    @staticmethod
+    def backward(ctx, g_nll, g_z):
+        h, w, targets, valid = ctx.saved_tensors
+        tied, chunk = ctx.cfg
+        wd = w.to(h.dtype)
+        dhs, dw = [], None
+        for i in range(h.shape[1] // chunk):
+            sl = slice(i * chunk, (i + 1) * chunk)
+            hc = h[:, sl]
+            if tied:
+                logits = torch.einsum("bcd,vd->bcv", hc, wd)
+            else:
+                logits = torch.einsum("bcd,dv->bcv", hc, wd)
+            lf = logits.to(torch.float32)
+            lse = torch.logsumexp(lf, dim=-1)
+            p = torch.exp(lf - lse[..., None])
+            gold = torch.arange(lf.shape[-1], device=h.device) \
+                == targets[:, sl, None].to(torch.int64)
+            m = valid[:, sl].to(torch.float32)[..., None]
+            dl = (m * (g_nll * torch.where(gold, p - 1.0, p)
+                       + (2.0 * g_z) * lse[..., None] * p)).to(h.dtype)
+            if tied:
+                dhs.append(torch.einsum("bcv,vd->bcd", dl, wd))
+                dw_c = torch.einsum("bcv,bcd->vd", dl, hc)
+            else:
+                dhs.append(torch.einsum("bcv,dv->bcd", dl, wd))
+                dw_c = torch.einsum("bcv,bcd->dv", dl, hc)
+            dw_c = dw_c.to(w.dtype)
+            dw = dw_c if dw is None else dw + dw_c
+        return torch.cat(dhs, dim=1), dw, None, None, None, None
+
+
 def chunked_cross_entropy(cfg, emb_p, h, targets, *, chunk: int = CE_CHUNK,
                           z_loss: float = 1e-4):
     """Streamed head + CE over seq chunks. h: (B,S,D); targets: (B,S). Each
-    chunk's logits are recomputed in the backward (activation
-    checkpointing), never kept, as the reference's `jax.checkpoint` with
-    nothing saveable does."""
-    from torch.utils.checkpoint import checkpoint
-
+    chunk's logits are recomputed in the backward (`_StreamedCE`), never
+    kept, as the reference's `jax.checkpoint` with nothing saveable
+    does."""
     B, S, D = h.shape
     c = min(chunk, S)
     pS = (-S) % c
     if pS:
         h = F.pad(h, (0, 0, 0, pS))
         targets = F.pad(targets, (0, pS))
-    n = h.shape[1] // c
-    valid = (torch.arange(h.shape[1], device=h.device) < S).reshape(n, c)
+    valid = (torch.arange(h.shape[1], device=h.device) < S).expand(
+        B, h.shape[1])
     w = emb_p["tok"] if cfg.tie_embeddings else emb_p["head"]
-
-    def body(nll_sum, z_sum, hc, tc, vc):
-        return ce_chunk_body((nll_sum, z_sum), (hc, tc, vc), w,
-                             cfg.tie_embeddings)[0]
-
-    carry = (torch.zeros((), dtype=torch.float32, device=h.device),
-             torch.zeros((), dtype=torch.float32, device=h.device))
-    for i in range(n):
-        sl = slice(i * c, (i + 1) * c)
-        carry = checkpoint(body, *carry, h[:, sl], targets[:, sl],
-                           valid[i].expand(B, c), use_reentrant=False)
-    nll_sum, z_sum = carry
+    nll_sum, z_sum = _StreamedCE.apply(h, w, targets, valid,
+                                       cfg.tie_embeddings, c)
     n_tok = B * S
     loss = nll_sum / n_tok
     if z_loss:

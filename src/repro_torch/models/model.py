@@ -116,8 +116,10 @@ class Model:
         gen = torch.Generator(device=self.device).manual_seed(seed)
         return tfm.init_lm(gen, self.cfg, self.device)
 
-    def loss(self, params, batch):
-        return tfm.lm_loss(self.cfg, params, batch)
+    def loss(self, params, batch, ctx=None):
+        """(loss, metrics); `ctx` (a `transformer.ShardCtx`) runs the MoE
+        layers expert-parallel over its model group."""
+        return tfm.lm_loss(self.cfg, params, batch, ctx)
 
     def prefill(self, params, batch, max_len: int, row_blocks: int = 1):
         """`row_blocks` > 1: the rows are that many independent batches
@@ -216,7 +218,7 @@ class EncDecModel(Model):
         gen = torch.Generator(device=self.device).manual_seed(seed)
         return encdec_lib.init_encdec(gen, self.cfg, self.device)
 
-    def loss(self, params, batch):
+    def loss(self, params, batch, ctx=None):
         return encdec_lib.encdec_loss(self.cfg, params, batch)
 
     def _prefill(self, params, batch, max_len: int):

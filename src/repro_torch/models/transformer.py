@@ -20,6 +20,7 @@ mean the same leaf in both packages. The audio family (enc-dec) is
 """
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -139,12 +140,37 @@ def _stages(cfg, tree):
 # Blocks
 # ---------------------------------------------------------------------------
 
+@dataclass
+class ShardCtx:
+    """A rank's place on a process mesh for the layers that shard (the
+    reference's `ShardCtx`): its `launch/mesh.py::ProcessMesh` and a
+    `sharding.Resolver` over it. `act` is the identity: each rank holds
+    its own tokens, and every exchange is an explicit collective
+    (`models/moe.py::moe_mlp_ep`), where the reference constrains GSPMD."""
+
+    mesh: Any
+    resolver: Any
+
+    def act(self, x, *logical):
+        return x
+
+    def tp_size(self) -> int:
+        r = self.resolver.rules
+        return r.axis_size(self.mesh, r.model_axes)
+
+
 def _attention_dispatch(cfg, q, k, v, window: int = 0):
-    """attention_impl="pallas": the flash kernel K2 (its plain version on the
-    CPU); otherwise exact plain attention at every length (the reference's
-    chunked and windowed XLA forms compute the same function)."""
+    """The reference's dispatch: attention_impl="pallas", the flash kernel
+    K2 (its plain version on the CPU); else a window shorter than S, the
+    chunked windowed form; else S > CHUNKED_THRESHOLD, the chunked causal
+    form; else exact attention with the (S, S) scores."""
+    S = q.shape[1]
     if cfg.attention_impl == "pallas":
         return ops.flash_attention(q, k, v, causal=True, window=window)
+    if window and S > window:
+        return nn.chunked_window_attention(q, k, v, window)
+    if S > nn.CHUNKED_THRESHOLD:
+        return nn.chunked_causal_attention(q, k, v)
     return nn.causal_attention(q, k, v, window)
 
 
@@ -159,12 +185,13 @@ def _attn_full(cfg, ln, ap, x, sin, cos, window: int = 0):
     return x + nn.out_project(cfg, ap, o), k, v
 
 
-def _mlp_sub(cfg, lp, x, groups: int = 1):
+def _mlp_sub(cfg, lp, x, groups: int = 1, ctx=None):
     """Pre-norm MLP (or MoE) sub-block -> (x + mlp, moe aux or None). A MoE
-    layer routes the rows as `groups` dispatch groups (`moe.moe_mlp`)."""
+    layer routes the rows as `groups` dispatch groups, or over the model
+    group of `ctx` (`moe.moe_mlp`)."""
     h = nn.rms_norm(x, lp["ln2"], cfg.norm_eps)
     if _is_moe(cfg) and "router" in lp["mlp"]:
-        o, aux = moe_lib.moe_mlp(cfg, lp["mlp"], h, groups)
+        o, aux = moe_lib.moe_mlp(cfg, lp["mlp"], h, groups, ctx=ctx)
         return x + o, aux
     return x + nn.mlp(cfg, lp["mlp"], h), None
 
@@ -285,12 +312,12 @@ def _embed(cfg, params, tokens, frontend_embeds=None):
 
 
 def lm_hidden(cfg, params, tokens, frontend_embeds=None,
-              collect_kv: bool = False):
+              collect_kv: bool = False, ctx=None):
     """tokens: (B, S_text); frontend_embeds: (B, P, D) or None ->
     (hidden (B,S,D), kv or None, aux dict), S = P + S_text. kv is (k, v),
     each (L, B, S, KV, hd), when `collect_kv` (layer stacks only); aux holds
     the moe family's `moe_aux` and `moe_drop_frac`, each the mean over
-    layers."""
+    layers. `ctx` (a `ShardCtx`) reaches the MoE sub-block."""
     x = _embed(cfg, params, tokens, frontend_embeds)
     S = x.shape[1]
     sin, cos = nn.rope_tables(torch.arange(S, device=x.device),
@@ -305,7 +332,7 @@ def lm_hidden(cfg, params, tokens, frontend_embeds=None,
         for i in range(cfg.num_layers):
             lp = layer_params(params, i)
             x, k, v = _attn_full(cfg, lp["ln1"], lp["attn"], x, sin, cos)
-            x, aux = _mlp_sub(cfg, lp, x)
+            x, aux = _mlp_sub(cfg, lp, x, ctx=ctx)
             if collect_kv:
                 ks.append(k)
                 vs.append(v)
@@ -320,7 +347,7 @@ def lm_hidden(cfg, params, tokens, frontend_embeds=None,
     return x, kv, aux_out
 
 
-def lm_loss(cfg, params, batch):
+def lm_loss(cfg, params, batch, ctx=None):
     """batch: {"tokens": (B,S), "targets": (B,S), ["frontend_embeds"]} ->
     (loss, metrics). The loss covers text positions only; moe adds
     0.01 * moe_aux. Sequences longer than CE_CHUNK stream the head + CE
@@ -333,7 +360,7 @@ def lm_loss(cfg, params, batch):
             "attention_impl='pallas' has no backward (K2 is forward-only, as "
             "the reference's Pallas kernel is): train with 'xla'")
     fe = batch.get("frontend_embeds")
-    h, _, aux = lm_hidden(cfg, params, batch["tokens"], fe)
+    h, _, aux = lm_hidden(cfg, params, batch["tokens"], fe, ctx=ctx)
     if fe is not None:
         h = h[:, fe.shape[1]:, :]     # text positions only
     if h.shape[1] > nn.CE_CHUNK:

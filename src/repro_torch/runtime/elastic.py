@@ -311,6 +311,11 @@ class ElasticTrainer:
                 deg_cfg = dataclasses.replace(
                     self.cfg, sedar=dataclasses.replace(
                         self.cfg.sedar, replication="none"))
+                if deg_mesh is not None:
+                    deg_cfg = dataclasses.replace(
+                        deg_cfg, mesh=dataclasses.replace(
+                            self.cfg.mesh, shape=deg_mesh.shape,
+                            axis_names=deg_mesh.axis_names))
                 trainer = make_trainer(deg_cfg, side, mesh=deg_mesh,
                                        **self.trainer_kw)
             new_data, new_batch = old_data, batch

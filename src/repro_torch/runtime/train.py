@@ -82,6 +82,7 @@ from repro_torch.core.policy import make_engine
 from repro_torch.core.recovery import make_recovery
 from repro_torch.data import make_pipeline
 from repro_torch.device import make_deterministic, resolve_device, upload
+from repro_torch.launch.mesh import axis_sizes
 from repro_torch.models import build_model
 from repro_torch.optim import make_optimizer
 
@@ -146,11 +147,23 @@ class SedarTrainer:
                 f"{self.backend!r} runs on one card: a process mesh takes "
                 f"{MESH_BACKENDS} or 'none' (the elastic trainer's "
                 "survivors of a lost replica pod)")
+        # the mesh's shape comes from run_cfg.mesh alone; `mesh` supplies
+        # this rank's indices and the process groups
+        sizes = axis_sizes(run_cfg.mesh)
+        self.n_pods, self.n_data = sizes.get("pod", 1), sizes.get("data", 1)
         if mesh is not None:
-            if run_cfg.train.global_batch % mesh.n_data:
+            if axis_sizes(mesh) != sizes:
+                raise ValueError(
+                    f"the process mesh {axis_sizes(mesh)} disagrees with "
+                    f"run_cfg.mesh {sizes}")
+            if sizes.get("model", 1) > 1:
+                raise NotImplementedError(
+                    "the trainer shards no state over a model axis (expert "
+                    "parallelism runs in models/moe.py::moe_mlp_ep)")
+            if run_cfg.train.global_batch % self.n_data:
                 raise ValueError(
                     f"global batch {run_cfg.train.global_batch} does not "
-                    f"split over {mesh.n_data} data shards")
+                    f"split over {self.n_data} data shards")
             # ranks must not write the same files
             workdir = os.path.join(workdir, f"rank{mesh.rank}")
         self.workdir = workdir
@@ -302,7 +315,7 @@ class SedarTrainer:
         for k, v in self.data.batch(step).items():
             v = np.asarray(v)
             if self.mesh is not None:
-                rows = v.shape[0] // self.mesh.n_data
+                rows = v.shape[0] // self.n_data
                 v = v[self.mesh.data * rows:(self.mesh.data + 1) * rows]
             if np.issubdtype(v.dtype, np.integer):
                 v = v.astype(np.int64)
@@ -321,10 +334,10 @@ class SedarTrainer:
         # pod: one fingerprint lane per data shard, compared by reductions
         # (a divergence localizes to a shard and its hosts); vote: the
         # whole-state fingerprint and its gather, which the vote consumes
-        self._n_lanes = mesh.n_data if self.backend == "pod" else 0
+        self._n_lanes = self.n_data if self.backend == "pod" else 0
         kw: Dict[str, Any] = dict(
             pod_step=self._pod_step, pod_validate=self._pod_validate,
-            n_replicas=mesh.n_pods)
+            n_replicas=self.n_pods)
         if self._n_lanes:
             from repro_torch.runtime.cluster import lanes_to_hosts
             self._lane_cmp = make_lane_comparator(mesh)
@@ -339,7 +352,7 @@ class SedarTrainer:
         """The global batch's loss and grads from this rank's shard: the
         mean of the data group's shard means (equal shards), every grads
         leaf summed in place over the group and scaled by 1 / D."""
-        D = self.mesh.n_data
+        D = self.n_data
         if D == 1:
             return loss, grads
         group = self.mesh.data_group

@@ -4,7 +4,8 @@ call), the protected serving path through K1/K2, the ABFT slice
 (K3, K4, a replica-free generate), training (the replicas' grads, fused's
 stacked grads, a device-tier restore), the replica campaign at n=4096 and
 the telemetry loop at full width (no added read or launch; a journaled
-fault run that reconciles). Every test
+fault run that reconciles), the chunked attentions and F3's non-finite
+residual on CUDA tensors. Every test
 here is marked `cuda` and skips without a card. The file imports nothing of
 JAX, so it also runs on a machine without it:
 
@@ -1108,3 +1109,42 @@ def test_journaled_slot_fault_reconciles_at_full_width(card):
                          reconfigs=eng.reconfigs) == {
         "detections_match": True, "recoveries_match": True,
         "alerts_match": True, "reconfigs_match": True}
+
+
+@pytest.mark.parametrize("window", [0, 96])
+def test_chunked_attention_on_the_card_matches_exact(card, window):
+    """The chunked causal and windowed forms on CUDA tensors (f32, no TF32)
+    against the exact (S, S) form: outputs and grads within 2e-5, at a
+    ragged length past CHUNKED_THRESHOLD for the causal form."""
+    from repro_torch.models import layers as nn
+    S = nn.CHUNKED_THRESHOLD + 60 if not window else 300
+    gen = torch.Generator(device="cuda").manual_seed(window)
+    q, k, v, ct = (torch.randn((1, S, n, 64), generator=gen, device=card)
+                   for n in (4, 2, 2, 4))
+    fn = (nn.chunked_causal_attention if not window else
+          lambda a, b, c: nn.chunked_window_attention(a, b, c, window,
+                                                      q_chunk=128))
+    res = []
+    for f in (fn, lambda a, b, c: nn.causal_attention(a, b, c, window)):
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        out = f(*leaves)
+        res.append([out] + list(torch.autograd.grad((out * ct).sum(),
+                                                    leaves)))
+    for a, b in zip(*res):
+        assert float((a - b).abs().max()) <= 2e-5
+
+
+def test_non_finite_residual_is_uncorrectable_on_the_card(card):
+    """F3 on CUDA tensors: a NaN element of a checksummed product fails its
+    row and column and is flagged uncorrectable, with no host read."""
+    from repro_torch.abft.ref import checksum_encode, verify_and_correct
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    a = torch.randn((6, 32), generator=gen, device=card)
+    b = torch.randn((32, 5), generator=gen, device=card)
+    c_full = torch.matmul(*checksum_encode(a, b))
+    c_full[2, 3] = float("nan")
+    with hostsync.count_transfers() as st:
+        _, rep = verify_and_correct(c_full, 32)
+    assert st.transfers == 0
+    assert bool(rep.detected) and bool(rep.uncorrectable)
+    assert not bool(rep.corrected)

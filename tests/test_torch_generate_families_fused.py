@@ -130,9 +130,9 @@ def test_both_decode_layouts_equal_a_replica_alone(fam):
     groups, blockwise = [], []
     mlp, in_blocks = moe.moe_mlp, m._in_blocks
 
-    def spy_mlp(cfg, lp, x, g=1):
+    def spy_mlp(cfg, lp, x, g=1, ctx=None):
         groups.append(g)
-        return mlp(cfg, lp, x, g)
+        return mlp(cfg, lp, x, g, ctx=ctx)
 
     def spy_blocks(*a):
         blockwise.append(True)

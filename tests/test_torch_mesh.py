@@ -364,7 +364,8 @@ def run_port(ref, name: str, tmp_path, shape=(2, 2, 1)):
     with open(ref["base"] / f"{name}_init.pkl", "rb") as f:
         init = pickle.load(f)
     n = shape[0] * shape[1]
-    return tmesh.spawn(launch_train.mesh_rank, n, _rc(steps, sedar),
+    return tmesh.spawn(launch_train.mesh_rank, n,
+                       _rc(steps, sedar).replace(mesh=_mesh(shape)),
                        _mesh(shape), str(tmp_path / name),
                        spec and InjectionSpec(**spec), "cpu", init,
                        threads=1, timeout_s=RANK_TIMEOUT_S)
@@ -432,8 +433,18 @@ def test_pod_launcher_on_the_cpu(tmp_path, monkeypatch, capsys):
 
 
 def test_model_axis_and_a_missing_mesh_raise(tmp_path):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        tmesh.make_process_mesh(_mesh((2, 2, 2)))
+    """The trainers shard no state over a model axis (expert parallelism
+    runs inside the MoE layer), and the mesh's shape comes from
+    run_cfg.mesh alone: a process mesh of another shape raises."""
+    mesh = tmesh.ProcessMesh((2, 2, 2), ("pod", "data", "model"), 0, 0, 0,
+                             None, None, [0, 4], list(range(8)))
+    rc = _rc(2, dict(replication="pod"))
+    with pytest.raises(NotImplementedError, match="model axis"):
+        SedarTrainer(rc.replace(mesh=_mesh((2, 2, 2))), str(tmp_path),
+                     device="cpu", mesh=mesh)
+    with pytest.raises(ValueError, match="disagrees with run_cfg.mesh"):
+        SedarTrainer(rc.replace(mesh=_mesh((2, 1, 1))), str(tmp_path),
+                     device="cpu", mesh=mesh)
     with pytest.raises(ValueError, match="needs mesh="):
         SedarTrainer(_rc(2, dict(replication="pod")), str(tmp_path),
                      device="cpu")

@@ -171,7 +171,7 @@ def test_vote_repair_matches_jax(ref, tmp_path):
     assert any(r["kind"] == "vote_repair" for r in want["recoveries"])
     with open(ref["base"] / "vote_init.pkl", "rb") as f:
         init = pickle.load(f)
-    rc = _rc(VOTE_STEPS, VOTE_SEDAR)
+    rc = _rc(VOTE_STEPS, VOTE_SEDAR).replace(mesh=_mesh((3, 2, 1)))
     reps = tmesh.spawn(vote_rank, 6, rc, (3, 2, 1), str(tmp_path), init,
                        threads=1, timeout_s=RANK_TIMEOUT_S)
     clean0 = reps[0]["clean"]["final"]
