@@ -1,6 +1,11 @@
 """Chip smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--phases a,b,...]
+
+`--phases` runs only the named phases and the phases they take a run from
+(`PHASES`, `PHASE_NEEDS`), for iterating on a few; without it every phase
+runs, as the contract's run does, and only then is every kernel's launch
+count held to be nonzero. The last line is the same either way.
 
 Builds the port's CUDA kernels from `src/repro_torch/csrc` (one nvcc per
 source, in parallel; ptxas's registers and spills are printed per kernel)
@@ -24,7 +29,7 @@ counts set to 0 just before it and read just after:
     the unprotected tokens; a kernel fault is corrected forward), with K1
     in place on the hybrid backend's fingerprint tree of a real state and
     a profile (launches per decode step) of dual, abft and hybrid;
-  * continuous-batching `SedarServer.serve` of the same model at 4 of its
+  * continuous-batching `SedarServer.serve` of the same model at 2 of its
     24 layers (8 requests in 4 slots, under sync-debug "error"):
     unprotected, dual and fused at
     lag 1 and lag 8, abft and hybrid, slot, kernel-domain and admission
@@ -56,12 +61,14 @@ counts set to 0 just before it and read just after:
   * the model families (phase families): protected `generate()` of
     recurrentgemma-2b (hybrid: RG-LRU blocks and local attention, 5 of
     26 layers, B=2 × 4,096 prompt tokens, K2 at hd 256 with its 2,048
-    window), internvl2-2b (vlm: 4 of 24 layers, 256 stub patch embeddings
-    + 256 tokens, hd 128), phi3.5-moe (moe, 4 of its 32 layers, hd 128),
-    xlstm-125m (ssm, 2 of 12 blocks) and
+    window), internvl2-2b (vlm: 2 of 24 layers, 256 stub patch embeddings
+    + 256 tokens, hd 128), phi3.5-moe (moe, 2 of its 32 layers, hd 128),
+    xlstm-125m (ssm, 2 of 12 blocks, 512 prompt tokens) and
     seamless-m4t-medium (audio, 3 + 3 of 12 + 12 layers) at full width
     under none, sequential,
-    abft, fused and hybrid in turns (equal streams, replica faults
+    abft, fused and hybrid in turns (the fused decode of the 2B stacked
+    rows bitwise equal to a replica alone in every family, at the host
+    position and at per-row positions; equal streams, replica faults
     retried, checksum-block faults corrected forward, hybrid's retry at an
     entry check with no false FSC and its catch of an at-rest flip), and
     K2 at each family's prefill shape against its plain version and SDPA;
@@ -73,7 +80,8 @@ counts set to 0 just before it and read just after:
   * protected training of the moe, hybrid, vlm, ssm and audio families
     (phase family_train): phi3.5-moe, recurrentgemma-2b, internvl2-2b,
     xlstm-125m and seamless-m4t-medium at full width (depth cut to fit
-    beside a dual run), 4 steps of 4 x 256 tokens under L3 on the device
+    beside a dual run), 4 steps of 4 x 256 tokens (xlstm 4 x 64) under L3
+    on the device
     tier with every backend, grads faults under sequential and fused and
     an at-rest flip under hybrid recovered bitwise, peaks, K1's launches
     against the code's count, and K1 on each family's grads and state
@@ -106,6 +114,16 @@ counts set to 0 just before it and read just after:
     of qwen2-0.5b at full width and depth at B = 1, S = 4,096 (the
     reference's train_4k length; peak, ms, K1 on the grads, no detection)
     and one xla prefill at that length;
+  * activation rematerialization (phases chunked, remat, plan): the S =
+    4,096 steps of phase chunked under remat none, minimal and full (one
+    forward + backward's peak in the order full < minimal < none); the
+    training cell (4 x 256 tokens, 6 steps) under none, sequential and
+    fused at the three policies and a sequential step at B = 8, S =
+    4,096 under full, every policy's losses and final fingerprints
+    bitwise equal; then `launch/dryrun.py::run_cell`'s predictions (run
+    meanwhile in a child process on the host's CPU) beside the measured
+    peaks, its state bytes equal to the trainers' exactly. The training
+    phases before them pin remat "none" (`PINNED_REMAT`);
   * expert parallelism (phase ep): 2 ranks of a (data 1, model 2) process
     mesh on this card over gloo, one phi3.5-moe layer at full width through
     `Model.loss(ctx=)` (8 experts a rank): loss, aux, drop fraction and
@@ -162,6 +180,17 @@ TRAIN_SEQ = 256
 TRAIN_STEPS = 6
 TRAIN_BACKENDS = ("none", "sequential", "fused", "abft", "hybrid")
 PROFILE_TRIES = 3   # profiles of one measurement that may keep no record
+# The training phases that came before activation rematerialization keep
+# their times with the remat policy pinned to "none" (the full-size
+# configs default to the reference's "full"): the three policies are
+# bitwise equal (phases remat and chunked hold them so), so the pin
+# changes a run's time and peak, not its numbers (PERF.md section 4)
+PINNED_REMAT = "none"
+
+
+def pinned(cfg):
+    """`cfg` with the remat policy of the phases that keep their times."""
+    return dataclasses.replace(cfg, remat=PINNED_REMAT)
 
 
 def fail(msg: str) -> None:
@@ -1292,10 +1321,10 @@ SERVE_LAG = 8
 SERVE_FAULT_TICK = 5
 SERVE_MAX_LEN = 256 + 32 + 8
 SERVE_TURN_STEPS = 16
-# the serve phase's depth: 4 of qwen2-0.5b's 24 layers (8 before the
-# chunked, ep and f3 phases came; cut for the script's time: PERF.md
-# section 4)
-SERVE_LAYERS = 4
+# the serve phase's depth: 2 of qwen2-0.5b's 24 layers (8 before the
+# chunked, ep and f3 phases came, 4 before the remat phases; cut for the
+# script's time: PERF.md section 4)
+SERVE_LAYERS = 2
 SERVE_PROFILE_STEPS = 8
 BF16_EXP_BIT = 14   # the top exponent bit of a bf16, bit 30 of an f32
 
@@ -1882,7 +1911,7 @@ def phase_train(kfp):
         return f"[train phase +{time.time() - t_phase:.1f} s]"
 
     dev = torch.device("cuda")
-    cfg = get_config("qwen2-0.5b")
+    cfg = pinned(get_config("qwen2-0.5b"))
     data = SyntheticLM(cfg.vocab_size, BATCH, TRAIN_SEQ, seed=0)
     l3 = SedarConfig(level=3, replication="sequential", validate_interval=1,
                      param_validate_interval=2, checkpoint_interval=2)
@@ -2948,8 +2977,10 @@ FAMILY_INTERVAL = 4       # hybrid's entry check at positions divisible by 4
 FAMILY_BACKENDS = ("none", "sequential", "abft", "fused", "hybrid")
 # (arch, batch, prompt tokens, layers kept of the config's or None): full
 # width, seeded weights; phi3.5-moe's 32 layers would need ~167 GB of f32
-# weights, its depth is cut to 8 (~42 GB). xlstm-125m's prompt is 4 mLSTM
-# chunks; its depth is cut to 2 of 12 blocks (one (mLSTM, sLSTM) group) for
+# weights, its depth is cut to 8 (~42 GB). xlstm-125m's prompt is 2 mLSTM
+# chunks (4 before the remat phases, for the script's time: the sLSTM
+# token loop is its prefill); its depth is cut to 2 of 12 blocks (one
+# (mLSTM, sLSTM) group) for
 # the script's time: its sLSTM token loop took 98.6% of a 12-block prefill
 # (3.5-7.5 s each, ~17 per run of this phase), and the script with the
 # training phase of the families ran 1,163.9 s at 12 blocks on an NVIDIA
@@ -2957,13 +2988,14 @@ FAMILY_BACKENDS = ("none", "sequential", "abft", "fused", "hybrid")
 # seamless-m4t-medium's encoder takes 1,024 stub frames. Since the elastic
 # phases came, for the script's time (PERF.md section 4): recurrentgemma-2b
 # keeps 5 of its 26 layers (one (rec, rec, attn) group and the (rec, rec)
-# tail, as in FAMILY_SERVE_CASES), internvl2-2b 4 of 24, phi3.5-moe 4 of 32
+# tail, as in FAMILY_SERVE_CASES), internvl2-2b 2 of 24, phi3.5-moe 2 of 32
 # and seamless-m4t-medium 3 + 3 of its 12 + 12 (8, 8 and 6 + 6 before the
-# chunked, ep and f3 phases came).
+# chunked, ep and f3 phases came; internvl2-2b and phi3.5-moe 4 before the
+# remat phases).
 FAMILY_CASES = (("recurrentgemma-2b", 2, 4096, 5),
-                ("internvl2-2b", 4, 256, 4),
-                ("phi3.5-moe-42b-a6.6b", 4, 256, 4),
-                ("xlstm-125m", 4, 1024, 2),
+                ("internvl2-2b", 4, 256, 2),
+                ("phi3.5-moe-42b-a6.6b", 4, 256, 2),
+                ("xlstm-125m", 4, 512, 2),
                 ("seamless-m4t-medium", 4, 256, 3))
 
 
@@ -3072,77 +3104,48 @@ def _family_run(kfp, kfa, srv, params, prompt, what: str,
 STACKED_STEPS = 8
 
 
-def stacked_decode_bits(model, params, prompt, pos: int, what: str) -> bool:
-    """The fused backend's two layouts of a family's decode, bit for bit on
-    the card: one prefill of B rows, its cache stacked twice along each
-    leaf's slot axis, then STACKED_STEPS greedy steps of the B rows alone
-    against the 2B stacked rows decoded together with the attention per
-    half (`Model._decode(row_blocks=2)`) and against each half decoded on
-    its own (`Model._in_blocks`); at the host position (generate()) and,
-    for a family `serve()` takes, at per-row positions (each row its own
-    MoE dispatch group). A MoE model also holds its expert products at
-    the decode buffer's rows of one replica (G * Cg) against the first
-    rows of twice as many. Prints each; returns whether the stacked
-    decode kept a replica's logits bits at every step."""
-    from repro_torch.models import moe, transformer as tfm
-    from repro_torch.tree import tree_map
-
+def stacked_decode_bits(model, params, prompt, pos: int, what: str) -> None:
+    """The fused backend's decode of a family, bit for bit on the card: one
+    prefill of B rows, its cache stacked twice along each leaf's slot axis,
+    then STACKED_STEPS greedy steps of the B rows alone against the 2B
+    stacked rows decoded together (`Model.decode_step(row_blocks=2)`: the
+    attention, the feature means and xlstm's gate products per block,
+    `layers.row_blocks`, every other op stacked), at the host position
+    (generate()) and, for a family `serve()` takes, at per-row positions
+    (each row its own MoE dispatch group). Prints each and fails unless
+    both halves of every step's logits equal the replica's."""
     cfg, dev = model.cfg, torch.device("cuda")
     B = prompt["tokens"].shape[0]
     _, cache0 = model.prefill(params, prompt, pos + STACKED_STEPS + 8)
     axes = model.slot_axes()
     row_pos = [False] + ([True] if cfg.family in ("moe", "hybrid", "ssm")
                          else [])
-    stacked_ok = True
+    from repro_torch.tree import tree_map
     for per_row in row_pos:
         one = tree_map(lambda c: c.clone(), cache0)
         two = tree_map(lambda c, ax: torch.cat([c, c], dim=ax), cache0, axes)
-        blk = tree_map(lambda c: c.clone(), two)
         tok = prompt["tokens"][:, -1]
-        first, worst, blk_same = None, 0.0, True
+        first, worst = None, 0.0
         for s in range(STACKED_STEPS):
             p1 = torch.full((B,), pos + s, device=dev) if per_row else pos + s
             p2 = torch.cat([p1, p1]) if per_row else p1
-            tok2 = torch.cat([tok, tok])
-            l1, one = model._decode(params, one, tok, p1)
-            l2, two = model._decode(params, two, tok2, p2, row_blocks=2)
-            l3, blk = model._in_blocks(params, blk, tok2, p2, 2)
-            same = torch.equal(l1, l2[:B]) and torch.equal(l1, l2[B:])
-            if not same and first is None:
+            l1, one = model.decode_step(params, one, tok, p1)
+            l2, two = model.decode_step(params, two, torch.cat([tok, tok]),
+                                        p2, row_blocks=2)
+            if first is None and not (torch.equal(l1, l2[:B])
+                                      and torch.equal(l1, l2[B:])):
                 first = s
-            worst = max(worst, float((l2[:B].float() - l1.float()).abs()
-                                     .max()))
-            blk_same &= torch.equal(l1, l3[:B]) and torch.equal(l1, l3[B:])
+            worst = max(worst, float((l2.float() - torch.cat([l1, l1])
+                                      .float()).abs().max()))
             tok = torch.argmax(l1, -1)
-        stacked_ok &= first is None
-        off = ("" if first is None else f" (first off at step {first}, "
-               f"max |dlogit| {worst:.3e})")
         print(f"  stacked decode ({'per-row' if per_row else 'host'} "
               f"positions, {STACKED_STEPS} steps from {pos}): 2B rows "
-              f"together bitwise equal to a replica alone "
-              f"{first is None}{off}; each half on its own {blk_same}",
-              flush=True)
-        check(blk_same, f"{what}: a half decoded on its own differs from a "
-              f"replica alone")
-    if cfg.family == "moe":
-        lp = tfm.layer_params(params, 0)["mlp"]
-        gen = torch.Generator(device=dev).manual_seed(5)
-        res = {}
-        for rows in (moe.capacity(cfg, B), SERVE_SLOTS * moe.capacity(cfg, 1)):
-            buf = torch.randn(cfg.num_experts, rows, cfg.d_model,
-                              generator=gen, device=dev).bfloat16()
-            hid = torch.randn(cfg.num_experts, rows, cfg.d_ff,
-                              generator=gen, device=dev).bfloat16()
-            for name, x, w, eq in (
-                    ("w_gate", buf, lp["w_gate"], "ecd,edf->ecf"),
-                    ("w_down", hid, lp["w_down"], "ecf,efd->ecd")):
-                a = torch.einsum(eq, x, w.bfloat16())
-                b = torch.einsum(eq, torch.cat([x, x], 1), w.bfloat16())
-                res[f"{name} {rows} vs {2 * rows} rows"] = (
-                    torch.equal(a, b[:, :rows]) and torch.equal(a, b[:, rows:]))
-        print(f"  moe expert products, the first rows bitwise equal at the "
-              f"stacked buffer's height: {res}", flush=True)
-    return stacked_ok
+              f"together bitwise equal to a replica alone {first is None}"
+              f"{'' if first is None else f' (first off at step {first})'}"
+              f", max |dlogit| {worst:.3e}", flush=True)
+        check(first is None, f"{what}: the stacked decode lost a replica's "
+              f"bits at step {first} ({'per-row' if per_row else 'host'} "
+              f"positions, max |dlogit| {worst:.3e})")
 
 
 def family_decode_profile(srv, params, prompt, pos: int, what: str) -> None:
@@ -3364,9 +3367,9 @@ def phase_families(kfp, kfa):
     hybrid an uncorrectable logits fault at an entry-check position retried
     with no false FSC, and (recurrentgemma, xlstm) an at-rest flip of a live
     ring slot or a recurrent state caught at the next entry check. Before
-    the runs, the fused backend's two decode layouts against a replica
-    alone (`stacked_decode_bits`): a family outside `BLOCKWISE_FAMILIES`
-    decodes stacked and must keep the bits. One unprotected decode step
+    the runs, the fused backend's stacked decode against a replica alone
+    (`stacked_decode_bits`), which must keep the bits in every family.
+    One unprotected decode step
     of each family is profiled. Then K2 at each
     attention family's prefill shape (xlstm has none). Returns (K1
     launches, the K2 kernel-line entries, one per family's shape, with
@@ -3377,7 +3380,6 @@ def phase_families(kfp, kfa):
     from repro_torch.core.injection import InjectionSpec
     from repro_torch.core.policy import make_server
     from repro_torch.models import moe, transformer as tfm
-    from repro_torch.models.model import BLOCKWISE_FAMILIES
     from repro_torch.tree import flatten_with_path, leaves
 
     t_phase = time.time()
@@ -3425,11 +3427,8 @@ def phase_families(kfp, kfa):
                   f"{float(aux['moe_aux']):.4f}", flush=True)
             del aux
         servers["none"].generate(params, prompt, steps=2)      # warm-up
-        stacked = stacked_decode_bits(servers["none"].model, params, prompt,
-                                      S + P, arch)
-        check(stacked or cfg.family in BLOCKWISE_FAMILIES,
-              f"{arch}: the fused backend decodes the stacked rows together, "
-              f"and they lost a replica's bits")
+        stacked_decode_bits(servers["none"].model, params, prompt, S + P,
+                            arch)
         runs = {}
         for b in FAMILY_BACKENDS:
             runs[b] = _family_run(kfp, kfa, servers[b], params, prompt,
@@ -3905,13 +3904,17 @@ FAMILY_TRAIN_STEPS = 4
 # never a width, and only as far as fused's peak needs; sgdm where even the
 # shallowest depth would not fit under adamw (PERF.md §4).
 # depths cut to fit beside a dual run (PERF.md section 4); since the
-# elastic phases, for the script's time, internvl2-2b 2 (8, then 4) and
-# seamless-m4t-medium 3 + 3 (12 + 12, then 6 + 6)
+# elastic phases, for the script's time, internvl2-2b 1 (8, 4, then 2) and
+# seamless-m4t-medium 1 + 1 (12 + 12, 6 + 6, then 3 + 3)
+# xlstm-125m trains on 64 tokens a sequence (256 before the remat phases;
+# its sLSTM token loop, forward and backward, was 151.3 s of the phase at
+# 256, for the script's time: PERF.md section 4)
+FAMILY_TRAIN_SEQ = {"xlstm-125m": 64}
 FAMILY_TRAIN_CASES = (("phi3.5-moe-42b-a6.6b", 1, "sgdm"),
                       ("recurrentgemma-2b", 3, "sgdm"),
-                      ("internvl2-2b", 2, "adamw"),
+                      ("internvl2-2b", 1, "adamw"),
                       ("xlstm-125m", 2, "adamw"),
-                      ("seamless-m4t-medium", 3, "adamw"))
+                      ("seamless-m4t-medium", 1, "adamw"))
 FAMILY_TRAIN_ABFT_MISS = ("phi3.5-moe-42b-a6.6b",)   # pure abft's miss shown
 FAMILY_TRAIN_BACKENDS = ("none", "sequential", "fused", "abft", "hybrid")
 
@@ -3991,9 +3994,11 @@ def phase_family_train(kfp) -> int:
     try:
         for arch, depth, opt in FAMILY_TRAIN_CASES:
             t_fam = time.time()
-            cfg = dataclasses.replace(get_config(arch), attention_impl="xla")
+            cfg = dataclasses.replace(get_config(arch), attention_impl="xla",
+                                      remat=PINNED_REMAT)
             cfg = cut_depth(cfg, depth)
-            tcfg = TrainConfig(global_batch=BATCH, seq_len=TRAIN_SEQ,
+            seq = FAMILY_TRAIN_SEQ.get(arch, TRAIN_SEQ)
+            tcfg = TrainConfig(global_batch=BATCH, seq_len=seq,
                                steps=steps, warmup_steps=2, optimizer=opt)
 
             def trainer(name, backend, spec=None):
@@ -4022,7 +4027,7 @@ def phase_family_train(kfp) -> int:
                   f" d={cfg.d_model} V={cfg.vocab_size}, {n_params} f32 "
                   f"params (seeded init {time.time() - t0:.2f} s), {opt}, "
                   f"{n_fp} {{params, opt}} leaves, batch {BATCH} x "
-                  f"{TRAIN_SEQ} tokens{front}, {steps} steps, L3 (FSC and "
+                  f"{seq} tokens{front}, {steps} steps, L3 (FSC and "
                   f"checkpoint every 2, device tier)", flush=True)
 
             def run(tr, state=None, n=steps):
@@ -4531,7 +4536,7 @@ def pod_rank(rank: int, backend: str, mesh_cfg, runs: list,
         return from_src
 
     rtrain.make_pod_broadcaster = counting_broadcaster
-    cfg = get_config("qwen2-0.5b")
+    cfg = pinned(get_config("qwen2-0.5b"))
     out = {}
     for name, sedar_kw, spec_kw in runs:
         rc = RunConfig(model=cfg, mesh=mesh_cfg,
@@ -4806,7 +4811,7 @@ def phase_elastic_train(kfp, seq_losses, seq_final, cfg=None,
     _free()
     dev = dev or torch.device("cuda")
     cuda = dev.type == "cuda"
-    cfg = cfg or get_config("qwen2-0.5b")
+    cfg = cfg or pinned(get_config("qwen2-0.5b"))
     rc = RunConfig(
         model=cfg,
         train=TrainConfig(global_batch=BATCH, seq_len=TRAIN_SEQ,
@@ -4913,7 +4918,8 @@ def phase_pod_elastic(kfp, cfg=None, device: str = "cuda") -> int:
               f"{torch.cuda.memory_reserved() / 2 ** 30:.2f} GiB reserved "
               f"while the ranks run", flush=True)
     cfg = cfg or dataclasses.replace(get_config("qwen2-0.5b"),
-                                     num_layers=POD_ELASTIC_LAYERS)
+                                     num_layers=POD_ELASTIC_LAYERS,
+                                     remat=PINNED_REMAT)
     mesh = MeshConfig(shape=(2, 2), axis_names=("pod", "data"))
     sedar = SedarConfig(level=3, replication="pod", validate_interval=1,
                         validate_lag=4, param_validate_interval=2,
@@ -5091,114 +5097,364 @@ def chunked_attention_check() -> dict:
             "chunked_gib": out["chunked"][3], "errs": errs}
 
 
-def chunked_train_steps(kfp, backends=("none", "sequential"),
-                        allow_oom: bool = False) -> int:
-    """One training step of qwen2-0.5b at full width and depth at S = 4096
-    per backend (TrainConfig(global_batch=1, seq_len=4096), SyntheticLM
-    (151936, 1, 4096, seed=0), adamw, L1: no checkpoint), then one xla
-    prefill at B = 1, S = 4096: peak, ms, K1's launches, detections (none
-    allowed; sequential's replicas must agree bitwise). `allow_oom`, for a
-    tree without the chunked forms: an out-of-memory step is reported and
-    the next one runs. Returns K1's launches in the sequential step."""
+def policy_runs(kfp, what: str, batch: int, seq: int, steps: int,
+                backends, policies, allow_oom: bool = False) -> dict:
+    """Runs of qwen2-0.5b at full width and depth, attention_impl="xla",
+    adamw, L1 (no checkpoint): one per (backend, remat policy) in turns,
+    `steps` steps of TrainConfig(global_batch=batch, seq_len=seq) from the
+    seed-0 state on SyntheticLM(151936, batch, seq, seed=0). Prints ms per
+    step (the first step's warm-up included), the peak
+    (`max_memory_allocated`), the losses and K1's launches; fails on a
+    detection. Returns {(backend, policy): {"ms", "peak", "losses", "fp",
+    "k1", "state_bytes"}}; a run that is out of memory is reported and
+    left out under `allow_oom`."""
     from repro_torch.configs import (RunConfig, SedarConfig, TrainConfig,
                                      get_config)
     from repro_torch.core.policy import make_trainer
     from repro_torch.data import SyntheticLM
+    from repro_torch.tree import leaves
+    import shutil
     import tempfile
+
+    dev = torch.device("cuda")
+    base = get_config("qwen2-0.5b")
+    data = SyntheticLM(base.vocab_size, batch, seq, seed=0)
+    root = tempfile.mkdtemp(prefix="sedar_remat_")
+    out = {}
+    try:
+        for b in backends:
+            for pol in policies:
+                _free()
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+                rc = RunConfig(model=dataclasses.replace(base, remat=pol),
+                               train=TrainConfig(global_batch=batch,
+                                                 seq_len=seq, steps=steps,
+                                                 warmup_steps=min(2, steps)),
+                               sedar=SedarConfig(level=1, replication=b))
+                tr = make_trainer(rc, os.path.join(root, f"{b}_{pol}"),
+                                  data=data, notify=lambda e: None,
+                                  device=dev)
+                try:
+                    state = tr.init_state(seed=0)
+                    state_bytes = sum(t.numel() * t.element_size()
+                                      for t in leaves(state))
+                    held = [tr.engine.executor.init_dual(state)]
+                    del state
+                    torch.cuda.synchronize()
+                    kfp.launch_count.reset()
+                    t0 = time.time()
+                    # the run holds the only reference to its first state,
+                    # which it drops once a step has replaced it
+                    dual, rep = tr.run(steps, dual=held.pop())
+                    torch.cuda.synchronize()
+                    ms = (time.time() - t0) * 1e3 / steps
+                except torch.cuda.OutOfMemoryError as e:
+                    if not allow_oom:
+                        raise
+                    msg = str(e).splitlines()[0][:200]
+                    gib = torch.cuda.max_memory_allocated() / 2 ** 30
+                    print(f"{what}: {b} remat={pol} at B = {batch}, S = "
+                          f"{seq}: out of memory ({msg}); peak {gib:.2f} GiB",
+                          flush=True)
+                    del tr
+                    continue
+                n = kfp.launch_count.n
+                peak = torch.cuda.max_memory_allocated()
+                print(f"{what}: {b} remat={pol} at B = {batch}, S = {seq}: "
+                      f"{ms:.1f} ms/step over {steps} step(s), peak "
+                      f"{peak / 2 ** 30:.2f} GiB, losses {rep.losses}, K1 "
+                      f"{n} launches, detections "
+                      f"{[str(e) for e in rep.detections]}", flush=True)
+                check(not rep.detections and rep.steps_completed == steps,
+                      f"{what}: {b} remat={pol} detected {rep.detections} "
+                      f"or did not complete")
+                out[b, pol] = {"ms": ms, "peak": peak, "losses": rep.losses,
+                               "fp": rep.final_state_fp, "k1": n,
+                               "state_bytes": state_bytes}
+                del tr, dual, rep
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    _free()
+    return out
+
+
+def check_policies_bitwise(runs: dict, what: str) -> None:
+    """Every backend's runs under the remat policies: losses and final
+    per-leaf fingerprints bitwise equal to its first policy's."""
+    for b in {b for b, _ in runs}:
+        pols = [p for bb, p in runs if bb == b]
+        ref = runs[b, pols[0]]
+        for p in pols[1:]:
+            got = runs[b, p]
+            same = (got["losses"] == ref["losses"]
+                    and np.array_equal(got["fp"], ref["fp"]))
+            print(f"{what}: {b} remat={p} losses and final per-leaf "
+                  f"fingerprints bitwise equal to remat={pols[0]}: {same}",
+                  flush=True)
+            check(same, f"{what}: {b} under remat={p} differs from "
+                  f"remat={pols[0]}")
+
+
+def fwd_bwd_peaks(data, policies) -> dict:
+    """One forward + backward of qwen2-0.5b's loss at B = 1, S = 4096
+    (the trainer's `loss_and_grads`: autograd over its f32 params) under
+    each remat policy: the peak, params and grads included, and ms (the
+    first call's); fails unless the peaks fall in the policies' order of
+    what they keep (full < minimal < none) and the losses and grads are
+    bitwise equal. Returns {policy: peak bytes}."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.tree import leaves, unflatten_like
+
+    dev = torch.device("cuda")
+    batch = {k: torch.from_numpy(np.asarray(v, np.int64)).to(dev)
+             for k, v in data.batch(0).items()}
+    peaks, ref = {}, None
+    for pol in policies:
+        _free()
+        torch.cuda.empty_cache()
+        model = build_model(dataclasses.replace(get_config("qwen2-0.5b"),
+                                                remat=pol), dev)
+        params = model.init(seed=0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        ps = [p.requires_grad_(True) for p in leaves(params)]
+        loss = model.loss(unflatten_like(params, ps), batch)[0]
+        grads = torch.autograd.grad(loss, ps)
+        torch.cuda.synchronize()
+        ms = (time.time() - t0) * 1e3
+        peaks[pol] = torch.cuda.max_memory_allocated()
+        fp = [loss.detach().clone()] + [g.clone() for g in grads]
+        print(f"chunked: forward + backward at B = 1, S = {CHUNKED_SEQ} "
+              f"under remat={pol}: peak {peaks[pol] / 2 ** 30:.2f} GiB "
+              f"(params and grads 2 x 1.84 GiB included), {ms:.1f} ms "
+              f"(first call), loss {float(loss)!r}", flush=True)
+        if ref is None:
+            ref = fp
+        else:
+            check(all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                      for a, b in zip(ref, fp)),
+                  f"chunked: loss or grads under remat={pol} differ from "
+                  f"remat={policies[0]}'s")
+        del model, params, ps, loss, grads, fp
+    order = sorted(peaks, key=peaks.get)
+    print(f"chunked: forward + backward peaks in the order {order}",
+          flush=True)
+    check(order == ["full", "minimal", "none"],
+          f"chunked: peaks {peaks} not in the order full < minimal < none")
+    del ref
+    _free()
+    return peaks
+
+
+def chunked_train_steps(kfp, backends=("none", "sequential"),
+                        allow_oom: bool = False,
+                        policies=(PINNED_REMAT,), peaks=()):
+    """One training step of qwen2-0.5b at full width and depth at S = 4096
+    per backend and remat policy (`policy_runs`: TrainConfig(global_batch
+    =1, seq_len=4096), adamw, L1), the policies bitwise equal, one forward
+    + backward under each of `peaks` (`fwd_bwd_peaks`), then one xla
+    prefill at B = 1, S = 4096: peak, ms, K1's launches, detections (none
+    allowed; sequential's replicas must agree bitwise). `allow_oom`, for a
+    tree without the chunked forms: an out-of-memory step is reported and
+    the next one runs. Returns (K1's launches in the sequential step of
+    the first policy, the runs)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
 
     cfg = get_config("qwen2-0.5b")
     dev = torch.device("cuda")
+    runs = policy_runs(kfp, "chunked", 1, CHUNKED_SEQ, 1, backends, policies,
+                       allow_oom)
+    check_policies_bitwise(runs, "chunked")
+    k1 = runs.get(("sequential", policies[0]), {}).get("k1", 0)
+    if "sequential" in backends and ("sequential", policies[0]) in runs:
+        check(k1 > 0, "chunked: K1 never launched on the grads")
     data = SyntheticLM(cfg.vocab_size, 1, CHUNKED_SEQ, seed=0)
-    root = tempfile.mkdtemp(prefix="sedar_chunked_")
-    k1 = 0
-    try:
-        for b in backends:
-            _free()
-            torch.cuda.empty_cache()
-            torch.cuda.reset_peak_memory_stats()
-            rc = RunConfig(model=cfg, train=TrainConfig(
-                global_batch=1, seq_len=CHUNKED_SEQ, steps=1, warmup_steps=1),
-                sedar=SedarConfig(level=1, replication=b))
-            tr = make_trainer(rc, os.path.join(root, b), data=data,
-                              notify=lambda e: None, device=dev)
-            try:
-                dual = tr.init_dual(seed=0)
-                torch.cuda.synchronize()
-                kfp.launch_count.reset()
-                t0 = time.time()
-                dual, rep = tr.run(1, dual=dual)
-                torch.cuda.synchronize()
-                ms = (time.time() - t0) * 1e3
-            except torch.cuda.OutOfMemoryError as e:
-                if not allow_oom:
-                    raise
-                print(f"chunked: {b} step at S = {CHUNKED_SEQ}: out of "
-                      f"memory ({str(e).splitlines()[0][:200]}); peak "
-                      f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} "
-                      f"GiB", flush=True)
-                del tr
-                continue
-            n = kfp.launch_count.n
-            peak = torch.cuda.max_memory_allocated() / 2 ** 30
-            print(f"chunked: {b} training step at B = 1, S = {CHUNKED_SEQ}: "
-                  f"{ms:.1f} ms (first step, its warm-up included), peak "
-                  f"{peak:.2f} GiB, loss {rep.losses[0]!r}, K1 {n} launches, "
-                  f"detections {[str(e) for e in rep.detections]}",
-                  flush=True)
-            check(not rep.detections and rep.steps_completed == 1,
-                  f"chunked: {b} step detected {rep.detections} or did not "
-                  f"complete")
-            if b == "sequential":
-                check(n > 0, "chunked: K1 never launched on the grads")
-                k1 = n
-            del tr, dual, rep
-        _free()
-        torch.cuda.empty_cache()
-        from repro_torch.models import build_model
-        model = build_model(cfg, dev)
-        params = model.init(seed=0)
-        toks = torch.from_numpy(data.batch(0)["tokens"]).to(dev)
-        torch.cuda.synchronize()
-        base = torch.cuda.memory_allocated()
-        torch.cuda.reset_peak_memory_stats()
-        with torch.no_grad():
-            try:
-                t0 = time.time()
-                logits, cache = model.prefill(params, {"tokens": toks},
-                                              CHUNKED_SEQ + 8)
-                torch.cuda.synchronize()
-                ms = (time.time() - t0) * 1e3
-                print(f"chunked: xla prefill at B = 1, S = {CHUNKED_SEQ}: "
-                      f"{ms:.1f} ms (first call), peak {_peak_gib(base):.2f} "
-                      f"GiB above the params, logits finite "
-                      f"{bool(torch.isfinite(logits).all())}", flush=True)
-                check(bool(torch.isfinite(logits).all()),
-                      "chunked: prefill logits not finite")
-                del logits, cache
-            except torch.cuda.OutOfMemoryError:
-                if not allow_oom:
-                    raise
-                print("chunked: xla prefill out of memory", flush=True)
-        del params, model
-    finally:
-        import shutil
-        shutil.rmtree(root, ignore_errors=True)
-    return k1
+    if peaks:
+        fwd_bwd_peaks(data, peaks)
+    from repro_torch.models import build_model
+    model = build_model(cfg, dev)
+    params = model.init(seed=0)
+    toks = torch.from_numpy(data.batch(0)["tokens"]).to(dev)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        try:
+            t0 = time.time()
+            logits, cache = model.prefill(params, {"tokens": toks},
+                                          CHUNKED_SEQ + 8)
+            torch.cuda.synchronize()
+            ms = (time.time() - t0) * 1e3
+            print(f"chunked: xla prefill at B = 1, S = {CHUNKED_SEQ}: "
+                  f"{ms:.1f} ms (first call), peak {_peak_gib(base):.2f} "
+                  f"GiB above the params, logits finite "
+                  f"{bool(torch.isfinite(logits).all())}", flush=True)
+            check(bool(torch.isfinite(logits).all()),
+                  "chunked: prefill logits not finite")
+            del logits, cache
+        except torch.cuda.OutOfMemoryError:
+            if not allow_oom:
+                raise
+            print("chunked: xla prefill out of memory", flush=True)
+    del params, model
+    _free()
+    return k1, runs
 
 
-def phase_chunked(kfp) -> int:
-    """Slice 13: the chunked attentions at the reference's train_4k
+def phase_chunked(kfp):
+    """Slices 13 and 14: the chunked attentions at the reference's train_4k
     length. One layer's attention plain vs chunked (ms, peak, agreement),
-    then one `none` and one `sequential` training step and one xla
-    prefill of qwen2-0.5b at B = 1, S = 4096 (`chunked_train_steps`).
-    Returns K1's launches in the sequential step."""
+    then one `none` and one `sequential` training step of qwen2-0.5b at B =
+    1, S = 4096 under each remat policy, the policies bitwise equal, peak
+    and ms of each (phase remat's cell (b)), and one xla prefill
+    (`chunked_train_steps`). Returns (K1's launches in the sequential
+    step without remat, the runs)."""
     t_phase = time.time()
     _free()
     torch.cuda.empty_cache()
     chunked_attention_check()
-    k1 = chunked_train_steps(kfp)
+    k1, runs = chunked_train_steps(kfp, policies=("none", "full"),
+                                   peaks=REMAT_POLICIES)
     print(f"chunked phase took {time.time() - t_phase:.1f} s", flush=True)
-    return k1
+    return k1, runs
+
+
+# Slice 14, phase remat: activation rematerialization (ModelConfig.remat)
+# under the trainers: (a) the training cell at the three policies under
+# none, sequential and fused; (b) is phase chunked's S = 4096 step; (c)
+# sequential at S = 4096 and B = 8 under "full", the batch remat makes
+# room for.
+REMAT_POLICIES = ("none", "minimal", "full")
+REMAT_BACKENDS = ("none", "sequential", "fused")
+REMAT_BIG_BATCH = 8
+PLAN_TIMEOUT_S = 900
+
+
+def phase_remat(kfp) -> dict:
+    """(a) TrainConfig(global_batch=4, seq_len=256, steps=6) of qwen2-0.5b
+    at full width and depth under none, sequential and fused, each with
+    remat none, minimal and full (`policy_runs`): losses and final per-leaf
+    fingerprints bitwise equal across the policies, ms/step, peak and K1
+    launches; (c) one sequential step at B = 8, S = 4096 under full.
+    Returns the runs (for phase plan) and K1's launches."""
+    t_phase = time.time()
+    runs = policy_runs(kfp, "remat", BATCH, TRAIN_SEQ, TRAIN_STEPS,
+                       REMAT_BACKENDS, REMAT_POLICIES)
+    check_policies_bitwise(runs, "remat")
+    big = policy_runs(kfp, "remat", REMAT_BIG_BATCH, CHUNKED_SEQ, 1,
+                      ("sequential",), ("full",))
+    for (b, p), r in big.items():
+        runs[b, p, REMAT_BIG_BATCH, CHUNKED_SEQ] = r
+    print(f"remat phase took {time.time() - t_phase:.1f} s", flush=True)
+    return runs
+
+
+# the dry-run cells of phase plan: (B, S, remat policy, flavors); the
+# first is the reference's train_4k shape at the config's own policy
+PLAN_CELLS = ((256, 4096, None, ("baseline", "sedar")),
+              (BATCH, TRAIN_SEQ, "none", ("baseline", "sedar")),
+              (BATCH, TRAIN_SEQ, "minimal", ("baseline", "sedar")),
+              (BATCH, TRAIN_SEQ, "full", ("baseline", "sedar")),
+              (1, CHUNKED_SEQ, "none", ("baseline", "sedar")),
+              (1, CHUNKED_SEQ, "full", ("baseline", "sedar")),
+              (REMAT_BIG_BATCH, CHUNKED_SEQ, "full", ("sedar",)))
+
+
+def plan_cells(out_path: str) -> None:
+    """Every PLAN_CELLS cell of `launch/dryrun.py::run_cell` for
+    qwen2-0.5b, on `meta` tensors in this process (no card), one after
+    another on one thread, written to `out_path` as JSON: the phases on the
+    card run meanwhile (`start_plan`)."""
+    from repro_torch.configs import ShapeSpec, get_config
+    from repro_torch.launch import dryrun
+    torch.set_num_threads(1)
+    cells = {}
+    for B, S, pol, flavors in PLAN_CELLS:
+        cfg = get_config("qwen2-0.5b")
+        if pol:
+            cfg = dataclasses.replace(cfg, remat=pol)
+        shape = ("train_4k" if pol is None
+                 else ShapeSpec(f"train_{B}x{S}", "train", S, B))
+        for fl in flavors:
+            cells[f"{B} {S} {pol} {fl}"] = dryrun.run_cell(
+                "qwen2-0.5b", shape, fl, cfg=cfg)
+    with open(out_path + ".tmp", "w") as f:
+        json.dump(cells, f, default=str)
+    os.replace(out_path + ".tmp", out_path)
+
+
+def start_plan():
+    """Start `plan_cells` in a child process (CPU only); returns (the
+    process, the JSON's path)."""
+    import tempfile
+    path = os.path.join(tempfile.mkdtemp(prefix="sedar_plan_"), "cells.json")
+    proc = subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                             "--plan-cells", path],
+                            env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+    import atexit
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return proc, path
+
+
+def phase_plan(remat_runs: dict, chunked_runs: dict, plan) -> None:
+    """`launch/dryrun.py::run_cell` on the card's host: qwen2-0.5b at
+    train_4k (baseline and sedar), then the cells that phases remat and
+    chunked ran (B = 4 x 256 under every policy, B = 1 x 4096 under none
+    and full, B = 8 x 4096 under full): the predicted state bytes must
+    equal the trainer's state exactly; the predicted peak (L1 runs hold no
+    ring slot) is printed beside the measured one, and their gap."""
+    t_phase = time.time()
+    proc, path = plan
+    try:
+        rc = proc.wait(timeout=PLAN_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        fail(f"plan: the dry-run cells took more than {PLAN_TIMEOUT_S} s")
+    check(rc == 0 and os.path.exists(path),
+          f"plan: the dry-run cells' process ended with {rc}")
+    with open(path) as f:
+        cells = json.load(f)
+    import shutil
+    shutil.rmtree(os.path.dirname(path), ignore_errors=True)
+    gib = 2 ** 30
+    for flavor in ("baseline", "sedar"):
+        cell = cells[f"256 4096 None {flavor}"]
+        m = cell["memory"]
+        print(f"plan: qwen2-0.5b train_4k {flavor} (remat {m['remat']}): "
+              f"state {m['state_bytes']} B, resident "
+              f"{m['resident_bytes'] / gib:.2f} GiB, activations "
+              f"{m['activation_bytes_fixed'] / gib:.3f} GiB a step + "
+              f"{m['activation_bytes_per_seq'] / gib:.3f} GiB a sequence, "
+              f"peak {m['peak_bytes'] / gib:.2f} GiB at batch {m['batch']} "
+              f"(fits {m['fits_80GB']}), largest batch {m['max_batch']}; "
+              f"{cell['flops']['total']:.4e} FLOPs a step, "
+              f"{cell['roofline']['dominant']} bound "
+              f"{cell['roofline']['bound_s']:.3f} s (took "
+              f"{cell['elapsed_s']} s)", flush=True)
+    for B, S, pol, flavors in PLAN_CELLS[1:]:
+        for fl in flavors:
+            b = "none" if fl == "baseline" else "sequential"
+            run = (remat_runs.get((b, pol)) if S == TRAIN_SEQ
+                   else remat_runs.get((b, pol, B, S)) if B > 1
+                   else chunked_runs.get((b, pol)))
+            m = cells[f"{B} {S} {pol} {fl}"]["memory"]
+            peak = m["peak_bytes"] - m["ring_slot_bytes"]    # L1: no ring
+            print(f"plan: {b} remat={pol} B = {B}, S = {S}: state "
+                  f"predicted {m['state_bytes']} B, the trainer's "
+                  f"{run['state_bytes']} B; peak predicted "
+                  f"{peak / gib:.2f} GiB, measured {run['peak'] / gib:.2f} "
+                  f"GiB (gap {(run['peak'] - peak) / gib:+.2f} GiB; "
+                  f"activations predicted {m['activation_bytes'] / gib:.3f}"
+                  f" GiB)", flush=True)
+            check(m["state_bytes"] == run["state_bytes"],
+                  f"plan: predicted state {m['state_bytes']} B != the "
+                  f"trainer's {run['state_bytes']} B")
+    print(f"plan phase took {time.time() - t_phase:.1f} s", flush=True)
 
 
 # Slice 13, phase ep: expert parallelism over a model axis of 2 ranks on
@@ -5250,7 +5506,7 @@ def ep_rank(rank: int, root: str) -> dict:
     mesh = make_process_mesh(MeshConfig(shape=EP_SHAPE,
                                         axis_names=("data", "model")))
     D, tp = EP_SHAPE
-    cfg = cut_depth(get_config("phi3.5-moe-42b-a6.6b"), 1)
+    cfg = pinned(cut_depth(get_config("phi3.5-moe-42b-a6.6b"), 1))
     model = build_model(cfg, dev)
     full = model.init(seed=0)
     batch = {k: torch.from_numpy(np.asarray(v, np.int64)).to(dev)
@@ -5388,8 +5644,50 @@ def phase_reference():
           "card tokens differ from the CPU path")
 
 
+PHASES = ("k1", "k2", "k3", "campaign", "scenarios", "engine", "k4",
+          "f32_wide", "main", "abft_serve", "serve", "telemetry", "families",
+          "f32_generate", "family_serve", "train", "pod_train",
+          "elastic_train", "pod_elastic", "family_train", "chunked", "remat",
+          "plan", "ep", "f3_xlstm", "reference")
+# what a phase takes from another's run
+PHASE_NEEDS = {"abft_serve": ("main",), "serve": ("main",),
+               "telemetry": ("main", "serve"), "f32_generate": ("f32_wide",),
+               "pod_train": ("train",), "elastic_train": ("train",),
+               "pod_elastic": ("train",), "plan": ("remat", "chunked")}
+
+
+def selected_phases(argv):
+    """`--phases a,b,...`: those phases and what they need (PHASE_NEEDS),
+    or None (every phase) without the flag."""
+    import argparse
+    ap = argparse.ArgumentParser(description="chip smoke test of the port")
+    ap.add_argument("--phases", default=None,
+                    help="comma-separated phases to run (and what they "
+                    f"need) of: {', '.join(PHASES)}; default: all")
+    args = ap.parse_args(argv)
+    if args.phases is None:
+        return None
+    todo = [p for p in args.phases.split(",") if p]
+    unknown = [p for p in todo if p not in PHASES]
+    if unknown:
+        fail(f"unknown phases {unknown}; known: {', '.join(PHASES)}")
+    chosen = set()
+    while todo:
+        p = todo.pop()
+        if p not in chosen:
+            chosen.add(p)
+            todo.extend(PHASE_NEEDS.get(p, ()))
+    return chosen
+
+
 def main() -> None:
     t_start = time.time()
+    if sys.argv[1:2] == ["--plan-cells"]:    # phase plan's child process
+        here = os.path.dirname(os.path.abspath(__file__))
+        sys.path.insert(0, os.path.join(here, "src"))
+        plan_cells(sys.argv[2])
+        return
+    phases = selected_phases(sys.argv[1:])
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke test needs a GPU")
     here = os.path.dirname(os.path.abspath(__file__))
@@ -5422,6 +5720,8 @@ def main() -> None:
     print(f"kernels built in {time.time() - t0:.1f} s "
           f"({', '.join(logs) or 'cached'})", flush=True)
 
+    # phase plan's dry-run cells run on the host's CPU meanwhile
+    plan = start_plan() if phases is None or "plan" in phases else None
     t_last = [time.time()]
 
     def mark(what: str) -> None:
@@ -5432,81 +5732,126 @@ def main() -> None:
               f"{now - t_start:.1f} s)", flush=True)
         t_last[0] = now
 
-    k1 = phase_k1(kfp)
-    k2 = phase_k2(kfa)
-    k3 = phase_k3(kab)
-    phase_campaign(kab)
-    campaign_k1 = phase_scenarios(kfp)
-    k3["launches"] = phase_engine(kab)
-    k4 = phase_k4(kab, kfa, report)
-    k2_f32, k4_wide = phase_f32_wide(kab, kfa, report)
+    def want(name: str) -> bool:
+        return phases is None or name in phases
+
+    zero = {"fingerprint": 0, "flash_attention": 0}
+    k1 = phase_k1(kfp) if want("k1") else None
+    k2 = phase_k2(kfa) if want("k2") else None
+    k3 = phase_k3(kab) if want("k3") else None
+    if want("campaign"):
+        phase_campaign(kab)
+    campaign_k1 = phase_scenarios(kfp) if want("scenarios") else 0
+    if want("engine"):
+        launches = phase_engine(kab)
+        if k3 is not None:
+            k3["launches"] = launches
+    k4 = phase_k4(kab, kfa, report) if want("k4") else None
+    k2_f32, k4_wide = (phase_f32_wide(kab, kfa, report) if want("f32_wide")
+                       else ({}, []))
     mark("K1, K2, K3, campaign, scenarios, engine, K4, f32_wide")
-    counts, main_run = phase_main(kfp, kfa, get_config("qwen2-0.5b"))
-    phase_abft_serve(kfp, kfa, main_run)
+    counts, main_run = zero, None
+    if want("main"):
+        counts, main_run = phase_main(kfp, kfa, get_config("qwen2-0.5b"))
+    if want("abft_serve"):
+        phase_abft_serve(kfp, kfa, main_run)
     mark("main, abft serving")
-    serve_counts, served = phase_serve(kfp, kfa, main_run)
+    serve_counts, served = {}, None
+    if want("serve"):
+        serve_counts, served = phase_serve(kfp, kfa, main_run)
     mark("serve")
-    telemetry_counts = phase_telemetry_serve(kfp, kfa, main_run, served)
+    telemetry_counts = {}
+    if want("telemetry"):
+        telemetry_counts = phase_telemetry_serve(kfp, kfa, main_run, served)
     del main_run, served
     _free()
     mark("telemetry (serving)")
-    families_k1, wide_k2 = phase_families(kfp, kfa)
+    families_k1, wide_k2 = (phase_families(kfp, kfa) if want("families")
+                            else (0, []))
     _free()
     mark("families")
-    for hd, n in phase_f32_generate(kfp, kfa).items():
-        k2_f32[hd]["launches"] = n
+    if want("f32_generate"):
+        for hd, n in phase_f32_generate(kfp, kfa).items():
+            k2_f32[hd]["launches"] = n
     _free()
     mark("f32_generate")
-    family_serve, serve_k2 = phase_family_serve(kfp, kfa)
+    family_serve, serve_k2 = (phase_family_serve(kfp, kfa)
+                              if want("family_serve") else ({}, []))
     mark("family_serve")
     kfp.launch_count.reset()
-    train_k1, lanes, seq_losses, seq_final = phase_train(kfp)
-    check(train_k1 > 0, "K1 never launched by the trainer")
+    train_k1, lanes = 0, None
+    if want("train"):
+        train_k1, lanes, seq_losses, seq_final = phase_train(kfp)
+        check(train_k1 > 0, "K1 never launched by the trainer")
     _free()
     mark("train (its tiers and telemetry included)")
-    lanes["launches"] = phase_pod_train(kfp, seq_losses, seq_final)
+    if want("pod_train"):
+        lanes["launches"] = phase_pod_train(kfp, seq_losses, seq_final)
     _free()
     mark("pod_train")
-    elastic_k1 = phase_elastic_train(kfp, seq_losses, seq_final)
+    elastic_k1 = (phase_elastic_train(kfp, seq_losses, seq_final)
+                  if want("elastic_train") else 0)
     _free()
     mark("elastic_train")
-    lanes["launches"] += phase_pod_elastic(kfp)
+    if want("pod_elastic"):
+        lanes["launches"] += phase_pod_elastic(kfp)
     _free()
     mark("pod_elastic")
-    family_train_k1 = phase_family_train(kfp)
-    check(family_train_k1 > 0, "K1 never launched by the family trainers")
+    family_train_k1 = 0
+    if want("family_train"):
+        family_train_k1 = phase_family_train(kfp)
+        check(family_train_k1 > 0, "K1 never launched by the family trainers")
     mark("family_train")
-    chunked_k1 = phase_chunked(kfp)
+    chunked_k1, chunked_runs = (phase_chunked(kfp) if want("chunked")
+                                else (0, {}))
     _free()
     mark("chunked")
-    phase_ep()
+    remat_runs = phase_remat(kfp) if want("remat") else {}
+    remat_k1 = sum(r["k1"] for r in remat_runs.values())
+    _free()
+    mark("remat")
+    if want("plan"):
+        phase_plan(remat_runs, chunked_runs, plan)
+    mark("plan")
+    if want("ep"):
+        phase_ep()
     mark("ep")
-    phase_f3_xlstm(kfp, kfa)
+    if want("f3_xlstm"):
+        phase_f3_xlstm(kfp, kfa)
     _free()
     mark("f3_xlstm")
-    phase_reference()
+    if want("reference"):
+        phase_reference()
     # the main path's K1 launches, the training paths' and the replica
     # campaign's, each counted from 0 just before its run
-    k1["launches"] = (counts["fingerprint"] + train_k1 + campaign_k1
-                      + families_k1 + family_train_k1 + elastic_k1
-                      + chunked_k1
-                      + sum(c["fingerprint"] for c in family_serve.values()))
-    k2["launches"] = counts["flash_attention"]
+    if k1 is not None:
+        k1["launches"] = (counts["fingerprint"] + train_k1 + campaign_k1
+                          + families_k1 + family_train_k1 + elastic_k1
+                          + chunked_k1 + remat_k1
+                          + sum(c["fingerprint"]
+                                for c in family_serve.values()))
+    if k2 is not None:
+        k2["launches"] = counts["flash_attention"]
+    k2_all = [e for e in (k2, *wide_k2, *serve_k2, *k2_f32.values())
+              if e is not None and "launches" in e]
     print("K2 launches: " + ", ".join(
-        f"{e['name']} {e['launches']}"
-        for e in (k2, *wide_k2, *serve_k2, *k2_f32.values())), flush=True)
-    kernels = [k1, lanes, k2, *wide_k2, *serve_k2, *k2_f32.values(), k3,
-               k4, *k4_wide]
-    for k in kernels:
-        check(k["launches"] > 0, f"kernel {k['name']} never launched")
-    for k, n in serve_counts.items():
-        check(n > 0, f"kernel {k} never launched by serve()")
-    for arch, c in family_serve.items():
-        check(c["fingerprint"] > 0 and (c["flash_attention"] > 0
-                                        or arch.startswith("xlstm")),
-              f"{arch} serve(): launches {c}")
-    for k, n in telemetry_counts.items():
-        check(n > 0, f"kernel {k} never launched with telemetry on")
+        f"{e['name']} {e['launches']}" for e in k2_all), flush=True)
+    kernels = [k for k in (k1, lanes, k2, *wide_k2, *serve_k2,
+                           *k2_f32.values(), k3, k4, *k4_wide)
+               if k is not None]
+    if phases is None:      # every path ran: every kernel launched on it
+        for k in kernels:
+            check(k["launches"] > 0, f"kernel {k['name']} never launched")
+        for k, n in serve_counts.items():
+            check(n > 0, f"kernel {k} never launched by serve()")
+        for arch, c in family_serve.items():
+            check(c["fingerprint"] > 0 and (c["flash_attention"] > 0
+                                            or arch.startswith("xlstm")),
+                  f"{arch} serve(): launches {c}")
+        for k, n in telemetry_counts.items():
+            check(n > 0, f"kernel {k} never launched with telemetry on")
+    else:
+        kernels = [k for k in kernels if "launches" in k]
     print(f"chip smoke took {time.time() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(smi)

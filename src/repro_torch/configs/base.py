@@ -174,6 +174,40 @@ class RunConfig:
         return dataclasses.replace(self, **kw)
 
 
+# ---------------------------------------------------------------------------
+# Input-shape sets (the reference's: 4 shapes per LM arch)
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    kind: str          # train | prefill | decode
+    seq_len: int
+    global_batch: int
+
+
+SHAPES: Tuple[ShapeSpec, ...] = (
+    ShapeSpec("train_4k",    "train",   4_096,   256),
+    ShapeSpec("prefill_32k", "prefill", 32_768,  32),
+    ShapeSpec("decode_32k",  "decode",  32_768,  128),
+    ShapeSpec("long_500k",   "decode",  524_288, 1),
+)
+
+SHAPE_BY_NAME = {s.name: s for s in SHAPES}
+
+
+def shape_applicable(model: ModelConfig, shape: ShapeSpec) -> Tuple[bool, str]:
+    """The reference's applicability: ``long_500k`` only for sub-quadratic
+    archs. Returns (applicable, reason_if_not)."""
+    if shape.name == "long_500k" and model.family not in ("hybrid", "ssm"):
+        return False, (
+            "long_500k skipped: pure full-attention architecture (dense 500k KV "
+            "cache); per task spec only SSM/hybrid/linear-attention archs run it "
+            "(see DESIGN.md)"
+        )
+    return True, ""
+
+
 def reduce_for_smoke(cfg: ModelConfig) -> ModelConfig:
     """Scale an architecture down to CPU-smoke size, preserving its family
     structure (GQA ratio, MoE top-k, block pattern, enc-dec split, frontend).

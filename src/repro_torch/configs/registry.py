@@ -23,6 +23,10 @@ _ARCH_MODULES: Dict[str, str] = {
 }
 
 
+# every arch but the paper's test app (the reference's list)
+ASSIGNED_ARCHS: List[str] = [k for k in _ARCH_MODULES if k != "paper-testapp"]
+
+
 def get_config(arch: str) -> ModelConfig:
     if arch not in _ARCH_MODULES:
         raise KeyError(

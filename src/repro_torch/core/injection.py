@@ -35,6 +35,7 @@ import os
 from dataclasses import dataclass
 from typing import Optional
 
+import numpy as np
 import torch
 
 from repro_torch import tree as tree_util
@@ -232,3 +233,90 @@ class MemoryInjectionFlag:
         if spec is None or self._injected:
             return None
         return spec
+
+
+# ---------------------------------------------------------------------------
+# Random single-bit faults for campaigns: the reference's `random_spec`,
+# which draws with `jax.random` (threefry2x32 with the partitionable
+# split and bits, JAX's default), in numpy on the host
+# ---------------------------------------------------------------------------
+
+_M32 = 0xFFFFFFFF
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+
+
+def threefry2x32(key, count):
+    """The Threefry-2x32 block cipher (20 rounds) of one 64-bit count
+    (hi, lo) under key (k0, k1) -> two uint32 words, as `jax.random`'s."""
+    k0, k1 = int(key[0]) & _M32, int(key[1]) & _M32
+    ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
+    x0, x1 = (int(count[0]) + ks[0]) & _M32, (int(count[1]) + ks[1]) & _M32
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x0 = (x0 + x1) & _M32
+            x1 = ((x1 << r) | (x1 >> (32 - r))) & _M32
+            x1 ^= x0
+        x0 = (x0 + ks[(i + 1) % 3]) & _M32
+        x1 = (x1 + ks[(i + 2) % 3] + i + 1) & _M32
+    return x0, x1
+
+
+def prng_key(seed: int):
+    """`jax.random.PRNGKey(seed)`'s two words for a seed in [0, 2**64)."""
+    return ((seed >> 32) & _M32, seed & _M32)
+
+
+def prng_split(key, num: int = 2):
+    """`jax.random.split(key, num)`: key i is the cipher of count i."""
+    return [threefry2x32(key, (0, i)) for i in range(num)]
+
+
+def _bits32(key) -> int:
+    """`jax.random.bits(key, (), uint32)`: the two words of count 0,
+    XORed."""
+    a, b = threefry2x32(key, (0, 0))
+    return a ^ b
+
+
+def _uniform32(key) -> np.float32:
+    """`jax.random.uniform(key, (), float32)` in [0, 1)."""
+    bits = np.uint32((_bits32(key) >> 9) | 0x3F800000)
+    return bits.view(np.float32) - np.float32(1.0)
+
+
+def _randint32(key, minval: int, maxval: int) -> int:
+    """`jax.random.randint(key, (), minval, maxval)` (int32): two words
+    folded into [minval, maxval) by the reference's multiplier rule."""
+    k1, k2 = prng_split(key)
+    hi, lo = _bits32(k1), _bits32(k2)
+    span = (maxval - minval) & _M32 if maxval > minval else 1
+    mult = (((2 ** 16 % span) ** 2) & _M32) % span     # uint32 products
+    off = (((hi % span) * mult) & _M32) + (lo % span)
+    return minval + (off & _M32) % span
+
+
+def _choice_p(key, p: np.ndarray) -> int:
+    """`jax.random.choice(key, len(p), p=p)` (with replacement): the
+    first index whose f32 running sum reaches total * (1 - u)."""
+    cum = np.cumsum(p.astype(np.float32), dtype=np.float32)
+    r = cum[-1] * (np.float32(1.0) - _uniform32(key))
+    return int(np.searchsorted(cum, np.float32(r), side="left"))
+
+
+def random_spec(key, tree, *, step: int, replica: int = 1,
+                target: str = "grads") -> InjectionSpec:
+    """A uniformly random single-bit fault over a tree (for campaigns):
+    the reference's choice for the same key (`prng_key(seed)`, or the two
+    words of a `jax.random.PRNGKey`). A leaf is drawn with probability by
+    its size, then an element and a bit of its width (16 for bf16, else
+    32). The leaves are read for their shapes and dtypes only."""
+    leaves = tree_util.leaves(tree)
+    sizes = np.array([int(np.prod(tuple(t.shape))) for t in leaves],
+                     np.int64)
+    k1, k2, k3 = prng_split(key, 3)
+    leaf = _choice_p(k1, sizes / sizes.sum())
+    idx = _randint32(k2, 0, int(sizes[leaf]))
+    nbits = 16 if leaves[leaf].dtype == torch.bfloat16 else 32
+    bit = _randint32(k3, 0, nbits)
+    return InjectionSpec(leaf_idx=leaf, flat_idx=idx, bit=bit, step=step,
+                         replica=replica, target=target)

@@ -20,8 +20,10 @@ from typing import Any, Dict
 
 import torch
 
+from repro_torch import tree as tree_util
 from repro_torch.models import layers as nn
 from repro_torch.models import transformer as tfm
+from repro_torch.models.remat import remat
 
 
 def init_encdec(gen: torch.Generator, cfg, device) -> Dict[str, Any]:
@@ -55,12 +57,16 @@ def _rope(cfg, S: int, device):
 
 def encode(cfg, params, frames):
     """frames: (B, S_enc, D) precomputed frontend embeddings -> (B, S_enc,
-    D), bidirectional."""
+    D), bidirectional; each layer one remat block of `cfg.remat` under
+    grad mode (`models/remat.py`), as the reference's."""
     x = frames.to(nn.torch_dtype(cfg.dtype))
     sin, cos = _rope(cfg, x.shape[1], x.device)
     layers = params["encoder"]["layers"]
-    for i in range(cfg.encoder_layers):
-        lp = tfm._slice(layers, i)
+    template = tfm._slice(layers, 0)
+    flat = tree_util.leaves(layers)
+
+    def body(x, *leaves):
+        lp = tree_util.unflatten_like(template, leaves)
         h = nn.rms_norm(x, lp["ln1"], cfg.norm_eps)
         q, k, v = nn.qkv_project(cfg, lp["attn"], h)
         q = nn.apply_rope(q, sin, cos)
@@ -68,34 +74,73 @@ def encode(cfg, params, frames):
         o = nn.causal_attention(q, k, v, causal=False)
         x = x + nn.out_project(cfg, lp["attn"], o)
         h2 = nn.rms_norm(x, lp["ln2"], cfg.norm_eps)
-        x = x + nn.mlp(cfg, lp["mlp"], h2)
+        return (x + nn.mlp(cfg, lp["mlp"], h2),)
+
+    for i in range(cfg.encoder_layers):
+        x, = remat(body, cfg.remat, x, *[a[i] for a in flat])
     return nn.rms_norm(x, params["encoder"]["final_ln"], cfg.norm_eps)
+
+
+def _project(ap, x, which: str):
+    """`layers.qkv_project`'s keys ("k") or values ("v") alone."""
+    dt = x.dtype
+    y = nn.wein("bsd,dhk->bshk", x, ap["w" + which].to(dt))
+    if "b" + which in ap:
+        y = y + ap["b" + which].to(dt)
+    return y
+
+
+def _decoder_layer(cfg, lp, x, enc_out, sin, cos, enc_v=None):
+    """One decoder layer -> (x, k, v, kx, vx): self-attention, cross
+    attention over the encoder's output, MLP. `enc_v`, where given, is the
+    encoder's output for the value projection (the same tensor as a second
+    input of a remat block, so that its gradient arrives apart from the
+    keys', in the order it does without remat)."""
+    x, k, v = tfm._attn_full(cfg, lp["ln1"], lp["attn"], x, sin, cos)
+    hx = nn.rms_norm(x, lp["lnx"], cfg.norm_eps)
+    qx, _, _ = nn.qkv_project(cfg, lp["xattn"], hx)
+    if enc_v is None:
+        _, kx, vx = nn.qkv_project(cfg, lp["xattn"], enc_out)
+    else:
+        kx = _project(lp["xattn"], enc_out, "k")
+        vx = _project(lp["xattn"], enc_v, "v")
+    ox = nn.causal_attention(qx, kx, vx, causal=False)
+    x = x + nn.out_project(cfg, lp["xattn"], ox)
+    h2 = nn.rms_norm(x, lp["ln2"], cfg.norm_eps)
+    return x + nn.mlp(cfg, lp["mlp"], h2), k, v, kx, vx
 
 
 def _decoder_hidden(cfg, params, tokens, enc_out, collect_kv: bool = False):
     """The decoder over the whole token sequence -> (hidden (B, S, D),
     kv). kv, with `collect_kv`, is (k, v, xk, xv): the self-attention's
     rotated keys and values (L, B, S, KV, hd) and the cross-attention's
-    (L, B, S_enc, KV, hd); else None."""
+    (L, B, S_enc, KV, hd); else None. Without `collect_kv` each layer is
+    one remat block of `cfg.remat` (the encoder's output one of its
+    inputs)."""
     x = nn.embed_tokens(cfg, params["embed"], tokens)
     sin, cos = _rope(cfg, x.shape[1], x.device)
     layers = params["decoder"]["layers"]
-    kv = ([], [], [], [])
+    if collect_kv:
+        kv = ([], [], [], [])
+        for i in range(cfg.num_layers):
+            x, *t = _decoder_layer(cfg, tfm._slice(layers, i), x, enc_out,
+                                   sin, cos)
+            for acc, a in zip(kv, t):
+                acc.append(a)
+        x = nn.rms_norm(x, params["decoder"]["final_ln"], cfg.norm_eps)
+        return x, tuple(torch.stack(a) for a in kv)
+    template = tfm._slice(layers, 0)
+    flat = tree_util.leaves(layers)
+
+    def body(x, ev, ek, *leaves):
+        lp = tree_util.unflatten_like(template, leaves)
+        return (_decoder_layer(cfg, lp, x, ek, sin, cos, enc_v=ev)[0],)
+
     for i in range(cfg.num_layers):
-        lp = tfm._slice(layers, i)
-        x, k, v = tfm._attn_full(cfg, lp["ln1"], lp["attn"], x, sin, cos)
-        hx = nn.rms_norm(x, lp["lnx"], cfg.norm_eps)
-        qx, _, _ = nn.qkv_project(cfg, lp["xattn"], hx)
-        _, kx, vx = nn.qkv_project(cfg, lp["xattn"], enc_out)
-        ox = nn.causal_attention(qx, kx, vx, causal=False)
-        x = x + nn.out_project(cfg, lp["xattn"], ox)
-        h2 = nn.rms_norm(x, lp["ln2"], cfg.norm_eps)
-        x = x + nn.mlp(cfg, lp["mlp"], h2)
-        if collect_kv:
-            for acc, t in zip(kv, (k, v, kx, vx)):
-                acc.append(t)
+        x, = remat(body, cfg.remat, x, enc_out, enc_out,
+                   *[a[i] for a in flat])
     x = nn.rms_norm(x, params["decoder"]["final_ln"], cfg.norm_eps)
-    return x, (tuple(torch.stack(a) for a in kv) if collect_kv else None)
+    return x, None
 
 
 def encdec_loss(cfg, params, batch):
@@ -153,7 +198,13 @@ def encdec_decode_step(cfg, params, cache, tokens, pos: int,
     """One decoder step. tokens: (B,); pos: the token's 0-based decoder
     position, a host int shared by every row. The self-attention cache is
     written in place and the same cache dict comes back. `row_blocks` > 1
-    (the fused backend's replicas): both attentions block by block."""
+    (the fused backend's replicas): both attentions block by block, and
+    the feature means (`layers.row_blocks`)."""
+    with nn.row_blocks(row_blocks):
+        return _decode_step(cfg, params, cache, tokens, pos, row_blocks)
+
+
+def _decode_step(cfg, params, cache, tokens, pos: int, row_blocks: int):
     x = nn.embed_tokens(cfg, params["embed"], tokens[:, None])
     sin, cos = nn.rope_tables(torch.arange(pos, pos + 1, device=x.device),
                               cfg.head_dim, cfg.rope_theta)

@@ -14,11 +14,15 @@ Conventions, as in the reference:
 """
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.models import remat
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -34,6 +38,57 @@ def _dt(cfg) -> torch.dtype:
 
 def _pdt(cfg) -> torch.dtype:
     return torch_dtype(cfg.param_dtype)
+
+
+# ---------------------------------------------------------------------------
+# Row blocks: the fused backend's stacked decode
+# ---------------------------------------------------------------------------
+
+_ROWS = threading.local()
+
+
+@contextlib.contextmanager
+def row_blocks(n: int):
+    """Inside, the rows of a decode step are `n` equal blocks, each an
+    independent batch (the fused backend's replicas), and the ops whose
+    result for a row depends on how many rows run beside it run once per
+    block (`blockwise`): on the card a mean over the features splits its
+    sum by the number of rows (`feature_mean`), and xlstm's per-head gate
+    product rounds by its M (`xlstm._gate_product`);
+    `scripts/stacked_decode_bisect.py` finds each such op. Every other op,
+    the weight products of every other family among them, runs on the
+    stacked rows: attention runs per block by its own `row_blocks`
+    argument."""
+    prev = getattr(_ROWS, "n", 1)
+    _ROWS.n = n
+    try:
+        yield
+    finally:
+        _ROWS.n = prev
+
+
+def blockwise(fn, *xs, dim: int = 0):
+    """fn(*xs) with each of xs split along `dim` into the current row
+    blocks (`row_blocks`), one call per block, the outputs joined along
+    `dim`. Outside `row_blocks`, fn(*xs)."""
+    n = getattr(_ROWS, "n", 1)
+    if n == 1:
+        return fn(*xs)
+    size = xs[0].shape[dim] // n
+    return torch.cat([fn(*(x.narrow(dim, r * size, size) for x in xs))
+                      for r in range(n)], dim=dim)
+
+
+def feature_mean(x):
+    """x's mean over its last axis (keepdim), per row block."""
+    return blockwise(lambda t: torch.mean(t, dim=-1, keepdim=True), x)
+
+
+def wein(equation: str, x, w):
+    """A weight product, torch.einsum(equation, x, w): activations times a
+    weight, no batch dims. Remat's `minimal` keeps these
+    (`remat.taped`)."""
+    return remat.taped(equation, x, w)
 
 
 # ---------------------------------------------------------------------------
@@ -97,7 +152,7 @@ def init_embedding(gen, cfg, device):
 
 def rms_norm(x, scale, eps: float):
     xf = x.float()
-    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    var = feature_mean(xf * xf)
     y = xf * torch.rsqrt(var + eps)
     return (y * (1.0 + scale.float())).to(x.dtype)
 
@@ -133,9 +188,9 @@ def apply_rope(x, sin, cos):
 def qkv_project(cfg, p, x):
     """x: (B, S, D) -> q (B,S,H,hd), k/v (B,S,KV,hd) in compute dtype."""
     dt = x.dtype
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(dt))
-    k = torch.einsum("bsd,dhk->bshk", x, p["wk"].to(dt))
-    v = torch.einsum("bsd,dhk->bshk", x, p["wv"].to(dt))
+    q = wein("bsd,dhk->bshk", x, p["wq"].to(dt))
+    k = wein("bsd,dhk->bshk", x, p["wk"].to(dt))
+    v = wein("bsd,dhk->bshk", x, p["wv"].to(dt))
     if "bq" in p:
         q = q + p["bq"].to(dt)
         k = k + p["bk"].to(dt)
@@ -144,7 +199,7 @@ def qkv_project(cfg, p, x):
 
 
 def out_project(cfg, p, o):
-    return torch.einsum("bshk,hkd->bsd", o, p["wo"].to(o.dtype))
+    return wein("bshk,hkd->bsd", o, p["wo"].to(o.dtype))
 
 
 def _gqa_scores(q, k, scale):
@@ -444,13 +499,13 @@ def cache_update(k_cache, v_cache, k_new, v_new, pos, window: int = 0):
 def mlp(cfg, p, x):
     dt = x.dtype
     if cfg.mlp_act == "swiglu":
-        g = torch.einsum("bsd,df->bsf", x, p["w_gate"].to(dt))
-        u = torch.einsum("bsd,df->bsf", x, p["w_up"].to(dt))
+        g = wein("bsd,df->bsf", x, p["w_gate"].to(dt))
+        u = wein("bsd,df->bsf", x, p["w_up"].to(dt))
         h = F.silu(g.float()).to(dt) * u
-        return torch.einsum("bsf,fd->bsd", h, p["w_down"].to(dt))
-    h = torch.einsum("bsd,df->bsf", x, p["w_up"].to(dt)) + p["b_up"].to(dt)
+        return wein("bsf,fd->bsd", h, p["w_down"].to(dt))
+    h = wein("bsd,df->bsf", x, p["w_up"].to(dt)) + p["b_up"].to(dt)
     h = F.gelu(h.float(), approximate="tanh").to(dt)
-    return torch.einsum("bsf,fd->bsd", h, p["w_down"].to(dt)) + p["b_down"].to(dt)
+    return wein("bsf,fd->bsd", h, p["w_down"].to(dt)) + p["b_down"].to(dt)
 
 
 def embed_tokens(cfg, emb_p, tokens):
@@ -463,8 +518,8 @@ def embed_tokens(cfg, emb_p, tokens):
 
 def logits_from_hidden(cfg, emb_p, h):
     if cfg.tie_embeddings:
-        return torch.einsum("bsd,vd->bsv", h, emb_p["tok"].to(h.dtype))
-    return torch.einsum("bsd,dv->bsv", h, emb_p["head"].to(h.dtype))
+        return wein("bsd,vd->bsv", h, emb_p["tok"].to(h.dtype))
+    return wein("bsd,dv->bsv", h, emb_p["head"].to(h.dtype))
 
 
 # ---------------------------------------------------------------------------

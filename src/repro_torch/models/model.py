@@ -31,16 +31,6 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import encdec as encdec_lib
 from repro_torch.models import transformer as tfm
 
-# Families whose fused backend decodes each replica's block of rows on its
-# own (`Model._in_blocks`), because on the card their stacked 2B-row decode
-# lost a replica's bits: xlstm-125m's logits at the first step, internvl2's
-# at the seventh, a phi3.5-moe `serve()` stream a token
-# (`chip_smoke.py::stacked_decode_bits` and its fused stream checks; PERF.md
-# §6). Every other family decodes the stacked rows together, the
-# attention per block (`transformer._decode_attention`).
-BLOCKWISE_FAMILIES = ("moe", "vlm", "ssm")
-
-
 def count_params_analytic(cfg: ModelConfig, active_only: bool = False) -> int:
     """Parameter count, mirroring the init functions exactly (the
     reference's formula). `active_only` counts a MoE layer's router and
@@ -106,6 +96,102 @@ def count_params_analytic(cfg: ModelConfig, active_only: bool = False) -> int:
     return total + cfg.num_layers * per_layer
 
 
+# The reference's logical axes of each parameter leaf (its init functions'
+# second return value), by the kind of block that holds it and the leaf's
+# name; a stacked leaf adds "layers" in front.
+_ATTN_AXES = {"wq": ("embed", "heads", "head_dim"),
+              "wk": ("embed", "kv_heads", "head_dim"),
+              "wv": ("embed", "kv_heads", "head_dim"),
+              "wo": ("heads", "head_dim", "embed"),
+              "bq": ("heads", "head_dim"), "bk": ("kv_heads", "head_dim"),
+              "bv": ("kv_heads", "head_dim")}
+_PARAM_AXES = {
+    "attention": _ATTN_AXES,
+    "mlp": {"w_gate": ("embed", "mlp"), "w_up": ("embed", "mlp"),
+            "w_down": ("mlp", "embed"), "b_up": ("mlp",),
+            "b_down": ("embed",)},
+    "moe": {"router": ("embed", None),
+            "w_gate": ("experts", "embed", "mlp"),
+            "w_up": ("experts", "embed", "mlp"),
+            "w_down": ("experts", "mlp", "embed")},
+    "recurrent": {"wa": ("embed", "rnn"), "wx": ("embed", "rnn"),
+                  "w_gelu": ("embed", "rnn"), "w_in": ("embed", "rnn"),
+                  "w_out": ("rnn", "embed"), "ba": ("rnn",), "bx": ("rnn",),
+                  "lam": ("rnn",), "conv_b": ("rnn",),
+                  "conv_w": (None, "rnn")},
+    "mlstm": {"w_up": ("embed", "inner"), "conv_w": (None, "inner"),
+              "conv_b": ("inner",), "wq": ("embed", "heads", "head_dim"),
+              "wk": ("embed", "heads", "head_dim"),
+              "wv": ("embed", "heads", "head_dim"), "wi": ("embed", "heads"),
+              "wf": ("embed", "heads"), "bi": ("heads",), "bf": ("heads",),
+              "gn": ("inner",), "w_down": ("inner", "embed")},
+    "slstm": {"conv_w": (None, "inner"), "conv_b": ("inner",),
+              **{w: ("embed", "inner") for w in ("wz", "wi", "wf", "wo")},
+              **{b: ("inner",) for b in ("bz", "bi", "bf", "bo", "gn")},
+              **{r: ("heads", "head_dim", None)
+                 for r in ("rz", "ri", "rf", "ro")},
+              "w_gate": ("embed", "mlp"), "w_upf": ("embed", "mlp"),
+              "w_downf": ("mlp", "embed")},
+    "norm": {"": ("embed",)},
+    "embed": {"tok": ("vocab", "embed"), "head": ("embed", "vocab")},
+}
+_CACHE_AXES = {"k": (None, "kv_heads", "head_dim"),
+               "v": (None, "kv_heads", "head_dim"),
+               "xk": (None, "kv_heads", "head_dim"),
+               "xv": (None, "kv_heads", "head_dim"),
+               "recurrent": {"conv": (None, "rnn"), "h": ("rnn",)},
+               "mlstm": {"conv": (None, "inner"),
+                         "C": ("heads", "head_dim", None),
+                         "n": ("heads", "head_dim"), "m": ("heads",)},
+               "slstm": {"conv": (None, "inner"), "c": ("inner",),
+                         "n2": ("inner",), "h": ("inner",), "m": ("inner",)}}
+_STACKS = ("layers", "groups", "tail")
+
+
+def _keys(path: str):
+    return [k.strip("'") for k in path[1:-1].split("][")]
+
+
+def param_axes(cfg: ModelConfig, params):
+    """The params' logical axes tree (the reference's `abstract_params()`
+    second value), for `sharding.Resolver`."""
+    moe = cfg.family == "moe" and cfg.num_experts > 0
+
+    def axes(path):
+        keys = _keys(path)
+        stacked = ("layers",) if any(k in _STACKS for k in keys) else ()
+        name = keys[-1]
+        if keys[0] == "embed":
+            kind = "embed"
+        elif name in ("ln", "ln1", "ln2", "lnx", "final_ln"):
+            kind, name = "norm", ""
+        elif keys[-2] == "mlp":
+            kind = "moe" if moe else "mlp"
+        elif keys[-2] in ("attn", "xattn") or keys[-3].endswith(
+                "_attention"):
+            kind = "attention"
+        else:                               # b{i}_{kind}/core
+            kind = keys[-3].split("_", 1)[1]
+        return stacked + _PARAM_AXES[kind][name]
+
+    return tree_util.unflatten_like(params, [
+        axes(p) for p, _ in tree_util.flatten_with_path(params)])
+
+
+def cache_axes(cache):
+    """A decode cache's logical axes tree (the reference's `init_cache`
+    second value)."""
+    def axes(path):
+        keys = _keys(path)
+        if len(keys) == 1 or keys[-2].endswith("_attention"):
+            return ("layers", "batch") + _CACHE_AXES[keys[-1]]
+        return ("layers", "batch") + _CACHE_AXES[
+            keys[-2].split("_", 1)[1]][keys[-1]]
+
+    return tree_util.unflatten_like(cache, [
+        axes(p) for p, _ in tree_util.flatten_with_path(cache)])
+
+
 @dataclass
 class Model:
     cfg: ModelConfig
@@ -143,38 +229,11 @@ class Model:
 
     def decode_step(self, params, cache, tokens, pos, row_blocks: int = 1):
         """`row_blocks` > 1: the rows are that many independent batches
-        (the fused backend's replicas), decoded together with the
-        attention per block, or each block on its own (`_in_blocks`) in a
-        `BLOCKWISE_FAMILIES` model."""
-        if row_blocks != 1 and self.cfg.family in BLOCKWISE_FAMILIES:
-            return self._in_blocks(params, cache, tokens, pos, row_blocks)
-        return self._decode(params, cache, tokens, pos, row_blocks)
-
-    def _decode(self, params, cache, tokens, pos, row_blocks: int = 1):
+        (the fused backend's replicas), decoded together with each block
+        keeping the bits of its rows decoded alone
+        (`transformer.lm_decode_step`)."""
         return tfm.lm_decode_step(self.cfg, params, cache, tokens, pos,
                                   row_blocks)
-
-    def _in_blocks(self, params, cache, tokens, pos, row_blocks: int):
-        """One decode per block of rows, each on views of its cache rows:
-        a block runs exactly the products a decode of its rows alone runs.
-        KV caches written in place through the views stay the stacked
-        tensors; new states are concatenated."""
-        n, axes = tokens.shape[0] // row_blocks, self.slot_axes()
-        views = [tree_util.tree_map(lambda c, ax: c.narrow(ax, r * n, n),
-                                    cache, axes) for r in range(row_blocks)]
-        outs = [self._decode(params, views[r], tokens[r * n:(r + 1) * n],
-                             pos[r * n:(r + 1) * n]
-                             if isinstance(pos, torch.Tensor) else pos)
-                for r in range(row_blocks)]
-
-        def join(c, ax, *vo):
-            ins, news = vo[:row_blocks], vo[row_blocks:]
-            if all(o is v for v, o in zip(ins, news)):
-                return c
-            return torch.cat(news, dim=ax)
-        return (torch.cat([lg for lg, _ in outs]),
-                tree_util.tree_map(join, cache, axes, *views,
-                                   *[c for _, c in outs]))
 
     def init_cache(self, batch: int, max_len: int):
         """An all-zero decode cache (`transformer.init_cache`)."""
@@ -229,7 +288,7 @@ class EncDecModel(Model):
                                          batch["frontend_embeds"],
                                          batch["tokens"], max_len)
 
-    def _decode(self, params, cache, tokens, pos, row_blocks: int = 1):
+    def decode_step(self, params, cache, tokens, pos, row_blocks: int = 1):
         if isinstance(pos, torch.Tensor):
             raise NotImplementedError("the encoder-decoder decodes at one "
                                       "shared position")

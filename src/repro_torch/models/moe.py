@@ -62,7 +62,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import _pdt, normal_init
+from repro_torch.models.layers import _pdt, normal_init, wein
 
 CAPACITY_FACTOR = 1.25   # the reference's moe_mlp default
 
@@ -128,7 +128,7 @@ def moe_mlp(cfg, p, x, groups: int = 1, ctx=None):
     xt = x.reshape(T, D)
 
     # ---- route -----------------------------------------------------------
-    logits = torch.einsum("td,de->te", xt, p["router"].to(dt)).float()
+    logits = wein("td,de->te", xt, p["router"].to(dt)).float()
     probs = torch.softmax(logits, dim=-1)                       # (T, E)
     gate_w, gate_idx = torch.topk(probs, k, dim=-1)             # (T, k)
     gate_w = gate_w / torch.sum(gate_w, dim=-1, keepdim=True)

@@ -23,6 +23,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models import layers as nn
 from repro_torch.models.layers import _pdt, normal_init
 
 RG_LRU_C = 8.0
@@ -76,9 +77,9 @@ def _causal_conv(x, w, b, state=None):
 def _rg_lru_gates(p, u):
     """u: (B,S,R) post-conv branch -> (a, beta_x) in f32."""
     uf = u.float()
-    r = torch.sigmoid(torch.einsum("bsr,rq->bsq", uf, p["wa"].float())
+    r = torch.sigmoid(nn.wein("bsr,rq->bsq", uf, p["wa"].float())
                       + p["ba"].float())
-    i = torch.sigmoid(torch.einsum("bsr,rq->bsq", uf, p["wx"].float())
+    i = torch.sigmoid(nn.wein("bsr,rq->bsq", uf, p["wx"].float())
                       + p["bx"].float())
     log_a = -RG_LRU_C * F.softplus(p["lam"].float()) * r
     a = torch.exp(log_a)
@@ -129,16 +130,16 @@ def recurrent_block(cfg, p, x, *, conv_state=None, h_state=None,
     tensors (never written in place): a retried step starts again from
     the committed ones."""
     dt = x.dtype
-    gate = F.gelu(torch.einsum("bsd,dr->bsr", x, p["w_gelu"].to(dt)).float(),
+    gate = F.gelu(nn.wein("bsd,dr->bsr", x, p["w_gelu"].to(dt)).float(),
                   approximate="tanh").to(dt)
-    u = torch.einsum("bsd,dr->bsr", x, p["w_in"].to(dt))
+    u = nn.wein("bsd,dr->bsr", x, p["w_in"].to(dt))
     u, conv_state_new = _causal_conv(u, p["conv_w"], p["conv_b"], conv_state)
     if decode:
         y_t, h_new = rg_lru_step(p, u[:, 0, :], h_state)
         y = y_t[:, None, :]
     else:
         y, h_new = rg_lru_scan(p, u, h_state)
-    out = torch.einsum("bsr,rd->bsd", gate * y, p["w_out"].to(dt))
+    out = nn.wein("bsr,rd->bsd", gate * y, p["w_out"].to(dt))
     return out, (conv_state_new, h_new)
 
 

@@ -30,6 +30,7 @@ from repro_torch.kernels import ops
 from repro_torch.models import layers as nn
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import recurrent as rec_lib
+from repro_torch.models.remat import remat
 from repro_torch.models import xlstm as xlstm_lib
 
 PORTED_FAMILIES = ("dense", "moe", "vlm", "hybrid", "ssm", "audio")
@@ -311,13 +312,93 @@ def _embed(cfg, params, tokens, frontend_embeds=None):
     return x
 
 
+def remat_group_size(cfg) -> int:
+    """Layers per remat group of a layer stack (the reference's): the
+    largest divisor of num_layers <= 8; 1 disables grouping (no remat, or
+    pattern groups, which are their own blocks)."""
+    if cfg.remat == "none" or cfg.block_pattern:
+        return 1
+    for g in range(min(8, cfg.num_layers), 0, -1):
+        if cfg.num_layers % g == 0:
+            return g
+    return 1
+
+
+def _dense_layer(cfg, lp, x, sin, cos, ctx=None):
+    """One layer of a stack over the full sequence -> (x, k, v, aux)."""
+    x, k, v = _attn_full(cfg, lp["ln1"], lp["attn"], x, sin, cos)
+    x, aux = _mlp_sub(cfg, lp, x, ctx=ctx)
+    return x, k, v, aux
+
+
+_AUX = ("moe_aux", "moe_drop_frac")
+
+
+def _layer_block(cfg, template, sin, cos, ctx):
+    """A remat body of one layer: (x, *its param leaves) -> (x[, moe aux,
+    drop fraction])."""
+    def body(x, *leaves):
+        lp = tree_util.unflatten_like(template, leaves)
+        x, _, _, aux = _dense_layer(cfg, lp, x, sin, cos, ctx)
+        return (x,) if aux is None else (x, *(aux[n] for n in _AUX))
+    return body
+
+
+def _stack_hidden(cfg, params, x, sin, cos, collect_kv: bool, ctx=None):
+    """The layer stack under cfg.remat -> (x, kv or None, aux). `none` and
+    `collect_kv` (prefill) run the layers flat. Otherwise the stack runs
+    as remat blocks of G = `remat_group_size` layers (the reference's
+    two-level groups): a group is one block under the policy and, inside
+    its rerun, each layer a block of its own under `full` (the
+    reference's inner `nothing_saveable`); with G = 1 each layer is one
+    block under the policy."""
+    auxes = []
+    if collect_kv or cfg.remat == "none":
+        ks, vs = [], []
+        for i in range(cfg.num_layers):
+            x, k, v, aux = _dense_layer(cfg, layer_params(params, i), x,
+                                        sin, cos, ctx)
+            if collect_kv:
+                ks.append(k)
+                vs.append(v)
+            if aux is not None:
+                auxes.append([aux[n] for n in _AUX])
+        kv = (torch.stack(ks), torch.stack(vs)) if collect_kv else None
+    else:
+        kv = None
+        layers = params["layers"]
+        template = layer_params(params, 0)
+        flat = tree_util.leaves(layers)
+        G = remat_group_size(cfg)
+        layer = _layer_block(cfg, template, sin, cos, ctx)
+        if G == 1:
+            for i in range(cfg.num_layers):
+                x, *aux = remat(layer, cfg.remat, x, *[a[i] for a in flat])
+                if aux:
+                    auxes.append(aux)
+        else:
+            for g in range(cfg.num_layers // G):
+                x, *aux = remat(layer, cfg.remat, x,
+                                *[a[g * G:(g + 1) * G] for a in flat],
+                                layers=G)
+                auxes += [aux[j:j + len(_AUX)]
+                          for j in range(0, len(aux), len(_AUX))]
+    aux_out = ({n: torch.mean(torch.stack([a[j] for a in auxes]))
+                for j, n in enumerate(_AUX)} if auxes else {})
+    return x, kv, aux_out
+
+
 def lm_hidden(cfg, params, tokens, frontend_embeds=None,
               collect_kv: bool = False, ctx=None):
     """tokens: (B, S_text); frontend_embeds: (B, P, D) or None ->
     (hidden (B,S,D), kv or None, aux dict), S = P + S_text. kv is (k, v),
     each (L, B, S, KV, hd), when `collect_kv` (layer stacks only); aux holds
     the moe family's `moe_aux` and `moe_drop_frac`, each the mean over
-    layers. `ctx` (a `ShardCtx`) reaches the MoE sub-block."""
+    layers. `ctx` (a `ShardCtx`) reaches the MoE sub-block. Under grad
+    mode the layers run as remat blocks of `cfg.remat` (`models/remat.py`):
+    each pattern group (and the tail) one block, as the reference's
+    `gbody`/`tbody`; a layer stack in two-level groups
+    (`_stack_hidden`)."""
     x = _embed(cfg, params, tokens, frontend_embeds)
     S = x.shape[1]
     sin, cos = nn.rope_tables(torch.arange(S, device=x.device),
@@ -325,24 +406,18 @@ def lm_hidden(cfg, params, tokens, frontend_embeds=None,
     kv, aux_out = None, {}
     if cfg.block_pattern:
         for _, pat, stack, depth in _stages(cfg, params):
+            template = _slice(stack, 0)
+            flat = tree_util.leaves(stack)
+
+            def gbody(x, *leaves, pat=pat, template=template):
+                gp = tree_util.unflatten_like(template, leaves)
+                return (_group_full(cfg, gp, x, sin, cos, pat)[0],)
+
             for g in range(depth):
-                x, _ = _group_full(cfg, _slice(stack, g), x, sin, cos, pat)
+                x, = remat(gbody, cfg.remat, x, *[a[g] for a in flat])
     else:
-        ks, vs, auxes = [], [], []
-        for i in range(cfg.num_layers):
-            lp = layer_params(params, i)
-            x, k, v = _attn_full(cfg, lp["ln1"], lp["attn"], x, sin, cos)
-            x, aux = _mlp_sub(cfg, lp, x, ctx=ctx)
-            if collect_kv:
-                ks.append(k)
-                vs.append(v)
-            if aux is not None:
-                auxes.append(aux)
-        if collect_kv:
-            kv = (torch.stack(ks), torch.stack(vs))
-        if auxes:
-            aux_out = {name: torch.mean(torch.stack([a[name] for a in auxes]))
-                       for name in auxes[0]}
+        x, kv, aux_out = _stack_hidden(cfg, params, x, sin, cos, collect_kv,
+                                       ctx)
     x = nn.rms_norm(x, params["final_ln"], cfg.norm_eps)
     return x, kv, aux_out
 
@@ -479,7 +554,17 @@ def lm_decode_step(cfg, params, cache, tokens, pos, row_blocks: int = 1):
     A MoE layer routes as the reference's vmapped decodes do: per-row
     positions are `serve()`'s slots, each its own dispatch group (one
     token, capacity 4); a host-int position routes each block of rows as
-    one group."""
+    one group.
+
+    The blocks keep their bits: the ops whose result for a row depends on
+    how many rows run beside it run once per block (`layers.row_blocks`),
+    so a block's logits and cache equal those of its rows decoded
+    alone."""
+    with nn.row_blocks(row_blocks):
+        return _decode_step(cfg, params, cache, tokens, pos, row_blocks)
+
+
+def _decode_step(cfg, params, cache, tokens, pos, row_blocks: int):
     x = nn.embed_tokens(cfg, params["embed"], tokens[:, None])
     groups = row_blocks
     if isinstance(pos, torch.Tensor):

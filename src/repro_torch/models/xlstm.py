@@ -27,6 +27,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models import layers as nn
 from repro_torch.models.layers import _pdt, normal_init
 from repro_torch.models.recurrent import _causal_conv
 
@@ -224,10 +225,19 @@ def _head_groupnorm(h, scale, eps: float = 1e-6):
     as in the reference (not cfg.norm_eps)."""
     B, S, H, hd = h.shape
     hf = h.float()
-    var = torch.mean(hf * hf, dim=-1, keepdim=True)
+    var = nn.feature_mean(hf * hf)
     y = hf * torch.rsqrt(var + eps)
     y = y.reshape(B, S, H * hd) * (1.0 + scale.float())
     return y.to(h.dtype)
+
+
+def _gate_product(x, w):
+    """An input or forget gate's pre-activations, one per head: (B, S, D)
+    by (D, H) -> (B, H, S). A stacked decode runs it once per row block
+    (`layers.row_blocks`): at N = H columns the card's GEMM rounds a row
+    differently at 2B rows than at B
+    (`scripts/stacked_decode_bisect.py`)."""
+    return nn.blockwise(lambda t: nn.wein("bsd,dh->bhs", t, w), x)
 
 
 def mlstm_block(cfg, p, x, *, state=None, decode: bool = False):
@@ -237,18 +247,18 @@ def mlstm_block(cfg, p, x, *, state=None, decode: bool = False):
     dt = x.dtype
     B, S, D = x.shape
     H, hd = cfg.num_heads, cfg.head_dim
-    up = torch.einsum("bsd,de->bse", x, p["w_up"].to(dt))
+    up = nn.wein("bsd,de->bse", x, p["w_up"].to(dt))
     u, g = up[..., :D], up[..., D:]
 
     conv_state = state[0] if state is not None else None
     uc, conv_state_new = _causal_conv(u, p["conv_w"], p["conv_b"], conv_state)
     uc = F.silu(uc.float()).to(dt)
-    q = torch.einsum("bsd,dhk->bhsk", uc, p["wq"].to(dt))
-    k = torch.einsum("bsd,dhk->bhsk", uc, p["wk"].to(dt)) / math.sqrt(hd)
-    v = torch.einsum("bsd,dhk->bhsk", u, p["wv"].to(dt))
-    i_raw = (torch.einsum("bsd,dh->bhs", uc, p["wi"].to(dt))
+    q = nn.wein("bsd,dhk->bhsk", uc, p["wq"].to(dt))
+    k = nn.wein("bsd,dhk->bhsk", uc, p["wk"].to(dt)) / math.sqrt(hd)
+    v = nn.wein("bsd,dhk->bhsk", u, p["wv"].to(dt))
+    i_raw = (_gate_product(uc, p["wi"].to(dt))
              + p["bi"].to(dt)[:, None]).float()
-    f_raw = (torch.einsum("bsd,dh->bhs", uc, p["wf"].to(dt))
+    f_raw = (_gate_product(uc, p["wf"].to(dt))
              + p["bf"].to(dt)[:, None]).float()
 
     cell_state = state[1] if state is not None else None
@@ -264,7 +274,7 @@ def mlstm_block(cfg, p, x, *, state=None, decode: bool = False):
     h = h.transpose(1, 2).to(dt)        # (B,S,H,hd), back to compute dtype
     h = _head_groupnorm(h, p["gn"])
     y = h * F.silu(g.float()).to(dt)
-    out = torch.einsum("bsd,de->bse", y, p["w_down"].to(dt))
+    out = nn.wein("bsd,de->bse", y, p["w_down"].to(dt))
     return out, (conv_state_new, cell_state_new)
 
 
@@ -320,7 +330,7 @@ def slstm_cell_scan(cfg, p, x, xc, state=None):
     f32 = torch.float32
 
     def gate(inp, w, b):
-        return (torch.einsum("bsd,de->bse", inp, p[w].to(dt)).to(f32)
+        return (nn.wein("bsd,de->bse", inp, p[w].to(dt)).to(f32)
                 + p[b].to(f32))
 
     gz, gi = gate(x, "wz", "bz"), gate(xc, "wi", "bi")
@@ -349,10 +359,10 @@ def slstm_block(cfg, p, x, *, state=None, decode: bool = False):
     B, S, D = h.shape
     h = _head_groupnorm(h.reshape(B, S, cfg.num_heads, cfg.head_dim), p["gn"])
     # gated FFN
-    g = torch.einsum("bsd,df->bsf", h, p["w_gate"].to(dt))
-    u = torch.einsum("bsd,df->bsf", h, p["w_upf"].to(dt))
+    g = nn.wein("bsd,df->bsf", h, p["w_gate"].to(dt))
+    u = nn.wein("bsd,df->bsf", h, p["w_upf"].to(dt))
     y = F.silu(g.float()).to(dt) * u
-    out = torch.einsum("bsf,fd->bsd", y, p["w_downf"].to(dt))
+    out = nn.wein("bsf,fd->bsd", y, p["w_downf"].to(dt))
     return out, (conv_state_new, cell_state_new)
 
 

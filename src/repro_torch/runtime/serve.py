@@ -28,14 +28,14 @@ commit and compares at step entry every `param_validate_interval` steps
 Single-launch replication (`backend="fused"`): both replicas' states are
 stacked as row blocks of one state (2B rows; the cache (L, 2B, T, KV,
 hd)) and ONE decode steps them; rows i and B + i are compared on the
-device. The decode's attention runs per replica half (cuBLAS picks its
-batched-product algorithm by the batch count, and a stacked batch would
-get other bits than a replica decoded alone); every other operation runs
-once over the 2B rows. A parameter fault is decided on the host for one
-replica: on the step it fires, the corrupted launch runs first, then the
-shared-weight launch, whose bits every clean row keeps, and the corrupted
-replica's cache rows are put back as the corrupted launch left them
-(`_fused_forward`).
+device. The decode's attention, its feature means and xlstm's gate
+products run per replica half (their kernels round a row by how many
+rows run beside it, `models/layers.py::row_blocks`), so each half keeps
+a replica's own bits; every other operation runs once over the 2B rows.
+A parameter fault is decided on the host for one replica: on the step
+it fires, the corrupted launch runs first, then the shared-weight launch,
+whose bits every clean row keeps, and the corrupted replica's cache rows
+are put back as the corrupted launch left them (`_fused_forward`).
 
 Continuous batching, `serve()` (every backend above): a `SlotScheduler`
 packs independent requests into N sequence slots, each with its own
@@ -85,13 +85,10 @@ position S + P; an audio prompt passes the encoder's frames as
 positions). `serve()` takes the token-prompt families (dense, moe, hybrid,
 ssm), as the reference does. What the non-dense state needs:
 
-  * the fused backend decodes both replicas' rows together, the
-    attention per replica half, except in the families whose stacked
-    decode lost a replica's bits on the card (moe, vlm, ssm:
-    `models/model.py::BLOCKWISE_FAMILIES`), which decode each half on its
-    own; a fused MoE pack prefills each copy on its own, and a MoE layer
-    routes each replica, and each `serve()` slot, as its own dispatch
-    group (the reference's vmaps, `models/moe.py`);
+  * the fused backend decodes both replicas' rows together, every
+    family alike (above); a fused MoE pack prefills each copy on its own,
+    and a MoE layer routes each replica, and each `serve()` slot, as its
+    own dispatch group (the reference's vmaps, `models/moe.py`);
   * the state is a tree: dense or ring KV caches written in place,
     recurrent states replaced each step, a cross cache written once.
     Slot surgery finds each leaf's slot axis in `Model.slot_axes`, and
@@ -311,8 +308,7 @@ class SedarServer:
                               replica_id=spec.replica, armed=armed)
 
         def decode(p):
-            # attention per replica half: the products a replica's own
-            # decode runs (their bits depend on the batch count)
+            # the row-sensitive ops per replica half (`layers.row_blocks`)
             return self.model.decode_step(p, cache, tok, pos, row_blocks=2)
 
         if bad is params:

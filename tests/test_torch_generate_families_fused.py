@@ -3,15 +3,17 @@ families against the JAX reference's, on the same seeded prompt and params
 (`bridge.params_from_numpy`), at reduce_for_smoke size in f32 with
 `attention_impl="pallas"` (K2's plain version on the CPU).
 
-The port stacks both replicas as the row blocks of one decode, the
-attention per replica half and the recurrent states row-independent, or
-(moe, vlm, ssm: `BLOCKWISE_FAMILIES`) decodes each half on its own; a MoE
-layer routes each replica's rows as its own dispatch group (the reference
-vmaps the replicas). Held exactly: the clean tokens (also equal to
-the port's own sequential run, bit for bit: bits come from inside the
-port), and under a bit-30 flip of `final_ln` on replica 1 the (step,
-boundary, effect) stream, the retries and the recovery records, with the
-clean tokens."""
+The port stacks both replicas as the row blocks of one decode, every
+family alike: the attention, the feature means and xlstm's gate products
+run per replica half (`layers.row_blocks`), the rest on the stacked rows,
+and a MoE layer routes each replica's rows as its own dispatch group (the
+reference vmaps the replicas). The stacked decode equals a replica
+decoded alone bit for bit, at the host position and, for the families
+`serve()` takes (moe, hybrid, ssm), at per-row positions. Held exactly:
+the clean tokens (also equal to the port's own sequential run, bit for
+bit: bits come from inside the port), and under a bit-30 flip of
+`final_ln` on replica 1 the (step, boundary, effect) stream, the retries
+and the recovery records, with the clean tokens."""
 import dataclasses
 
 import numpy as np
@@ -107,53 +109,90 @@ def test_fused_final_ln_fault_retried_like_reference(fam):
     np.testing.assert_array_equal(jtoks, fam["clean"])
 
 
-def test_both_decode_layouts_equal_a_replica_alone(fam):
-    """The fused backend's two layouts of a decode step on the CPU, bit
-    for bit against B rows decoded alone: the 2B stacked rows together
-    with the attention per half (`Model._decode(row_blocks=2)`, a MoE
-    layer routing each half as one dispatch group) and each half on its
-    own (`Model._in_blocks`). `decode_step` takes the second exactly for
-    `BLOCKWISE_FAMILIES` (on the card the first lost a replica's bits
-    there, `chip_smoke.py::stacked_decode_bits`)."""
-    from repro_torch.models import model as model_lib, moe
-    srv = make_server(RunConfig(model=fam["tcfg"]), backend="none",
-                      device="cpu")
-    m, p = srv.model, fam["tparams"]
-    batch = {k: torch.from_numpy(v) for k, v in fam["prompt"].items()}
-    pos = S + fam["P"]
+def _stacked_decode(tcfg, params, prompt, P: int, per_row: bool):
+    """Three greedy decode steps of the B prompt rows alone against the 2B
+    stacked rows through `Model.decode_step(row_blocks=2)`, at the host
+    position or at per-row positions. Returns (the row counts each
+    `lm_decode_step`/`encdec_decode_step` call saw, the MoE dispatch
+    groups, the row blocks `layers.blockwise` ran under), after asserting
+    each step's stacked logits equal the replica's bit for bit."""
+    from repro_torch.models import encdec, layers, moe, transformer
+    srv = make_server(RunConfig(model=tcfg), backend="none", device="cpu")
+    m, p = srv.model, params
+    batch = {k: torch.from_numpy(v) for k, v in prompt.items()}
+    pos = S + P
     _, cache = m.prefill(p, batch, pos + 8)
     axes = m.slot_axes()
     one = tree_util.tree_map(lambda c: c.clone(), cache)
     two = tree_util.tree_map(lambda c, ax: torch.cat([c, c], dim=ax),
                              cache, axes)
-    blk = tree_util.tree_map(lambda c: c.clone(), two)
-    groups, blockwise = [], []
-    mlp, in_blocks = moe.moe_mlp, m._in_blocks
+    rows, groups, blocks = [], [], []
+    mod = encdec if tcfg.family == "audio" else transformer
+    name = ("encdec_decode_step" if tcfg.family == "audio"
+            else "lm_decode_step")
+    step_fn, mlp, blockwise = getattr(mod, name), moe.moe_mlp, \
+        layers.blockwise
+
+    def spy_step(cfg, params, cache, tokens, pos, row_blocks=1):
+        rows.append((tokens.shape[0], row_blocks))
+        return step_fn(cfg, params, cache, tokens, pos, row_blocks)
 
     def spy_mlp(cfg, lp, x, g=1, ctx=None):
         groups.append(g)
         return mlp(cfg, lp, x, g, ctx=ctx)
 
-    def spy_blocks(*a):
-        blockwise.append(True)
-        return in_blocks(*a)
-    moe.moe_mlp, m._in_blocks = spy_mlp, spy_blocks
+    def spy_blockwise(fn, *xs, dim=0):
+        blocks.append(getattr(layers._ROWS, "n", 1))
+        return blockwise(fn, *xs, dim=dim)
+    setattr(mod, name, spy_step)
+    moe.moe_mlp, layers.blockwise = spy_mlp, spy_blockwise
     try:
         tok = batch["tokens"][:, -1]
         for s in range(3):
-            l1, one = m._decode(p, one, tok, pos + s)
+            p1 = torch.full((B,), pos + s) if per_row else pos + s
+            p2 = torch.cat([p1, p1]) if per_row else p1
+            l1, one = m.decode_step(p, one, tok, p1)
+            rows.clear()
             groups.clear()
-            l2, two = m._decode(p, two, torch.cat([tok, tok]), pos + s,
-                                row_blocks=2)
-            assert set(groups) <= {2}
-            l3, blk = m.decode_step(p, blk, torch.cat([tok, tok]), pos + s,
+            l2, two = m.decode_step(p, two, torch.cat([tok, tok]), p2,
                                     row_blocks=2)
-            for got in (l2, l3):
-                assert torch.equal(got[:B], l1) and torch.equal(got[B:], l1)
+            assert torch.equal(l2[:B], l1) and torch.equal(l2[B:], l1)
             tok = torch.argmax(l1, -1)
     finally:
-        moe.moe_mlp = mlp
-        del m._in_blocks
-    assert bool(blockwise) == (fam["tcfg"].family
-                               in model_lib.BLOCKWISE_FAMILIES)
-    assert bool(groups) == (fam["tcfg"].family == "moe")
+        setattr(mod, name, step_fn)
+        moe.moe_mlp, layers.blockwise = mlp, blockwise
+    return rows, groups, blocks
+
+
+def test_both_decode_layouts_equal_a_replica_alone(fam):
+    """The fused backend's decode on the CPU, bit for bit against B rows
+    decoded alone: every family decodes the 2B stacked rows together, in
+    one decode of 2B rows in two row blocks (there is no decode per half
+    any more), its row-sensitive ops per block, a MoE layer routing each
+    half as one dispatch group (on the card, where the stacked rows once
+    lost a replica's bits, `chip_smoke.py::stacked_decode_bits` holds the
+    same)."""
+    rows, groups, blocks = _stacked_decode(fam["tcfg"], fam["tparams"],
+                                           fam["prompt"], fam["P"],
+                                           per_row=False)
+    assert rows == [(2 * B, 2)]
+    assert 2 in blocks
+    assert set(groups) == ({2} if fam["tcfg"].family == "moe" else set())
+
+
+@pytest.mark.parametrize("family", ["moe", "hybrid", "ssm"])
+def test_stacked_decode_at_per_row_positions_equals_a_replica_alone(family):
+    """`serve()`'s per-row positions (moe, hybrid, ssm; the port's own
+    seeded params): the 2B stacked rows together, bit for bit against B
+    rows alone; a MoE layer routes each row as its own dispatch group."""
+    tcfg = dataclasses.replace(reduce_for_smoke(get_config(FAMILIES[family])),
+                               attention_impl="pallas")
+    params = make_server(RunConfig(model=tcfg), backend="none",
+                         device="cpu").model.init(seed=3)
+    prompt = {"tokens": np.random.RandomState(2).randint(
+        0, 200, (B, S)).astype(np.int64)}
+    rows, groups, blocks = _stacked_decode(tcfg, params, prompt, 0,
+                                           per_row=True)
+    assert rows == [(2 * B, 2)]
+    assert 2 in blocks
+    assert set(groups) == ({2 * B} if family == "moe" else set())
