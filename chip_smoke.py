@@ -128,7 +128,17 @@ counts set to 0 just before it and read just after:
     mesh on this card over gloo, one phi3.5-moe layer at full width through
     `Model.loss(ctx=)` (8 experts a rank): loss, aux, drop fraction and
     every grad against the one-process oracle with the tokens in the same
-    2 dispatch groups, ms, peak per rank, collectives by label;
+    2 dispatch groups, ms, peak per rank, collectives by label; then the
+    same layer with every param sharded over the 2 model ranks (attention
+    by heads, the vocab-parallel embedding, head and CE) at f32 compute;
+  * the sharded training program (phase tp, `launch/dryrun.py::
+    build_train_program`): qwen2-0.5b at full width on 4 ranks of this
+    card, baseline on (data 2, model 2) with sequence parallelism at
+    microbatches 1 and 2, sedar on (pod 2, data 1, model 2) clean and
+    with a grads fault, against the program on a mesh of one rank in this
+    process: losses, step 0's grads, verdicts, the commit gate,
+    collectives by label, state bytes as `run_cell` plans them, ms/step,
+    peak and gloo bytes per rank;
   * a small f32 model on the card against the plain CPU path.
 
 Any failed check exits non-zero. The last two lines are a JSON object of
@@ -5463,6 +5473,8 @@ EP_SHAPE = (1, 2)           # (data, model)
 EP_BATCH, EP_SEQ = 4, 256
 EP_TIMING_ITERS = 3
 EP_TOL = 1e-2               # bf16: of the oracle's max |value|
+# the sharded pass at bf16: phase tp's bound for sharded bf16 grads
+EP_SHARDED_BF16_GAP = FUSED_GRAD_GAP
 EP_TIMEOUT_S = 300
 
 
@@ -5480,81 +5492,125 @@ def _ep_loss(model, params, batch, ctx=None, groups: int = 1):
         moe.moe_mlp = real
 
 
-def ep_rank(rank: int, root: str) -> dict:
-    """One rank of phase ep (spawned by `launch/mesh.py::spawn`): a
-    1-layer phi3.5-moe at full width (seeded f32 params, bf16 compute), B
-    = 4 x 256 tokens of SyntheticLM(seed 0). First the one-process oracle
-    on the full experts with the tokens in tp x D dispatch groups (its
-    grads moved to the host), then `Model.loss` with a `ShardCtx` over
-    MeshConfig((1, 2), ("data", "model")), this rank's experts cut by
-    `bridge.expert_shard`: loss, aux, drop fraction and every grad against
-    the oracle's, ms per forward + backward, the peak and the collectives
-    by label."""
+def _routed(fn, force=None):
+    """(fn(), the router's top-k expert choices of each token, (T, k) in
+    call order): `torch.topk` spied on, which only the MoE routing calls.
+    `force` (T, k): those choices taken in the top-k's place, each with
+    its own probability as its gate weight."""
+    real, seen = torch.topk, []
+
+    def spy(x, k, *args, **kwargs):
+        vals, idx = real(x, k, *args, **kwargs)
+        if force is not None:
+            done = sum(t.shape[0] for t in seen)
+            idx = force[done:done + idx.shape[0]].to(idx.device)
+            vals = torch.gather(x, -1, idx)
+        seen.append(idx.cpu())
+        return vals, idx
+    torch.topk = spy
+    try:
+        return fn(), torch.cat(seen)
+    finally:
+        torch.topk = real
+
+
+def _ep_run(mesh, cfg, batch, sharded: bool) -> dict:
+    """One pass of phase ep on this rank: the one-process oracle on the
+    full params with the tokens in tp x D dispatch groups (its grads moved
+    to the host), then `Model.loss` with a `ShardCtx` over the mesh: with
+    `sharded`, every param cut to the rank's block (`bridge.shard_params`,
+    the ctx holding their specs: the attention over its heads, the
+    vocab-parallel embedding, head and CE, the experts over the model
+    ranks); else every param whole but the rank's experts
+    (`bridge.expert_shard`). Loss, aux, drop fraction and every grad
+    against the oracle's, ms per forward + backward, the peak and the
+    collectives by label, of a run with the oracle's routing forced
+    (`_routed`); before it a run that routes freely gives `flips`, the
+    tokens of the rank's slice whose top-k experts differ from the
+    oracle's (a rounding that moves a router logit across its margin),
+    and `free_worst`, its worst grads leaf against the oracle."""
     from repro_torch import bridge
-    from repro_torch.configs import MeshConfig, get_config
     from repro_torch.core import hostsync
-    from repro_torch.data import SyntheticLM
-    from repro_torch.device import make_deterministic
-    from repro_torch.launch.mesh import make_process_mesh
     from repro_torch.models import build_model
+    from repro_torch.models.layers import torch_dtype
     from repro_torch.models.transformer import ShardCtx
     from repro_torch.sharding import Resolver
-    from repro_torch.tree import flatten_with_path, tree_map
+    from repro_torch.tree import flatten_with_path, tree_map, unflatten_like
 
     dev = torch.device("cuda")
-    make_deterministic(dev)
-    mesh = make_process_mesh(MeshConfig(shape=EP_SHAPE,
-                                        axis_names=("data", "model")))
     D, tp = EP_SHAPE
-    cfg = pinned(cut_depth(get_config("phi3.5-moe-42b-a6.6b"), 1))
     model = build_model(cfg, dev)
     full = model.init(seed=0)
-    batch = {k: torch.from_numpy(np.asarray(v, np.int64)).to(dev)
-             for k, v in SyntheticLM(cfg.vocab_size, EP_BATCH, EP_SEQ,
-                                     seed=0).batch(0).items()}
 
     def grads_of(params, fn):
         names = [n for n, _ in flatten_with_path(params)]
         leaves = [t.detach().requires_grad_(True)
                   for _, t in flatten_with_path(params)]
-        from repro_torch.tree import unflatten_like
         loss, metrics = fn(unflatten_like(params, leaves))
         gs = torch.autograd.grad(loss, leaves)
         return loss.detach(), metrics, dict(zip(names, gs))
 
-    # the oracle: one process, full experts, tp x D dispatch groups
-    loss_o, met_o, g_o = grads_of(full, lambda p: _ep_loss(
-        model, p, batch, groups=tp * D))
-    n_exp = cfg.num_experts // tp
-    sl = slice(mesh.model * n_exp, (mesh.model + 1) * n_exp)
-    oracle = {k: (g[:, sl] if any(w in k for w in ("w_gate", "w_up",
-                                                      "w_down"))
-                  else g).float().cpu() for k, g in g_o.items()}
+    # the oracle: one process, full params, tp x D dispatch groups
+    (loss_o, met_o, g_o), route_o = _routed(lambda: grads_of(
+        full, lambda p: _ep_loss(model, p, batch, groups=tp * D)))
+    res = Resolver(mesh)
+    if sharded:
+        specs = bridge.partition(cfg, full, res)
+        oracle = dict(flatten_with_path(bridge.shard_params(
+            unflatten_like(full, list(g_o.values())), res, mesh, cfg,
+            specs)))
+        params = bridge.shard_params(full, res, mesh, cfg, specs)
+        ctx = ShardCtx(mesh, res, specs=specs,
+                       dtype=torch_dtype(cfg.dtype))
+    else:
+        n_exp = cfg.num_experts // tp
+        sl = slice(mesh.model * n_exp, (mesh.model + 1) * n_exp)
+        oracle = {k: (g[:, sl] if any(w in k for w in ("w_gate", "w_up",
+                                                          "w_down"))
+                      else g) for k, g in g_o.items()}
+        params = bridge.expert_shard(full, tp, mesh.model)
+        ctx = ShardCtx(mesh, res)
+    oracle = {k: g.float().cpu() for k, g in oracle.items()}
     oracle_stats = tuple(float(t.detach()) for t in (
         loss_o, met_o["moe_aux"], met_o["moe_drop_frac"]))
     del g_o, loss_o, met_o
-    params = tree_map(lambda t: t.clone(),
-                      bridge.expert_shard(full, tp, mesh.model))
+    params = tree_map(lambda t: t.clone(), params)
     del full
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
-    ctx = ShardCtx(mesh, Resolver(mesh))
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    # the backward runs on autograd's device thread: count across threads
+    def run(force=None):
+        return _routed(lambda: grads_of(
+            params, lambda p: model.loss(p, batch, ctx)), force)
+
+    def gaps(g):
+        return {k: float((v.float() - oracle[k].to(dev)).abs().max())
+                / max(float(oracle[k].abs().max()), 1e-30)
+                for k, v in g.items()}
+    # free routing: the tokens whose top-k differs from the oracle's, and
+    # how far that moves the grads
+    (_, _, g), route = run()
+    n = route.shape[0]
+    own_o = route_o[mesh.model * n:(mesh.model + 1) * n]
+    flips = int((torch.sort(route, dim=-1).values
+                 != torch.sort(own_o, dim=-1).values).any(dim=-1).sum())
+    free_worst = max(gaps(g).values())
+    del g
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # the checked run, the oracle's routing forced; the backward runs on
+    # autograd's device thread: count across threads
     with hostsync.count_transfers(cross_thread=True) as st:
-        loss, met, g = grads_of(params, lambda p: model.loss(p, batch, ctx))
+        (loss, met, g), _ = run(own_o)
         torch.cuda.synchronize()
     peak_above = _peak_gib(base)
     held = base / 2 ** 30
     stats = tuple(float(t.detach()) for t in (
         loss, met["moe_aux"], met["moe_drop_frac"]))
-    errs, bitwise = {}, True
-    for k, v in g.items():
-        want = oracle[k].to(dev)
-        diff = float((v.float() - want).abs().max())
-        errs[k] = diff / max(float(want.abs().max()), 1e-30)
-        bitwise = bitwise and diff == 0.0
+    errs = gaps(g)
+    bitwise = all(torch.equal(v.float().cpu(), oracle[k])
+                  for k, v in g.items())
     del g
     times = []
     for _ in range(EP_TIMING_ITERS):
@@ -5563,10 +5619,52 @@ def ep_rank(rank: int, root: str) -> dict:
         grads_of(params, lambda p: model.loss(p, batch, ctx))
         torch.cuda.synchronize()
         times.append((time.time() - t0) * 1e3)
-    return dict(rank=rank, model=mesh.model, stats=stats,
-                oracle_stats=oracle_stats, errs=errs, bitwise=bitwise,
-                held_gib=held, peak_gib=held + peak_above,
-                collectives=dict(st.collectives), ms=times)
+    del params
+    torch.cuda.empty_cache()
+    return dict(stats=stats, oracle_stats=oracle_stats, errs=errs,
+                bitwise=bitwise, held_gib=held, peak_gib=held + peak_above,
+                collectives=dict(st.collectives), ms=times, flips=flips,
+                free_worst=free_worst)
+
+
+def ep_rank(rank: int, root: str) -> dict:
+    """One rank of phase ep (spawned by `launch/mesh.py::spawn`): a
+    1-layer phi3.5-moe at full width (seeded f32 params), B = 4 x 256
+    tokens of SyntheticLM(seed 0), over MeshConfig((1, 2), ("data",
+    "model")): `_ep_run` with every param whole but the experts (slice
+    13, the config's bf16 compute), then with every layer sharded (slice
+    15) at f32 compute and at bf16. The seeded router's top-2 of 16
+    margins are thin, and a product that rounds one element otherwise
+    than the oracle's can route a token to another expert, which moves the
+    grads of every leaf it reaches; so each pass is held with the oracle's
+    routing forced, and the free run's re-routed tokens and grads gap are
+    printed beside it."""
+    from repro_torch.configs import MeshConfig, get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.device import make_deterministic
+    from repro_torch.launch.mesh import make_process_mesh
+
+    dev = torch.device("cuda")
+    make_deterministic(dev)
+    mesh = make_process_mesh(MeshConfig(shape=EP_SHAPE,
+                                        axis_names=("data", "model")))
+    cfg = pinned(cut_depth(get_config("phi3.5-moe-42b-a6.6b"), 1))
+    batch = {k: torch.from_numpy(np.asarray(v, np.int64)).to(dev)
+             for k, v in SyntheticLM(cfg.vocab_size, EP_BATCH, EP_SEQ,
+                                     seed=0).batch(0).items()}
+    return dict(rank=rank, model=mesh.model,
+                ep=_ep_run(mesh, cfg, batch, sharded=False),
+                tp32=_ep_run(mesh, dataclasses.replace(cfg, dtype="float32"),
+                             batch, sharded=True),
+                tp=_ep_run(mesh, cfg, batch, sharded=True))
+
+
+# phase ep's sharded pass, a forward and backward by label: the experts'
+# (as the experts-only pass), and on the model axis (SP off) attention's
+# entry (its grad sum) and exit (the sum), the embedding's exit and the
+# head's entry; 2 vocab_stats for the one CE chunk
+EP_TP_COLLECTIVES = {"ep_dispatch": 2, "ep_combine": 2, "ep_gather": 3,
+                     "ep_stats": 2, "tp_reduce": 4, "vocab_stats": 2}
 
 
 def phase_ep() -> dict:
@@ -5578,7 +5676,16 @@ def phase_ep() -> dict:
     tokens in the same 2 dispatch groups: loss and aux within EP_TOL
     relative, the drop fraction equal, every grad within EP_TOL of the
     oracle's largest |value| (bitwise printed); ms per forward + backward,
-    peak per rank and the collectives by label."""
+    peak per rank and the collectives by label. Slice 15 runs the layer
+    again with every param sharded over the 2 model ranks (the attention
+    over its heads, the vocab-parallel embedding, head and CE beside the
+    experts), held the same way at f32 compute, and at the config's bf16
+    with grads within EP_SHARDED_BF16_GAP (phase tp's bound: the ranks'
+    bf16 products and the oracle's round differently, an ulp or two of the
+    largest grads), its collectives as EP_TP_COLLECTIVES states them. Each
+    pass is held with the oracle's routing forced, and prints the tokens
+    that route otherwise, and the grads gap, when it routes freely
+    (`_ep_run`)."""
     import tempfile
     from repro_torch.launch.mesh import spawn
 
@@ -5588,30 +5695,399 @@ def phase_ep() -> dict:
     root = tempfile.mkdtemp(prefix="sedar_ep_")
     reps = spawn(ep_rank, EP_SHAPE[0] * EP_SHAPE[1], root,
                  timeout_s=EP_TIMEOUT_S)
-    for r in reps:
-        (loss, aux, drop), (lo, ao, do) = r["stats"], r["oracle_stats"]
-        worst = max(r["errs"], key=r["errs"].get)
-        print(f"ep: rank {r['rank']} (model {r['model']}): loss {loss!r} "
-              f"(oracle {lo!r}), aux {aux!r} ({ao!r}), drop fraction "
-              f"{drop!r} ({do!r}); grads bitwise equal to the oracle "
-              f"{r['bitwise']}, worst {worst} {r['errs'][worst]:.3e} of max "
-              f"|g|; fwd+bwd {', '.join(f'{t:.1f}' for t in r['ms'])} ms; "
-              f"params {r['held_gib']:.2f} GiB, peak {r['peak_gib']:.2f} "
-              f"GiB; collectives {r['collectives']}", flush=True)
-        check(drop == do and abs(loss - lo) <= EP_TOL * abs(lo)
-              and abs(aux - ao) <= EP_TOL * abs(ao)
-              and r["errs"][worst] <= EP_TOL,
-              f"ep: rank {r['rank']} off the one-process oracle: loss "
-              f"{loss} vs {lo}, aux {aux} vs {ao}, drop {drop} vs {do}, "
-              f"{worst} {r['errs'][worst]}")
-        # forward: one exchange each way, the output's all_gather, the two
-        # means; backward: the exchanges again, the token slice's
-        # all_gather and the router's sum (both labelled ep_gather)
-        check(r["collectives"] == {"ep_dispatch": 2, "ep_combine": 2,
-                                   "ep_gather": 3, "ep_stats": 2},
-              f"ep: collectives {r['collectives']}")
+    # the experts: forward one exchange each way, the output's all_gather,
+    # the two means; backward the exchanges again, the token slice's
+    # all_gather and the router's sum (both ep_gather); with every layer
+    # sharded also the model axis' (EP_TP_COLLECTIVES)
+    want = {"ep": {"ep_dispatch": 2, "ep_combine": 2, "ep_gather": 3,
+                   "ep_stats": 2}, "tp32": EP_TP_COLLECTIVES,
+            "tp": EP_TP_COLLECTIVES}
+    for rep in reps:
+        for run, tol in (("ep", EP_TOL), ("tp32", EP_TOL),
+                         ("tp", EP_SHARDED_BF16_GAP)):
+            r = rep[run]
+            (loss, aux, drop), (lo, ao, do) = r["stats"], r["oracle_stats"]
+            worst = max(r["errs"], key=r["errs"].get)
+            print(f"ep[{run}]: rank {rep['rank']} (model {rep['model']}): "
+                  f"loss {loss!r} (oracle {lo!r}), aux {aux!r} ({ao!r}), "
+                  f"drop fraction {drop!r} ({do!r}); grads bitwise equal to "
+                  f"the oracle {r['bitwise']}, worst {worst} "
+                  f"{r['errs'][worst]:.3e} of max |g| with the oracle's "
+                  f"routing (routing freely: {r['flips']} tokens routed "
+                  f"otherwise, worst {r['free_worst']:.3e}); fwd+bwd "
+                  f"{', '.join(f'{t:.1f}' for t in r['ms'])} ms; params "
+                  f"{r['held_gib']:.2f} GiB, peak {r['peak_gib']:.2f} GiB; "
+                  f"collectives {r['collectives']}", flush=True)
+            check(drop == do and abs(loss - lo) <= EP_TOL * abs(lo)
+                  and abs(aux - ao) <= EP_TOL * abs(ao)
+                  and r["errs"][worst] <= tol,
+                  f"ep[{run}]: rank {rep['rank']} off the one-process "
+                  f"oracle: loss {loss} vs {lo}, aux {aux} vs {ao}, drop "
+                  f"{drop} vs {do}, {worst} {r['errs'][worst]} (the "
+                  "oracle's routing forced)")
+            check(r["collectives"] == want[run],
+                  f"ep[{run}]: collectives {r['collectives']}, the code "
+                  f"implies {want[run]}")
     print(f"ep phase took {time.time() - t_phase:.1f} s", flush=True)
     return {r["rank"]: r for r in reps}
+
+
+TP_BATCH, TP_SEQ, TP_STEPS = 4, 256, 3
+TP_LAYERS = 24              # qwen2-0.5b at full depth and width
+TP_LOSS_RTOL = 5e-3         # each step's loss against the one-process oracle
+TP_GRAD_GAP = FUSED_GRAD_GAP    # step 0's grads: of each leaf's max |g|
+TP_FAULT = (0, 5, 20)       # grads leaf 0, element 5, bit 20
+TP_FAULT_RANK = 3           # pod 1's rank (data 0, model 1) of (2, 1, 2)
+TP_FAULT_STEP = 1
+TP_TIMEOUT_S = 600
+TP_THREADS = 2              # torch threads per rank: 4 ranks on 8 cores
+# (name, mesh, flavor, microbatches): every run from the seed-0 state
+TP_RUNS = (("baseline_m1", ((2, 2), ("data", "model")), "baseline", 1),
+           ("baseline_m2", ((2, 2), ("data", "model")), "baseline", 2),
+           ("sedar", ((2, 1, 2), ("pod", "data", "model")), "sedar", 1))
+
+
+def tp_collectives(flavor: str, micro: int) -> dict:
+    """One step's collectives by label on phase tp's meshes, as the code
+    places them (qwen2-0.5b: tied, SP on, heads, kv heads, d_ff and vocab
+    split over the 2 model ranks; L = TP_LAYERS): per layer and
+    microbatch one FSDP bucket gathered and reduce-scattered and the
+    biases' data sum, 4 model-axis gathers and 4 reduce-scatters (each
+    block's entry and exit, forward and backward) and the two norms' grad
+    sums; per microbatch the lookup's, the head's and the final norm's
+    FSDP gathers and reduce-scatters, the embedding's exit and the head's
+    entry, the final norm's grad sum and 2 vocab_stats (one CE chunk);
+    per step the loss mean over the data ranks, one clip-norm sum per
+    axis of more than one rank, and under sedar (data 1) the pod compare
+    and the verdict."""
+    L, M = TP_LAYERS, micro
+    want = {"tp_gather": (4 * L + 2) * M, "tp_scatter": (4 * L + 2) * M,
+            "tp_reduce": (2 * L + 1) * M, "vocab_stats": 2 * M}
+    if flavor == "sedar":
+        return dict(want, grad_norm=1, fp_gather=1, verdict=1)
+    return dict(want, fsdp_gather=(L + 3) * M, fsdp_scatter=(L + 3) * M,
+                fsdp_reduce=L * M, loss_mean=1, grad_norm=2)
+
+
+def tp_setup(device: str = "cuda"):
+    """phase tp's model, optimizer config, shape and data: qwen2-0.5b at
+    full width, TP_LAYERS deep (xla attention, adamw, remat as pinned), B
+    = 4 x 256 tokens of SyntheticLM(151936, 4, 256, seed=0), one batch
+    per step."""
+    from repro_torch.configs import SHAPES, TrainConfig, get_config
+    from repro_torch.data import SyntheticLM
+    cfg = dataclasses.replace(pinned(cut_depth(get_config("qwen2-0.5b"),
+                                               TP_LAYERS)),
+                              attention_impl="xla")
+    tc = TrainConfig(global_batch=TP_BATCH, seq_len=TP_SEQ, warmup_steps=2)
+    shape = dataclasses.replace(SHAPES[0], kind="train", seq_len=TP_SEQ,
+                                global_batch=TP_BATCH)
+    data = SyntheticLM(cfg.vocab_size, TP_BATCH, TP_SEQ, seed=0)
+    batches = [{k: torch.from_numpy(np.asarray(v, np.int64)).to(device)
+                for k, v in data.batch(i).items()} for i in range(TP_STEPS)]
+    return cfg, tc, shape, batches
+
+
+def tp_rules():
+    from repro_torch.sharding import ShardingRules
+    return ShardingRules(data_axes=("data",), sequence_parallel=True)
+
+
+def tp_oracle(root: str) -> dict:
+    """The program on a mesh of one rank in this process (the unsharded
+    code): TP_STEPS baseline steps from the seed-0 state, each step's loss
+    and ms, step 0's f32 grads saved under `root` for the ranks; and the
+    f32 truth of step 0's grads (the same bf16 half params at f32
+    compute), saved too, with the oracle's distance to it per leaf: the
+    bf16 noise that the ranks' distance to the oracle is read against."""
+    from repro_torch.configs import MeshConfig
+    from repro_torch.core import hostsync
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import local_mesh
+    from repro_torch.models import build_model
+    from repro_torch.optim import make_optimizer
+    from repro_torch.sharding import Resolver
+    from repro_torch.tree import flatten_with_path, leaves, unflatten_like
+
+    cfg, tc, shape, batches = tp_setup()
+    mesh = local_mesh(MeshConfig(shape=(1, 1), axis_names=("data", "model")))
+    prog, _ = dryrun.build_train_program(cfg, shape, mesh,
+                                         Resolver(mesh, tp_rules()),
+                                         "baseline", tc, 1, device="cuda")
+    params = build_model(cfg, "cuda").init(seed=0)
+    state = {"params": params, "opt": make_optimizer(tc).init(params),
+             "step": torch.zeros((), dtype=torch.int32, device="cuda")}
+    losses, ms = [], []
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    for i, batch in enumerate(batches):
+        grads = [] if i == 0 else None
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, loss = prog(state, batch, grads_out=grads)
+        losses.append(float(hostsync.read_scalar(loss, "loss")))
+        ms.append((time.perf_counter() - t0) * 1e3)
+        if i == 0:
+            g = dict(flatten_with_path(unflatten_like(
+                state["params"], [t.cpu() for t in grads])))
+            torch.save(g, os.path.join(root, "oracle_grads.pt"))
+            del grads, g
+    peak = _peak_gib(base) + base / 2 ** 30
+    del state, prog
+    _free()
+    torch.cuda.empty_cache()
+    # the f32 truth of step 0's grads: the same half params, f32 compute
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    model32 = build_model(cfg32, "cuda")
+    half = [p.to(torch.bfloat16).float().requires_grad_(True)
+            for p in leaves(model32.init(seed=0))]
+    g32 = torch.autograd.grad(model32.loss(unflatten_like(params, half),
+                                           batches[0])[0], half)
+    g32 = dict(zip([p for p, _ in flatten_with_path(params)],
+                   [t.cpu() for t in g32]))
+    torch.save(g32, os.path.join(root, "oracle_grads_f32.pt"))
+    bf16 = torch.load(os.path.join(root, "oracle_grads.pt"))
+    to_f32 = {p: float((bf16[p].float() - t).abs().max())
+              / max(float(t.abs().max()), 1e-30) for p, t in g32.items()}
+    del half, g32, bf16, model32, params
+    _free()
+    torch.cuda.empty_cache()
+    return {"losses": losses, "ms": ms, "peak_gib": peak, "to_f32": to_f32}
+
+
+def tp_rank(rank: int, root: str) -> dict:
+    """One rank of phase tp (spawned by `launch/mesh.py::spawn`): each run
+    of TP_RUNS through `launch/dryrun.py::build_train_program` on this
+    rank's block of the seed-0 state (`TrainProgram.shard_state`) and its
+    rows of each batch: per step the loss, eq (sedar), ms, the collectives
+    and bytes received by label (across threads: the backward runs on
+    autograd's device thread), K1 launches; the peak; step 0's f32 grads
+    block against the oracle's block (max |diff| and max |g| per leaf)
+    and against the first run's (microbatches 2 vs 1); the state bytes
+    held. sedar also runs the fault: TP_FAULT on rank TP_FAULT_RANK at
+    step TP_FAULT_STEP, each rank committing only on eq."""
+    import gc
+
+    from repro_torch import bridge
+    from repro_torch.configs import MeshConfig
+    from repro_torch.core import hostsync
+    from repro_torch.device import make_deterministic
+    from repro_torch.kernels import fingerprint as kfp
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_process_mesh
+    from repro_torch.models import build_model
+    from repro_torch.sharding import Resolver
+    from repro_torch.tree import (flatten_with_path, leaves, tree_map,
+                                  unflatten_like)
+
+    dev = torch.device("cuda")
+    make_deterministic(dev)
+    cfg, tc, shape, batches = tp_setup()
+    oracle = torch.load(os.path.join(root, "oracle_grads.pt"), mmap=True)
+    truth = torch.load(os.path.join(root, "oracle_grads_f32.pt"), mmap=True)
+    out, first = {}, None      # baseline_m1's grads, for baseline_m2
+    for name, (mshape, names), flavor, micro in TP_RUNS:
+        mesh = make_process_mesh(MeshConfig(shape=mshape, axis_names=names))
+        res = Resolver(mesh, tp_rules())
+        prog, _ = dryrun.build_train_program(cfg, shape, mesh, res, flavor,
+                                             tc, micro, device="cuda")
+        full = build_model(cfg, dev).init(seed=0)
+        params = tree_map(lambda t: t.clone(), bridge.shard_params(
+            full, res, mesh, cfg, prog.specs["params"]))
+        del full
+        torch.cuda.empty_cache()
+        start = {"params": params,
+                 "opt": {k: tree_map(torch.zeros_like, params)
+                         for k in ("m", "v")},
+                 "step": torch.zeros((), dtype=torch.int32, device=dev)}
+        held = sum(t.numel() * t.element_size() for t in leaves(start))
+        rows = [prog.shard_batch(b) for b in batches]
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        rec = {"losses": [], "eq": [], "ms": [], "collectives": [],
+               "bytes": [], "k1": [], "held_bytes": held,
+               "coords": bridge.mesh_coords(mesh)}
+        state = start
+        for i, b in enumerate(rows):
+            grads = [] if i == 0 else None
+            kfp.launch_count.reset()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with hostsync.count_transfers(cross_thread=True) as st:
+                state, aux = prog(state, b, grads_out=grads)
+                if flavor == "sedar":
+                    loss, eq, _ = aux
+                    rec["eq"].append(bool(hostsync.read_bool(eq, "eq")))
+                else:
+                    loss = aux
+                rec["losses"].append(float(hostsync.read_scalar(loss,
+                                                                "loss")))
+            torch.cuda.synchronize()
+            rec["ms"].append((time.perf_counter() - t0) * 1e3)
+            rec["collectives"].append(dict(st.collectives))
+            rec["bytes"].append(dict(st.collective_bytes))
+            rec.setdefault("seconds", []).append(dict(st.collective_seconds))
+            rec["k1"].append(kfp.launch_count.n)
+            if i == 0:
+                g = dict(flatten_with_path(unflatten_like(state["params"],
+                                                          grads)))
+                blocks = dict(zip(g, bridge.spec_leaves(
+                    state["params"], prog.specs["params"])))
+                sizes, c = bridge.mesh_sizes(res), bridge.mesh_coords(mesh)
+                rec["grad_err"], rec["to_f32"] = {}, {}
+                for p, t in g.items():
+                    want = bridge.shard_leaf(oracle[p], blocks[p], c, sizes)
+                    rec["grad_err"][p] = (
+                        float((t.float().cpu() - want).abs().max()),
+                        float(want.abs().max()))
+                    want = bridge.shard_leaf(truth[p], blocks[p], c, sizes)
+                    rec["to_f32"][p] = (
+                        float((t.float().cpu() - want).abs().max()),
+                        float(want.abs().max()))
+                if name == "baseline_m1":
+                    first = {p: t.float().cpu() for p, t in g.items()}
+                elif name == "baseline_m2":
+                    rec["vs_first"] = {p: (float((g[p].float().cpu()
+                                                  - first[p]).abs().max()),
+                                           float(first[p].abs().max()))
+                                       for p in g}
+                    first = None
+                del g, grads
+        rec["peak_gib"] = _peak_gib(base) + base / 2 ** 30
+        if flavor == "sedar":
+            state, eqs, committed, losses, done = start, [], [], [], 0
+            kfp.launch_count.reset()
+            for i in range(TP_STEPS):
+                fault = (TP_FAULT if i == TP_FAULT_STEP
+                         and rank == TP_FAULT_RANK else None)
+                cand, (loss, eq, _) = prog(state, rows[done], fault=fault)
+                ok = bool(hostsync.read_bool(eq, "eq"))
+                eqs.append(ok)
+                losses.append(float(hostsync.read_scalar(loss, "loss")))
+                if ok:                  # the runtime's gate
+                    state, done = cand, done + 1
+                committed.append(done)
+                del cand
+            rec["fault"] = {"eq": eqs, "committed": committed,
+                            "losses": losses, "k1": kfp.launch_count.n}
+        out[name] = rec
+        del state, start, params, prog
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_tp() -> int:
+    """Slice 15: the sharded training program (`launch/dryrun.py::
+    build_train_program`) of qwen2-0.5b at full width (TP_LAYERS deep) on
+    4 ranks of this one card over gloo: baseline on (data, model) = (2, 2)
+    with sequence parallelism at microbatches 1 and 2, and sedar on (pod,
+    data, model) = (2, 1, 2): a clean run and a grads fault. Each from the
+    seed-0 state, TP_STEPS steps of TP_BATCH x TP_SEQ tokens, against the
+    program on a mesh of one rank in this process (the oracle, freed
+    before the ranks start): every step's loss within TP_LOSS_RTOL, step
+    0's gathered grads within TP_GRAD_GAP of each leaf's max |g|,
+    microbatches 2 within those bounds of 1; sedar eq on every rank at
+    every step, the fault flagged on all 4 ranks at its step and not
+    committed (the retry clean); the collectives per step by label as
+    `tp_collectives` states them; each rank's state bytes as
+    `dryrun.plan_ranks` plans them. Prints ms/step, the peak per rank and
+    the bytes through gloo per step. Returns the K1 launches (sedar's
+    per-rank grads fingerprint)."""
+    import tempfile
+
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import spawn
+
+    t_phase = time.time()
+    _free()
+    torch.cuda.empty_cache()
+    root = tempfile.mkdtemp(prefix="sedar_tp_")
+    orc = tp_oracle(root)
+    print(f"tp: oracle (one process, the unsharded code): losses "
+          f"{orc['losses']}, ms/step {', '.join(f'{t:.1f}' for t in orc['ms'])}"
+          f", peak {orc['peak_gib']:.2f} GiB", flush=True)
+    t_spawn = time.time()
+    reps = spawn(tp_rank, 4, root, threads=TP_THREADS,
+                 timeout_s=TP_TIMEOUT_S)
+    print(f"tp: 4 ranks took {time.time() - t_spawn:.1f} s, spawn included",
+          flush=True)
+    cfg, tc, shape, _ = tp_setup("cpu")
+    k1, bad = 0, []
+
+    def expect(cond: bool, msg: str) -> None:
+        """A check of this phase, read at its end (every run printed)."""
+        if not cond:
+            print(f"tp: FAILED {msg}", flush=True)
+            bad.append(msg)
+    for name, (mshape, names), flavor, micro in TP_RUNS:
+        sizes = dict(zip(names, mshape))
+        want = tp_collectives(flavor, micro)
+        plan = dryrun.plan_ranks(cfg, sizes, tp_rules(), flavor)
+        worst, worst32 = {}, {}
+        for r, rep in enumerate(reps):
+            rec = rep[name]
+            for w, key in ((worst, "grad_err"), (worst32, "to_f32")):
+                for p, (d, m) in rec[key].items():
+                    a, b = w.get(p, (0.0, 0.0))
+                    w[p] = (max(a, d), max(b, m))
+            secs = rec["seconds"][-1]
+            print(f"tp {name}: rank {r} host s in collectives (last step) "
+                  f"{sum(secs.values()):.3f}: " + ", ".join(
+                      f"{k} {v:.3f}" for k, v in sorted(
+                          secs.items(), key=lambda kv: -kv[1])), flush=True)
+            gib = [sum(b.values()) / 2 ** 30 for b in rec["bytes"]]
+            print(f"tp {name}: rank {r} {rec['coords']}: losses "
+                  f"{rec['losses']} eq {rec['eq']}; ms/step "
+                  f"{', '.join(f'{t:.1f}' for t in rec['ms'])}; peak "
+                  f"{rec['peak_gib']:.2f} GiB; state held "
+                  f"{rec['held_bytes']} B; gloo GiB received per step "
+                  f"{', '.join(f'{x:.4f}' for x in gib)} "
+                  f"({rec['bytes'][-1]}); K1 {rec['k1']}", flush=True)
+            for i, (lo, lw) in enumerate(zip(rec["losses"], orc["losses"])):
+                expect(abs(lo - lw) <= TP_LOSS_RTOL * abs(lw),
+                      f"tp {name}: rank {r} step {i} loss {lo} vs the "
+                      f"oracle's {lw}")
+            for i, c in enumerate(rec["collectives"]):
+                expect(c == want, f"tp {name}: rank {r} step {i} "
+                      f"collectives {c}, the code implies {want}")
+            expect(rec["held_bytes"] == plan["ranks"][r]["state_bytes"],
+                  f"tp {name}: rank {r} holds {rec['held_bytes']} B of "
+                  f"state, run_cell plans {plan['ranks'][r]['state_bytes']}")
+            if flavor == "sedar":
+                expect(rec["eq"] == [True] * TP_STEPS,
+                      f"tp sedar: rank {r} clean eq {rec['eq']}")
+                f = rec["fault"]
+                expect(f["eq"] == [True, False, True]
+                      and f["committed"] == [1, 1, 2]
+                      and f["losses"][2] == rec["losses"][1],
+                      f"tp sedar: rank {r} fault run {f} (clean losses "
+                      f"{rec['losses']})")
+                expect(rec["k1"] == [1] * TP_STEPS and f["k1"] == TP_STEPS,
+                      f"tp sedar: rank {r} K1 launches {rec['k1']}, "
+                      f"{f['k1']} in the fault run (one per step)")
+                k1 += sum(rec["k1"]) + f["k1"]
+            if "vs_first" in rec:
+                gap = max(d / max(m, 1e-30)
+                          for d, m in rec["vs_first"].values())
+                print(f"tp {name}: rank {r} step-0 grads vs baseline_m1 "
+                      f"{gap:.3e} of max |g|", flush=True)
+                expect(gap <= TP_GRAD_GAP, f"tp {name}: rank {r} grads "
+                      f"{gap} of max |g| off microbatches 1")
+        gaps = {p: d / max(m, 1e-30) for p, (d, m) in worst.items()}
+        gaps32 = {p: d / max(m, 1e-30) for p, (d, m) in worst32.items()}
+        top = sorted(gaps, key=gaps.get, reverse=True)[:4]
+        print(f"tp {name}: step-0 grads vs the oracle, worst "
+              + ", ".join(f"{p} {gaps[p]:.3e} (to the f32 grads: "
+                          f"{gaps32[p]:.3e}, the oracle's "
+                          f"{orc['to_f32'][p]:.3e})" for p in top)
+              + f" of max |g|; collectives per step {want}", flush=True)
+        for p in top:
+            expect(gaps[p] <= TP_GRAD_GAP, f"tp {name}: grads {p} "
+                   f"{gaps[p]} of max |g| off the oracle")
+    print(f"tp phase took {time.time() - t_phase:.1f} s", flush=True)
+    check(not bad, "; ".join(bad[:8]))
+    return k1
 
 
 def phase_reference():
@@ -5648,7 +6124,7 @@ PHASES = ("k1", "k2", "k3", "campaign", "scenarios", "engine", "k4",
           "f32_wide", "main", "abft_serve", "serve", "telemetry", "families",
           "f32_generate", "family_serve", "train", "pod_train",
           "elastic_train", "pod_elastic", "family_train", "chunked", "remat",
-          "plan", "ep", "f3_xlstm", "reference")
+          "plan", "ep", "tp", "f3_xlstm", "reference")
 # what a phase takes from another's run
 PHASE_NEEDS = {"abft_serve": ("main",), "serve": ("main",),
                "telemetry": ("main", "serve"), "f32_generate": ("f32_wide",),
@@ -5816,6 +6292,9 @@ def main() -> None:
     if want("ep"):
         phase_ep()
     mark("ep")
+    tp_k1 = phase_tp() if want("tp") else 0
+    _free()
+    mark("tp")
     if want("f3_xlstm"):
         phase_f3_xlstm(kfp, kfa)
     _free()
@@ -5830,6 +6309,11 @@ def main() -> None:
                           + chunked_k1 + remat_k1
                           + sum(c["fingerprint"]
                                 for c in family_serve.values()))
+    # the sharded program's K1 lanes (one lane per rank and step), in the
+    # lanes entry (phase train's), else in K1's
+    entry = lanes if lanes is not None else k1
+    if tp_k1 and entry is not None:
+        entry["launches"] = entry.get("launches", 0) + tp_k1
     if k2 is not None:
         k2["launches"] = counts["flash_attention"]
     k2_all = [e for e in (k2, *wide_k2, *serve_k2, *k2_f32.values())

@@ -57,7 +57,8 @@ def make_pod_comparator(mesh) -> Callable:
     def compare(fp: torch.Tensor):
         fp_all = fp.new_zeros((mesh.n_pods,) + tuple(fp.shape))
         fp_all[mesh.pod].copy_(fp)
-        with hostsync.collective("fp_gather"):
+        with hostsync.collective("fp_gather", (mesh.n_pods - 1)
+                                 * fp_all[0].numel() * fp.element_size()):
             dist.all_reduce(fp_all, group=mesh.pod_group)
         return torch.all(fp_all[..., :2] == fp_all[:1, ..., :2]), fp_all
 

@@ -33,6 +33,7 @@ from __future__ import annotations
 
 import contextlib
 import threading
+import time
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence
 
@@ -48,6 +49,12 @@ class TransferStats:
     batches: int = 0            # read batches issued (1 per counted call)
     by_label: Dict[str, int] = field(default_factory=dict)
     collectives: Dict[str, int] = field(default_factory=dict)  # by label
+    # bytes this rank received through the labelled collectives that say
+    # so (`collective(label, nbytes)`), by label
+    collective_bytes: Dict[str, int] = field(default_factory=dict)
+    # host seconds inside the collectives (their staging included), by
+    # label
+    collective_seconds: Dict[str, float] = field(default_factory=dict)
 
     def note(self, label: str, items: int = 1) -> None:
         self.transfers += items
@@ -117,19 +124,38 @@ def _sanctioned():
             torch.cuda.set_sync_debug_mode(mode)
 
 
+def _count_collective(st: TransferStats, label: str, nbytes: int) -> None:
+    st.collectives[label] = st.collectives.get(label, 0) + 1
+    if nbytes:
+        st.collective_bytes[label] = (st.collective_bytes.get(label, 0)
+                                      + int(nbytes))
+
+
 @contextlib.contextmanager
-def collective(label: str) -> Iterator[None]:
+def collective(label: str, nbytes: int = 0) -> Iterator[None]:
     """One collective of the mesh backends (a `torch.distributed` call over
-    gloo): counted under `label` in every open region's `collectives`, with
-    the sync debug mode lifted for its host staging."""
+    gloo): counted under `label` in every open region's `collectives`,
+    `nbytes` (what this rank receives through it) in `collective_bytes`
+    and its host seconds in `collective_seconds`, with the sync debug mode
+    lifted for its host staging."""
     for st in _active.stack:
-        st.collectives[label] = st.collectives.get(label, 0) + 1
+        _count_collective(st, label, nbytes)
     if _shared:
         with _shared_lock:
             for st in _shared:
-                st.collectives[label] = st.collectives.get(label, 0) + 1
+                _count_collective(st, label, nbytes)
+    t0 = time.perf_counter()
     with _sanctioned():
         yield
+    dt = time.perf_counter() - t0
+    for st in _active.stack:
+        st.collective_seconds[label] = st.collective_seconds.get(label,
+                                                                 0.0) + dt
+    if _shared:
+        with _shared_lock:
+            for st in _shared:
+                st.collective_seconds[label] = (
+                    st.collective_seconds.get(label, 0.0) + dt)
 
 
 def _to_numpy(x) -> np.ndarray:

@@ -2,7 +2,7 @@
 would hold and compute on one NVIDIA H100, predicted without the card.
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen2-0.5b \
-        --shape train_4k --flavor sedar
+        --shape train_4k --flavor sedar [--mesh pod=2,data=1,model=2]
 
 Writes one JSON per cell under --out (default artifacts/dryrun_torch/)
 and prints a line each. Every tensor is on the `meta` device: shapes and
@@ -29,9 +29,19 @@ one card):
   * a roofline: FLOPs at 989 TFLOP/s, the bytes the step must move (each
     input read once, each output written once) at 3.35 TB/s.
 
-No counterpart here: the reference's HLO collective parsers (one card has
-no collectives), its TPU v5e hardware model (this card's constants are
-below) and its scan-cost `Probe`s (a Python loop over the layers on
+With `--mesh` a training cell is planned on a mesh of ranks
+(`plan_ranks`): each rank's state, grads and ring bytes from the
+Resolver's specs of the sharded state, with the fallback report.
+
+`build_train_program` is the reference's sharded training step (baseline
+and sedar flavors, gradient accumulation) on a rank of a process mesh
+(`launch/mesh.py`), its layers tensor-, sequence- and FSDP-parallel
+behind `models/transformer.py::ShardCtx`.
+
+No counterpart here: the reference's HLO collective parsers (a process
+mesh's collectives are counted as they run, under their
+`core/hostsync.py` labels), its TPU v5e hardware model (this card's constants
+are below) and its scan-cost `Probe`s (a Python loop over the layers on
 `meta` counts every layer, so there is no scan body counted once).
 """
 from __future__ import annotations
@@ -47,6 +57,7 @@ from typing import Any, Dict, Optional
 import torch
 from torch.utils.flop_counter import FlopCounterMode
 
+from repro_torch import bridge
 from repro_torch import tree as tree_util
 from repro_torch.configs import (SHAPE_BY_NAME, SHAPES, get_config,
                                  shape_applicable)
@@ -174,10 +185,18 @@ def _peak_train(state: int, grads: int, act: int, flavor: str,
 
 
 def run_cell(arch: str, shape_name, flavor: str = "baseline",
-             out_dir: Optional[str] = None, cfg=None) -> Dict[str, Any]:
+             out_dir: Optional[str] = None, cfg=None,
+             mesh: Optional[Dict[str, int]] = None) -> Dict[str, Any]:
     """The cell's report (module docstring). `shape_name` names one of
     SHAPES or is a `ShapeSpec`; `cfg` the arch's config (a cut-down one,
-    or another remat policy, say)."""
+    or another remat policy, say). `mesh` ({axis: size} over pod, data
+    and model) plans a training cell on that mesh of ranks, where the
+    reference plans its production mesh: `build_train_program`'s rules
+    (the data axes ("pod", "data") under `baseline`, ("data",) under
+    `sedar`, whose pods are the replicas; sequence parallelism on), and
+    each rank's state, grads and ring bytes from the Resolver's specs of
+    the sharded state (`plan_ranks`) with its fallback report; without
+    it, one card."""
     cfg = cfg or get_config(arch)
     shape = (SHAPE_BY_NAME[shape_name] if isinstance(shape_name, str)
              else shape_name)
@@ -200,6 +219,19 @@ def run_cell(arch: str, shape_name, flavor: str = "baseline",
                      "reason": "the sedar flavor is the training dual"})
         return _emit(cell, out_dir)
 
+    if mesh is not None:
+        if shape.kind != "train":
+            raise ValueError("a mesh of ranks plans a training cell")
+        if flavor == "sedar" and mesh.get("pod", 1) < 2:
+            cell.update({"status": "skipped",
+                         "reason": "sedar flavor needs the pod axis"})
+            return _emit(cell, out_dir)
+        pods = flavor == "baseline" and mesh.get("pod", 1) > 1
+        rules = ShardingRules(data_axes=("pod", "data") if pods
+                              else ("data",), sequence_parallel=True)
+        plan = plan_ranks(cfg, mesh, rules, flavor)
+        cell.update({"mesh": plan["mesh"], "ranks": plan["ranks"],
+                     "sharding_fallbacks": plan["fallbacks"][:40]})
     from repro_torch.models.model import count_params_analytic
     B = shape.global_batch
     S = shape.seq_len
@@ -292,16 +324,244 @@ def run_cell(arch: str, shape_name, flavor: str = "baseline",
                      else "memory",
                      "bound_s": max(compute_s, memory_s)},
         "params": int(n_params), "active_params": int(n_active),
-        "sharding_fallbacks": resolver.fallback_report()[:40],
+        "sharding_fallbacks": cell.get("sharding_fallbacks",
+                                       resolver.fallback_report()[:40]),
         "elapsed_s": round(time.time() - t0, 1),
     })
     return _emit(cell, out_dir)
 
 
+# ---------------------------------------------------------------------------
+# The sharded training program
+# ---------------------------------------------------------------------------
+
+def _half_params(params):
+    """The f32 masters as bf16 before the layers' FSDP gathers (the
+    reference's `_half_params`), so weight gathers move bf16; the
+    gradients are f32 partial sums until their reduce-scatter, and bf16
+    after it (`transformer.ShardCtx`)."""
+    return tree_util.tree_map(
+        lambda p: p.to(torch.bfloat16) if p.dtype == torch.float32 else p,
+        params)
+
+
+class TrainProgram:
+    """One rank's training step of `build_train_program`:
+    `program(state, batch)` on this rank's block of the state
+    (`shard_state`) and its rows of the batch (`shard_batch`). `specs`
+    holds the state's partition entries, `ctx` the rank's
+    `transformer.ShardCtx`."""
+
+    def __init__(self, step, cfg, mesh, resolver, specs, ctx,
+                 microbatches: int):
+        self._step = step
+        self.cfg, self.mesh, self.resolver = cfg, mesh, resolver
+        self.specs, self.ctx, self.microbatches = specs, ctx, microbatches
+
+    def __call__(self, state, batch, fault=None, grads_out=None):
+        return self._step(state, batch, fault, grads_out)
+
+    def shard_state(self, state):
+        return bridge.shard_state(state, self.resolver, self.mesh, self.cfg,
+                                  self.specs["params"])
+
+    def shard_batch(self, batch):
+        return bridge.shard_batch(batch, self.resolver, self.mesh,
+                                  self.microbatches)
+
+
+def build_train_program(cfg, shape, mesh, resolver, flavor, train_cfg=None,
+                        microbatches: int = 1, device=None):
+    """The full training step on rank `mesh` (a `launch/mesh.py::
+    ProcessMesh`) of a process mesh (the reference's
+    `build_train_program`): the f32 masters cast to bf16
+    (`_half_params`), grads accumulated over `microbatches` (each
+    microbatch's f32 grads / M, summed in order; the loss the mean of
+    theirs), AdamW (`Optimizer.apply`, leaf by leaf) on the rank's block
+    of the state, the clip's global norm summed over every block. Returns
+    (program, (state_specs, batch_specs)): a `TrainProgram` and the
+    global `meta` specs, as the reference returns its jitted step and
+    ShapeDtypeStructs.
+
+    The layers shard as `transformer.ShardCtx` with the resolver's specs
+    says (tensor, sequence and FSDP parallelism). Each data rank's loss
+    is the mean over its rows; its backward runs on loss / D, the grads
+    of the leaves that are not data-sharded are summed over the data axes
+    (`fsdp_reduce`, f32 partials), and the returned loss is the mean over
+    the data ranks.
+
+    flavor `baseline`: the batch splits over the rules' data axes
+    (("pod", "data") on a pod mesh); the step returns (new_state, loss).
+    flavor `sedar`: the pods carry the two replicas and see the same
+    batch; each rank fingerprints its grads block (K1 lanes, one lane,
+    `core/fingerprint.py::pytree_fingerprint_lanes`), compares it over
+    its pod group (`core/detection.py::make_pod_comparator`) and the
+    verdict is combined over every rank (`verdict`), so every rank gates
+    the same commit; the step returns (cand, (loss, eq, fp_all)) and the
+    caller commits cand only where eq holds. `fp_all` is per block where
+    the reference's covers the global tree; the verdict is what agrees.
+
+    `program(state, batch, fault=(leaf, element, bit))` flips that bit of
+    this rank's f32 grads block before the fingerprint;
+    `grads_out` (a list) receives the block's f32 grads. On a mesh of one
+    rank the program is the unsharded code: `Model.loss` and
+    `Optimizer.apply` on the whole state, bit for bit. The device is the
+    card's unless `device` says otherwise."""
+    import torch.distributed as dist
+
+    from repro_torch import sharding as shd
+    from repro_torch.configs import TrainConfig
+    from repro_torch.core import hostsync
+    from repro_torch.core.detection import make_pod_comparator
+    from repro_torch.core.fingerprint import pytree_fingerprint_lanes
+    from repro_torch.core.injection import flip_bit
+    from repro_torch.launch.mesh import make_axes_group
+    from repro_torch.models import build_model
+    from repro_torch.models.layers import torch_dtype
+    from repro_torch.models.transformer import ShardCtx
+    from repro_torch.optim import make_optimizer
+
+    if flavor not in FLAVORS:
+        raise ValueError(f"unknown flavor {flavor!r} ({FLAVORS})")
+    if flavor == "sedar" and mesh.n_pods < 2:
+        raise ValueError("the sedar flavor needs the pod axis")
+    if flavor == "sedar" and len(mesh.ranks) != dist.get_world_size():
+        raise ValueError("the sedar flavor's verdict runs over every rank "
+                         "of the process group: the mesh must span them")
+    dev = torch.device(device or "cuda")
+    model = build_model(cfg, dev)
+    opt = make_optimizer(train_cfg or TrainConfig())
+    M = int(microbatches)
+    state_specs, state_axes = ispec.train_state_specs(cfg)
+    bspecs, _ = ispec.batch_specs(cfg, shape)
+    specs = ispec.shardings(resolver, state_specs, state_axes)
+    rules = resolver.rules
+    data_group = None
+    if tuple(rules.data_axes) != ("data",) and rules.axis_size(
+            mesh, rules.data_axes) > 1:
+        data_group = make_axes_group(mesh, rules.data_axes)
+    ctx = ShardCtx(mesh, resolver, specs=specs["params"],
+                   data_group=data_group, dtype=torch_dtype(cfg.dtype))
+    model_axis, data_axis = ctx.model_axis, ctx.data_axis
+    D = data_axis.size
+    pspecs = bridge.spec_leaves(state_specs["params"], specs["params"])
+    d_entry = ctx._entry(rules.data_axes)
+    m_entry = ctx._entry(rules.model_axes)
+    d_sharded = [d_entry in s for s in pspecs]
+    # each element once in the clip's norm: a leaf whole over an axis
+    # counts on that axis' rank 0
+    counted = [(m_entry in s or model_axis.index == 0)
+               and (d_sharded[i] or data_axis.index == 0)
+               for i, s in enumerate(pspecs)]
+    local = model_axis.size == 1 and D == 1
+    pod_cmp = make_pod_comparator(mesh) if flavor == "sedar" else None
+
+    def norm_sq(grads):
+        total = 0
+        for g, c in zip(grads, counted):
+            if c:
+                total = total + torch.sum(torch.square(g.to(torch.float32)))
+        total = torch.as_tensor(total, dtype=torch.float32, device=dev)
+        total = shd.all_sum(total, model_axis, "grad_norm")
+        return shd.all_sum(total, data_axis, "grad_norm")
+
+    def grads_of(half, batch):
+        leaves = [t.detach().requires_grad_(True)
+                  for t in tree_util.leaves(half)]
+        loss = model.loss(tree_util.unflatten_like(half, leaves), batch,
+                          ctx)[0]
+        obj = loss if D == 1 else loss * (1.0 / D)
+        gs = torch.autograd.grad(obj, leaves, allow_unused=True)
+        return loss.detach(), [torch.zeros_like(l) if g is None else g
+                               for g, l in zip(gs, leaves)]
+
+    def accumulate(half, batch):
+        if M <= 1:
+            loss, gs = grads_of(half, batch)
+            return loss, [g.to(torch.float32) for g in gs]
+        n = batch["tokens"].shape[0] // M
+        acc, losses = None, []
+        for i in range(M):
+            loss, gs = grads_of(half, {k: v[i * n:(i + 1) * n]
+                                       for k, v in batch.items()})
+            losses.append(loss)
+            if acc is None:
+                acc = [torch.zeros(g.shape, dtype=torch.float32,
+                                   device=g.device) for g in gs]
+            acc = [a + g.to(torch.float32) / M for a, g in zip(acc, gs)]
+            del gs
+        return torch.mean(torch.stack(losses)), acc
+
+    def verdict(eq):
+        v = eq.to(torch.int32).reshape(1)
+        with hostsync.collective("verdict",
+                                 4 * (dist.get_world_size() - 1)):
+            dist.all_reduce(v, op=dist.ReduceOp.MIN)
+        return v[0] == 1
+
+    def step(state, batch, fault=None, grads_out=None):
+        half = _half_params(state["params"])
+        loss, grads = accumulate(half, batch)
+        del half
+        if D > 1:
+            loss = shd.all_sum(loss, data_axis, "loss_mean") / D
+        if fault is not None:
+            leaf, element, bit = fault
+            grads[leaf] = flip_bit(grads[leaf], element, bit)
+        if grads_out is not None:
+            grads_out.extend(grads)
+        if pod_cmp is not None:
+            eq, fp_all = pod_cmp(pytree_fingerprint_lanes(grads, 1))
+            eq = verdict(eq)
+        new_p, new_opt = opt.apply(grads, state["opt"], state["params"],
+                                   state["step"],
+                                   norm_sq=None if local else norm_sq)
+        new = {"params": new_p, "opt": new_opt, "step": state["step"] + 1}
+        if pod_cmp is not None:
+            return new, (loss, eq, fp_all)
+        return new, loss
+
+    return (TrainProgram(step, cfg, mesh, resolver, specs, ctx, M),
+            (state_specs, bspecs))
+
+
+def _shard_bytes(meta: torch.Tensor, spec, sizes: Dict[str, int]) -> int:
+    n = meta.numel()
+    for entry in spec:
+        n //= bridge.block_index(entry, dict.fromkeys(sizes, 0), sizes)[1]
+    return n * meta.element_size()
+
+
+def plan_ranks(cfg, sizes: Dict[str, int], rules: ShardingRules,
+               flavor: str = "baseline") -> Dict[str, Any]:
+    """The mesh of ranks' memory plan: each rank's bytes of the training
+    state (f32 params, the AdamW moments, the step), of its f32 grads and,
+    under `sedar`, of its device-ring slot (one state), from the
+    Resolver's specs of the sharded state (`build_train_program`'s
+    blocks), and the fallback report."""
+    resolver = Resolver(sizes, rules)
+    full = {a: int(sizes.get(a, 1)) for a in bridge.MESH_AXES}
+    st_specs, st_axes = ispec.train_state_specs(cfg)
+    specs = ispec.shardings(resolver, st_specs, st_axes)
+
+    def nbytes(tree, spec_tree):
+        return sum(_shard_bytes(t, sp, full) for t, sp in zip(
+            tree_util.leaves(tree), bridge.spec_leaves(tree, spec_tree)))
+    state = nbytes(st_specs, specs)
+    grads = nbytes(st_specs["params"], specs["params"])
+    n = full["pod"] * full["data"] * full["model"]
+    rank = {"state_bytes": state, "grads_bytes": grads,
+            "ring_slot_bytes": state if flavor == "sedar" else 0}
+    return {"mesh": full, "ranks": [dict(rank) for _ in range(n)],
+            "fallbacks": resolver.fallback_report()}
+
+
 def _emit(cell: Dict[str, Any], out_dir: Optional[str]) -> Dict[str, Any]:
     if out_dir:
         os.makedirs(out_dir, exist_ok=True)
-        name = f"{cell['arch']}__{cell['shape']}__{cell['flavor']}.json"
+        mesh = "".join(f"__{a}{n}" for a, n in cell.get("mesh", {}).items())
+        name = (f"{cell['arch']}__{cell['shape']}__{cell['flavor']}"
+                f"{mesh}.json")
         with open(os.path.join(out_dir, name), "w") as f:
             json.dump(cell, f, indent=1, default=str)
     mem = cell.get("memory", {})
@@ -312,7 +572,11 @@ def _emit(cell: Dict[str, Any], out_dir: Optional[str]) -> Dict[str, Any]:
              f"{mem['batch']}, fits {mem['fits_80GB']}, max batch "
              f"{mem['max_batch']}, dominant "
              f"{cell['roofline']['dominant']}, t={cell['elapsed_s']}s"
-             if cell.get("status") == "ok" else cell.get("reason", "")),
+             if cell.get("status") == "ok" else cell.get("reason", ""))
+          + (f"; mesh {cell['mesh']}: per rank state "
+             f"{cell['ranks'][0]['state_bytes'] / gib:.2f} GiB, grads "
+             f"{cell['ranks'][0]['grads_bytes'] / gib:.2f} GiB"
+             if cell.get("ranks") else ""),
           flush=True)
     return cell
 
@@ -324,7 +588,13 @@ def main(argv=None):
     ap.add_argument("--flavor", default="baseline",
                     choices=[*FLAVORS, "both"])
     ap.add_argument("--out", default="artifacts/dryrun_torch")
+    ap.add_argument("--mesh", default=None,
+                    help="plan training cells on a mesh of ranks, e.g. "
+                    "pod=2,data=1,model=2 (default: one card)")
     args = ap.parse_args(argv)
+    mesh = (None if args.mesh is None else
+            {k: int(v) for k, v in (a.split("=")
+                                    for a in args.mesh.split(","))})
     archs = ASSIGNED_ARCHS if args.arch == "all" else args.arch.split(",")
     shapes = ([s.name for s in SHAPES] if args.shape == "all"
               else args.shape.split(","))
@@ -332,7 +602,7 @@ def main(argv=None):
     for arch in archs:
         for shape in shapes:
             for fl in flavors:
-                run_cell(arch, shape, fl, args.out)
+                run_cell(arch, shape, fl, args.out, mesh=mesh)
 
 
 if __name__ == "__main__":

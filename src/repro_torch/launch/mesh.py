@@ -41,6 +41,7 @@ import time
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
@@ -156,6 +157,41 @@ def make_process_mesh(cfg: MeshConfig,
     return ProcessMesh(tuple(int(s) for s in shape), axis_names, rank, pod,
                        data, pod_group, data_group, pod_ranks, ranks,
                        model=model, model_group=model_group)
+
+
+def local_mesh(cfg: MeshConfig) -> ProcessMesh:
+    """The mesh of one rank (every axis of `cfg` of size 1) in a process
+    with no process group: the sharded code on it runs no collective."""
+    if any(int(n) != 1 for n in cfg.shape):
+        raise ValueError(f"a local mesh has one rank, not {cfg.shape}")
+    return ProcessMesh(tuple(int(n) for n in cfg.shape),
+                       tuple(cfg.axis_names), 0, 0, 0, None, None, [0], [0])
+
+
+def make_axes_group(mesh: ProcessMesh, axes: Sequence[str]):
+    """The group over `axes` (in their order, the first slowest) of this
+    rank's indices on the others: ("pod", "data") at its model index, the
+    baseline flavor's data axes on a pod mesh. Collective over every rank
+    of the default group, as `dist.new_group` is."""
+    sizes = {a: mesh.sizes.get(a, 1) for a in ("pod", "data", "model")}
+    P, D, M = sizes["pod"], sizes["data"], sizes["model"]
+    mine = None
+    for fixed in range(P * D * M):
+        p, d, m = fixed // (D * M), fixed // M % D, fixed % M
+        here = {"pod": p, "data": d, "model": m}
+        if any(here[a] != 0 for a in axes):
+            continue
+        members = []
+        for k in range(int(np.prod([sizes[a] for a in axes]))):
+            c = dict(here)
+            for a in reversed(axes):
+                k, c[a] = divmod(k, sizes[a])
+            members.append(mesh.ranks[(c["pod"] * D + c["data"]) * M
+                                      + c["model"]])
+        g = dist.new_group(members)
+        if mesh.rank in members:
+            mine = g
+    return mine
 
 
 def _free_port() -> int:

@@ -185,21 +185,88 @@ def apply_rope(x, sin, cos):
 # Attention
 # ---------------------------------------------------------------------------
 
-def qkv_project(cfg, p, x):
-    """x: (B, S, D) -> q (B,S,H,hd), k/v (B,S,KV,hd) in compute dtype."""
-    dt = x.dtype
-    q = wein("bsd,dhk->bshk", x, p["wq"].to(dt))
-    k = wein("bsd,dhk->bshk", x, p["wk"].to(dt))
-    v = wein("bsd,dhk->bshk", x, p["wv"].to(dt))
+def _rounded(t, dtype):
+    return t if dtype is None else t.to(dtype)
+
+
+def mm32(a, b, dtype):
+    """a @ b of 2-D carriers of `dtype`'s values, accumulated in f32 and
+    not rounded: on the card `torch.mm` of dtype's operands into an f32
+    output (the tensor cores' accumulator, which dtype's own product
+    rounds once), elsewhere the f32 product."""
+    if a.is_cuda and dtype in (torch.bfloat16, torch.float16):
+        return torch.mm(a.to(dtype), b.to(dtype), out_dtype=torch.float32)
+    return torch.mm(a.float(), b.float())
+
+
+class _Product32(torch.autograd.Function):
+    """x times w over x's trailing and w's leading `nc` dims, the forward
+    and both grads by `mm32`: a 16-bit compute dtype's products with the
+    f32 accumulators kept for the sums over ranks."""
+
+    @staticmethod
+    def forward(ctx, x, w, nc: int, dtype):
+        ctx.save_for_backward(x.to(dtype), w.to(dtype))
+        ctx.nc, ctx.dtype, ctx.dtypes = nc, dtype, (x.dtype, w.dtype)
+        K = math.prod(w.shape[:nc])
+        out = mm32(x.reshape(-1, K), w.reshape(K, -1), dtype)
+        return out.reshape(x.shape[:x.dim() - nc] + w.shape[nc:])
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        K = math.prod(w.shape[:ctx.nc])
+        g2, w2 = g.reshape(-1, w.numel() // K), w.reshape(K, -1)
+        dx = mm32(g2, w2.t(), ctx.dtype).reshape(x.shape)
+        dw = mm32(x.reshape(-1, K).t(), g2, ctx.dtype).reshape(w.shape)
+        return dx.to(ctx.dtypes[0]), dw.to(ctx.dtypes[1]), None, None
+
+
+def _product(equation: str, x, w, out_dtype):
+    """`wein`, or on carriers of a 16-bit `out_dtype` `_Product32` (the
+    equation's contraction: x's trailing dims with w's leading ones)."""
+    if out_dtype is None or out_dtype == torch.float32:
+        return wein(equation, x, w)
+    nc = (x.dim() + w.dim() - len(equation.split("->")[1])) // 2
+    return _Product32.apply(x, w, nc, out_dtype)
+
+
+def bias_add(y, b, out_dtype=None):
+    """y + b in y's dtype; with `out_dtype` (y and b carriers, below) the
+    sum taken in b's dtype and rounded to out_dtype: the same value, and
+    b's grad summed over the tokens in b's dtype."""
+    if out_dtype is None:
+        return y + b.to(y.dtype)
+    return (y.to(b.dtype) + b).to(out_dtype)
+
+
+def qkv_project(cfg, p, x, out_dtype=None):
+    """x: (B, S, D) -> q (B,S,H,hd), k/v (B,S,KV,hd) in compute dtype.
+
+    `out_dtype` (a sharded rank's compute dtype): x and the weights are
+    f32 carriers of that dtype's values, each product is taken in f32 and
+    rounded to out_dtype after it, each bias added as `bias_add` adds it:
+    the values that out_dtype's own products and sums give, with grads
+    that stay f32 until the sums over ranks."""
+    dt, rd = x.dtype, out_dtype
+    q = _rounded(_product("bsd,dhk->bshk", x, p["wq"].to(dt), rd), rd)
+    k = _rounded(_product("bsd,dhk->bshk", x, p["wk"].to(dt), rd), rd)
+    v = _rounded(_product("bsd,dhk->bshk", x, p["wv"].to(dt), rd), rd)
     if "bq" in p:
-        q = q + p["bq"].to(dt)
-        k = k + p["bk"].to(dt)
-        v = v + p["bv"].to(dt)
+        q = bias_add(q, p["bq"], out_dtype)
+        k = bias_add(k, p["bk"], out_dtype)
+        v = bias_add(v, p["bv"], out_dtype)
     return q, k, v
 
 
-def out_project(cfg, p, o):
-    return wein("bshk,hkd->bsd", o, p["wo"].to(o.dtype))
+def out_project(cfg, p, o, dtype=None):
+    """The out product, taken in `dtype` (default o's): a sharded rank's
+    f32 partial sum of o's products (`_product`), rounded after the sum
+    over ranks."""
+    if dtype is None:
+        return wein("bshk,hkd->bsd", o, p["wo"].to(o.dtype))
+    return _product("bshk,hkd->bsd", o.to(dtype), p["wo"].to(dtype),
+                    o.dtype)
 
 
 def _gqa_scores(q, k, scale):
@@ -496,24 +563,44 @@ def cache_update(k_cache, v_cache, k_new, v_new, pos, window: int = 0):
 # MLP / embedding / head
 # ---------------------------------------------------------------------------
 
-def mlp(cfg, p, x):
-    dt = x.dtype
+def mlp(cfg, p, x, down_bias: bool = True, out_dtype=None):
+    """The MLP; `down_bias=False` leaves the GELU form's b_down out and
+    returns the down product unrounded (a row-parallel down product: the
+    sum over ranks, then the bias once). `out_dtype` as `qkv_project`'s:
+    x and the weights f32 carriers, every product but the down product
+    rounded to out_dtype after it."""
+    dt, rd = x.dtype, out_dtype
     if cfg.mlp_act == "swiglu":
-        g = wein("bsd,df->bsf", x, p["w_gate"].to(dt))
-        u = wein("bsd,df->bsf", x, p["w_up"].to(dt))
-        h = F.silu(g.float()).to(dt) * u
-        return wein("bsf,fd->bsd", h, p["w_down"].to(dt))
-    h = wein("bsd,df->bsf", x, p["w_up"].to(dt)) + p["b_up"].to(dt)
-    h = F.gelu(h.float(), approximate="tanh").to(dt)
-    return wein("bsf,fd->bsd", h, p["w_down"].to(dt)) + p["b_down"].to(dt)
+        g = _rounded(_product("bsd,df->bsf", x, p["w_gate"].to(dt), rd), rd)
+        u = _rounded(_product("bsd,df->bsf", x, p["w_up"].to(dt), rd), rd)
+        h = F.silu(g.float()).to(g.dtype) * u
+    else:
+        h = bias_add(_rounded(_product("bsd,df->bsf", x, p["w_up"].to(dt),
+                                       rd), rd), p["b_up"], rd)
+        h = F.gelu(h.float(), approximate="tanh").to(h.dtype)
+    out = _product("bsf,fd->bsd", h.to(dt), p["w_down"].to(dt), rd)
+    if not down_bias:
+        return out
+    if cfg.mlp_act == "swiglu":
+        return _rounded(out, out_dtype)
+    return bias_add(_rounded(out, out_dtype), p["b_down"], out_dtype)
 
 
-def embed_tokens(cfg, emb_p, tokens):
+def embed_tokens(cfg, emb_p, tokens, lo=None):
     """The token rows of the embedding. `F.embedding` rather than indexing:
     the same rows, and a backward that is deterministic on the CPU with
     several threads too (indexing's accumulate is not there), so two
-    replicas' gradients agree bit for bit on either device."""
-    return F.embedding(tokens, emb_p["tok"]).to(_dt(cfg))
+    replicas' gradients agree bit for bit on either device. `lo`:
+    emb_p["tok"] holds the vocab rows from lo on (a rank's block of a
+    vocab-parallel embedding), and a token outside them gets zeros, so
+    the sum over the ranks is the lookup."""
+    if lo is None:
+        return F.embedding(tokens, emb_p["tok"]).to(_dt(cfg))
+    ids = tokens - lo
+    inside = (ids >= 0) & (ids < emb_p["tok"].shape[0])
+    x = F.embedding(torch.where(inside, ids, torch.zeros_like(ids)),
+                    emb_p["tok"]).to(_dt(cfg))
+    return torch.where(inside[..., None], x, torch.zeros_like(x))
 
 
 def logits_from_hidden(cfg, emb_p, h):
@@ -640,6 +727,134 @@ def chunked_cross_entropy(cfg, emb_p, h, targets, *, chunk: int = CE_CHUNK,
     w = emb_p["tok"] if cfg.tie_embeddings else emb_p["head"]
     nll_sum, z_sum = _StreamedCE.apply(h, w, targets, valid,
                                        cfg.tie_embeddings, c)
+    n_tok = B * S
+    loss = nll_sum / n_tok
+    if z_loss:
+        loss = loss + z_loss * (z_sum / n_tok)
+    return loss
+
+
+class _VocabParallelCE(torch.autograd.Function):
+    """The head + CE with the vocabulary split over a mesh axis
+    (`sharding.Axis`): w holds this rank's V / n vocab rows (tied, (Vl, D))
+    or columns (untied, (D, Vl)), the rank's block `index`. Per seq chunk
+    each rank forms its logits (B, c, Vl) in f32; the global max over the
+    vocab, then the sum of exp(logit - max) and the target's logit (each
+    rank's own, zero where the target is another rank's) are summed over
+    the axis (`vocab_stats`, two collectives a chunk), so every rank holds
+    the same lse and gold and the same (nll_sum, z_sum). The backward is
+    local: each rank's softmax slice p = exp(logit - lse) gives d logits =
+    p - onehot (and 2 lse p for the z-loss), masked by `valid`; its h
+    gradient is a partial sum over the ranks' slices (the collective that
+    brought h to the rank sums it), its weight gradient the rank's own
+    block. No rank ever holds the (B, S, V) logits. `dtype` is the
+    compute dtype where h and w are f32 carriers of its values (a sharded
+    rank's): the logits and their grads are rounded to it, as the
+    unsharded head rounds them, and the h and w grads stay f32 for their
+    sums over ranks."""
+
+    @staticmethod
+    def forward(ctx, h, w, targets, valid, tied: bool, chunk: int, axis,
+                dtype):
+        from repro_torch.sharding import all_max, all_sum
+        Vl = w.shape[0] if tied else w.shape[1]
+        lo = axis.index * Vl
+        wd = w.to(h.dtype)
+        zero = torch.zeros((), dtype=torch.float32, device=h.device)
+        nll_sum, z_sum, lses = zero, zero, []
+        for i in range(h.shape[1] // chunk):
+            sl = slice(i * chunk, (i + 1) * chunk)
+            lf = _head(h[:, sl], wd, tied, dtype).to(dtype).to(torch.float32)
+            mx = all_max(torch.amax(lf, dim=-1), axis, "vocab_stats")
+            t = targets[:, sl].to(torch.int64) - lo
+            inside = (t >= 0) & (t < Vl)
+            gold = torch.gather(lf, -1, torch.where(
+                inside, t, torch.zeros_like(t))[..., None])[..., 0]
+            gold = torch.where(inside, gold, torch.zeros_like(gold))
+            se = torch.sum(torch.exp(lf - mx[..., None]), dim=-1)
+            stats = all_sum(torch.stack([se, gold]), axis, "vocab_stats")
+            lse = mx + torch.log(stats[0])
+            m = valid[:, sl].to(torch.float32)
+            nll_sum = nll_sum + torch.sum((lse - stats[1]) * m)
+            z_sum = z_sum + torch.sum(lse * lse * m)
+            lses.append(lse)
+        ctx.save_for_backward(h, w, targets, valid, torch.cat(lses, dim=1))
+        ctx.cfg = (tied, chunk, lo, dtype)
+        return nll_sum, z_sum
+
+    @staticmethod
+    def backward(ctx, g_nll, g_z):
+        h, w, targets, valid, lse_all = ctx.saved_tensors
+        tied, chunk, lo, dtype = ctx.cfg
+        wd = w.to(h.dtype)
+        dhs, dw = [], None
+        for i in range(h.shape[1] // chunk):
+            sl = slice(i * chunk, (i + 1) * chunk)
+            hc = h[:, sl]
+            lf = _head(hc, wd, tied, dtype).to(dtype).to(torch.float32)
+            lse = lse_all[:, sl]
+            p = torch.exp(lf - lse[..., None])
+            gold = torch.arange(lf.shape[-1], device=h.device) + lo \
+                == targets[:, sl, None].to(torch.int64)
+            m = valid[:, sl].to(torch.float32)[..., None]
+            dl = (m * (g_nll * torch.where(gold, p - 1.0, p)
+                       + (2.0 * g_z) * lse[..., None] * p)).to(dtype).to(
+                           h.dtype)
+            dh_c, dw_c = _head_grads(dl, hc, wd, tied, dtype)
+            dhs.append(dh_c)
+            dw_c = dw_c.to(w.dtype)
+            dw = dw_c if dw is None else dw + dw_c
+        return (torch.cat(dhs, dim=1), dw) + (None,) * 6
+
+
+def _head(h, wd, tied: bool, dtype=None):
+    """h's logits over the head's block wd; on carriers of a 16-bit
+    `dtype`, its f32 accumulator (`mm32`)."""
+    if dtype is None or dtype == torch.float32:
+        if tied:
+            return torch.einsum("bcd,vd->bcv", h, wd)
+        return torch.einsum("bcd,dv->bcv", h, wd)
+    B, c, D = h.shape
+    return mm32(h.reshape(-1, D), wd.t() if tied else wd, dtype).reshape(
+        B, c, -1)
+
+
+def _head_grads(dl, h, wd, tied: bool, dtype=None):
+    """(dh, dw) of `_head` for the logits' grads dl, alike."""
+    if dtype is None or dtype == torch.float32:
+        if tied:
+            return (torch.einsum("bcv,vd->bcd", dl, wd),
+                    torch.einsum("bcv,bcd->vd", dl, h))
+        return (torch.einsum("bcv,dv->bcd", dl, wd),
+                torch.einsum("bcv,bcd->dv", dl, h))
+    B, c, D = h.shape
+    dl2, h2 = dl.reshape(B * c, -1), h.reshape(B * c, D)
+    dh = mm32(dl2, wd if tied else wd.t(), dtype).reshape(B, c, D)
+    dw = mm32(dl2.t(), h2, dtype) if tied else mm32(h2.t(), dl2, dtype)
+    return dh, dw
+
+
+def vocab_parallel_cross_entropy(cfg, w, h, targets, axis, *,
+                                 chunk: int = CE_CHUNK,
+                                 z_loss: float = 1e-4, dtype=None):
+    """The token-mean CE + z-loss of h (B, S, D), whole on every rank of
+    `axis`, against targets (B, S), with the head's vocab split over the
+    axis (w: this rank's block of `tok` (Vl, D) when tied, of `head`
+    (D, Vl) otherwise): `_VocabParallelCE` over seq chunks of
+    min(chunk, S), the last padded and masked as `chunked_cross_entropy`
+    pads it; `dtype` the compute dtype of f32 carriers h and w (default
+    h's)."""
+    B, S, D = h.shape
+    c = min(chunk, S)
+    pS = (-S) % c
+    if pS:
+        h = F.pad(h, (0, 0, 0, pS))
+        targets = F.pad(targets, (0, pS))
+    valid = (torch.arange(h.shape[1], device=h.device) < S).expand(
+        B, h.shape[1])
+    nll_sum, z_sum = _VocabParallelCE.apply(h, w, targets, valid,
+                                            cfg.tie_embeddings, c, axis,
+                                            dtype or h.dtype)
     n_tok = B * S
     loss = nll_sum / n_tok
     if z_loss:

@@ -204,7 +204,8 @@ class Model:
 
     def loss(self, params, batch, ctx=None):
         """(loss, metrics); `ctx` (a `transformer.ShardCtx`) runs the MoE
-        layers expert-parallel over its model group."""
+        layers expert-parallel over its model group and, with its
+        `specs`, every layer on the rank's blocks of the params."""
         return tfm.lm_loss(self.cfg, params, batch, ctx)
 
     def prefill(self, params, batch, max_len: int, row_blocks: int = 1):

@@ -25,6 +25,8 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from repro_torch import bridge
+from repro_torch import sharding as shd
 from repro_torch import tree as tree_util
 from repro_torch.kernels import ops
 from repro_torch.models import layers as nn
@@ -141,23 +143,339 @@ def _stages(cfg, tree):
 # Blocks
 # ---------------------------------------------------------------------------
 
-@dataclass
+@dataclass(frozen=True)
 class ShardCtx:
     """A rank's place on a process mesh for the layers that shard (the
     reference's `ShardCtx`): its `launch/mesh.py::ProcessMesh` and a
-    `sharding.Resolver` over it. `act` is the identity: each rank holds
-    its own tokens, and every exchange is an explicit collective
-    (`models/moe.py::moe_mlp_ep`), where the reference constrains GSPMD."""
+    `sharding.Resolver` over it, the one object that says where each
+    activation and parameter lives.
+
+    Without `specs` only the MoE blocks shard: every other param is whole
+    on the rank, and `moe.moe_mlp_ep` runs the experts over the model
+    group (the experts cut by `bridge.expert_shard`). With `specs` (the
+    params' partition entries, `bridge.partition`) and `dtype` (the
+    layers' compute dtype) every layer of a dense or moe model runs on
+    the rank's blocks (`bridge.shard_params`):
+
+      * FSDP: a leaf sharded over the data axes is gathered (it moves as
+        stored: bf16 for the reference's `_half_params`) when a layer
+        reaches it, and its gradient reduce-scattered (`params`);
+      * tensor parallelism over the model axis: attention by heads (k/v
+        by kv heads where KV divides, else each rank takes the kv heads
+        its q heads read), or, where the heads do not divide, the rows of
+        the batch over the model ranks with every weight whole (the
+        reference's `batch_dm`); the MLP column- then row-parallel; the
+        embedding, head and CE split over the vocab;
+      * sequence parallelism (`rules.sequence_parallel`): the residual
+        stream split over the model axis along the sequence.
+
+    `act` places the collectives at the reference's hint points, where the
+    reference constrains GSPMD (`sharding.py`'s Functions). On a mesh of
+    more than one rank the products whose outputs or grads a collective
+    sums take f32 carriers of the compute dtype's values (`acc`): the
+    weights as `params` lays them out, the activations as `act` brings
+    them to the column products; every product is rounded to the compute
+    dtype where the unsharded layer rounds it (`layers.qkv_project`), a
+    row-parallel product after the f32 sum of its partials, so a sum over
+    ranks rounds once, as one product over the whole contraction does.
+    On a mesh of one rank the layers run the unsharded code. `data_group`
+    is the group of the rules' data axes when they are not the mesh's
+    data axis alone (("pod", "data"), the baseline flavor on a pod mesh).
+    """
 
     mesh: Any
     resolver: Any
-
-    def act(self, x, *logical):
-        return x
+    specs: Any = None
+    data_group: Any = None
+    dtype: Any = None
 
     def tp_size(self) -> int:
         r = self.resolver.rules
         return r.axis_size(self.mesh, r.model_axes)
+
+    # -- the layout ---------------------------------------------------------
+
+    @property
+    def sharded(self) -> bool:
+        return self.specs is not None
+
+    @property
+    def sp(self) -> bool:
+        """Sequence parallelism on: the residual stream split over the
+        model axis along the sequence."""
+        return (self.sharded and self.resolver.rules.sequence_parallel
+                and self.tp_size() > 1)
+
+    @property
+    def acc(self):
+        """The carriers' dtype (f32) on a sharded mesh of more than one
+        rank; None where the layers run the unsharded code."""
+        if not self.sharded or (self.tp_size() == 1
+                                and self.data_axis.size == 1):
+            return None
+        return torch.float32
+
+    @property
+    def rounds(self):
+        """The dtype the layers round their products to (the compute
+        dtype) where they take carriers, else None."""
+        return None if self.acc is None else self.dtype
+
+    @property
+    def model_axis(self):
+        return shd.Axis(getattr(self.mesh, "model_group", None),
+                        self.tp_size(), getattr(self.mesh, "model", 0), "tp")
+
+    @property
+    def data_axis(self):
+        r, m = self.resolver.rules, self.mesh
+        idx, n = bridge.block_index(tuple(r.data_axes), bridge.mesh_coords(m),
+                                    bridge.mesh_sizes(self.resolver))
+        group = self.data_group if self.data_group is not None \
+            else m.data_group
+        return shd.Axis(group, n, idx, "fsdp")
+
+    def batch_dm(self, cfg) -> bool:
+        """The heads do not split over the model ranks: attention takes
+        the reference's `batch_dm` layout."""
+        return (self.sharded and self.tp_size() > 1
+                and cfg.num_heads % self.tp_size() != 0)
+
+    def vocab_parallel(self, cfg) -> bool:
+        """The embedding, head and CE split over the model ranks' vocab."""
+        return (self.sharded and self.tp_size() > 1
+                and cfg.vocab_size % self.tp_size() == 0)
+
+    @staticmethod
+    def _entry(axes):
+        return axes[0] if len(axes) == 1 else tuple(axes)
+
+    def act(self, x, *logical):
+        """The reference's activation hints as collectives over the model
+        axis (the identity where the layers run the unsharded code):
+
+          * ("batch", None, None), before the column-parallel products: x
+            in the residual layout -> the whole sequence on every rank, as
+            a carrier (SP: the all-gather along the sequence, whose
+            backward reduce-scatters; else the copy whose backward sums
+            the ranks' partial grads);
+          * ("batch", "seq", None), after the row-parallel products: x a
+            partial sum over the ranks -> the residual layout, rounded to
+            the compute dtype after the sum (SP: the reduce-scatter along
+            the sequence; else the sum);
+          * ("batch_dm", None, None) and ("batch_dm", "seq", None), around
+            attention whose heads do not split: the rank's rows of the
+            whole sequence, and back from them (the rows gathered; SP:
+            the rank's part of the sequence kept)."""
+        acc = self.acc
+        if acc is None:
+            return x
+        axis, tp = self.model_axis, self.tp_size()
+        if logical[1:] == (None, None):
+            if tp == 1:
+                x = x.to(acc)
+            elif self.sp:
+                x = shd.gather(x, 1, axis, dtype=acc)
+            else:
+                x = shd.copy_to(x.to(acc), axis)
+            if logical[0] == "batch_dm":
+                n = x.shape[0] // tp
+                if x.shape[0] % tp:
+                    raise NotImplementedError(
+                        f"the heads do not split over {tp} model ranks and "
+                        f"{x.shape[0]} rows do not either")
+                x = x.narrow(0, axis.index * n, n)
+            return x
+        if logical[1:] != ("seq", None):
+            raise ValueError(f"no collective for the hint {logical}")
+        if logical[0] == "batch_dm":
+            x = x.to(self.dtype)
+            if not self.sp:
+                return shd.gather(x, 0, axis, "slice")
+            n = x.shape[1] // tp
+            return shd.gather(x, 0, axis).narrow(1, axis.index * n, n)
+        if tp == 1:
+            return x.to(self.dtype)
+        if self.sp:
+            return shd.scatter(x, 1, axis, self.dtype)
+        return shd.reduce_from(x, axis, self.dtype)
+
+    def whole_seq(self, x):
+        """x in the residual layout -> the whole sequence, every rank
+        using it alike (SP: the all-gather, whose backward takes the
+        rank's own block)."""
+        return shd.gather(x, 1, self.model_axis, "slice") if self.sp else x
+
+    def own_seq(self, x):
+        """x whole on every rank -> the residual layout (SP: the rank's
+        part of the sequence)."""
+        return shd.split(x, 1, self.model_axis) if self.sp else x
+
+    def param(self, w, spec, plan, dtype, rounds: bool = True):
+        """This rank's param block `w` (stored as `spec` places it) in the
+        layout its layer computes in, cast to `dtype` where a collective
+        touches it: every sum of its partial grads runs in that dtype
+        before the cast back to w's. Over the data axes: the data-sharded
+        dims gathered (w's bytes move; backward: the reduce-scatter); a
+        leaf with none, copied (backward: its grads summed over the data
+        ranks). Then over the model axis by `plan`: an int, the dim of
+        which the rank takes its block; "local", whole, each rank using
+        it for its own part (a model-sharded dim gathered, else copied;
+        backward: the partial grads summed); "same", whole, every rank
+        using it alike; "norm", a norm scale or a bias added after a row
+        product: "local" under SP (each rank's own tokens), else
+        "same". A carrier (`dtype` the carriers') of a leaf stored wider
+        than the compute dtype (f32 masters) takes the compute dtype's
+        value, as the unsharded layer's cast does, its grad rounding
+        after the sums; `rounds=False` keeps the stored value, for a leaf
+        the unsharded layer reads as stored (a norm scale, the lookup's
+        rows)."""
+        return self.params([w], [spec], [plan], [dtype], [rounds])[0]
+
+    def params(self, ws, specs, plans, dtypes, rounds=None):
+        """`param` of several leaves, their data-axis collectives in one
+        bucket per dtype each way (a layer's leaves as it reaches them)."""
+        r = self.resolver.rules
+        data, model = self._entry(r.data_axes), self._entry(r.model_axes)
+        specs = [tuple(sp) + (None,) * (w.dim() - len(sp))
+                 for w, sp in zip(ws, specs)]
+        acc, rounds = self.acc, rounds or [True] * len(ws)
+        ws = [w.to(self.dtype) if acc is not None and dt == acc and r else w
+              for w, dt, r in zip(ws, dtypes, rounds)]
+        if self.data_axis.size > 1:
+            for dt in dict.fromkeys(dtypes):
+                sharded = [i for i, sp in enumerate(specs)
+                           if data in sp and dtypes[i] == dt]
+                whole = [i for i, sp in enumerate(specs)
+                         if data not in sp and dtypes[i] == dt]
+                if sharded:
+                    out = shd.gather_many([ws[i] for i in sharded],
+                                          [specs[i].index(data)
+                                           for i in sharded],
+                                          self.data_axis, dt)
+                    for i, o in zip(sharded, out):
+                        ws[i] = o
+                if whole:
+                    out = shd.copy_to_many([ws[i].to(dt) for i in whole],
+                                           self.data_axis)
+                    for i, o in zip(whole, out):
+                        ws[i] = o
+        axis = self.model_axis
+        if axis.size == 1:
+            return [w.to(dt) for w, dt in zip(ws, dtypes)]
+        out = []
+        for w, sp, plan, dt in zip(ws, specs, plans, dtypes):
+            if plan == "norm":
+                plan = "local" if self.sp else "same"
+            sd = next((d for d, e in enumerate(sp) if e == model), None)
+            if sd is not None and sd == plan:
+                out.append(w.to(dt))
+                continue
+            if sd is not None:
+                w = shd.gather(w, sd, axis,
+                               "slice" if plan == "same" else "sum", dtype=dt)
+            elif plan != "same":
+                w = shd.copy_to(w.to(dt), axis)
+            if isinstance(plan, int):
+                w = shd._block(w, plan, axis)
+            out.append(w.to(dt))
+        return out
+
+    def layer_params(self, cfg, lp):
+        """A layer stack's layer (its slice of the stacked leaves) in its
+        blocks' layouts (`params`, `_layer_plans`), as carriers where the
+        layers take them; where KV < TP each rank's kv heads of the whole
+        k/v leaves. Expert parallelism takes the half params as they are
+        and sums their grads in that dtype, as the reference's shard_map
+        body does (`moe.moe_mlp_ep`)."""
+        tp = self.tp_size()
+        specs = tree_util.tree_map(lambda w, sp: tuple(sp)[1:], lp,
+                                   self.specs["layers"])
+        dt = self.acc or self.dtype
+        moe = "router" in lp["mlp"] and tp > 1
+        flat = tree_util.flatten_with_path(lp)
+        out = tree_util.unflatten_like(lp, self.params(
+            [w for _, w in flat], bridge.spec_leaves(lp, specs),
+            tree_util.leaves(_layer_plans(cfg, tp, lp)),
+            [w.dtype if moe and p.startswith("['mlp']") else dt
+             for p, w in flat], [not p.startswith("['ln") for p, _ in flat]))
+        H, KV = cfg.num_heads, cfg.num_kv_heads
+        if tp > 1 and H % tp == 0 and KV % tp:
+            lo, hi = _kv_heads(H, KV, tp, self.model_axis.index)
+            ap = out["attn"]
+            out["attn"] = dict(ap, **{
+                n: ap[n].narrow(0 if n[0] == "b" else 1, lo, hi - lo)
+                for n in ("wk", "wv", "bk", "bv") if n in ap})
+        return out
+
+    def top_params(self, cfg, params):
+        """(params with the embedding's lookup rows and the final norm in
+        their layouts, the head's params): the lookup reads the stored
+        (bf16) rows and the head the carriers (the reference's take on the
+        half params, its head on their cast; tied, one leaf for both where
+        the two are the same tensor), each rank its vocab block where the
+        vocab splits, else whole and alike; the final norm as a norm."""
+        if cfg.block_pattern or cfg.family not in ("dense", "moe"):
+            raise NotImplementedError(
+                f"the {cfg.family} family's layers have no model axis in "
+                "the port (dense and moe do)")
+        vp = self.vocab_parallel(cfg)
+        emb, spec = params["embed"], self.specs["embed"]
+        dt = self.acc or self.dtype
+        look = self.param(emb["tok"], spec["tok"], 0 if vp else "same",
+                          emb["tok"].dtype, rounds=False)
+        key = "tok" if cfg.tie_embeddings else "head"
+        same = key == "tok" and look.dtype == dt == self.dtype
+        head = look if same else self.param(
+            emb[key], spec[key], (0 if key == "tok" else 1) if vp
+            else "same", dt)
+        final_ln = self.param(params["final_ln"], self.specs["final_ln"],
+                              "norm", dt, rounds=False)
+        return (dict(params, embed={"tok": look}, final_ln=final_ln),
+                {key: head})
+
+
+def _layer_plans(cfg, tp: int, lp):
+    """Each leaf's `ShardCtx.param` plan in one layer of a dense or moe
+    stack at `tp` model ranks."""
+    H, KV = cfg.num_heads, cfg.num_kv_heads
+    if H % tp == 0:
+        kv = (lambda d: d) if KV % tp == 0 else (lambda d: "local")
+        attn = {"wq": 1, "bq": 0, "wo": 0, "wk": kv(1), "wv": kv(1),
+                "bk": kv(0), "bv": kv(0)}
+    else:                               # batch_dm: every weight whole
+        attn = {n: "local" for n in ("wq", "bq", "wo", "wk", "wv", "bk",
+                                     "bv")}
+    if "router" in lp["mlp"]:
+        split = cfg.num_experts % tp == 0
+        mlp = {"router": "same", **{n: 0 if split else "same"
+                                    for n in ("w_gate", "w_up", "w_down")}}
+    elif cfg.d_ff % tp == 0:
+        mlp = {"w_gate": 1, "w_up": 1, "b_up": 0, "w_down": 0,
+               "b_down": "norm"}
+    else:                               # computed whole on every rank
+        mlp = {n: "norm" for n in lp["mlp"]}
+    return {"attn": {n: attn[n] for n in lp["attn"]},
+            "mlp": {n: mlp[n] for n in lp["mlp"]},
+            "ln1": "norm", "ln2": "norm"}
+
+
+def _act(ctx, x, *logical):
+    return x if ctx is None else ctx.act(x, *logical)
+
+
+def _kv_heads(H: int, KV: int, tp: int, m: int) -> Tuple[int, int]:
+    """[lo, hi): the kv heads model rank m's H / tp q heads read (GQA: q
+    head j reads kv head j // (H / KV)), when they group evenly."""
+    Hl, G = H // tp, H // KV
+    lo, hi = m * Hl // G, ((m + 1) * Hl - 1) // G + 1
+    n = hi - lo
+    if Hl % n or any((m * Hl + j) // G - lo != j // (Hl // n)
+                     for j in range(Hl)):
+        raise NotImplementedError(
+            f"{H} q heads over {tp} model ranks do not read {KV} kv heads "
+            "in even groups")
+    return lo, hi
 
 
 def _attention_dispatch(cfg, q, k, v, window: int = 0):
@@ -175,26 +493,49 @@ def _attention_dispatch(cfg, q, k, v, window: int = 0):
     return nn.causal_attention(q, k, v, window)
 
 
-def _attn_full(cfg, ln, ap, x, sin, cos, window: int = 0):
+def _attn_full(cfg, ln, ap, x, sin, cos, window: int = 0, ctx=None):
     """Pre-norm attention sub-block over the full sequence. Returns
-    (x + attn, k, v) with k rotated, as the decode cache stores them."""
+    (x + attn, k, v) with k rotated, as the decode cache stores them.
+    Under a sharded `ctx` (the reference's hints): q, k, v column-parallel
+    over the rank's heads (params as `ShardCtx.layer_params` lays them
+    out), the out product row-parallel, then the sum; where the heads do
+    not split, the rank's rows of the batch with every weight whole
+    (`batch_dm`)."""
     h = nn.rms_norm(x, ln, cfg.norm_eps)
-    q, k, v = nn.qkv_project(cfg, ap, h)
+    rows = "batch_dm" if ctx is not None and ctx.batch_dm(cfg) else "batch"
+    h = _act(ctx, h, rows, None, None)
+    rd = None if ctx is None else ctx.rounds
+    q, k, v = nn.qkv_project(cfg, ap, h, rd)
     q = nn.apply_rope(q, sin, cos)
     k = nn.apply_rope(k, sin, cos)
     o = _attention_dispatch(cfg, q, k, v, window)
-    return x + nn.out_project(cfg, ap, o), k, v
+    o = nn.out_project(cfg, ap, o, None if rd is None else ctx.acc)
+    return x + _act(ctx, o, rows, "seq", None), k, v
 
 
 def _mlp_sub(cfg, lp, x, groups: int = 1, ctx=None):
     """Pre-norm MLP (or MoE) sub-block -> (x + mlp, moe aux or None). A MoE
     layer routes the rows as `groups` dispatch groups, or over the model
-    group of `ctx` (`moe.moe_mlp`)."""
+    group of `ctx` (`moe.moe_mlp`; under SP on the whole sequence). Under
+    a sharded `ctx` the MLP is column- then row-parallel, the GELU form's
+    down bias added once after the sum; where d_ff does not split, every
+    rank computes the whole MLP on its own tokens."""
     h = nn.rms_norm(x, lp["ln2"], cfg.norm_eps)
     if _is_moe(cfg) and "router" in lp["mlp"]:
+        if ctx is not None:
+            h = ctx.whole_seq(h)
         o, aux = moe_lib.moe_mlp(cfg, lp["mlp"], h, groups, ctx=ctx)
-        return x + o, aux
-    return x + nn.mlp(cfg, lp["mlp"], h), None
+        return x + (o if ctx is None else ctx.own_seq(o)), aux
+    rd = None if ctx is None else ctx.rounds
+    if rd is not None and cfg.d_ff % ctx.tp_size():
+        return x + nn.mlp(cfg, lp["mlp"], h.to(ctx.acc), out_dtype=rd), None
+    h = _act(ctx, h, "batch", None, None)
+    p = lp["mlp"]
+    o = _act(ctx, nn.mlp(cfg, p, h, down_bias=rd is None, out_dtype=rd),
+             "batch", "seq", None)
+    if rd is not None and "b_down" in p:
+        o = nn.bias_add(o, p["b_down"], rd)
+    return x + o, None
 
 
 def _attn_decode(cfg, ln, ap, x, kc, vc, sin, cos, pos, row_blocks: int = 1,
@@ -305,8 +646,11 @@ def _group_decode(cfg, gp, gc, x, sin, cos, pos, pattern,
 # Full forward (train / prefill trunk)
 # ---------------------------------------------------------------------------
 
-def _embed(cfg, params, tokens, frontend_embeds=None):
-    x = nn.embed_tokens(cfg, params["embed"], tokens)
+def _embed(cfg, params, tokens, frontend_embeds=None, ctx=None):
+    lo = None
+    if ctx is not None and ctx.vocab_parallel(cfg):
+        lo = ctx.model_axis.index * params["embed"]["tok"].shape[0]
+    x = nn.embed_tokens(cfg, params["embed"], tokens, lo)
     if frontend_embeds is not None:
         x = torch.cat([frontend_embeds.to(x.dtype), x], dim=1)
     return x
@@ -325,8 +669,12 @@ def remat_group_size(cfg) -> int:
 
 
 def _dense_layer(cfg, lp, x, sin, cos, ctx=None):
-    """One layer of a stack over the full sequence -> (x, k, v, aux)."""
-    x, k, v = _attn_full(cfg, lp["ln1"], lp["attn"], x, sin, cos)
+    """One layer of a stack over the full sequence -> (x, k, v, aux). A
+    sharded `ctx` first brings the rank's blocks of the layer's params to
+    their layouts (`ShardCtx.layer_params`)."""
+    if ctx is not None and ctx.sharded:
+        lp = ctx.layer_params(cfg, lp)
+    x, k, v = _attn_full(cfg, lp["ln1"], lp["attn"], x, sin, cos, ctx=ctx)
     x, aux = _mlp_sub(cfg, lp, x, ctx=ctx)
     return x, k, v, aux
 
@@ -394,15 +742,23 @@ def lm_hidden(cfg, params, tokens, frontend_embeds=None,
     (hidden (B,S,D), kv or None, aux dict), S = P + S_text. kv is (k, v),
     each (L, B, S, KV, hd), when `collect_kv` (layer stacks only); aux holds
     the moe family's `moe_aux` and `moe_drop_frac`, each the mean over
-    layers. `ctx` (a `ShardCtx`) reaches the MoE sub-block. Under grad
+    layers. `ctx` (a `ShardCtx`) reaches every layer: one without specs
+    the MoE sub-block's experts, a sharded one every layer of a dense or
+    moe stack (with the embedding's params that `lm_loss` lays out, a
+    vocab-parallel lookup summed over the model ranks). Under grad
     mode the layers run as remat blocks of `cfg.remat` (`models/remat.py`):
     each pattern group (and the tail) one block, as the reference's
     `gbody`/`tbody`; a layer stack in two-level groups
     (`_stack_hidden`)."""
-    x = _embed(cfg, params, tokens, frontend_embeds)
+    x = _embed(cfg, params, tokens, frontend_embeds, ctx)
     S = x.shape[1]
     sin, cos = nn.rope_tables(torch.arange(S, device=x.device),
                               cfg.head_dim, cfg.rope_theta)
+    if ctx is not None and ctx.sharded:
+        # into the residual layout: a vocab-parallel lookup's sum over the
+        # model ranks (SP: the reduce-scatter), else (SP) the rank's part
+        x = (ctx.act(x, "batch", "seq", None) if ctx.vocab_parallel(cfg)
+             else ctx.own_seq(x))
     kv, aux_out = None, {}
     if cfg.block_pattern:
         for _, pat, stack, depth in _stages(cfg, params):
@@ -429,21 +785,34 @@ def lm_loss(cfg, params, batch, ctx=None):
     over seq chunks, so the (B,S,V) logits never exist. The backward is
     autograd's; the flash kernel K2 has no backward, as in the reference
     (whose Pallas kernel has no VJP), so `attention_impl="pallas"` cannot
-    train."""
+    train. A sharded `ctx` takes this rank's blocks of the params and its
+    rows of the batch (`ShardCtx.top_params`); where the vocab splits over
+    the model ranks the head + CE is vocab-parallel
+    (`layers.vocab_parallel_cross_entropy`): no rank holds the (B, S, V)
+    logits."""
     if cfg.attention_impl == "pallas":
         raise NotImplementedError(
             "attention_impl='pallas' has no backward (K2 is forward-only, as "
             "the reference's Pallas kernel is): train with 'xla'")
+    emb = params["embed"]
+    if ctx is not None and ctx.sharded:
+        params, emb = ctx.top_params(cfg, params)
     fe = batch.get("frontend_embeds")
     h, _, aux = lm_hidden(cfg, params, batch["tokens"], fe, ctx=ctx)
     if fe is not None:
         h = h[:, fe.shape[1]:, :]     # text positions only
-    if h.shape[1] > nn.CE_CHUNK:
-        loss = nn.chunked_cross_entropy(cfg, params["embed"], h,
-                                        batch["targets"])
+    if ctx is not None and ctx.vocab_parallel(cfg):
+        loss = nn.vocab_parallel_cross_entropy(
+            cfg, next(iter(emb.values())), ctx.act(h, "batch", None, None),
+            batch["targets"], ctx.model_axis, dtype=ctx.rounds)
     else:
-        logits = nn.logits_from_hidden(cfg, params["embed"], h)
-        loss = nn.cross_entropy_loss(logits, batch["targets"])
+        if ctx is not None and ctx.sharded:
+            h = ctx.whole_seq(h)
+        if h.shape[1] > nn.CE_CHUNK:
+            loss = nn.chunked_cross_entropy(cfg, emb, h, batch["targets"])
+        else:
+            logits = nn.logits_from_hidden(cfg, emb, h)
+            loss = nn.cross_entropy_loss(logits, batch["targets"])
     metrics = {"loss": loss, **aux}
     if "moe_aux" in aux:
         loss = loss + 0.01 * aux["moe_aux"]

@@ -22,7 +22,10 @@ the difference between a full-width family fitting beside a dual run on
 one card or not. `replicas=True` steps both replicas of the fused
 backend's stacked state (a leading axis of 2 on every leaf, `step` of
 shape (2,)) with each replica's own global norm and schedule, as a
-`torch.vmap` of `update` does.
+`torch.vmap` of `update` does. `norm_sq(grads)`, where given, returns
+the clip's global sum of squares in place of the leaf loop (the sharded
+training program's: every rank's block of the grads, each element once,
+summed over the ranks).
 """
 from __future__ import annotations
 
@@ -88,7 +91,7 @@ def _apply(leaf_fn, consts_fn, n_state: int, grad_clip: float):
     whose per-step constants are consts_fn(step)."""
 
     def apply(grads: List[torch.Tensor], state, params, step,
-              replicas: bool = False):
+              replicas: bool = False, norm_sq=None):
         p_leaves = tree_util.leaves(params)
         s_names = sorted(state)
         s_leaves = [tree_util.leaves(state[k]) for k in s_names]
@@ -96,7 +99,9 @@ def _apply(leaf_fn, consts_fn, n_state: int, grad_clip: float):
             raise ValueError(f"{len(grads)} gradient leaves for "
                              f"{len(p_leaves)} parameters")
         scale = None
-        if grad_clip:
+        if grad_clip and norm_sq is not None:
+            total = [norm_sq(grads)]
+        elif grad_clip:
             # as global_norm, per replica: each replica's leaf is reduced
             # on its own, as the sequential backend reduces it
             n_rep = 2 if replicas else 1
@@ -106,6 +111,7 @@ def _apply(leaf_fn, consts_fn, n_state: int, grad_clip: float):
                 for r in range(n_rep):
                     total[r] = total[r] + torch.sum(sq[r] if replicas
                                                     else sq)
+        if grad_clip:
             gn = torch.sqrt(torch.stack([torch.as_tensor(
                 t, dtype=torch.float32) for t in total]))
             scale = torch.clamp(grad_clip / torch.clamp(gn, min=1e-12),
