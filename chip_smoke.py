@@ -131,6 +131,9 @@ counts set to 0 just before it and read just after:
     2 dispatch groups, ms, peak per rank, collectives by label; then the
     same layer with every param sharded over the 2 model ranks (attention
     by heads, the vocab-parallel embedding, head and CE) at f32 compute;
+    then the layer served through the sharded serving programs (a prefill
+    under SP and 4 decode steps, EP at both) against the one-process
+    oracle's blocks;
   * the sharded training program (phase tp, `launch/dryrun.py::
     build_train_program`): qwen2-0.5b at full width on 4 ranks of this
     card, baseline on (data 2, model 2) with sequence parallelism at
@@ -139,6 +142,16 @@ counts set to 0 just before it and read just after:
     process: losses, step 0's grads, verdicts, the commit gate,
     collectives by label, state bytes as `run_cell` plans them, ms/step,
     peak and gloo bytes per rank;
+  * the sharded serving programs (phase tp_serve, `launch/dryrun.py::
+    build_prefill_program`, `build_decode_program`): qwen2-0.5b at full
+    width and depth on 4 ranks of this card, on (data 2, model 2) (the
+    prefill under SP over 7 q heads and 1 kv head a rank, the decode by kv
+    heads) and (data 1, model 4) (the prefill by rows, the decode by
+    blocks of the head dim), and internvl2-2b (1 layer) on (2, 2), a
+    prefill and teacher-forced decode steps against the one-process
+    oracle: logits, caches and their bits over two runs, collectives,
+    bytes as `plan_ranks` plans them, K2 on each rank's heads or rows and
+    at those shapes against its plain version;
   * a small f32 model on the card against the plain CPU path.
 
 Any failed check exits non-zero. The last two lines are a JSON object of
@@ -181,6 +194,11 @@ F32_FLOPS_PER_S = 67e12          # H100 SXM f32 outside the tensor cores
 PROMPT_LEN = 256
 BATCH = 4
 STEPS = 32
+# the timing turns' lengths (decode steps of `generate()`, training
+# steps), 32 and 6 before, halved for the script's time (PERF.md
+# section 4): they time, and every check runs on the full-length runs
+TURN_STEPS = 16
+TURN_TRAIN_STEPS = 3
 ENGINE_M = BATCH * PROMPT_LEN    # engine state x (ENGINE_M, ENGINE_N)
 ENGINE_N = 896
 ENGINE_STEPS = 8
@@ -1318,10 +1336,11 @@ def phase_abft_serve(kfp, kfa, main):
                for b in ("none", "sequential", "fused", "abft", "hybrid")}
     times = {}
     for b in list(servers) + list(servers)[::-1]:
-        _, rep = servers[b].generate(params, {"tokens": prompt}, steps=STEPS)
-        times.setdefault(b, []).append(decode_ms(rep))
-    print("decode ms/step, same call, in turns none, sequential (dual), "
-          "fused, abft, hybrid, then back: " + "; ".join(
+        _, rep = servers[b].generate(params, {"tokens": prompt},
+                                     steps=TURN_STEPS)
+        times.setdefault(b, []).append(decode_ms(rep, TURN_STEPS))
+    print(f"decode ms/step ({TURN_STEPS} steps), same call, in turns none, "
+          "sequential (dual), fused, abft, hybrid, then back: " + "; ".join(
               f"{b} {' / '.join(f'{t:.2f}' for t in v)}"
               for b, v in times.items()), flush=True)
 
@@ -1959,8 +1978,10 @@ def phase_train(kfp):
         turns = {name: [] for name, _ in turn_order}
         for name, t in turn_order:
             t.run(1, dual=t.engine.executor.init_dual(state))    # warm-up
-            r = t.run(TRAIN_STEPS, dual=t.engine.executor.init_dual(state))[1]
-            check(not r.detections and r.steps_completed == TRAIN_STEPS,
+            r = t.run(TURN_TRAIN_STEPS,
+                      dual=t.engine.executor.init_dual(state))[1]
+            check(not r.detections
+                  and r.steps_completed == TURN_TRAIN_STEPS,
                   f"{name} training run: {r.summary()}")
             turns[name].append(ms_step(r))
 
@@ -2066,11 +2087,13 @@ def phase_train(kfp):
 
         for name, t in reversed(turn_order):
             t.run(1, dual=t.engine.executor.init_dual(state))    # warm-up
-            r = t.run(TRAIN_STEPS, dual=t.engine.executor.init_dual(state))[1]
+            r = t.run(TURN_TRAIN_STEPS,
+                      dual=t.engine.executor.init_dual(state))[1]
             check(not r.detections, f"{name} training run: {r.summary()}")
             turns[name].append(ms_step(r))
         print(f"training ms/step (wall / steps, {BATCH} x {TRAIN_SEQ} "
-              f"tokens, each run after a 1-step warm-up; two turns each, in "
+              f"tokens, runs of {TURN_TRAIN_STEPS} steps, each after a "
+              f"1-step warm-up; two turns each, in "
               f"the order "
               f"{', '.join(turns)} and back): "
               + ", ".join(f"{k} {[round(v, 2) for v in ms]}"
@@ -5627,6 +5650,133 @@ def _ep_run(mesh, cfg, batch, sharded: bool) -> dict:
                 free_worst=free_worst)
 
 
+EP_SERVE_STEPS = 4
+# one sharded prefill (SP) and one decode step of the ep layer on its 2
+# model ranks, by label: the lookup's reduce-scatter (decode: its sum),
+# the attention's SP gather and reduce-scatter (decode: its exit sum),
+# MoE's SP gather, the last position's gather; EP's exchanges each way,
+# the token gather and the two means
+EP_SERVE_COLLECTIVES = (
+    {"tp_gather": 3, "tp_scatter": 2, "ep_dispatch": 1, "ep_combine": 1,
+     "ep_gather": 1, "ep_stats": 2},
+    {"tp_reduce": 2, "ep_dispatch": 1, "ep_combine": 1, "ep_gather": 1,
+     "ep_stats": 2})
+
+
+def _ep_serve(mesh, cfg, batch) -> dict:
+    """Slice 16 on phase ep's layer: `build_prefill_program` (SP on) and
+    `build_decode_program` on the 2 model ranks, the bf16 serving params,
+    the ep cell's tokens as prompts, EP_SERVE_STEPS decode steps fed the
+    oracle's greedy tokens: EP at prefill (B x S tokens) and at decode (B
+    rows, 2 per rank). The oracle, in this rank's process: `Model.prefill`
+    and `Model.decode_step` on the whole params with the tokens in tp
+    dispatch groups, as EP routes each rank's slice. The sharded run is
+    held with the oracle's routing forced (`_routed`: a token routed
+    otherwise moves its whole MLP output); a free run before it gives the
+    tokens that route otherwise and its logits gap. Returns the worst
+    logits row (of its max |logit|) and cache leaf (of its max) of the
+    rank's blocks against the oracle's, the collectives per prefill and
+    per step, and ms."""
+    from repro_torch import bridge
+    from repro_torch.configs import SHAPES
+    from repro_torch.core import hostsync
+    from repro_torch.launch import dryrun
+    from repro_torch.models import build_model
+    from repro_torch.sharding import Resolver, ShardingRules
+    from repro_torch.tree import tree_map
+
+    dev = torch.device("cuda")
+    tp, m = EP_SHAPE[1], mesh.model
+    B, S = batch["tokens"].shape
+    T = S + EP_SERVE_STEPS
+    model = build_model(cfg, dev)
+    full = model.init(seed=0)
+    half = dryrun._half_params(full)
+    prompt = {"tokens": batch["tokens"]}
+
+    def oracle():
+        from repro_torch.models import moe
+        real = moe.moe_mlp
+        moe.moe_mlp = lambda cfg, p, x, g=1, ctx=None: real(cfg, p, x, tp)
+        try:
+            with torch.no_grad():
+                lg, cache = model.prefill(half, prompt, T)
+                outs, toks = [lg.float()], []
+                pre = {k: v.clone() for k, v in cache.items()}
+                for i in range(EP_SERVE_STEPS):
+                    toks.append(lg.argmax(-1))
+                    lg, cache = model.decode_step(half, cache, toks[-1],
+                                                  S + i)
+                    outs.append(lg.float())
+            return outs, toks, pre, cache
+        finally:
+            moe.moe_mlp = real
+    (o_logits, toks, o_pre, o_end), route_o = _routed(oracle)
+    del half
+    shape_p = dataclasses.replace(SHAPES[0], kind="prefill", seq_len=S,
+                                  global_batch=B)
+    shape_d = dataclasses.replace(SHAPES[0], kind="decode", seq_len=T,
+                                  global_batch=B)
+    pre, _ = dryrun.build_prefill_program(
+        cfg, shape_p, mesh, Resolver(mesh, ShardingRules(
+            sequence_parallel=True)), max_len=T)
+    dec, _ = dryrun.build_decode_program(cfg, shape_d, mesh, Resolver(mesh))
+    params = tree_map(lambda t: t.clone(), pre.shard_params(full))
+    del full
+    torch.cuda.empty_cache()
+    V = o_logits[0].shape[-1] // tp
+    own = [lg[:, m * V:(m + 1) * V] for lg in o_logits]
+    sizes, c = bridge.mesh_sizes(dec.resolver), bridge.mesh_coords(mesh)
+
+    def run(force=None):
+        def go():
+            colls, ms = [], []
+            with hostsync.count_transfers() as st:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                lg, cache = pre(params, prompt)
+                torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            colls.append(dict(st.collectives))
+            outs = [lg.float()]
+            pre_c = {k: v.clone() for k, v in cache.items()}
+            for i in range(EP_SERVE_STEPS):
+                with hostsync.count_transfers() as st:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    lg, cache = dec(params, cache, toks[i], S + i)
+                    torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+                colls.append(dict(st.collectives))
+                outs.append(lg.float())
+            return outs, pre_c, cache, colls, ms
+        return _routed(go, force)
+
+    def gaps(outs, pre_c, end):
+        lg = max(float(((a - b).abs().amax(-1) / b.abs().amax(-1)).max())
+                 for a, b in zip(outs, own))
+        cache = max(float((got[k].float() - bridge.shard_leaf(
+            want[k], dec.cache_specs[k], c, sizes).float()).abs().max()
+            / want[k].float().abs().max()) for got, want in
+            ((pre_c, o_pre), (end, o_end)) for k in got)
+        return lg, cache
+    # the oracle routes the prefill's B x S tokens, then each step's B, in
+    # one call each; EP routes each call's m-th slice of them on rank m
+    calls = route_o.split([B * S] + [B] * EP_SERVE_STEPS)
+    force = torch.cat([t[m * (t.shape[0] // tp):(m + 1) * (t.shape[0] // tp)]
+                       for t in calls])
+    (outs, pre_c, end, _, _), route = run()
+    flips = int((torch.sort(route, dim=-1).values
+                 != torch.sort(force, dim=-1).values).any(dim=-1).sum())
+    free = gaps(outs, pre_c, end)
+    (outs, pre_c, end, colls, ms), _ = run(force)
+    logit_gap, cache_gap = gaps(outs, pre_c, end)
+    del params, outs, pre_c, end
+    torch.cuda.empty_cache()
+    return dict(logit_gap=logit_gap, cache_gap=cache_gap, flips=flips,
+                free=free, collectives=colls, ms=ms)
+
+
 def ep_rank(rank: int, root: str) -> dict:
     """One rank of phase ep (spawned by `launch/mesh.py::spawn`): a
     1-layer phi3.5-moe at full width (seeded f32 params), B = 4 x 256
@@ -5638,7 +5788,8 @@ def ep_rank(rank: int, root: str) -> dict:
     than the oracle's can route a token to another expert, which moves the
     grads of every leaf it reaches; so each pass is held with the oracle's
     routing forced, and the free run's re-routed tokens and grads gap are
-    printed beside it."""
+    printed beside it. Slice 16 then serves the layer through the sharded
+    serving programs (`_ep_serve`)."""
     from repro_torch.configs import MeshConfig, get_config
     from repro_torch.data import SyntheticLM
     from repro_torch.device import make_deterministic
@@ -5652,11 +5803,17 @@ def ep_rank(rank: int, root: str) -> dict:
     batch = {k: torch.from_numpy(np.asarray(v, np.int64)).to(dev)
              for k, v in SyntheticLM(cfg.vocab_size, EP_BATCH, EP_SEQ,
                                      seed=0).batch(0).items()}
-    return dict(rank=rank, model=mesh.model,
-                ep=_ep_run(mesh, cfg, batch, sharded=False),
-                tp32=_ep_run(mesh, dataclasses.replace(cfg, dtype="float32"),
-                             batch, sharded=True),
-                tp=_ep_run(mesh, cfg, batch, sharded=True))
+    out, secs = dict(rank=rank, model=mesh.model), {}
+    for name, fn in (
+            ("ep", lambda: _ep_run(mesh, cfg, batch, sharded=False)),
+            ("tp32", lambda: _ep_run(mesh, dataclasses.replace(
+                cfg, dtype="float32"), batch, sharded=True)),
+            ("tp", lambda: _ep_run(mesh, cfg, batch, sharded=True)),
+            ("serve", lambda: _ep_serve(mesh, cfg, batch))):
+        t0 = time.time()
+        out[name] = fn()
+        secs[name] = time.time() - t0
+    return dict(out, seconds=secs)
 
 
 # phase ep's sharded pass, a forward and backward by label: the experts'
@@ -5728,6 +5885,27 @@ def phase_ep() -> dict:
             check(r["collectives"] == want[run],
                   f"ep[{run}]: collectives {r['collectives']}, the code "
                   f"implies {want[run]}")
+    for rep in reps:
+        r = rep["serve"]
+        print(f"ep[serve]: rank {rep['rank']} (model {rep['model']}): "
+              f"logits {r['logit_gap']:.3e} of a row's max, cache "
+              f"{r['cache_gap']:.3e} of a leaf's max against the oracle's "
+              f"blocks with its routing (routing freely: {r['flips']} "
+              f"tokens routed otherwise, logits {r['free'][0]:.3e}, cache "
+              f"{r['free'][1]:.3e}); prefill {r['ms'][0]:.1f} ms, decode "
+              f"ms/step {', '.join(f'{t:.1f}' for t in r['ms'][1:])}; "
+              f"collectives {r['collectives'][0]}, {r['collectives'][1]}; "
+              f"seconds per pass {rep['seconds']}", flush=True)
+        check(r["logit_gap"] <= TP_SERVE_TOL
+              and r["cache_gap"] <= TP_SERVE_TOL,
+              f"ep[serve]: rank {rep['rank']} logits {r['logit_gap']}, "
+              f"cache {r['cache_gap']} off the oracle (the oracle's "
+              "routing forced)")
+        pre_want, dec_want = EP_SERVE_COLLECTIVES
+        check(r["collectives"][0] == pre_want
+              and all(c == dec_want for c in r["collectives"][1:]),
+              f"ep[serve]: collectives {r['collectives']}, the code implies "
+              f"{EP_SERVE_COLLECTIVES}")
     print(f"ep phase took {time.time() - t_phase:.1f} s", flush=True)
     return {r["rank"]: r for r in reps}
 
@@ -6090,6 +6268,450 @@ def phase_tp() -> int:
     return k1
 
 
+TP_SERVE_BATCH, TP_SERVE_PROMPT = 4, 256
+# teacher-forced decode steps and internvl2-2b's depth, cut for the
+# script's time (PERF.md section 4): 16 and 8 steps at 2 layers in the
+# first chip run (a step of 4 ranks on the one card took 1.4-2.2 s on
+# (2, 2), 0.95-1.8 s on (1, 4), 1.7-2.3 s for internvl2-2b: the phase
+# 178.3 s), then 4 and 2 (73.4-80.4 s; the whole script 1,292.1 s)
+TP_SERVE_STEPS = 2           # qwen2-0.5b
+TP_SERVE_VLM_LAYERS = 1      # internvl2-2b: 1 of 24 layers, full width
+TP_SERVE_VLM_STEPS = 1
+TP_SERVE_TOL = 3e-2          # bf16: of each row's max |logit| (cache: leaf)
+TP_SERVE_TIMEOUT_S = 600
+# (arch, run, (data, model)); every rank runs them in this order
+TP_SERVE_RUNS = (("qwen2-0.5b", "a", (2, 2)), ("qwen2-0.5b", "b", (1, 4)),
+                 ("internvl2-2b", "a", (2, 2)))
+
+
+def tp_serve_setup(arch: str):
+    """(cfg, the numpy batch, decode steps, frontend positions P) of phase
+    tp_serve: qwen2-0.5b at full width and depth, or internvl2-2b at
+    TP_SERVE_VLM_LAYERS layers and full width, `attention_impl="pallas"`
+    (K2 on each rank's heads or rows); TP_SERVE_BATCH prompts of
+    TP_SERVE_PROMPT tokens from numpy seed 0 at the vocab, internvl2's 256
+    stub patch embeddings 0.1 N(0, 1) from numpy seed 1."""
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    steps = TP_SERVE_STEPS
+    if cfg.family == "vlm":
+        cfg, steps = cut_depth(cfg, TP_SERVE_VLM_LAYERS), TP_SERVE_VLM_STEPS
+    cfg = dataclasses.replace(cfg, attention_impl="pallas")
+    x = {"tokens": np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (TP_SERVE_BATCH, TP_SERVE_PROMPT))}
+    P = 0
+    if cfg.frontend:
+        P = cfg.frontend_seq
+        x["frontend_embeds"] = (0.1 * np.random.default_rng(1).standard_normal(
+            (TP_SERVE_BATCH, P, cfg.frontend_dim))).astype(np.float32)
+    return cfg, x, steps, P
+
+
+def _tp_serve_batch(cfg, x, dev):
+    return {k: (torch.from_numpy(np.asarray(v, np.int64)) if k == "tokens"
+                else torch.from_numpy(v).to(getattr(torch, cfg.dtype))
+                ).to(dev) for k, v in x.items()}
+
+
+def _tp_serve_shapes(cfg, steps: int, P: int):
+    from repro_torch.configs import SHAPES
+    pre = dataclasses.replace(SHAPES[0], kind="prefill",
+                              seq_len=TP_SERVE_PROMPT,
+                              global_batch=TP_SERVE_BATCH)
+    dec = dataclasses.replace(SHAPES[0], kind="decode",
+                              seq_len=TP_SERVE_PROMPT + P + steps,
+                              global_batch=TP_SERVE_BATCH)
+    return pre, dec
+
+
+def _tp_serve_rules(decode: bool):
+    from repro_torch.sharding import ShardingRules
+    return ShardingRules(data_axes=("data",), sequence_parallel=not decode)
+
+
+def tp_serve_oracle(root: str, arch: str) -> dict:
+    """`Model.prefill` and `Model.decode_step` of the bf16 serving params
+    on the whole model in this process (the programs on a mesh of one
+    rank): the prefill, then `steps` decode steps each fed the oracle's
+    own greedy token; the logits of every step and the cache after the
+    prefill and after the last step saved under `root`, the tokens apart
+    for the ranks; beside them the f32 truth, the same params and tokens
+    at f32 compute, which the ranks' and the oracle's bf16 distances are
+    read against. Returns prefill ms, decode ms per step and the peak."""
+    from repro_torch.launch import dryrun
+    from repro_torch.models import build_model
+    from repro_torch.tree import tree_map
+    cfg, x, steps, P = tp_serve_setup(arch)
+    model = build_model(cfg, "cuda")
+    params = dryrun._half_params(model.init(seed=0))
+    batch = _tp_serve_batch(cfg, x, "cuda")
+    T = TP_SERVE_PROMPT + P + steps
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = model.prefill(params, batch, T)
+        torch.cuda.synchronize()
+        pre_ms = (time.perf_counter() - t0) * 1e3
+        out = [logits.float().cpu()]
+        pre_cache = {k: v.to("cpu", copy=True) for k, v in cache.items()}
+        toks, ms = [], []
+        for i in range(steps):
+            tok = logits.argmax(-1)
+            toks.append(tok.cpu())
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, cache = model.decode_step(params, cache, tok,
+                                              TP_SERVE_PROMPT + P + i)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            out.append(logits.float().cpu())
+    peak = _peak_gib(base) + base / 2 ** 30
+    end = {k: v.cpu() for k, v in cache.items()}
+    del cache, logits, model
+    # the f32 truth: the same bf16 params and tokens at f32 compute
+    cfg32 = dataclasses.replace(cfg, dtype="float32", attention_impl="xla")
+    model32 = build_model(cfg32, "cuda")
+    params = tree_map(lambda t: t.float(), params)
+    with torch.no_grad():
+        lg, cache = model32.prefill(params, _tp_serve_batch(cfg32, x, "cuda"),
+                                    T)
+        truth = [lg.cpu()]
+        for i, tok in enumerate(toks):
+            lg, cache = model32.decode_step(params, cache, tok.to("cuda"),
+                                            TP_SERVE_PROMPT + P + i)
+            truth.append(lg.cpu())
+    torch.save(torch.stack(toks), os.path.join(root, f"tokens_{arch}.pt"))
+    torch.save({"logits": torch.stack(out), "pre": pre_cache, "end": end,
+                "truth": torch.stack(truth)},
+               os.path.join(root, f"oracle_{arch}.pt"))
+    del model32, params, cache, lg
+    _free()
+    torch.cuda.empty_cache()
+    return {"prefill_ms": pre_ms, "decode_ms": ms, "peak_gib": peak}
+
+
+def _bf16_np(t):
+    """A bf16 tensor's bits as numpy int16 (numpy has no bf16)."""
+    return t.detach().contiguous().view(torch.int16).cpu().numpy()
+
+
+def _from_bf16_np(a):
+    return torch.from_numpy(a).view(torch.bfloat16)
+
+
+def tp_serve_run(cfg, x, steps: int, P: int, mesh, toks, repeat: int) -> dict:
+    """One mesh's runs on this rank: `build_prefill_program` (SP on, a
+    cache of prompt + steps rows) and `build_decode_program` on the rank's
+    block of the bf16 params, its rows of the batch and of each step's
+    token; `repeat` times the prefill and every step. Per run the prefill
+    ms, decode ms per step, the collectives, bytes received and host
+    seconds in them by label, K2's launches by shape; the first run's
+    logits blocks and its cache block after the prefill and the last step
+    (bf16 bits), and whether every other run gave the same bits."""
+    from repro_torch.core import hostsync
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.launch import dryrun
+    from repro_torch.models import build_model
+    from repro_torch.sharding import Resolver
+    from repro_torch.tree import leaves, tree_map
+
+    dev = torch.device("cuda")
+    t_setup = time.perf_counter()
+    pre_shape, dec_shape = _tp_serve_shapes(cfg, steps, P)
+    T = TP_SERVE_PROMPT + P + steps
+    pre, _ = dryrun.build_prefill_program(
+        cfg, pre_shape, mesh, Resolver(mesh, _tp_serve_rules(False)),
+        max_len=T)
+    dec, _ = dryrun.build_decode_program(
+        cfg, dec_shape, mesh, Resolver(mesh, _tp_serve_rules(True)))
+    full = build_model(cfg, dev).init(seed=0)
+    params = tree_map(lambda t: t.clone(), pre.shard_params(full))
+    del full
+    _free()
+    torch.cuda.empty_cache()
+    batch = pre.shard_batch(_tp_serve_batch(cfg, x, dev))
+    tok = [dec.shard_batch({"t": t.to(dev)})["t"] for t in toks]
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    rec = {"param_bytes": sum(t.numel() * t.element_size()
+                              for t in leaves(params)),
+           "coords": {"data": mesh.data, "model": mesh.model}, "runs": [],
+           "setup_s": time.perf_counter() - t_setup}
+    first = None
+    for r in range(repeat):
+        run = {}
+        kfa.launch_count.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with hostsync.count_transfers() as st:
+            logits, cache = pre(params, batch)
+            torch.cuda.synchronize()
+        run["prefill_ms"] = (time.perf_counter() - t0) * 1e3
+        run["k2"] = (kfa.launch_count.n, dict(kfa.launch_count.shapes))
+        run["prefill"] = (dict(st.collectives), dict(st.collective_bytes),
+                          dict(st.collective_seconds))
+        rec["cache_bytes"] = sum(t.numel() * t.element_size()
+                                 for t in leaves(cache))
+        out = [logits.float().cpu()]
+        pre_cache = {k: v.clone() for k, v in cache.items()}
+        run["decode_ms"], run["decode"] = [], []
+        for i in range(steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with hostsync.count_transfers() as st:
+                logits, cache = dec(params, cache, tok[i],
+                                    TP_SERVE_PROMPT + P + i)
+                torch.cuda.synchronize()
+            run["decode_ms"].append((time.perf_counter() - t0) * 1e3)
+            run["decode"].append((dict(st.collectives),
+                                  dict(st.collective_bytes),
+                                  dict(st.collective_seconds)))
+            out.append(logits.float().cpu())
+        bits = (torch.stack(out), pre_cache, cache)
+        if first is None:
+            first = bits
+            rec["logits"] = bits[0].numpy()
+            rec["cache_pre"] = {k: _bf16_np(v) for k, v in pre_cache.items()}
+            rec["cache_end"] = {k: _bf16_np(v) for k, v in cache.items()}
+        else:
+            run["bitwise"] = (torch.equal(bits[0], first[0]) and all(
+                torch.equal(bits[j][k], first[j][k])
+                for j in (1, 2) for k in first[1]))
+        rec["runs"].append(run)
+        del logits, cache, pre_cache, out
+    rec["peak_gib"] = _peak_gib(base) + base / 2 ** 30
+    del params, first
+    _free()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def tp_serve_rank(rank: int, root: str) -> dict:
+    """One rank of phase tp_serve (spawned by `launch/mesh.py::spawn`):
+    each run of TP_SERVE_RUNS (`tp_serve_run`), qwen2-0.5b's twice (the
+    bits of two runs compared), the oracle's greedy tokens fed at every
+    step."""
+    from repro_torch.configs import MeshConfig
+    from repro_torch.device import make_deterministic
+    from repro_torch.launch.mesh import make_process_mesh
+
+    make_deterministic(torch.device("cuda"))
+    out = {}
+    for arch, name, shape in TP_SERVE_RUNS:
+        cfg, x, steps, P = tp_serve_setup(arch)
+        mesh = make_process_mesh(MeshConfig(shape=shape,
+                                            axis_names=("data", "model")))
+        toks = torch.load(os.path.join(root, f"tokens_{arch}.pt"))
+        out[f"{arch}/{name}"] = tp_serve_run(
+            cfg, x, steps, P, mesh, toks,
+            repeat=2 if arch == "qwen2-0.5b" else 1)
+    return out
+
+
+def tp_serve_collectives(cfg, name: str, M: int):
+    """(one prefill's, one decode step's) collectives by label on a run of
+    TP_SERVE_RUNS, as the code places them (L layers; SP on in prefill,
+    off in decode). (a), (data, model) = (2, 2): the FSDP gathers (a
+    bucket a layer; the lookup, the head and the final norm); prefill per
+    layer the attention's and the MLP's SP gather and reduce-scatter, the
+    vocab-parallel lookup's reduce-scatter where the vocab splits, the
+    last position's gather; decode per layer the two exit sums and the
+    lookup's sum where the vocab splits. (b), (1, 4), 14 heads and 2 kv
+    heads over 4 ranks: prefill by rows (batch_dm) with the attention's 7
+    weights gathered from their head-dim blocks, its entry and exit and
+    the MLP's entry gathers, the MLP's reduce-scatter, the lookup's, the
+    last position's gather and one `tp_cache`; decode by head dims: per
+    layer `tp_rope`, `tp_scores` and the two exit sums, the lookup's
+    sum."""
+    L = cfg.num_layers
+    vp = int(cfg.vocab_size % M == 0)
+    if name == "b":
+        return ({"tp_gather": 10 * L + 1, "tp_scatter": L + 1,
+                 "tp_cache": 1},
+                {"tp_reduce": 2 * L + 1, "tp_rope": L, "tp_scores": L})
+    pre = {"fsdp_gather": L + 3, "tp_gather": 2 * L + 1,
+           "tp_scatter": 2 * L + vp}
+    dec = {"fsdp_gather": L + 3, "tp_reduce": 2 * L + vp}
+    return pre, dec
+
+
+def tp_serve_k2_shape(cfg, name: str, shape) -> tuple:
+    """The K2 launch key (`launch_count.shapes`) of a rank's prefill on a
+    run: (a) the rank's rows (B / data) and heads (H / model); (b), where
+    the heads do not split, one row per rank with every head."""
+    D, M = shape
+    B = TP_SERVE_BATCH // D
+    H, KV = cfg.num_heads, cfg.num_kv_heads
+    if H % M:
+        B //= M
+    else:
+        H, KV = H // M, KV // M
+    S = TP_SERVE_PROMPT + (cfg.frontend_seq if cfg.frontend else 0)
+    return (B, H, KV, S, S, cfg.head_dim, 1, 0, torch.bfloat16)
+
+
+def phase_tp_serve(kfa) -> list:
+    """Slice 16: the sharded serving programs (`launch/dryrun.py::
+    build_prefill_program`, `build_decode_program`) on 4 ranks of this one
+    card over gloo, each run of TP_SERVE_RUNS (`tp_serve_rank`) against the
+    one-process oracle (`tp_serve_oracle`, freed before the ranks start):
+    qwen2-0.5b at full width and depth, (a) (data, model) = (2, 2): the
+    prefill under SP with 7 q heads and 1 kv head per rank, the decode by
+    kv heads, FSDP gathers of the weights at every step; (b) (1, 4): the
+    prefill by rows (14 heads do not split over 4), the decode by blocks
+    of 16 of the 64 head dims; internvl2-2b (vlm, 1 layer) on (a), its
+    vocab whole. Every step's logits, gathered over the vocab, within
+    TP_SERVE_TOL of each row's max |logit|, the top-1 token the oracle's
+    wherever its top-2 margin exceeds twice that; the cache after the
+    prefill and after the last step within TP_SERVE_TOL of each leaf's max
+    and, qwen2's, bitwise equal over two runs; the collectives per prefill
+    and per step as `tp_serve_collectives` states them; each rank's params
+    and cache bytes as `dryrun.plan_ranks` plans them; K2 launched once
+    per layer per rank and prefill at the rank's shape, then held against
+    its plain version there (`family_k2`). Prints prefill ms, decode
+    ms/step, the peak per rank, gloo bytes per step and host seconds in
+    collectives by label. Returns the K2 kernel-line entries, one per
+    rank shape, with their launches."""
+    import tempfile
+
+    from repro_torch.configs import MeshConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import local_mesh, spawn
+    from repro_torch.sharding import Resolver
+
+    t_phase = time.time()
+    _free()
+    torch.cuda.empty_cache()
+    root = tempfile.mkdtemp(prefix="sedar_tp_serve_")
+    orc = {}
+    for arch in dict.fromkeys(a for a, _, _ in TP_SERVE_RUNS):
+        orc[arch] = tp_serve_oracle(root, arch)
+        o = orc[arch]
+        print(f"tp_serve: oracle {arch} (one process): prefill "
+              f"{o['prefill_ms']:.1f} ms, decode ms/step "
+              f"{', '.join(f'{t:.1f}' for t in o['decode_ms'])}, peak "
+              f"{o['peak_gib']:.2f} GiB", flush=True)
+    t_spawn = time.time()
+    reps = spawn(tp_serve_rank, 4, root, threads=TP_THREADS,
+                 timeout_s=TP_SERVE_TIMEOUT_S)
+    print(f"tp_serve: 4 ranks took {time.time() - t_spawn:.1f} s, spawn "
+          "included", flush=True)
+    bad, k2_shapes = [], {}
+
+    def expect(cond: bool, msg: str) -> None:
+        if not cond:
+            print(f"tp_serve: FAILED {msg}", flush=True)
+            bad.append(msg)
+    one = local_mesh(MeshConfig(shape=(1, 1), axis_names=("data", "model")))
+    for arch, name, shape in TP_SERVE_RUNS:
+        cfg, x, steps, P = tp_serve_setup(arch)
+        key = f"{arch}/{name}"
+        sizes = dict(zip(("data", "model"), shape))
+        _, dec_shape = _tp_serve_shapes(cfg, steps, P)
+        gather = dryrun.build_decode_program(
+            cfg, dec_shape, one, Resolver(sizes, _tp_serve_rules(True)),
+            device="cpu")[0]
+        want = torch.load(os.path.join(root, f"oracle_{arch}.pt"))
+        recs = [rep[key] for rep in reps]
+        gaps, flips, to_truth = [], 0, [0.0, 0.0]
+        for s in range(steps + 1):
+            got = gather.gather_logits(
+                [torch.from_numpy(r["logits"][s]) for r in recs])
+            w = want["logits"][s]
+            top = w.abs().amax(-1)
+            gaps.append(float(((got - w).abs().amax(-1) / top).max()))
+            t = want["truth"][s]
+            for j, a in enumerate((got, w)):
+                to_truth[j] = max(to_truth[j], float((
+                    (a - t).abs().amax(-1) / t.abs().amax(-1)).max()))
+            two = torch.topk(w, 2, dim=-1).values
+            sure = (two[:, 0] - two[:, 1]) > 2 * TP_SERVE_TOL * top
+            flips += int((sure & (got.argmax(-1) != w.argmax(-1))).sum())
+        cache_gap = {}
+        for part in ("pre", "end"):
+            got = gather.gather_cache([{k: _from_bf16_np(v) for k, v in
+                                        r[f"cache_{part}"].items()}
+                                       for r in recs])
+            cache_gap[part] = max(
+                float((got[k].float() - want[part][k].float()).abs().max()
+                      / want[part][k].float().abs().max()) for k in got)
+        print(f"tp_serve {key} {shape}: logits vs the oracle, worst row "
+              f"per step {', '.join(f'{g:.3e}' for g in gaps)} of its max "
+              f"|logit|; top-1 differing where the oracle's margin is sure: "
+              f"{flips}; cache after prefill {cache_gap['pre']:.3e}, after "
+              f"the last step {cache_gap['end']:.3e} of a leaf's max; to the "
+              f"f32 forward of the same params: the ranks {to_truth[0]:.3e}, "
+              f"the oracle {to_truth[1]:.3e}", flush=True)
+        expect(max(gaps) <= TP_SERVE_TOL and flips == 0
+               and max(cache_gap.values()) <= TP_SERVE_TOL,
+               f"{key}: logits {max(gaps)}, flips {flips}, cache "
+               f"{cache_gap} off the oracle (bound {TP_SERVE_TOL})")
+        plan = dryrun.plan_ranks(cfg, sizes, _tp_serve_rules(True),
+                                 shape=dec_shape)
+        want_pre, want_dec = tp_serve_collectives(cfg, name, shape[1])
+        k2_key = tp_serve_k2_shape(cfg, name, shape)
+        for r, rec in enumerate(recs):
+            rank = plan["ranks"][r]
+            expect(rec["param_bytes"] == rank["serve_param_bytes"]
+                   and rec["cache_bytes"] == rank["cache_bytes"],
+                   f"{key}: rank {r} holds params {rec['param_bytes']} B, "
+                   f"cache {rec['cache_bytes']} B; plan_ranks {rank}")
+            for i, run in enumerate(rec["runs"]):
+                expect(run["prefill"][0] == want_pre,
+                       f"{key}: rank {r} run {i} prefill collectives "
+                       f"{run['prefill'][0]}, the code implies {want_pre}")
+                for s, d in enumerate(run["decode"]):
+                    expect(d[0] == want_dec,
+                           f"{key}: rank {r} run {i} step {s} collectives "
+                           f"{d[0]}, the code implies {want_dec}")
+                n, by_shape = run["k2"]
+                expect(n == cfg.num_layers
+                       and by_shape == {k2_key: cfg.num_layers},
+                       f"{key}: rank {r} K2 launches {n} {by_shape}, want "
+                       f"{cfg.num_layers} at {k2_key}")
+                k2_shapes[k2_key] = k2_shapes.get(k2_key, 0) + n
+                if "bitwise" in run:
+                    expect(run["bitwise"], f"{key}: rank {r} run {i}'s "
+                           "logits or cache bits differ from run 0's")
+            run = rec["runs"][-1]
+            gib = [sum(d[1].values()) / 2 ** 30 for d in run["decode"]]
+            secs = run["decode"][-1][2]
+            print(f"tp_serve {key}: rank {r} {rec['coords']}: prefill "
+                  + ", ".join(f"{q['prefill_ms']:.1f}" for q in rec["runs"])
+                  + " ms; decode ms/step " + ", ".join(
+                      f"{t:.1f}" for t in run["decode_ms"]) + "; "
+                  f"peak {rec['peak_gib']:.2f} GiB; params "
+                  f"{rec['param_bytes']} B, cache {rec['cache_bytes']} B; "
+                  f"gloo GiB received: prefill "
+                  f"{sum(run['prefill'][1].values()) / 2 ** 30:.4f}, per "
+                  f"step {gib[-1]:.4f}; host s in collectives, last step "
+                  f"{sum(secs.values()):.3f}: " + ", ".join(
+                      f"{k} {v:.3f}" for k, v in sorted(
+                          secs.items(), key=lambda kv: -kv[1]))
+                  + f"; bitwise over runs "
+                  f"{[q.get('bitwise', True) for q in rec['runs']]}; "
+                  f"setup (programs, params) {rec['setup_s']:.1f} s",
+                  flush=True)
+        print(f"tp_serve {key}: collectives per prefill {want_pre}, per "
+              f"decode step {want_dec}; plan_ranks per rank "
+              f"{plan['ranks'][0]}, whole {plan['whole']}", flush=True)
+    # K2 at each rank shape the phase launched, against its plain version
+    entries = []
+    for (B, H, KV, S, _, hd, _, _, _), n in k2_shapes.items():
+        arch = "internvl2-2b" if hd == 128 else "qwen2-0.5b"
+        cfg = dataclasses.replace(tp_serve_setup(arch)[0], num_heads=H,
+                                  num_kv_heads=KV)
+        e = family_k2(kfa, cfg, B, S, f"tp_serve_rank_B{B}_H{H}_KV{KV}",
+                      window=0)
+        e["launches"] = n
+        entries.append(e)
+    print(f"tp_serve phase took {time.time() - t_phase:.1f} s", flush=True)
+    check(not bad, "; ".join(bad[:8]))
+    return entries
+
+
 def phase_reference():
     """Small f32 model: the card's path (kernels) against the plain CPU path
     (which the CPU tests hold to the JAX package)."""
@@ -6124,7 +6746,7 @@ PHASES = ("k1", "k2", "k3", "campaign", "scenarios", "engine", "k4",
           "f32_wide", "main", "abft_serve", "serve", "telemetry", "families",
           "f32_generate", "family_serve", "train", "pod_train",
           "elastic_train", "pod_elastic", "family_train", "chunked", "remat",
-          "plan", "ep", "tp", "f3_xlstm", "reference")
+          "plan", "ep", "tp", "tp_serve", "f3_xlstm", "reference")
 # what a phase takes from another's run
 PHASE_NEEDS = {"abft_serve": ("main",), "serve": ("main",),
                "telemetry": ("main", "serve"), "f32_generate": ("f32_wide",),
@@ -6295,6 +6917,9 @@ def main() -> None:
     tp_k1 = phase_tp() if want("tp") else 0
     _free()
     mark("tp")
+    serve_tp_k2 = phase_tp_serve(kfa) if want("tp_serve") else []
+    _free()
+    mark("tp_serve")
     if want("f3_xlstm"):
         phase_f3_xlstm(kfp, kfa)
     _free()
@@ -6316,11 +6941,12 @@ def main() -> None:
         entry["launches"] = entry.get("launches", 0) + tp_k1
     if k2 is not None:
         k2["launches"] = counts["flash_attention"]
-    k2_all = [e for e in (k2, *wide_k2, *serve_k2, *k2_f32.values())
+    k2_all = [e for e in (k2, *wide_k2, *serve_k2, *serve_tp_k2,
+                          *k2_f32.values())
               if e is not None and "launches" in e]
     print("K2 launches: " + ", ".join(
         f"{e['name']} {e['launches']}" for e in k2_all), flush=True)
-    kernels = [k for k in (k1, lanes, k2, *wide_k2, *serve_k2,
+    kernels = [k for k in (k1, lanes, k2, *wide_k2, *serve_k2, *serve_tp_k2,
                            *k2_f32.values(), k3, k4, *k4_wide)
                if k is not None]
     if phases is None:      # every path ran: every kernel launched on it

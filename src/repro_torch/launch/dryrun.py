@@ -29,14 +29,17 @@ one card):
   * a roofline: FLOPs at 989 TFLOP/s, the bytes the step must move (each
     input read once, each output written once) at 3.35 TB/s.
 
-With `--mesh` a training cell is planned on a mesh of ranks
-(`plan_ranks`): each rank's state, grads and ring bytes from the
-Resolver's specs of the sharded state, with the fallback report.
+With `--mesh` a cell is planned on a mesh of ranks (`plan_ranks`): a
+training cell's state, grads and ring bytes per rank, a prefill or decode
+cell's bf16 params and KV cache bytes per rank, from the Resolver's specs
+of the sharded trees, with the fallback report.
 
 `build_train_program` is the reference's sharded training step (baseline
 and sedar flavors, gradient accumulation) on a rank of a process mesh
 (`launch/mesh.py`), its layers tensor-, sequence- and FSDP-parallel
-behind `models/transformer.py::ShardCtx`.
+behind `models/transformer.py::ShardCtx`; `build_prefill_program` and
+`build_decode_program` are the reference's serving programs there, the
+KV cache split over kv heads or head dims.
 
 No counterpart here: the reference's HLO collective parsers (a process
 mesh's collectives are counted as they run, under their
@@ -190,13 +193,14 @@ def run_cell(arch: str, shape_name, flavor: str = "baseline",
     """The cell's report (module docstring). `shape_name` names one of
     SHAPES or is a `ShapeSpec`; `cfg` the arch's config (a cut-down one,
     or another remat policy, say). `mesh` ({axis: size} over pod, data
-    and model) plans a training cell on that mesh of ranks, where the
-    reference plans its production mesh: `build_train_program`'s rules
-    (the data axes ("pod", "data") under `baseline`, ("data",) under
-    `sedar`, whose pods are the replicas; sequence parallelism on), and
-    each rank's state, grads and ring bytes from the Resolver's specs of
-    the sharded state (`plan_ranks`) with its fallback report; without
-    it, one card."""
+    and model) plans the cell on that mesh of ranks, where the reference
+    plans its production mesh, by the reference's rules: the data axes
+    ("pod", "data") under `baseline` on a pod mesh, ("data",) under
+    `sedar`, whose pods are the replicas, and sequence parallelism for
+    every shape but decode; each rank's bytes from the Resolver's specs
+    (`plan_ranks`: a training cell's state, grads and ring, a serving
+    cell's bf16 params and its block of the KV cache) with the fallback
+    report; without it, one card, whose report stays as it was."""
     cfg = cfg or get_config(arch)
     shape = (SHAPE_BY_NAME[shape_name] if isinstance(shape_name, str)
              else shape_name)
@@ -220,18 +224,19 @@ def run_cell(arch: str, shape_name, flavor: str = "baseline",
         return _emit(cell, out_dir)
 
     if mesh is not None:
-        if shape.kind != "train":
-            raise ValueError("a mesh of ranks plans a training cell")
         if flavor == "sedar" and mesh.get("pod", 1) < 2:
             cell.update({"status": "skipped",
                          "reason": "sedar flavor needs the pod axis"})
             return _emit(cell, out_dir)
         pods = flavor == "baseline" and mesh.get("pod", 1) > 1
         rules = ShardingRules(data_axes=("pod", "data") if pods
-                              else ("data",), sequence_parallel=True)
-        plan = plan_ranks(cfg, mesh, rules, flavor)
+                              else ("data",),
+                              sequence_parallel=shape.kind != "decode")
+        plan = plan_ranks(cfg, mesh, rules, flavor, shape)
         cell.update({"mesh": plan["mesh"], "ranks": plan["ranks"],
                      "sharding_fallbacks": plan["fallbacks"][:40]})
+        if "whole" in plan:
+            cell["whole"] = plan["whole"]
     from repro_torch.models.model import count_params_analytic
     B = shape.global_batch
     S = shape.seq_len
@@ -339,7 +344,8 @@ def _half_params(params):
     """The f32 masters as bf16 before the layers' FSDP gathers (the
     reference's `_half_params`), so weight gathers move bf16; the
     gradients are f32 partial sums until their reduce-scatter, and bf16
-    after it (`transformer.ShardCtx`)."""
+    after it (`transformer.ShardCtx`). Also a serving deployment's
+    weights (`input_specs.serve_param_specs`)."""
     return tree_util.tree_map(
         lambda p: p.to(torch.bfloat16) if p.dtype == torch.float32 else p,
         params)
@@ -525,6 +531,173 @@ def build_train_program(cfg, shape, mesh, resolver, flavor, train_cfg=None,
             (state_specs, bspecs))
 
 
+# ---------------------------------------------------------------------------
+# The sharded serving programs
+# ---------------------------------------------------------------------------
+
+def serve_max_len(cfg, shape) -> int:
+    """The prefill cache's rows (the reference's rule): the prompt, and a
+    vlm's frontend positions before it."""
+    return shape.seq_len + (cfg.frontend_seq if cfg.family == "vlm" else 0)
+
+
+def _cache_meta(cfg, shape, max_len: Optional[int] = None):
+    """(the KV cache on `meta` that a serving shape's program holds, its
+    logical axes): a prefill's of `max_len` rows (default
+    `serve_max_len`), a decode's of the shape's length
+    (`input_specs.decode_specs`)."""
+    from repro_torch.models import build_model
+    from repro_torch.models.model import cache_axes
+    if shape.kind == "prefill":
+        cache = build_model(cfg, ispec.META).init_cache(
+            shape.global_batch, max_len or serve_max_len(cfg, shape))
+        return cache, cache_axes(cache)
+    specs, axes = ispec.decode_specs(cfg, shape)
+    return specs["cache"], axes["cache"]
+
+
+class ServeProgram:
+    """One rank's serving program of `build_prefill_program` or
+    `build_decode_program`: `program(...)` on the rank's block of the bf16
+    params (`shard_params`), its rows of the batch (`shard_batch`) and its
+    block of the KV cache (`shard_cache`). `specs` holds the params'
+    partition entries, `cache_specs` the cache's, `ctx` the rank's
+    `transformer.ShardCtx`. `gather_cache` and `gather_logits` join the
+    ranks' blocks (the tests' and the card checks' view: no rank holds
+    the whole)."""
+
+    def __init__(self, fn, cfg, mesh, resolver, specs, cache_specs, ctx):
+        self._fn = fn
+        self.cfg, self.mesh, self.resolver = cfg, mesh, resolver
+        self.specs, self.cache_specs, self.ctx = specs, cache_specs, ctx
+
+    def __call__(self, *args):
+        with torch.no_grad():
+            return self._fn(*args)
+
+    def _sizes(self):
+        return bridge.mesh_sizes(self.resolver)
+
+    def shard_params(self, params):
+        return bridge.shard_params(_half_params(params), self.resolver,
+                                   self.mesh, self.cfg, self.specs)
+
+    def shard_batch(self, batch):
+        return bridge.shard_batch(batch, self.resolver, self.mesh)
+
+    def shard_cache(self, cache):
+        sizes, c = self._sizes(), bridge.mesh_coords(self.mesh)
+        return tree_util.tree_map(
+            lambda t, sp: bridge.shard_leaf(t, sp, c, sizes), cache,
+            self.cache_specs)
+
+    def _join(self, blocks, spec):
+        sizes = self._sizes()
+        coords = [bridge.rank_coords(r, sizes) for r in range(len(blocks))]
+        return bridge._join(blocks, spec, coords, sizes)
+
+    def gather_cache(self, blocks):
+        """The whole cache from every rank's block, `blocks[r]` rank r's in
+        the mesh's order."""
+        return tree_util.tree_map(
+            lambda b0, sp, *bs: self._join((b0,) + bs, sp), blocks[0],
+            self.cache_specs, *blocks[1:])
+
+    def gather_logits(self, blocks):
+        """The whole (B, V) logits from every rank's (its rows; its vocab
+        block where the vocab splits)."""
+        B = blocks[0].shape[0] * self.ctx.data_axis.size
+        spec = Resolver(self.resolver.mesh, self.resolver.rules).spec(
+            ("batch", "vocab"), (B, self.cfg.vocab_size))
+        return self._join(blocks, spec)
+
+
+def _serve_setup(cfg, mesh, resolver, device):
+    """What both serving programs take: the model on the device, the bf16
+    params' specs and partition entries, the rank's `ShardCtx`."""
+    from repro_torch.launch.mesh import make_axes_group
+    from repro_torch.models import build_model
+    from repro_torch.models.layers import torch_dtype
+    from repro_torch.models.transformer import ShardCtx
+    model = build_model(cfg, torch.device(device or "cuda"))
+    pspecs, paxes = ispec.serve_param_specs(cfg)
+    specs = ispec.shardings(resolver, pspecs, paxes)
+    rules = resolver.rules
+    data_group = None
+    if tuple(rules.data_axes) != ("data",) and rules.axis_size(
+            mesh, rules.data_axes) > 1:
+        data_group = make_axes_group(mesh, rules.data_axes)
+    ctx = ShardCtx(mesh, resolver, specs=specs, data_group=data_group,
+                   dtype=torch_dtype(cfg.dtype))
+    return model, pspecs, specs, ctx
+
+
+def build_prefill_program(cfg, shape, mesh, resolver, device=None,
+                          max_len: Optional[int] = None):
+    """The reference's `build_prefill_program` on rank `mesh` (a
+    `launch/mesh.py::ProcessMesh`) of a process mesh: `Model.prefill` of
+    the bf16 serving params (`input_specs.serve_param_specs`) over the
+    rank's rows of the batch (the rules' data axes) into a KV cache of
+    `max_len` rows, by default the reference's rule (`serve_max_len`: the
+    prompt, and a vlm's frontend positions); a larger `max_len` leaves
+    room for decode steps. Returns (program, (param_specs, batch_specs)):
+    a `ServeProgram` whose `program(params, batch)` gives (the rank's
+    logits of the last position, its vocab block where the vocab splits;
+    the rank's block of the cache), and the global `meta` specs, as the
+    reference returns its jitted function and ShapeDtypeStructs.
+
+    The layers run as the sharded training forward does
+    (`transformer.ShardCtx`: attention over the heads, or the rows over
+    the model ranks where the heads do not split; SP under the rules;
+    FSDP gathers over the data axes); the k/v then move into the cache's
+    layout, ("layers", "batch", None, "kv_heads", "head_dim") resolved
+    (`transformer._cache_block`). On a mesh of more than one rank the
+    products whose partials a collective sums take f32 carriers and round
+    once; on a mesh of one rank the program is `Model.prefill` on the
+    whole params, bit for bit. The device is the card's unless `device`
+    says otherwise."""
+    model, pspecs, specs, ctx = _serve_setup(cfg, mesh, resolver, device)
+    bspecs, _ = ispec.batch_specs(cfg, shape)
+    T = max_len or serve_max_len(cfg, shape)
+    cache_specs = ispec.shardings(resolver, *_cache_meta(cfg, shape, T))
+
+    def prefill(params, batch):
+        return model.prefill(params, batch, T, ctx=ctx)
+
+    return (ServeProgram(prefill, cfg, mesh, resolver, specs, cache_specs,
+                         ctx), (pspecs, bspecs))
+
+
+def build_decode_program(cfg, shape, mesh, resolver, device=None):
+    """The reference's `build_decode_program` on rank `mesh` of a process
+    mesh: one token per row at a host-int position `pos` (the reference's
+    unsharded scalar), `Model.decode_step` of the bf16 serving params on
+    the rank's block of the KV cache of the shape's length
+    (`input_specs.decode_specs`), written in place (the reference donates
+    it). Returns (program, (param_specs, cache_specs, token_specs,
+    pos_spec)): a `ServeProgram` whose `program(params, cache, tokens,
+    pos)` gives (the rank's logits, its vocab block where the vocab
+    splits; the cache), and the global `meta` specs.
+
+    Decode has no sequence parallelism; attention follows the cache
+    (`transformer._attn_decode`): by kv heads where they split over
+    the model ranks, else by blocks of the head dim with the partial
+    scores summed in f32; the MLP column- then row-parallel; MoE over the
+    model ranks where the rows split (the reference's condition), else
+    each data shard routing as one group. On a mesh of one rank the
+    program is `Model.decode_step` on the whole params, bit for bit."""
+    model, pspecs, specs, ctx = _serve_setup(cfg, mesh, resolver, device)
+    dspecs, _ = ispec.decode_specs(cfg, shape)
+    cache_specs = ispec.shardings(resolver, *_cache_meta(cfg, shape))
+
+    def decode(params, cache, tokens, pos):
+        return model.decode_step(params, cache, tokens, int(pos), ctx=ctx)
+
+    return (ServeProgram(decode, cfg, mesh, resolver, specs, cache_specs,
+                         ctx),
+            (pspecs, dspecs["cache"], dspecs["tokens"], dspecs["pos"]))
+
+
 def _shard_bytes(meta: torch.Tensor, spec, sizes: Dict[str, int]) -> int:
     n = meta.numel()
     for entry in spec:
@@ -533,23 +706,38 @@ def _shard_bytes(meta: torch.Tensor, spec, sizes: Dict[str, int]) -> int:
 
 
 def plan_ranks(cfg, sizes: Dict[str, int], rules: ShardingRules,
-               flavor: str = "baseline") -> Dict[str, Any]:
-    """The mesh of ranks' memory plan: each rank's bytes of the training
-    state (f32 params, the AdamW moments, the step), of its f32 grads and,
-    under `sedar`, of its device-ring slot (one state), from the
-    Resolver's specs of the sharded state (`build_train_program`'s
-    blocks), and the fallback report."""
+               flavor: str = "baseline", shape=None) -> Dict[str, Any]:
+    """The mesh of ranks' memory plan, from the Resolver's specs of the
+    sharded trees, with the fallback report. A training cell (no `shape`,
+    or a train shape): each rank's bytes of the training state (f32
+    params, the AdamW moments, the step), of its f32 grads and, under
+    `sedar`, of its device-ring slot (one state), `build_train_program`'s
+    blocks. A prefill or decode `shape`: each rank's bytes of the bf16
+    serving params and of its block of the KV cache (the prefill's of
+    `serve_max_len` rows, the decode's of the shape's length), the
+    serving programs' blocks, and under "whole" the same unsharded."""
     resolver = Resolver(sizes, rules)
     full = {a: int(sizes.get(a, 1)) for a in bridge.MESH_AXES}
-    st_specs, st_axes = ispec.train_state_specs(cfg)
-    specs = ispec.shardings(resolver, st_specs, st_axes)
+    n = full["pod"] * full["data"] * full["model"]
 
     def nbytes(tree, spec_tree):
         return sum(_shard_bytes(t, sp, full) for t, sp in zip(
             tree_util.leaves(tree), bridge.spec_leaves(tree, spec_tree)))
+    if shape is not None and shape.kind != "train":
+        p_specs, p_axes = ispec.serve_param_specs(cfg)
+        cache, c_axes = _cache_meta(cfg, shape)
+        rank = {"serve_param_bytes": nbytes(p_specs, ispec.shardings(
+                    resolver, p_specs, p_axes)),
+                "cache_bytes": nbytes(cache, ispec.shardings(
+                    resolver, cache, c_axes))}
+        return {"mesh": full, "ranks": [dict(rank) for _ in range(n)],
+                "fallbacks": resolver.fallback_report(),
+                "whole": {"serve_param_bytes": ispec.nbytes(p_specs),
+                          "cache_bytes": ispec.nbytes(cache)}}
+    st_specs, st_axes = ispec.train_state_specs(cfg)
+    specs = ispec.shardings(resolver, st_specs, st_axes)
     state = nbytes(st_specs, specs)
     grads = nbytes(st_specs["params"], specs["params"])
-    n = full["pod"] * full["data"] * full["model"]
     rank = {"state_bytes": state, "grads_bytes": grads,
             "ring_slot_bytes": state if flavor == "sedar" else 0}
     return {"mesh": full, "ranks": [dict(rank) for _ in range(n)],
@@ -573,9 +761,9 @@ def _emit(cell: Dict[str, Any], out_dir: Optional[str]) -> Dict[str, Any]:
              f"{mem['max_batch']}, dominant "
              f"{cell['roofline']['dominant']}, t={cell['elapsed_s']}s"
              if cell.get("status") == "ok" else cell.get("reason", ""))
-          + (f"; mesh {cell['mesh']}: per rank state "
-             f"{cell['ranks'][0]['state_bytes'] / gib:.2f} GiB, grads "
-             f"{cell['ranks'][0]['grads_bytes'] / gib:.2f} GiB"
+          + (f"; mesh {cell['mesh']}: per rank " + ", ".join(
+              f"{k[:-6].replace('_', ' ')} {v / gib:.2f} GiB"
+              for k, v in cell["ranks"][0].items() if k != "ring_slot_bytes")
              if cell.get("ranks") else ""),
           flush=True)
     return cell
@@ -589,7 +777,7 @@ def main(argv=None):
                     choices=[*FLAVORS, "both"])
     ap.add_argument("--out", default="artifacts/dryrun_torch")
     ap.add_argument("--mesh", default=None,
-                    help="plan training cells on a mesh of ranks, e.g. "
+                    help="plan the cells on a mesh of ranks, e.g. "
                     "pod=2,data=1,model=2 (default: one card)")
     args = ap.parse_args(argv)
     mesh = (None if args.mesh is None else

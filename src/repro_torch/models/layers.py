@@ -509,7 +509,8 @@ def row_positions(pos: torch.Tensor, T: int, window: int = 0) -> RowPositions:
                         visible=visible[:, None, None, None, :])
 
 
-def decode_attention(q, k_cache, v_cache, pos, window: int = 0):
+def decode_attention(q, k_cache, v_cache, pos, window: int = 0, *,
+                     axis=None, head_dim: Optional[int] = None):
     """Single-token decode. q: (B,1,H,hd); caches: (B,T,KV,hd); pos: the
     current 0-based position, a host int shared by every row or the
     `RowPositions` of per-row positions (built with the same `window`).
@@ -518,10 +519,22 @@ def decode_attention(q, k_cache, v_cache, pos, window: int = 0):
     position p at slot p % window (`cache_update`, and the prefill writes
     the same slots). Slot s holds a live position once written: every slot
     when pos + 1 >= T, else slots <= pos. The ring then holds exactly the
-    positions pos - window + 1 .. pos that local attention sees."""
+    positions pos - window + 1 .. pos that local attention sees.
+
+    `axis` (a `sharding.Axis`, the model ranks): q and the caches hold this
+    rank's block of the head dim, whose whole is `head_dim`. Each rank's
+    partial scores (B,KV,G,1,T) are summed over the axis in f32, in rank
+    order (label `tp_scores`), then scaled by 1/sqrt(head_dim), the whole
+    head's, masked and softmaxed; the output is the rank's block of the
+    head dim (PV on its block of v)."""
     T = k_cache.shape[1]
-    scale = 1.0 / math.sqrt(q.shape[-1])
-    logits = _gqa_scores(q, k_cache, scale)               # (B,KV,G,1,T)
+    if axis is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+        logits = _gqa_scores(q, k_cache, scale)           # (B,KV,G,1,T)
+    else:
+        from repro_torch.sharding import all_sum
+        logits = all_sum(_gqa_scores(q, k_cache, 1.0), axis, "tp_scores") \
+            * (1.0 / math.sqrt(head_dim))
     if isinstance(pos, RowPositions):
         valid = pos.visible
     elif window:

@@ -4,7 +4,7 @@ ssm) or the encoder-decoder (audio).
 
     model.init(seed)                          -> params on model.device
     model.loss(params, batch)                 -> (loss, metrics)
-    model.prefill(params, batch, max_len[, row_blocks])
+    model.prefill(params, batch, max_len[, row_blocks][, ctx])
                                     -> (logits, cache)
                                     (batch: tokens [, lengths]
                                      [, frontend_embeds (B, P, D)]; audio:
@@ -12,9 +12,12 @@ ssm) or the encoder-decoder (audio).
                                      encoder's frames; row_blocks: the rows
                                      are that many independent batches,
                                      the fused backend's replica copies)
-    model.decode_step(params, cache, tokens, pos[, row_blocks])
+    model.decode_step(params, cache, tokens, pos[, row_blocks][, ctx])
                                     -> (logits, cache)
-                                    (pos: a host int or a (B,) tensor)
+                                    (pos: a host int or a (B,) tensor;
+                                     ctx: a sharded `transformer.ShardCtx`,
+                                     a rank of a process mesh, whose
+                                     logits are its vocab block)
     model.init_cache(batch, max_len)          -> an all-zero cache
     model.slot_axes()                         -> each cache leaf's batch axis
     model.cache_roles()                       -> each cache leaf's baseline
@@ -208,11 +211,16 @@ class Model:
         `specs`, every layer on the rank's blocks of the params."""
         return tfm.lm_loss(self.cfg, params, batch, ctx)
 
-    def prefill(self, params, batch, max_len: int, row_blocks: int = 1):
+    def prefill(self, params, batch, max_len: int, row_blocks: int = 1,
+                ctx=None):
         """`row_blocks` > 1: the rows are that many independent batches
         (the fused backend's replica copies of a pack), prefilled together
         except in a moe model, which prefills each block on its own, so
-        that each copy routes as its own dispatch group."""
+        that each copy routes as its own dispatch group. `ctx` (a
+        `transformer.ShardCtx`): the prefill on a rank of a process mesh
+        (`transformer.lm_prefill`)."""
+        if ctx is not None and row_blocks != 1:
+            raise ValueError("a sharded prefill takes one block of rows")
         if row_blocks != 1 and self.cfg.family == "moe":
             n = batch["tokens"].shape[0] // row_blocks
             outs = [self._prefill(params, {k: t[r * n:(r + 1) * n]
@@ -221,18 +229,26 @@ class Model:
             return (torch.cat([lg for lg, _ in outs]), tree_util.tree_map(
                 lambda ax, *cs: torch.cat(cs, dim=ax), self.slot_axes(),
                 *[c for _, c in outs]))
-        return self._prefill(params, batch, max_len)
+        return self._prefill(params, batch, max_len, ctx)
 
-    def _prefill(self, params, batch, max_len: int):
+    def _prefill(self, params, batch, max_len: int, ctx=None):
         return tfm.lm_prefill(self.cfg, params, batch["tokens"], max_len,
                               lengths=batch.get("lengths"),
-                              frontend_embeds=batch.get("frontend_embeds"))
+                              frontend_embeds=batch.get("frontend_embeds"),
+                              ctx=ctx)
 
-    def decode_step(self, params, cache, tokens, pos, row_blocks: int = 1):
+    def decode_step(self, params, cache, tokens, pos, row_blocks: int = 1,
+                    ctx=None):
         """`row_blocks` > 1: the rows are that many independent batches
         (the fused backend's replicas), decoded together with each block
         keeping the bits of its rows decoded alone
-        (`transformer.lm_decode_step`)."""
+        (`transformer.lm_decode_step`); `ctx` as `prefill`'s."""
+        if ctx is not None:
+            return tfm.lm_decode_step(self.cfg, params, cache, tokens, pos,
+                                      row_blocks, ctx=ctx)
+        # the unsharded call as it was: the spy that
+        # tests/test_torch_generate_families_fused.py sets on
+        # `lm_decode_step` takes no `ctx`
         return tfm.lm_decode_step(self.cfg, params, cache, tokens, pos,
                                   row_blocks)
 
@@ -269,6 +285,12 @@ class Model:
         return self._slot_axes
 
 
+def _no_model_axis(ctx) -> None:
+    if ctx is not None:
+        raise NotImplementedError("the audio family's layers have no model "
+                                  "axis in the port")
+
+
 class EncDecModel(Model):
     """The audio family's facade (`models/encdec.py`): `prefill` reads
     `batch["frontend_embeds"]` as the encoder's frames, and decode
@@ -281,7 +303,8 @@ class EncDecModel(Model):
     def loss(self, params, batch, ctx=None):
         return encdec_lib.encdec_loss(self.cfg, params, batch)
 
-    def _prefill(self, params, batch, max_len: int):
+    def _prefill(self, params, batch, max_len: int, ctx=None):
+        _no_model_axis(ctx)
         if batch.get("lengths") is not None:
             raise NotImplementedError("the encoder-decoder prefills exact "
                                       "prompts only")
@@ -289,7 +312,9 @@ class EncDecModel(Model):
                                          batch["frontend_embeds"],
                                          batch["tokens"], max_len)
 
-    def decode_step(self, params, cache, tokens, pos, row_blocks: int = 1):
+    def decode_step(self, params, cache, tokens, pos, row_blocks: int = 1,
+                    ctx=None):
+        _no_model_axis(ctx)
         if isinstance(pos, torch.Tensor):
             raise NotImplementedError("the encoder-decoder decodes at one "
                                       "shared position")

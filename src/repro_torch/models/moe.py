@@ -111,13 +111,11 @@ def moe_mlp(cfg, p, x, groups: int = 1, ctx=None):
     tokens split over tp, tp > 1); otherwise the shard routes as its own
     group, which is the reference's grouping by the data degree."""
     B, S, D = x.shape
-    if ctx is not None:
-        tp = ctx.tp_size()
-        if cfg.num_experts % tp == 0 and (B * S) % tp == 0 and tp > 1:
-            if groups != 1:
-                raise ValueError("expert parallelism routes one dispatch "
-                                 "group per token shard")
-            return moe_mlp_ep(cfg, p, x, ctx)
+    if ctx is not None and ctx.expert_parallel(cfg, B * S):
+        if groups != 1:
+            raise ValueError("expert parallelism routes one dispatch "
+                             "group per token shard")
+        return moe_mlp_ep(cfg, p, x, ctx)
     G = groups
     if G < 1 or B % G:
         raise ValueError(f"{B} rows do not split into {G} dispatch groups")

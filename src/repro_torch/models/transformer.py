@@ -20,6 +20,7 @@ mean the same leaf in both packages. The audio family (enc-dec) is
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Any, Dict, Optional, Tuple
 
@@ -169,6 +170,11 @@ class ShardCtx:
       * sequence parallelism (`rules.sequence_parallel`): the residual
         stream split over the model axis along the sequence.
 
+    `decode` (a serving decode step, `lm_decode_step`): no sequence
+    parallelism, and attention laid out as the KV cache is
+    (`cache_split`): by kv heads where they split, else by blocks of the
+    head dim, whose q/k/v products each rank takes on its stored blocks.
+
     `act` places the collectives at the reference's hint points, where the
     reference constrains GSPMD (`sharding.py`'s Functions). On a mesh of
     more than one rank the products whose outputs or grads a collective
@@ -188,6 +194,7 @@ class ShardCtx:
     specs: Any = None
     data_group: Any = None
     dtype: Any = None
+    decode: bool = False
 
     def tp_size(self) -> int:
         r = self.resolver.rules
@@ -204,7 +211,7 @@ class ShardCtx:
         """Sequence parallelism on: the residual stream split over the
         model axis along the sequence."""
         return (self.sharded and self.resolver.rules.sequence_parallel
-                and self.tp_size() > 1)
+                and self.tp_size() > 1 and not self.decode)
 
     @property
     def acc(self):
@@ -245,6 +252,27 @@ class ShardCtx:
         """The embedding, head and CE split over the model ranks' vocab."""
         return (self.sharded and self.tp_size() > 1
                 and cfg.vocab_size % self.tp_size() == 0)
+
+    def expert_parallel(self, cfg, tokens: int) -> bool:
+        """The reference's condition for expert parallelism
+        (`models/moe.py:167-179`): the experts split over the model ranks
+        and `tokens`, a data shard's (its global count over data x
+        model), over the token shards; otherwise each data shard routes
+        as its own dispatch group."""
+        tp = self.tp_size()
+        return tp > 1 and cfg.num_experts % tp == 0 and tokens % tp == 0
+
+    def cache_split(self, cfg) -> Optional[str]:
+        """The KV cache's dim that the model ranks split (the resolver's
+        rule on ("layers", "batch", None, "kv_heads", "head_dim")):
+        "kv_heads" where they divide, else "head_dim" where it divides,
+        else None (whole on every rank)."""
+        tp = self.tp_size()
+        if tp == 1:
+            return None
+        if cfg.num_kv_heads % tp == 0:
+            return "kv_heads"
+        return "head_dim" if cfg.head_dim % tp == 0 else None
 
     @staticmethod
     def _entry(axes):
@@ -319,11 +347,12 @@ class ShardCtx:
         dims gathered (w's bytes move; backward: the reduce-scatter); a
         leaf with none, copied (backward: its grads summed over the data
         ranks). Then over the model axis by `plan`: an int, the dim of
-        which the rank takes its block; "local", whole, each rank using
-        it for its own part (a model-sharded dim gathered, else copied;
-        backward: the partial grads summed); "same", whole, every rank
-        using it alike; "norm", a norm scale or a bias added after a row
-        product: "local" under SP (each rank's own tokens), else
+        which the rank takes its block; "own", the block it stores
+        (whole where the leaf is not model-sharded); "local", whole, each
+        rank using it for its own part (a model-sharded dim gathered, else
+        copied; backward: the partial grads summed); "same", whole, every
+        rank using it alike; "norm", a norm scale or a bias added after a
+        row product: "local" under SP (each rank's own tokens), else
         "same". A carrier (`dtype` the carriers') of a leaf stored wider
         than the compute dtype (f32 masters) takes the compute dtype's
         value, as the unsharded layer's cast does, its grad rounding
@@ -368,6 +397,8 @@ class ShardCtx:
             if plan == "norm":
                 plan = "local" if self.sp else "same"
             sd = next((d for d, e in enumerate(sp) if e == model), None)
+            if plan == "own":
+                plan = "same" if sd is None else sd
             if sd is not None and sd == plan:
                 out.append(w.to(dt))
                 continue
@@ -381,26 +412,32 @@ class ShardCtx:
             out.append(w.to(dt))
         return out
 
-    def layer_params(self, cfg, lp):
+    def layer_params(self, cfg, lp, tokens: int):
         """A layer stack's layer (its slice of the stacked leaves) in its
         blocks' layouts (`params`, `_layer_plans`), as carriers where the
         layers take them; where KV < TP each rank's kv heads of the whole
-        k/v leaves. Expert parallelism takes the half params as they are
-        and sums their grads in that dtype, as the reference's shard_map
-        body does (`moe.moe_mlp_ep`)."""
+        k/v leaves (a decode by blocks of the head dim keeps the stored
+        blocks instead). The MoE leaves keep their stored dtype, as the
+        reference's shard_map body takes the half params, and their grads
+        sum in it (`moe.moe_mlp_ep`); a rank keeps its experts where
+        `tokens`, the data shard's that the layer routes, take expert
+        parallelism (`expert_parallel`), else every expert is
+        gathered."""
         tp = self.tp_size()
         specs = tree_util.tree_map(lambda w, sp: tuple(sp)[1:], lp,
                                    self.specs["layers"])
         dt = self.acc or self.dtype
         moe = "router" in lp["mlp"] and tp > 1
+        hd_decode = self.decode and self.cache_split(cfg) == "head_dim"
+        ep = self.expert_parallel(cfg, tokens)
         flat = tree_util.flatten_with_path(lp)
         out = tree_util.unflatten_like(lp, self.params(
             [w for _, w in flat], bridge.spec_leaves(lp, specs),
-            tree_util.leaves(_layer_plans(cfg, tp, lp)),
+            tree_util.leaves(_layer_plans(cfg, tp, lp, hd_decode, ep)),
             [w.dtype if moe and p.startswith("['mlp']") else dt
              for p, w in flat], [not p.startswith("['ln") for p, _ in flat]))
         H, KV = cfg.num_heads, cfg.num_kv_heads
-        if tp > 1 and H % tp == 0 and KV % tp:
+        if tp > 1 and H % tp == 0 and KV % tp and not hd_decode:
             lo, hi = _kv_heads(H, KV, tp, self.model_axis.index)
             ap = out["attn"]
             out["attn"] = dict(ap, **{
@@ -415,10 +452,11 @@ class ShardCtx:
         half params, its head on their cast; tied, one leaf for both where
         the two are the same tensor), each rank its vocab block where the
         vocab splits, else whole and alike; the final norm as a norm."""
-        if cfg.block_pattern or cfg.family not in ("dense", "moe"):
+        if cfg.block_pattern or cfg.family not in ("dense", "moe", "vlm"):
             raise NotImplementedError(
                 f"the {cfg.family} family's layers have no model axis in "
-                "the port (dense and moe do)")
+                "the port (dense, moe and vlm do; hybrid, ssm and audio "
+                "not yet)")
         vp = self.vocab_parallel(cfg)
         emb, spec = params["embed"], self.specs["embed"]
         dt = self.acc or self.dtype
@@ -435,11 +473,15 @@ class ShardCtx:
                 {key: head})
 
 
-def _layer_plans(cfg, tp: int, lp):
+def _layer_plans(cfg, tp: int, lp, hd_decode: bool, ep: bool):
     """Each leaf's `ShardCtx.param` plan in one layer of a dense or moe
-    stack at `tp` model ranks."""
+    stack at `tp` model ranks; `hd_decode`, a decode by blocks of the
+    head dim (the attention's stored blocks); `ep`, the experts split
+    (expert parallelism), else gathered."""
     H, KV = cfg.num_heads, cfg.num_kv_heads
-    if H % tp == 0:
+    if hd_decode:
+        attn = {n: "own" for n in ("wq", "bq", "wo", "wk", "wv", "bk", "bv")}
+    elif H % tp == 0:
         kv = (lambda d: d) if KV % tp == 0 else (lambda d: "local")
         attn = {"wq": 1, "bq": 0, "wo": 0, "wk": kv(1), "wv": kv(1),
                 "bk": kv(0), "bv": kv(0)}
@@ -447,8 +489,7 @@ def _layer_plans(cfg, tp: int, lp):
         attn = {n: "local" for n in ("wq", "bq", "wo", "wk", "wv", "bk",
                                      "bv")}
     if "router" in lp["mlp"]:
-        split = cfg.num_experts % tp == 0
-        mlp = {"router": "same", **{n: 0 if split else "same"
+        mlp = {"router": "same", **{n: 0 if ep else "same"
                                     for n in ("w_gate", "w_up", "w_down")}}
     elif cfg.d_ff % tp == 0:
         mlp = {"w_gate": 1, "w_up": 1, "b_up": 0, "w_down": 0,
@@ -539,16 +580,53 @@ def _mlp_sub(cfg, lp, x, groups: int = 1, ctx=None):
 
 
 def _attn_decode(cfg, ln, ap, x, kc, vc, sin, cos, pos, row_blocks: int = 1,
-                 window: int = 0):
+                 window: int = 0, ctx=None):
     """One attention block, single token; kc/vc (B,T,KV,hd) are written in
-    place (`layers.cache_update`)."""
-    h = nn.rms_norm(x, ln, cfg.norm_eps)
-    q, k, v = nn.qkv_project(cfg, ap, h)
-    q = nn.apply_rope(q, sin, cos)
-    k = nn.apply_rope(k, sin, cos)
-    kc, vc = nn.cache_update(kc, vc, k, v, pos, window=window)
-    o = _decode_attention(q, kc, vc, pos, row_blocks, window)
-    return x + nn.out_project(cfg, ap, o)
+    place (`layers.cache_update`). Under a sharded `ctx` (the reference's
+    decode hints, `transformer.py:428-453`) h is whole on every rank of the
+    model group, kc/vc are the rank's block of the cache and the out
+    product is summed over the ranks; the layout follows the cache
+    (`ShardCtx.cache_split`): by the rank's heads where the kv heads
+    split, as the full-sequence attention runs them, else by blocks of
+    the head dim (`_attn_decode_hd`)."""
+    h = _act(ctx, nn.rms_norm(x, ln, cfg.norm_eps), "batch", None, None)
+    rd = None if ctx is None else ctx.rounds
+    q, k, v = nn.qkv_project(cfg, ap, h, rd)
+    if ctx is not None and ctx.cache_split(cfg) == "head_dim":
+        o = _attn_decode_hd(cfg, ap, q, k, v, kc, vc, sin, cos, pos, ctx)
+    else:
+        q = nn.apply_rope(q, sin, cos)
+        k = nn.apply_rope(k, sin, cos)
+        kc, vc = nn.cache_update(kc, vc, k, v, pos, window=window)
+        o = _decode_attention(q, kc, vc, pos, row_blocks, window)
+    o = nn.out_project(cfg, ap, o, None if rd is None else ctx.acc)
+    return x + _act(ctx, o, "batch", "seq", None)
+
+
+def _attn_decode_hd(cfg, ap, q, k, v, kc, vc, sin, cos, pos, ctx):
+    """`_attn_decode`'s attention where the model ranks split the cache's
+    head dim: the rank holds a block of every head's dims. RoPE turns dim
+    i with dim i + hd/2, which a block does not hold, so the rank's q and
+    k products (on its stored blocks of wq and wk, by heads or by head
+    dims) are gathered whole over the ranks (one `tp_rope` collective of
+    (B, 1, H + KV, hd) values, where gathering the weights would move them
+    every step), rotated where each head is whole, and the rank keeps its
+    block of dims; v takes its block directly. The partial scores are
+    summed over the ranks in f32 and scaled by the whole head dim's
+    1/sqrt(hd) (`layers.decode_attention(axis=)`); PV runs on the rank's
+    block of v. Returns the input of the out product: that block where wo
+    is stored by head dims, else the rank's heads of the output gathered
+    whole."""
+    axis, H = ctx.model_axis, cfg.num_heads
+    q, k = shd.all_gather_many([q, k], [3 if q.shape[2] == H else 2, 3],
+                               axis, "tp_rope")
+    q, k = (shd._block(nn.apply_rope(t, sin, cos), 3, axis).contiguous()
+            for t in (q, k))
+    kc, vc = nn.cache_update(kc, vc, k, v, pos)
+    o = nn.decode_attention(q, kc, vc, pos, axis=axis, head_dim=cfg.head_dim)
+    if ap["wo"].shape[0] != H:
+        o = shd._block(shd.all_gather(o, 3, axis, "tp_gather"), 2, axis)
+    return o
 
 
 def _group_full(cfg, gp, x, sin, cos, pattern, max_len: Optional[int] = None,
@@ -647,13 +725,23 @@ def _group_decode(cfg, gp, gc, x, sin, cos, pos, pattern,
 # ---------------------------------------------------------------------------
 
 def _embed(cfg, params, tokens, frontend_embeds=None, ctx=None):
+    """The token rows, the frontend's embeddings first when given. Under a
+    sharded `ctx`, in the residual layout: a vocab-parallel lookup (each
+    rank's vocab rows, zeros for the others') summed over the model ranks
+    before the frontend's rows join, which that sum would count tp times,
+    then (SP) the rank's part of the sequence."""
+    sharded = ctx is not None and ctx.sharded
     lo = None
-    if ctx is not None and ctx.vocab_parallel(cfg):
+    if sharded and ctx.vocab_parallel(cfg):
         lo = ctx.model_axis.index * params["embed"]["tok"].shape[0]
     x = nn.embed_tokens(cfg, params["embed"], tokens, lo)
+    if lo is not None:
+        if frontend_embeds is None:     # the sum (SP: the reduce-scatter)
+            return ctx.act(x, "batch", "seq", None)
+        x = shd.reduce_from(x, ctx.model_axis)
     if frontend_embeds is not None:
         x = torch.cat([frontend_embeds.to(x.dtype), x], dim=1)
-    return x
+    return ctx.own_seq(x) if sharded else x
 
 
 def remat_group_size(cfg) -> int:
@@ -673,7 +761,8 @@ def _dense_layer(cfg, lp, x, sin, cos, ctx=None):
     sharded `ctx` first brings the rank's blocks of the layer's params to
     their layouts (`ShardCtx.layer_params`)."""
     if ctx is not None and ctx.sharded:
-        lp = ctx.layer_params(cfg, lp)
+        # the data shard's tokens: its rows times the whole sequence
+        lp = ctx.layer_params(cfg, lp, tokens=x.shape[0] * sin.shape[0])
     x, k, v = _attn_full(cfg, lp["ln1"], lp["attn"], x, sin, cos, ctx=ctx)
     x, aux = _mlp_sub(cfg, lp, x, ctx=ctx)
     return x, k, v, aux
@@ -745,20 +834,16 @@ def lm_hidden(cfg, params, tokens, frontend_embeds=None,
     layers. `ctx` (a `ShardCtx`) reaches every layer: one without specs
     the MoE sub-block's experts, a sharded one every layer of a dense or
     moe stack (with the embedding's params that `lm_loss` lays out, a
-    vocab-parallel lookup summed over the model ranks). Under grad
-    mode the layers run as remat blocks of `cfg.remat` (`models/remat.py`):
-    each pattern group (and the tail) one block, as the reference's
-    `gbody`/`tbody`; a layer stack in two-level groups
+    vocab-parallel lookup summed over the model ranks, `_embed`). Under
+    grad mode the layers run as remat blocks of `cfg.remat`
+    (`models/remat.py`): each pattern group (and the tail) one block, as
+    the reference's `gbody`/`tbody`; a layer stack in two-level groups
     (`_stack_hidden`)."""
     x = _embed(cfg, params, tokens, frontend_embeds, ctx)
-    S = x.shape[1]
+    S = tokens.shape[1] + (0 if frontend_embeds is None
+                           else frontend_embeds.shape[1])
     sin, cos = nn.rope_tables(torch.arange(S, device=x.device),
                               cfg.head_dim, cfg.rope_theta)
-    if ctx is not None and ctx.sharded:
-        # into the residual layout: a vocab-parallel lookup's sum over the
-        # model ranks (SP: the reduce-scatter), else (SP) the rank's part
-        x = (ctx.act(x, "batch", "seq", None) if ctx.vocab_parallel(cfg)
-             else ctx.own_seq(x))
     kv, aux_out = None, {}
     if cfg.block_pattern:
         for _, pat, stack, depth in _stages(cfg, params):
@@ -799,15 +884,18 @@ def lm_loss(cfg, params, batch, ctx=None):
         params, emb = ctx.top_params(cfg, params)
     fe = batch.get("frontend_embeds")
     h, _, aux = lm_hidden(cfg, params, batch["tokens"], fe, ctx=ctx)
+    vp = ctx is not None and ctx.vocab_parallel(cfg)
+    if vp:                            # the whole sequence, as carriers
+        h = ctx.act(h, "batch", None, None)
+    elif ctx is not None and ctx.sharded:
+        h = ctx.whole_seq(h)
     if fe is not None:
         h = h[:, fe.shape[1]:, :]     # text positions only
-    if ctx is not None and ctx.vocab_parallel(cfg):
+    if vp:
         loss = nn.vocab_parallel_cross_entropy(
-            cfg, next(iter(emb.values())), ctx.act(h, "batch", None, None),
-            batch["targets"], ctx.model_axis, dtype=ctx.rounds)
+            cfg, next(iter(emb.values())), h, batch["targets"],
+            ctx.model_axis, dtype=ctx.rounds)
     else:
-        if ctx is not None and ctx.sharded:
-            h = ctx.whole_seq(h)
         if h.shape[1] > nn.CE_CHUNK:
             loss = nn.chunked_cross_entropy(cfg, emb, h, batch["targets"])
         else:
@@ -909,7 +997,8 @@ def _ring_slots(cfg, cache) -> Optional[int]:
     return None
 
 
-def lm_decode_step(cfg, params, cache, tokens, pos, row_blocks: int = 1):
+def lm_decode_step(cfg, params, cache, tokens, pos, row_blocks: int = 1,
+                   ctx=None):
     """One serve step. tokens: (B,); pos: 0-based absolute position of this
     token, a host int shared by every row or a (B,) device tensor of
     per-row positions (continuous serving's slots; no host read). Returns
@@ -928,13 +1017,44 @@ def lm_decode_step(cfg, params, cache, tokens, pos, row_blocks: int = 1):
     The blocks keep their bits: the ops whose result for a row depends on
     how many rows run beside it run once per block (`layers.row_blocks`),
     so a block's logits and cache equal those of its rows decoded
-    alone."""
+    alone.
+
+    `ctx` (a sharded `ShardCtx`, the reference's argument): the step on a
+    rank of a process mesh, under the reference's decode hints
+    (`ShardCtx.decode`): tokens (B,) the rank's data shard, the cache the
+    rank's block of every leaf, `pos` a host int. The lookup
+    vocab-parallel where the vocab splits (summed over the model ranks);
+    the residual stream whole on every rank of the model group; attention
+    laid out as the cache is (`_attn_decode`); the MLP column- then
+    row-parallel, a MoE layer over the model group where its B tokens
+    split (`ShardCtx.expert_parallel`), else each data shard routing as
+    one group. The logits are the rank's vocab block (B, V / tp) where the
+    vocab splits, else (B, V). On a mesh of one rank, the code without
+    `ctx`, bit for bit."""
+    if ctx is None or ctx.acc is None:
+        ctx = None
+    else:
+        if row_blocks != 1:
+            raise ValueError("a sharded decode step takes one block of rows")
+        if isinstance(pos, torch.Tensor):
+            raise NotImplementedError("a sharded decode step takes one "
+                                      "host-int position (the reference's "
+                                      "scalar)")
+        if ctx.tp_size() > 1 and ctx.cache_split(cfg) is None:
+            raise NotImplementedError(
+                f"{cfg.num_kv_heads} kv heads and a head dim of "
+                f"{cfg.head_dim} do not split over {ctx.tp_size()} model "
+                "ranks")
+        ctx = dataclasses.replace(ctx, decode=True)
     with nn.row_blocks(row_blocks):
-        return _decode_step(cfg, params, cache, tokens, pos, row_blocks)
+        return _decode_step(cfg, params, cache, tokens, pos, row_blocks, ctx)
 
 
-def _decode_step(cfg, params, cache, tokens, pos, row_blocks: int):
-    x = nn.embed_tokens(cfg, params["embed"], tokens[:, None])
+def _decode_step(cfg, params, cache, tokens, pos, row_blocks: int,
+                 ctx=None):
+    if ctx is not None:
+        params, head = ctx.top_params(cfg, params)
+    x = _embed(cfg, params, tokens[:, None], ctx=ctx)
     groups = row_blocks
     if isinstance(pos, torch.Tensor):
         groups = tokens.shape[0]
@@ -964,19 +1084,96 @@ def _decode_step(cfg, params, cache, tokens, pos, row_blocks: int):
     else:
         for i in range(cfg.num_layers):
             lp = layer_params(params, i)
+            if ctx is not None:
+                lp = ctx.layer_params(cfg, lp, tokens=tokens.shape[0])
             x = _attn_decode(cfg, lp["ln1"], lp["attn"], x, cache["k"][i],
-                             cache["v"][i], sin, cos, pos, row_blocks)
-            x, _ = _mlp_sub(cfg, lp, x, groups)
+                             cache["v"][i], sin, cos, pos, row_blocks,
+                             ctx=ctx)
+            x, _ = _mlp_sub(cfg, lp, x, groups, ctx=ctx)
     x = nn.rms_norm(x, params["final_ln"], cfg.norm_eps)
+    if ctx is not None:
+        return _logits_tp(cfg, ctx, head, x)[:, 0, :], cache
     logits = nn.logits_from_hidden(cfg, params["embed"], x)[:, 0, :]
     return logits, cache
+
+
+def _logits_tp(cfg, ctx, head, h):
+    """A rank's logits of h (B, s, D): the head's block (`ShardCtx.
+    top_params`: the rank's vocab block where the vocab splits, else
+    whole) on carriers, rounded to the compute dtype once."""
+    w = next(iter(head.values()))
+    return nn._head(h.to(ctx.acc), w, cfg.tie_embeddings,
+                    ctx.rounds).to(ctx.rounds)
+
+
+def _cache_block(cfg, ctx, k, v):
+    """A prefill's k/v (L, B, S, ., .) from the attention's layout into
+    the cache's: the rank's block of kv heads or head dims
+    (`ShardCtx.cache_split`) of the data shard's rows. Attention over the
+    heads with the kv heads split holds that block already (where the kv
+    heads split, so do the heads). Otherwise the ranks' blocks are
+    gathered over the model group (one `tp_cache` collective for k and
+    v): under `batch_dm` each rank holds its rows with every head, so the
+    gather joins the rows; where KV < TP under the heads each rank holds
+    the kv heads its q heads read, several ranks the same one, so each kv
+    head is taken from the first rank that holds it. The rank then keeps
+    its block of head dims."""
+    tp, split = ctx.tp_size(), ctx.cache_split(cfg)
+    if tp == 1 or split == "kv_heads":
+        return k, v
+    dm = ctx.batch_dm(cfg)
+    axis = ctx.model_axis
+    k, v = shd.all_gather_many([k, v], [1 if dm else 3] * 2, axis,
+                               "tp_cache")
+    if not dm:
+        H, KV, n = cfg.num_heads, cfg.num_kv_heads, k.shape[3] // tp
+        spans = [_kv_heads(H, KV, tp, r) for r in range(tp)]
+        idx = [next(r * n + j - lo for r, (lo, hi) in enumerate(spans)
+                    if lo <= j < hi) for j in range(KV)]
+        k, v = (t[:, :, :, idx] for t in (k, v))
+    if split == "head_dim":
+        k, v = (shd._block(t, 4, axis).contiguous() for t in (k, v))
+    return k, v
+
+
+def _prefill_tp(cfg, params, tokens, max_len: int, cache_dtype, lengths,
+                frontend_embeds, ctx):
+    """`lm_prefill` on a rank of a process mesh (the reference's prefill
+    under its hints, `transformer.py:593-658`): the trunk as the sharded
+    training forward runs it (`lm_hidden`: attention over the heads, or
+    the rows over the model ranks where the heads do not split; SP under
+    the rules), the k/v brought into the cache's layout (`_cache_block`)
+    and written into the rank's block of a max_len cache; the rank's
+    logits of the last position (`_logits_tp`; SP: that position's
+    hidden gathered from the rank that holds it)."""
+    params, head = ctx.top_params(cfg, params)
+    h, (k, v), _ = lm_hidden(cfg, params, tokens, frontend_embeds,
+                             collect_kv=True, ctx=ctx)
+    k, v = _cache_block(cfg, ctx, k, v)
+    L, B, S = k.shape[:3]
+    cache = {}
+    for name, t in (("k", k), ("v", v)):
+        cache[name] = torch.zeros((L, B, max_len) + tuple(t.shape[3:]),
+                                  dtype=cache_dtype, device=t.device)
+        cache[name][:, :, :S] = t.to(cache_dtype)
+    if lengths is not None:
+        P = frontend_embeds.shape[1] if frontend_embeds is not None else 0
+        h = ctx.whole_seq(h)
+        idx = torch.clamp(lengths.to(torch.int64) - 1 + P, 0, S - 1)
+        h_last = torch.take_along_dim(h, idx[:, None, None], dim=1)
+    elif ctx.sp:
+        h_last = shd.all_gather(h[:, -1:].contiguous(), 1, ctx.model_axis,
+                                "tp_gather")[:, -1:]
+    else:
+        h_last = h[:, -1:]
+    return _logits_tp(cfg, ctx, head, h_last)[:, 0, :], cache
 
 
 def lm_prefill(cfg, params, tokens, max_len: int,
                cache_dtype=torch.bfloat16,
                lengths: Optional[torch.Tensor] = None,
-               frontend_embeds: Optional[torch.Tensor] = None
-               ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+               frontend_embeds: Optional[torch.Tensor] = None,
+               ctx=None) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """Run the trunk over the prompt (the frontend's P embeddings first,
     when given) and build the decode cache. Returns (last_logits (B,V),
     cache); decode continues at position P + S.
@@ -987,12 +1184,19 @@ def lm_prefill(cfg, params, tokens, max_len: int,
     decode overwrites slot `pos` before attending it, so the pad entries
     written into the cache beyond `lengths` are never observed. Recurrent
     states and ring-buffer window caches fold in every position, so
-    `lengths` raises there."""
+    `lengths` raises there.
+
+    `ctx` (a sharded `ShardCtx`, the reference's argument): the prefill on
+    a rank of a process mesh (`_prefill_tp`); on a mesh of one rank, the
+    code below, bit for bit."""
     if lengths is not None and (cfg.block_pattern or cfg.window_size):
         raise NotImplementedError(
             "length-gathered (right-padded) prefill needs positions to be "
             "skippable; recurrent states and ring-buffer window caches fold "
             "every position in")
+    if ctx is not None and ctx.acc is not None:
+        return _prefill_tp(cfg, params, tokens, max_len, cache_dtype,
+                           lengths, frontend_embeds, ctx)
     if cfg.block_pattern:
         if frontend_embeds is not None:
             raise NotImplementedError("pattern families take no frontend")

@@ -40,8 +40,10 @@ group, its size and this rank's index in it):
     backward;
   * `gather_many`, `copy_to_many`: `gather` and `copy_to` of a layer's
     leaves in one collective each way (FSDP's buckets);
-  * `all_max`, `all_sum`: the vocab statistics and the small reductions
-    of the training program, no gradient.
+  * `all_max`, `all_sum`, `all_gather`, `all_gather_many`: the vocab
+    statistics, the small reductions of the training program and the
+    serving programs' exchanges (a decode's partial scores, its q/k for
+    RoPE, a prefill's k/v into the cache's layout), no gradient.
 
 Every sum adds the ranks' parts in rank order, in f32, after an
 all-gather (or, for a reduce-scatter, an all_to_all of the blocks), so
@@ -322,6 +324,22 @@ def all_gather(x: torch.Tensor, dim: int, axis: Axis, label: str) -> torch.Tenso
     return torch.cat(list(_gathered(x, axis, label).unbind(0)), dim=dim)
 
 
+def all_gather_many(xs: Sequence[torch.Tensor], dims: Sequence[int],
+                    axis: Axis, label: str, dtype=None) -> List[torch.Tensor]:
+    """Every rank's x joined along its dim, for each of xs (one dtype), in
+    one all-gather: each x's dim moved to the front and flattened into one
+    buffer, the ranks' buffers split back; cast to `dtype` after it."""
+    dtype = dtype or xs[0].dtype
+    if axis.size == 1:
+        return [x.to(dtype) for x in xs]
+    moved = [x.movedim(d, 0) for x, d in zip(xs, dims)]
+    flat = torch.cat([m.reshape(-1) for m in moved])
+    parts = _gathered(flat, axis, label).to(dtype).unbind(0)
+    per_rank = [p.split([m.numel() for m in moved]) for p in parts]
+    return [torch.cat([pr[i].reshape(m.shape) for pr in per_rank]).movedim(0, d)
+            for i, (m, d) in enumerate(zip(moved, dims))]
+
+
 def reduce_scatter(x: torch.Tensor, dim: int, axis: Axis,
                    label: str) -> torch.Tensor:
     """This rank's block along `dim` of x summed over the axis: one
@@ -419,18 +437,9 @@ class _GatherMany(torch.autograd.Function):
     @staticmethod
     def forward(ctx, dims, axis, dtype, *xs):
         ctx.dims, ctx.axis, ctx.dtype = dims, axis, xs[0].dtype
-        moved = [x.movedim(d, 0) for x, d in zip(xs, dims)]
-        ctx.shapes = [tuple(m.shape) for m in moved]
-        flat = torch.cat([m.reshape(-1) for m in moved])
-        full = all_gather(flat, 0, axis, f"{axis.prefix}_gather")
-        parts = full.to(dtype).split(flat.numel())
-        out = []
-        sizes = [m.numel() for m in moved]
-        per_rank = [p.split(sizes) for p in parts]
-        for i, (shape, d) in enumerate(zip(ctx.shapes, dims)):
-            out.append(torch.cat([pr[i].reshape(shape) for pr in per_rank])
-                       .movedim(0, d))
-        return tuple(out)
+        ctx.shapes = [tuple(x.movedim(d, 0).shape) for x, d in zip(xs, dims)]
+        return tuple(all_gather_many(xs, dims, axis, f"{axis.prefix}_gather",
+                                     dtype))
 
     @staticmethod
     def backward(ctx, *gs):

@@ -124,10 +124,17 @@ def init_state(cfg):
             "step": torch.zeros((), dtype=torch.int32)}
 
 
-def global_batch():
+def global_batch(cfg=None):
+    """Tokens and targets from numpy seed 0; for a config with a frontend
+    (vlm) also its embeddings, 0.1 N(0, 1) from numpy seed 1."""
     rng = np.random.default_rng(0)
-    return {k: torch.from_numpy(rng.integers(0, VOCAB, (B, S)).astype(
+    batch = {k: torch.from_numpy(rng.integers(0, VOCAB, (B, S)).astype(
         np.int64)) for k in ("tokens", "targets")}
+    if cfg is not None and cfg.frontend:
+        batch["frontend_embeds"] = torch.from_numpy((0.1 * np.random.default_rng(
+            1).standard_normal((B, cfg.frontend_seq, cfg.frontend_dim))
+        ).astype(np.float32))
+    return batch
 
 
 def _numpy(tree):
@@ -143,6 +150,8 @@ def write_inputs(cases, root):
     np.savez(os.path.join(root, "batch.npz"),
              **{k: v.numpy().astype(np.int32)
                 for k, v in global_batch().items()})
+    fe = global_batch(case_cfg(CASE_VLM))["frontend_embeds"]
+    np.savez(os.path.join(root, "frontend.npz"), frontend_embeds=fe.numpy())
 
 
 # ---------------------------------------------------------------------------
@@ -166,7 +175,7 @@ def run_case(rank, c, fault_rank=None):
         cfg, shape_spec(), mesh, resolver(c, mesh), c["flavor"],
         TrainConfig(**TRAIN), c["micro"], device="cpu")
     start = prog.shard_state(init_state(cfg))
-    batch = prog.shard_batch(global_batch())
+    batch = prog.shard_batch(global_batch(cfg))
     out = {"coords": bridge.mesh_coords(mesh), "losses": [], "eq": [],
            "collectives": [], "bytes": [],
            "state_bytes": sum(t.numel() * t.element_size()
@@ -269,7 +278,12 @@ for c in args["cases"]:
         specs = Resolver(mesh, res.rules).tree_specs(
             saxes["params"], jax.tree.map(lambda s: tuple(s.shape), shapes))
         state = jax.device_put(state, res.tree_shardings(saxes, sspec))
-        batch = jax.device_put(batch_np, res.tree_shardings(baxes, bspec))
+        b = dict(batch_np)
+        if "frontend_embeds" in bspec:
+            b["frontend_embeds"] = np.load(os.path.join(
+                root, "frontend.npz"))["frontend_embeds"].astype(
+                    bspec["frontend_embeds"].dtype)
+        batch = jax.device_put(b, res.tree_shardings(baxes, bspec))
         rec = {"losses": [], "eq": [],
                "specs": {jax.tree_util.keystr(p): enc(s) for p, s in
                          jax.tree_util.tree_flatten_with_path(
@@ -440,7 +454,17 @@ CASES = [
              "tp_gather": 10, "tp_scatter": 10, "tp_reduce": 5,
              "vocab_stats": 2, "grad_norm": 1, "fp_gather": 1,
              "verdict": 1}),
+    # vlm: the frontend's 6 positions before the 16 tokens, joined to the
+    # residual stream after the lookup's sum (tp_reduce, in place of the
+    # reduce-scatter) and before the SP split (its backward a tp_gather);
+    # the text positions taken after the CE's gather of the whole
+    # sequence; no qkv biases, so no fsdp_reduce
+    case("vlm", arch="internvl2-2b", collectives={
+        "fsdp_gather": 5, "fsdp_scatter": 5, "tp_gather": 10,
+        "tp_scatter": 9, "tp_reduce": 6, "vocab_stats": 2, "loss_mean": 1,
+        "grad_norm": 2}),
 ]
+CASE_VLM = CASES[-1]
 # the bf16 program on a mesh of one rank (one device for the reference)
 BF16_ONE = case("bf16_one", mesh=(1, 1), dtype="bfloat16")
 # pod 1's rank (data 0, model 1) of the (2, 1, 2) mesh
